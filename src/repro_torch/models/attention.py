@@ -1,0 +1,175 @@
+"""Attention: GQA with RoPE, full (quadratic) attention, decode against a
+full KV cache, cross-attention (port of ``repro/models/attention.py``).
+
+Shapes: q (B, Lq, H, hd); k, v (B, Lk, KV, hd) with H % KV == 0.
+
+Prefill attention stays plain torch: the reference's prefill attention is
+not a TPU kernel either (its blocked path in ``models/flash.py`` is plain
+JAX, taken only past 2048 keys, beyond these archs' ``max_seq``). The
+decode read goes through the flash-decode kernel when ``flash=True``.
+Sliding-window ring caches and the paged cache come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_decode as FD
+from repro_torch.models.layers import apply_rope, normal
+
+Params = Dict[str, Any]
+NEG_INF = -1e30
+
+
+def _expand_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, L, KV, hd) -> (B, L, H, hd) by repeating groups."""
+    kv = k.shape[2]
+    return k if kv == h else k.repeat_interleave(h // kv, dim=2)
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool) -> torch.Tensor:
+    """(Lq, Lk) boolean validity mask from absolute positions."""
+    m = (kpos[None, :] >= 0).expand(qpos.shape[0], kpos.shape[0])
+    if causal:
+        m = m & (kpos[None, :] <= qpos[:, None])
+    return m
+
+
+def full_attention(q, k, v, *, causal: bool,
+                   qpos: Optional[torch.Tensor] = None,
+                   kpos: Optional[torch.Tensor] = None,
+                   kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quadratic attention in f32. kv_valid: (B, Lk) or (Lk,) extra
+    validity. Returns q's dtype."""
+    b, lq, h, hd = q.shape
+    lk = k.shape[1]
+    dev = q.device
+    if qpos is None:
+        qpos = torch.arange(lq, device=dev)
+    if kpos is None:
+        kpos = torch.arange(lk, device=dev)
+    ke = _expand_kv(k, h).float()
+    ve = _expand_kv(v, h).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke) * (hd ** -0.5)
+    m = _mask(qpos, kpos, causal)[None, None]              # (1, 1, Lq, Lk)
+    if kv_valid is not None:
+        kv_valid = torch.as_tensor(kv_valid, device=dev)
+        if kv_valid.dim() == 1:
+            m = m & kv_valid[None, None, None, :]
+        else:
+            m = m & kv_valid[:, None, None, :]
+    s = s.masked_fill(~m, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, ve)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA projection layer
+# ---------------------------------------------------------------------------
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype,
+              out_scale: float = 1.0, lead: Tuple[int, ...] = ()) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    s = d ** -0.5
+    return {
+        "wq": normal(gen, lead + (d, h, hd), s, dtype),
+        "wk": normal(gen, lead + (d, kv, hd), s, dtype),
+        "wv": normal(gen, lead + (d, kv, hd), s, dtype),
+        "wo": normal(gen, lead + (h, hd, d), (h * hd) ** -0.5 * out_scale, dtype),
+    }
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, L, d) x (d, H, hd) -> (B, L, H, hd) in w's dtype."""
+    return torch.einsum("bld,dhk->blhk", x.to(w.dtype), w)
+
+
+def attn_qkv(p: Params, x: torch.Tensor):
+    return _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+
+
+def attn_out(p: Params, o: torch.Tensor, x_dtype) -> torch.Tensor:
+    return torch.einsum("blhk,hkd->bld", o.to(p["wo"].dtype),
+                        p["wo"]).to(x_dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                  device=None, lead: Tuple[int, ...] = ()) -> Params:
+    shape = lead + (batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_self_attention(p: Params, x: torch.Tensor, cache: Params,
+                          cfg: ModelConfig, index, *,
+                          flash: bool = False) -> Tuple[torch.Tensor, Params]:
+    """One-token decode against a full cache. x: (B, 1, d); ``index`` is
+    the absolute position of the new token: an int (every row at one
+    position) or a (B,) tensor (slot-pool decode, each row at its own).
+
+    The new K/V row is written INTO ``cache`` in place (the reference
+    returns an updated copy; writing in place spares a cache copy per
+    step), and the same dict is returned. ``flash=True`` reads the cache
+    through the flash-decode kernel; its ``pos <= index`` mask is the same
+    predicate as the plain path's ``kv_valid``."""
+    b = x.shape[0]
+    q, k, v = attn_qkv(p, x)
+    per_row = torch.is_tensor(index) and index.dim() == 1
+    pos = (index[:, None] if per_row
+           else torch.as_tensor(index, device=x.device).reshape(1))
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    s = ck.shape[1]
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+        ck[rows, index] = k[:, 0].to(ck.dtype)
+        cv[rows, index] = v[:, 0].to(cv.dtype)
+    else:
+        ck[:, index] = k[:, 0].to(ck.dtype)
+        cv[:, index] = v[:, 0].to(cv.dtype)
+    if flash:
+        o = FD.flash_decode(q[:, 0].contiguous(), ck, cv, index)[:, None]
+    elif per_row:
+        valid = torch.arange(s, device=x.device)[None, :] <= index[:, None]
+        o = full_attention(q, ck, cv, causal=False, kv_valid=valid)
+    else:
+        kpos = torch.arange(s, device=x.device)
+        o = full_attention(q, ck, cv, causal=False,
+                           qpos=torch.as_tensor(index, device=x.device).reshape(1),
+                           kpos=kpos, kv_valid=kpos <= index)
+    return attn_out(p, o, x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+def init_cross_attn(gen: torch.Generator, cfg: ModelConfig, dtype,
+                    out_scale: float = 1.0,
+                    lead: Tuple[int, ...] = ()) -> Params:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim_
+    return {
+        "wq": normal(gen, lead + (d, h, hd), d ** -0.5, dtype),
+        "wk": normal(gen, lead + (d, h, hd), d ** -0.5, dtype),
+        "wv": normal(gen, lead + (d, h, hd), d ** -0.5, dtype),
+        "wo": normal(gen, lead + (h, hd, d), (h * hd) ** -0.5 * out_scale, dtype),
+    }
+
+
+def make_cross_kv(p: Params, kv_src: torch.Tensor):
+    return _proj(kv_src, p["wk"]), _proj(kv_src, p["wv"])
+
+
+def cross_attention_kv(p: Params, x: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    q = _proj(x, p["wq"])
+    o = full_attention(q, k, v, causal=False)
+    return attn_out(p, o, x.dtype)
