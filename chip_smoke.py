@@ -20,15 +20,31 @@ Phases (any failure exits non-zero):
                  the plain path (oracle MoE, plain decode attention):
                  prefill logits and teacher-forced decode logits are gated;
                  the agreement of greedy and of seeded sampled tokens is
-                 reported.
+                 reported;
+  6. train    -- the serving tensors freed, zcode-m3-base at full width and
+                 depth trains with Gate-Drop 0.3 on the reference's
+                 synthetic MT batches (16 x 64 target + 16 x 64 source
+                 tokens per step): K f32 steps of cuda_fused, cuda and the
+                 plain oracle path from one seeded init, gated against each
+                 other (loss, grad norm, balance per step, parameters
+                 after K); B4 and B1's backward kernels against their plain
+                 versions at the inputs captured from the first step, plus
+                 ragged cases, and timed; then both kernel backends in the
+                 model's own dtype (bf16 activations): launch counts per
+                 step asserted (routed, Gate-Drop and Gate-Expert-Drop
+                 steps), step time, tokens/s, peak memory, a CUDA-event
+                 split into forward, backward and Adam, and the device's
+                 busy time from a torch.profiler trace.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -48,11 +64,27 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": (1e-4, 1e-4),      # (atol, rtol): f32 sums in another order
        "bfloat16": (1e-2, 1.6e-2)}   # about two bf16 ulps of rounding
 E2E_LOGIT_ATOL = 1e-3                # f32 logits, kernel vs plain path
+# f32 training, kernel path vs plain path, per step: loss, grad norm and
+# balance within 1e-3 relative. Step 0 differs only by the kernels' f32
+# sums (~1e-6); later steps carry the parameters' Adam drift
+# (adam_drift_bound), which moves these metrics far less than 1e-3.
+TRAIN_METRIC_RTOL = 1e-3
 
 BATCH, PROMPT, MAX_NEW = 8, 32, 32
 SEED = 0
 N_FORCED = 8          # phase 5: teacher-forced decode steps gated
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LANGS = 16, 64, 8
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 100      # the train CLI's defaults
+PARITY_STEPS = 4                        # f32 steps per backend in the parity run
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+OUT = REPO / "build" / "traces"          # profiler traces (gitignored)
 REPLACES = {
+    "grouped_matmul_dx": ("src/repro_torch/kernels/csrc/grouped_ffn.cu",
+                          "src/repro/kernels/grouped_ffn.py:67"),
+    "grouped_matmul_dw": ("src/repro_torch/kernels/csrc/grouped_ffn.cu",
+                          "src/repro/kernels/grouped_ffn.py:67"),
+    "fused_moe": ("src/repro_torch/kernels/csrc/moe_megakernel.cu",
+                  "src/repro/kernels/moe_megakernel.py:132"),
     "dispatch": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
                  "src/repro/kernels/moe_dispatch.py:57"),
     "combine": ("src/repro_torch/kernels/csrc/moe_dispatch.cu",
@@ -119,6 +151,32 @@ def work(name: str, args):
         f = w.shape[2]
         es = x.element_size()
         return (e * c * d + e * d * f + e * c * f) * es, 2.0 * e * c * d * f, _dt(x)
+    if name == "grouped_matmul_dx":
+        dy, w = args
+        e, c, f = dy.shape
+        d = w.shape[1]
+        return (e * c * f + e * d * f + e * c * d) * dy.element_size(), \
+            2.0 * e * c * d * f, _dt(dy)
+    if name == "grouped_matmul_dw":
+        x, dy = args
+        e, c, d = x.shape
+        f = dy.shape[2]
+        return (e * c * d + e * c * f + e * d * f) * x.element_size(), \
+            2.0 * e * c * d * f, _dt(x)
+    if name == "fused_moe":
+        x, w_in, w_gate, w_out, topk_w, keep, st, sv, ts = args
+        e, d, f = w_in.shape
+        cap = st.shape[0] // e
+        # only experts holding a kept slot need their weights, only kept
+        # slots need FLOPs (this run's routing)
+        valid = sv.reshape(e, cap)
+        live = int(valid.any(1).sum())
+        n_slots = int(valid.sum())
+        n_mats = 3 if w_gate is not None else 2
+        t, k = ts.shape
+        nbytes = (live * n_mats * d * f * w_in.element_size() + 2 * x.numel() * x.element_size()
+                  + st.numel() * 5 + t * k * 9)
+        return nbytes, 2.0 * n_mats * n_slots * d * f, _dt(w_in)
     if name == "dispatch":
         x, st, sv = args
         es = x.element_size() * x.shape[1]
@@ -146,17 +204,23 @@ def work(name: str, args):
 # ---------------------------------------------------------------------------
 
 class Capture:
-    """Records the inputs of each kernel wrapper's first call per distinct
-    input shape (of every call with ``all_calls``) while the main path
-    runs; restores the wrappers on exit."""
+    """Records the inputs (args, kwargs) of each kernel wrapper's first
+    call per distinct input shape (of every call with ``all_calls``) while
+    the main path runs; restores the wrappers on exit. ``names`` picks the
+    wrappers (default: the serving path's)."""
 
-    def __init__(self, all_calls: bool = False):
+    SERVE = ("dispatch", "combine", "grouped_matmul", "flash_decode")
+
+    def __init__(self, all_calls: bool = False, names=SERVE):
         self.all_calls = all_calls
-        from repro_torch.kernels import flash_decode, grouped_ffn, moe_dispatch
-        self.sites = [(moe_dispatch, "dispatch"), (moe_dispatch, "combine"),
-                      (grouped_ffn, "grouped_matmul"),
-                      (flash_decode, "flash_decode")]
-        self.calls = {name: [] for _, name in self.sites}
+        from repro_torch.kernels import (flash_decode, grouped_ffn, moe_dispatch,
+                                         moe_megakernel)
+        mods = {"dispatch": moe_dispatch, "combine": moe_dispatch,
+                "grouped_matmul": grouped_ffn, "grouped_matmul_dx": grouped_ffn,
+                "grouped_matmul_dw": grouped_ffn, "fused_moe": moe_megakernel,
+                "flash_decode": flash_decode}
+        self.sites = [(mods[n], n) for n in names]
+        self.calls = {name: [] for name in names}
 
     def __enter__(self):
         self.saved = []
@@ -164,14 +228,15 @@ class Capture:
             orig = getattr(mod, name)
             seen = set()
 
-            def rec(*args, _orig=orig, _name=name, _seen=seen):
+            def rec(*args, _orig=orig, _name=name, _seen=seen, **kw):
                 key = tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a)
-                            else a for a in args)
+                            else a for a in (*args, *kw.values()))
                 if self.all_calls or key not in _seen:
                     _seen.add(key)
-                    self.calls[_name].append(tuple(
-                        a.clone() if torch.is_tensor(a) else a for a in args))
-                return _orig(*args)
+                    self.calls[_name].append((tuple(
+                        a.detach().clone() if torch.is_tensor(a) else a
+                        for a in args), dict(kw)))
+                return _orig(*args, **kw)
 
             rec.launches = 0      # the original bumps `<name>.launches`
             self.saved.append((mod, name, orig))
@@ -216,10 +281,25 @@ def check(name: str, out, ref, exact: bool = False) -> float:
     return max_err
 
 
+def _fused_plain(x, w_in, w_gate, w_out, topk_w, keep, slot_token, slot_valid,
+                 token_slot, act="silu"):
+    """``fused_moe``'s plain version (the slot formulation on inputs upcast
+    to f32, as the kernel computes) with the wrapper's signature: the
+    weights folded and the tables clipped as the wrapper does."""
+    from repro_torch.kernels import ref
+    ts = token_slot.clamp(0, slot_token.shape[0] - 1)
+    return ref.fused_moe_f32_ref(x.to(w_in.dtype), w_in, w_gate, w_out,
+                                 (topk_w * keep).float(), slot_token, slot_valid, ts,
+                                 act).to(x.dtype)
+
+
 def plain_of(name):
     from repro_torch.kernels import ref
     return {"dispatch": ref.dispatch_ref, "combine": ref.combine_ref,
             "grouped_matmul": ref.grouped_matmul_ref,
+            "grouped_matmul_dx": ref.grouped_matmul_dx_ref,
+            "grouped_matmul_dw": ref.grouped_matmul_dw_ref,
+            "fused_moe": _fused_plain,
             "flash_decode": ref.flash_decode_ref}[name]
 
 
@@ -289,14 +369,14 @@ def kernel_phase(calls, dev):
         if not calls[name]:
             raise AssertionError(f"{name}: never called on the main path")
         max_err = 0.0
-        for args in calls[name]:
+        for args, _ in calls[name]:
             res = kernel_of(name)(*args)
             torch.cuda.synchronize()
             max_err = max(max_err, check(name, res, plain_of(name)(*args),
                                          exact=name == "dispatch"))
         out[name] = max_err
         shapes = [" x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
-                  for args in calls[name]]
+                  for args, _ in calls[name]]
         log(f"kernel {name}: {len(calls[name])} main-path input shapes "
             f"{shapes}, max abs err {max_err:.3e} (exact={name == 'dispatch'}, "
             f"tol {TOL})")
@@ -336,9 +416,9 @@ def kernel_phase(calls, dev):
     for name in out:
         # the first captured call is the prefill site, the last the decode
         # site (flash decode runs at decode only)
-        sites = [("decode", calls[name][-1])]
+        sites = [("decode", calls[name][-1][0])]
         if len(calls[name]) > 1:
-            sites.insert(0, ("prefill", calls[name][0]))
+            sites.insert(0, ("prefill", calls[name][0][0]))
         for site, args in sites:
             nbytes, flops, wdt = work(name, args)
             b_ms, b_by = bound(nbytes, flops, wdt)
@@ -389,12 +469,15 @@ def slice_phase(params, batch, cfg, gen, dev):
     steps = res.steps
     n_moe_dec = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
     n_moe_enc = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.encdec.n_encoder_layers))
-    expect = {"flash_decode": cfg.n_layers * steps,
+    # the training kernels (B1's backward, B4) never run while serving
+    expect = {**{name: 0 for name in counts},
+              "flash_decode": cfg.n_layers * steps,
               "dispatch": n_moe_enc + n_moe_dec + n_moe_dec * steps,
               "combine": n_moe_enc + n_moe_dec + n_moe_dec * steps,
               "grouped_matmul": 2 * (n_moe_enc + n_moe_dec + n_moe_dec * steps)}
     log(f"slice: launches {counts}, expected {expect}")
-    if counts != expect or expect != {"flash_decode": 186, "dispatch": 102,
+    served = {k: expect[k] for k in Capture.SERVE}
+    if counts != expect or served != {"flash_decode": 186, "dispatch": 102,
                                       "combine": 102, "grouped_matmul": 204}:
         raise AssertionError(f"launch counts {counts} != {expect}")
     toks = res.tokens
@@ -507,7 +590,7 @@ def sensitivity(params, batch, cfg, dev):
         lk, _ = prefill(params, batch, cfg32, max_seq=PROMPT + MAX_NEW)
     for name, calls in cap.calls.items():
         rel = 0.0
-        for args in calls:
+        for args, _ in calls:
             out, ref = kernel_of(name)(*args).float(), plain_of(name)(*args).float()
             rel = max(rel, float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30)))
         if calls:
@@ -526,8 +609,450 @@ def sensitivity(params, batch, cfg, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+def train_cfg(full, backend: str, dtype: str, mode: str = "gate_drop"):
+    """zcode-m3-base with Gate-Drop 0.3 (the paper's setting) on ``backend``,
+    activations in ``dtype``; remat on, as the config has it."""
+    gd = dataclasses.replace(full.moe.gating_dropout, mode=mode, rate=0.3)
+    return dataclasses.replace(full, dtype=dtype, moe=dataclasses.replace(
+        full.moe, backend=backend, gating_dropout=gd))
+
+
+def train_tc(steps: int):
+    from repro_torch.configs import TrainConfig
+    return TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, seed=SEED, steps=steps)
+
+
+def train_batches(dev, n: int):
+    """The first ``n`` steps' batches of the reference's synthetic
+    multilingual MT task, on the card."""
+    from repro_torch.data import MTTaskConfig, MultilingualMT
+    from repro_torch.training.loop import to_device
+    fn = MultilingualMT(MTTaskConfig(vocab=64_000, n_langs=TRAIN_LANGS,
+                                     max_len=TRAIN_SEQ)).train_batches(TRAIN_BATCH)
+    return [to_device(fn(i), dev) for i in range(n)]
+
+
+def adam_drift_bound(tc, steps: int) -> float:
+    """How far two runs' parameters may drift apart in ``steps`` Adam steps
+    whatever their gradients: each step moves a parameter by lr_t *
+    |m_hat / (sqrt(v_hat) + eps)|, and by Cauchy-Schwarz over the moment
+    sums that ratio is at most R_t = sqrt(sum_i a_i^2 / b_i), with a_i,
+    b_i the bias-corrected weights of step i in m_hat and v_hat (R_1 = 1).
+    Two runs that see gradients of opposite sign (an entry at rounding
+    level, or a token routed elsewhere) part by at most 2 * sum lr_t R_t."""
+    import math
+    from repro_torch.optim.adam import schedule
+    total = 0.0
+    for t in range(1, steps + 1):
+        a = [(1 - tc.b1) * tc.b1 ** (t - i) / (1 - tc.b1 ** t) for i in range(1, t + 1)]
+        b = [(1 - tc.b2) * tc.b2 ** (t - i) / (1 - tc.b2 ** t) for i in range(1, t + 1)]
+        total += schedule(t, tc) * math.sqrt(sum(x * x / y for x, y in zip(a, b)))
+    return 2.0 * total
+
+
+def train_parity(full, dev):
+    """PARITY_STEPS f32 steps of the plain oracle path, cuda_fused and cuda
+    from one seeded init, on the same batches and drop bits. Gates each
+    kernel path against the plain path and returns the kernel inputs
+    captured at the first step of each kernel path."""
+    from repro_torch.core.gating_dropout import drop_decisions_host
+    from repro_torch.models import init_model
+    from repro_torch.launch.serve import generator
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_paths
+
+    tc = train_tc(PARITY_STEPS)
+    batches = train_batches(dev, PARITY_STEPS)
+    bits = drop_decisions_host(train_cfg(full, "oracle", "float32").moe.gating_dropout,
+                               SEED, 0, PARITY_STEPS)
+    log(f"train parity: drop bits of steps 0..{PARITY_STEPS - 1}: {bits.astype(int).tolist()}")
+    if bits.all() or not bits.any():
+        raise AssertionError("the parity steps must include a routed and a dropped step")
+    param_tol = adam_drift_bound(tc, PARITY_STEPS)
+    captured, ref = {}, None
+    for backend, names in (("oracle", ()), ("cuda_fused", ("fused_moe",)),
+                           ("cuda", ("grouped_matmul_dx", "grouped_matmul_dw"))):
+        cfg = train_cfg(full, backend, "float32")
+        state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
+        step = make_train_step(cfg, tc)
+        rows = []
+        t0 = time.perf_counter()
+        for i in range(PARITY_STEPS):
+            cap = Capture(names=names)
+            with cap if i == 0 else contextlib.nullcontext():
+                state, m = step(state, batches[i])
+            if i == 0:
+                captured.update(cap.calls)
+            rows.append({k: float(m[k]) for k in ("loss", "grad_norm", "balance",
+                                                  "gate_dropped")})
+        torch.cuda.synchronize()
+        params = {k: v.detach() for k, v in flatten_with_paths(state["params"]).items()}
+        del state, step
+        torch.cuda.empty_cache()
+        log(f"train parity {backend} f32: {PARITY_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+                f"loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f} balance "
+                f"{r['balance']:.6f} dropped {int(r['gate_dropped'])}" for r in rows))
+        if not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"{backend}: non-finite training metrics")
+        if ref is None:
+            ref = (rows, params)
+            continue
+        worst = {k: 0.0 for k in ("loss", "grad_norm", "balance")}
+        for r, q in zip(rows, ref[0]):
+            if r["gate_dropped"] != q["gate_dropped"]:
+                raise AssertionError(f"{backend}: drop bits differ")
+            for k in worst:
+                worst[k] = max(worst[k], abs(r[k] - q[k]) / max(abs(q[k]), 1e-6))
+        diffs = torch.stack([(params[k] - ref[1][k]).abs().max() for k in params])
+        pmax = float(diffs.max())
+        log(f"train parity {backend} vs plain: max relative diff per step "
+            f"{', '.join(f'{k} {v:.3e}' for k, v in worst.items())} (tol "
+            f"{TRAIN_METRIC_RTOL}); parameters max abs diff {pmax:.3e}, median over "
+            f"leaves {float(diffs.median()):.3e} (tol {param_tol:.3e} = Adam's drift "
+            f"bound over {PARITY_STEPS} steps)")
+        if max(worst.values()) > TRAIN_METRIC_RTOL or pmax > param_tol:
+            raise AssertionError(f"{backend}: training differs from the plain path")
+        del params
+    del ref
+    torch.cuda.empty_cache()
+    return captured
+
+
+def fused_ragged_cases(dev):
+    """(args, kwargs) of B4 calls off the main path: k=2, capacity 1, all
+    dropped, one token, d and f not multiples of the tile, d > 512 (two
+    columns per thread), 16-row tiles, gelu and silu (gated)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core import router as R
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(4321)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for e, k, cap, t, d, f, gated, act, drop_all in (
+                (4, 2, 8, 37, 24, 40, True, "silu", False),
+                (4, 1, 1, 16, 100, 70, False, "gelu", False),
+                (2, 1, 1, 1, 8, 8, True, "gelu", False),
+                (4, 2, 8, 24, 16, 16, True, "silu", True),
+                (8, 1, 20, 64, 1000, 600, True, "silu", False),
+                (8, 2, 12, 40, 512, 2048, False, "gelu", False)):
+            x = torch.randn(t, d, generator=g, device=dev)
+            wr = torch.randn(d, e, generator=g, device=dev)
+            w_in = torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5
+            w_gate = torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5 if gated else None
+            w_out = torch.randn(e, f, d, generator=g, device=dev) * f ** -0.5
+            rr = R.route(wr, x, MoEConfig(n_experts=e, top_k=k, jitter_eps=0.0),
+                         is_training=False)
+            info = R.dispatch_info(rr, e, cap)
+            if drop_all:
+                info = info._replace(keep=torch.zeros_like(info.keep))
+            tb = ops.routing_tables(info, e, cap)
+            args = (x.to(dt), w_in.to(dt), None if w_gate is None else w_gate.to(dt),
+                    w_out.to(dt), info.topk_w, info.keep, tb.slot_token, tb.slot_valid,
+                    tb.token_slot)
+            cases.append((args, {"act": act}, drop_all))
+    return cases
+
+
+def bwd_ragged_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(4322)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for e, c, d, f in ((4, 1, 100, 70), (3, 17, 130, 200), (2, 100, 64, 64)):
+            x = torch.randn(e, c, d, generator=g, device=dev).to(dt)
+            w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
+            dy = torch.randn(e, c, f, generator=g, device=dev).to(dt)
+            cases += [("grouped_matmul_dx", (dy, w)), ("grouped_matmul_dw", (x, dy))]
+    return cases
+
+
+def train_kernel_phase(captured, dev):
+    """B4 and B1's backward kernels against their plain versions at the
+    inputs captured from the first training step and in ragged cases, then
+    timed at the training site. Returns ({name: max abs err}, {name: times})."""
+    from repro_torch.kernels import moe_dispatch, ops
+    errs = {}
+    for name in ("fused_moe", "grouped_matmul_dx", "grouped_matmul_dw"):
+        if not captured.get(name):
+            raise AssertionError(f"{name}: never called on the training path")
+        err = 0.0
+        for args, kw in captured[name]:
+            out = kernel_of(name)(*args, **kw)
+            torch.cuda.synchronize()
+            err = max(err, check(name, out, plain_of(name)(*args, **kw)))
+        errs[name] = err
+        shapes = [" x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
+                  for args, _ in captured[name]]
+        log(f"kernel {name}: training-site inputs {shapes}, max abs err {err:.3e} "
+            f"(tol {TOL['float32']})")
+    n = 0
+    for args, kw, drop_all in fused_ragged_cases(dev):
+        out = kernel_of("fused_moe")(*args, **kw)
+        torch.cuda.synchronize()
+        check("fused_moe ragged", out, plain_of("fused_moe")(*args, **kw))
+        if drop_all and float(out.abs().max()) != 0.0:
+            raise AssertionError("fused_moe: all dropped but output not zero")
+        n += 1
+    for name, args in bwd_ragged_cases(dev):
+        check(f"{name} ragged", kernel_of(name)(*args), plain_of(name)(*args))
+        n += 1
+    torch.cuda.synchronize()
+    log(f"train kernels: {n} ragged cases agree with their plain versions (B4: k=2, "
+        "capacity 1, all dropped, T=1, ragged d and f, d > 512, 16-row tiles, gelu and "
+        "gated silu; B1 dx/dw: C=1, C=17, C=100, ragged d and f; f32 and bf16)")
+
+    timing = {}
+    for name in errs:
+        args, kw = captured[name][0]
+        nbytes, flops, wdt = work(name, args)
+        b_ms, b_by = bound(nbytes, flops, wdt)
+        k_ms = device_ms(lambda: kernel_of(name)(*args, **kw))
+        p_ms = device_ms(lambda: plain_of(name)(*args, **kw))
+        extra = {}
+        if name == "fused_moe":
+            # no single PyTorch call computes gather + FFN + scatter; beside
+            # it, the port's own unfused cuda pipeline on the same inputs
+            x, w_in, w_gate, w_out, topk_w, keep, st, sv, ts = args
+            e, cap = w_in.shape[0], st.shape[0] // w_in.shape[0]
+
+            def pipeline():
+                buf = moe_dispatch.dispatch(x, st, sv).reshape(e, cap, -1)
+                out = ops.expert_ffn_op(buf.to(w_in.dtype), w_in, w_gate, w_out, kw["act"])
+                return moe_dispatch.combine(out.to(x.dtype).reshape(e * cap, -1), ts,
+                                            topk_w, keep)
+            check("cuda pipeline vs fused_moe", pipeline(), kernel_of(name)(*args, **kw))
+            l_ms = None
+            extra["pipeline_ms"] = device_ms(pipeline)
+            lib = "null (no single PyTorch call computes gather + FFN + scatter)"
+        else:
+            a, b = args
+            lhs, rhs = ((a, b.transpose(1, 2)) if name == "grouped_matmul_dx"
+                        else (a.transpose(1, 2), b))
+            l_ms = device_ms(lambda: torch.bmm(lhs, rhs))
+            lib = f"{l_ms:.6f} ms (torch.bmm on the transposed view)"
+        shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
+        log(f"time {name}@train [{shape}]: kernel {k_ms:.6f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}), plain {p_ms:.6f} ms, library {lib}" +
+            (f", cuda pipeline (B2 -> B1 x2 -> B3) {extra['pipeline_ms']:.6f} ms"
+             if extra else ""))
+        timing[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=l_ms, shape=shape, **extra)
+    return errs, timing
+
+
+def expected_train_launches(cfg, backend: str, dropped_experts: bool = False):
+    """Launches per training step: each MoE layer's forward runs twice with
+    remat (the forward and its recomputation in the backward)."""
+    from repro_torch.training.steps import n_moe_layers
+    fwd = n_moe_layers(cfg) * (2 if cfg.remat else 1)
+    n = n_moe_layers(cfg)
+    zero = {k: 0 for k in ("dispatch", "combine", "grouped_matmul", "grouped_matmul_dx",
+                           "grouped_matmul_dw", "fused_moe", "flash_decode")}
+    if dropped_experts:
+        return zero
+    if backend == "cuda_fused":
+        return {**zero, "fused_moe": fwd}
+    return {**zero, "dispatch": fwd, "combine": fwd, "grouped_matmul": 2 * fwd,
+            "grouped_matmul_dx": 2 * n, "grouped_matmul_dw": 2 * n}
+
+
+def busy_ms(trace_path: Path):
+    """Device busy time (union of kernel, memcpy and memset intervals) and
+    the top kernels by device time from a torch.profiler Chrome trace."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    spans, by_name = [], {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+            by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + float(ev["dur"])
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return busy / 1e3, len(spans), [(n[:60], v / 1e3) for n, v in top]
+
+
+def train_slice(full, dev, backend: str):
+    """The slice in the model's own dtype (bf16 activations, f32 params):
+    warm-up, TIMED_STEPS timed steps (their drop bits drawn from (seed,
+    step): step 2 is a Gate-Drop step), launch counts asserted on a routed,
+    a Gate-Drop and a Gate-Expert-Drop step, a CUDA-event split of one step
+    and a profiled step. Returns the counts of the routed step."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generator, spread
+    from repro_torch.models import init_model
+    from repro_torch.optim.adam import adam_update
+    from repro_torch.training import init_train_state, make_train_step, total_loss
+    from repro_torch.training.steps import step_generator
+    from repro_torch.tree import flatten_with_paths, unflatten_paths
+
+    n_steps = WARMUP_STEPS + TIMED_STEPS + 5
+    cfg = train_cfg(full, backend, "bfloat16")
+    tc = train_tc(n_steps)
+    batches = train_batches(dev, n_steps)
+    tokens = sum(int(batches[0][k].numel()) for k in ("tokens", "enc_tokens"))
+    state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
+    step = make_train_step(cfg, tc)
+    it = iter(batches)
+    for _ in range(WARMUP_STEPS):
+        state, m = step(state, next(it))
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    ms, bits = [], []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, next(it))
+        loss = float(m["loss"])              # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        bits.append(int(m["gate_dropped"]))
+        if not math.isfinite(loss):
+            raise AssertionError(f"{backend}: non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(ms)[len(ms) // 2]
+    log(f"train {backend} bf16: {TIMED_STEPS} steps (drop bits {bits}), ms/step median "
+        f"{med:.2f} {spread(ms)}, {tokens / med * 1e3:.0f} tokens/s ({tokens} encoder + "
+        f"decoder tokens per step), peak memory {peak / 2**30:.2f} GiB, last loss {loss:.4f}")
+
+    counts = {}
+    for label, run_cfg, dec in (("routed", cfg, False), ("Gate-Drop", cfg, True),
+                                ("Gate-Expert-Drop", train_cfg(full, backend, "bfloat16",
+                                                               "gate_expert_drop"), True)):
+        run = step if run_cfg is cfg else make_train_step(run_cfg, tc)
+        reset_launch_counts()
+        state, m = run(state, next(it), dec)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        want = expected_train_launches(cfg, backend, label == "Gate-Expert-Drop")
+        log(f"train {backend}: launches on a {label} step {got}")
+        if got != want:
+            raise AssertionError(f"{backend} {label} step launches {got} != {want}")
+        counts[label] = got
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"{backend}: non-finite loss")
+
+    # one routed step split by CUDA events: forward (loss), backward
+    # (gradients), Adam -- make_train_step's body, with events between
+    batch = next(it)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    params = state["params"]
+    flat = flatten_with_paths(params)
+    leaves = list(flat.values())
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss_t, _ = total_loss(params, batch, cfg, decision=False,
+                           generator=step_generator(dev, tc.seed, state["step"]))
+    ev[1].record()
+    grads = torch.autograd.grad(loss_t, leaves, allow_unused=True)
+    ev[2].record()
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    _, state["opt"], _ = adam_update(unflatten_paths(dict(zip(flat, grads))), state["opt"],
+                                     params, tc)
+    ev[3].record()
+    torch.cuda.synchronize()
+    del grads, loss_t
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    log(f"train {backend} bf16: one routed step by CUDA events: forward {split[0]:.2f} ms, "
+        f"backward {split[1]:.2f} ms, Adam {split[2]:.2f} ms")
+
+    # the device's busy time over one profiled routed step
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    profile = {"split_ms": split}
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, next(it), False)
+        torch.cuda.synchronize()
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / f"train_{backend}_trace.json"
+    prof.export_chrome_trace(str(path))
+    busy, n_kernels, top = busy_ms(path)
+    if n_kernels == 0:
+        log(f"train {backend}: torch.profiler traced no device activity; the CUDA-event "
+            "split above stands alone")
+    else:
+        log(f"train {backend} bf16: profiled routed step: {n_kernels} device activities, "
+            f"device busy {busy:.2f} ms = {busy / med * 100:.1f}% of the median step "
+            f"{med:.2f} ms (idle {max(0.0, 1 - busy / med) * 100:.1f}%); top kernels by "
+            "device ms: " + "; ".join(f"{n} {v:.2f}" for n, v in top))
+        profile.update(busy_ms=busy, idle=max(0.0, 1 - busy / med))
+    del state, step, m
+    torch.cuda.empty_cache()
+    return counts["routed"], dict(ms=med, all_ms=ms, tokens_s=tokens / med * 1e3,
+                                  peak_gib=peak / 2**30, **profile)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts):
+    """One entry per kernel for the JSON line: serving kernels at their
+    decode site with their launches per ``generate``, training kernels at
+    the training site with their launches per step (B4 on ``cuda_fused``,
+    B1's backward on ``cuda``); every entry also lists its launches per
+    training step on both kernel backends."""
+    kernels = []
+    for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
+                 "combine", "fused_moe", "flash_decode"):
+        src, rep = REPLACES[name]
+        if (name, "decode") in timing:
+            t, site, launches, err = timing[(name, "decode")], "decode", counts[name], errs[name]
+        else:
+            t, site = t_timing[name], "train"
+            launches = t_counts["cuda_fused" if name == "fused_moe" else "cuda"][name]
+            err = t_errs[name]
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": launches, "max_abs_err": err, "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                 "site": site, "shape": t["shape"],
+                 "train_launches": {b: c[name] for b, c in t_counts.items()}}
+        if site == "decode":
+            entry["prefill_ms"] = timing.get((name, "prefill"), {}).get("ms")
+        if "pipeline_ms" in t:
+            entry["pipeline_ms"] = t["pipeline_ms"]
+        kernels.append(entry)
+    return kernels
+
+
+def serve_phases(full, dev):
+    """Phases 3-5 on the serving path; every tensor they made is freed on
+    return. Returns (errs, timing, counts)."""
+    from repro_torch.launch.serve import generator, synth_batch
+    from repro_torch.models import init_model
+    from repro_torch.serve import GenerateConfig, generate
+
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(full.moe, backend="cuda"))
+    t0 = time.perf_counter()
+    params = init_model(generator(dev, SEED, 0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"model: {cfg.arch_id} {n_params / 1e9:.3f} B params on the card "
+        f"(analytic {cfg.n_params() / 1e9:.3f} B), init {time.perf_counter() - t0:.1f} s")
+    batch = synth_batch(cfg, generator(dev, SEED, 1), BATCH, PROMPT)
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+
+    # 3. kernels against plain versions, at the main path's inputs
+    with Capture() as cap:
+        generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
+    torch.cuda.synchronize()
+    errs, timing = kernel_phase(cap.calls, dev)
+    del cap
+
+    # 4. the slice
+    counts = slice_phase(params, batch, cfg, gen, dev)
+
+    # 5. kernel path against plain path, f32 activations
+    e2e_phase(params, batch, cfg, gen, dev)
+    sensitivity(params, batch, cfg, dev)          # scales params in place
+    return errs, timing, counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -535,9 +1060,6 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.models import init_model
-    from repro_torch.serve import GenerateConfig, generate
-    from repro_torch.launch.serve import generator, synth_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -560,42 +1082,28 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    # model and main-path inputs
+    # 3-5. serving
     full = get_config("zcode-m3-base")
-    cfg = dataclasses.replace(full, moe=dataclasses.replace(full.moe, backend="cuda"))
     t0 = time.perf_counter()
-    params = init_model(generator(dev, SEED, 0), cfg)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"model: {cfg.arch_id} {n_params / 1e9:.3f} B params on the card "
-        f"(analytic {cfg.n_params() / 1e9:.3f} B), init {time.perf_counter() - t0:.1f} s")
-    batch = synth_batch(cfg, generator(dev, SEED, 1), BATCH, PROMPT)
-    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+    errs, timing, counts = serve_phases(full, dev)
+    torch.cuda.empty_cache()
+    log(f"serving phases: {time.perf_counter() - t0:.1f} s; device memory now allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    # 3. kernels against plain versions, at the main path's inputs
-    with Capture() as cap:
-        generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
-    torch.cuda.synchronize()
-    errs, timing = kernel_phase(cap.calls, dev)
+    # 6. training
+    t0 = time.perf_counter()
+    captured = train_parity(full, dev)
+    t_errs, t_timing = train_kernel_phase(captured, dev)
+    del captured
+    torch.cuda.empty_cache()
+    t_counts, t_slice = {}, {}
+    for backend in ("cuda_fused", "cuda"):
+        t_counts[backend], t_slice[backend] = train_slice(full, dev, backend)
+    log(f"training phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"train": {b: {k: v for k, v in t.items()}
+                                for b, t in t_slice.items()}}), flush=True)
 
-    # 4. the slice
-    counts = slice_phase(params, batch, cfg, gen, dev)
-
-    # 5. kernel path against plain path, f32 activations
-    e2e_phase(params, batch, cfg, gen, dev)
-    sensitivity(params, batch, cfg, dev)          # scales params in place
-
-    kernels = []
-    for name in ("grouped_matmul", "dispatch", "combine", "flash_decode"):
-        src, rep = REPLACES[name]
-        t = timing[(name, "decode")]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": counts[name],
-                        "max_abs_err": errs[name], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        "site": "decode", "shape": t["shape"],
-                        "prefill_ms": timing.get((name, "prefill"), {}).get("ms")})
+    kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

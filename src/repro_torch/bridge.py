@@ -36,16 +36,22 @@ def to_torch(flat: Dict[str, np.ndarray], device: Union[str, torch.device], *,
     return unflatten_paths(leaves)
 
 
+def tensor_to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, Optional[str]]:
+    """One leaf -> (array, "bfloat16" or None): a bfloat16 tensor becomes
+    its uint16 bit patterns, as the checkpoint stores it."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    return t.numpy(), None
+
+
 def to_numpy(params: Any) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
     """Parameter tree -> ({path: array}, dtypes): bfloat16 leaves become
     uint16 bit patterns listed in ``dtypes``, as the checkpoint stores
     them."""
     flat, dtypes = {}, {}
     for key, t in flatten_with_paths(params).items():
-        t = t.detach().cpu().contiguous()
-        if t.dtype == torch.bfloat16:
-            dtypes[key] = "bfloat16"
-            flat[key] = t.view(torch.int16).numpy().view(np.uint16)
-        else:
-            flat[key] = t.numpy()
+        flat[key], dt = tensor_to_numpy(t)
+        if dt:
+            dtypes[key] = dt
     return flat, dtypes

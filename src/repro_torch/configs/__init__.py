@@ -3,7 +3,8 @@ this port serves; the reference's other families join with their slices."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (EncDecConfig, GatingDropoutConfig,
-                                      ModelConfig, MoEConfig, reduced)
+                                      ModelConfig, MoEConfig, TrainConfig,
+                                      reduced)
 from repro_torch.configs.zcode_m3 import CONFIG as _ZCODE_BASE
 from repro_torch.configs.zcode_m3 import CONFIG_BIG as _ZCODE_BIG
 
@@ -19,4 +20,4 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "EncDecConfig", "GatingDropoutConfig", "ModelConfig",
-           "MoEConfig", "get_config", "reduced"]
+           "MoEConfig", "TrainConfig", "get_config", "reduced"]

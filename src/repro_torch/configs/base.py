@@ -1,5 +1,5 @@
 """Config dataclasses of the port (the subset of ``repro.configs.base`` the
-encoder-decoder MoE needs).
+encoder-decoder MoE needs, and ``TrainConfig``).
 
 Plain frozen dataclasses, field for field the reference's defaults, so a
 config built here describes the same model as the reference's. The
@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-MOE_BACKENDS = ("auto", "oracle", "cuda")
+MOE_BACKENDS = ("auto", "oracle", "cuda", "cuda_fused")
 
 
 @dataclass(frozen=True)
@@ -39,6 +39,10 @@ class GatingDropoutConfig:
         if not 0.0 <= self.rate <= 1.0:
             raise ValueError(f"rate {self.rate}")
 
+    @property
+    def enabled(self) -> bool:
+        return self.mode != "off" and self.rate > 0.0
+
 
 @dataclass(frozen=True)
 class MoEConfig:
@@ -54,7 +58,7 @@ class MoEConfig:
     router_z_coef: float = 0.0
     moe_layer_period: int = 1
     first_dense_layers: int = 0
-    # execution backend (core/backend.py): auto | oracle | cuda
+    # execution backend (core/backend.py): auto | oracle | cuda | cuda_fused
     backend: str = "auto"
     gating_dropout: GatingDropoutConfig = field(
         default_factory=GatingDropoutConfig)
@@ -102,6 +106,7 @@ class ModelConfig:
     encdec: Optional[EncDecConfig] = None
     dtype: str = "bfloat16"             # activation dtype
     param_dtype: str = "float32"
+    remat: bool = True                  # recompute each layer in the backward
     source: str = ""
 
     @property
@@ -148,6 +153,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_ff=min(cfg.d_ff, 512) or 512,
         vocab=min(cfg.vocab, 512),
         max_seq=512,
+        remat=False,
         param_dtype="float32",
         dtype="float32",
     )
@@ -168,3 +174,32 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
                                            encoder_seq=32)
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer and training-run settings, field for field the
+    reference's. ``metrics_frame`` adds the router-health metrics
+    (expert_load, router_entropy, gate_dropped) to every step's metrics;
+    it changes no loss or update."""
+    lr: float = 3e-4
+    warmup_steps: int = 5000
+    schedule: str = "inverse_sqrt"       # inverse_sqrt | cosine | constant
+    b1: float = 0.9
+    b2: float = 0.99                     # paper: beta2 = 0.99
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    seed: int = 0
+    steps: int = 1000
+    microbatches: int = 1                # grad accumulation: activation mem /k
+    moment_dtype: str = "float32"        # bfloat16 for the huge archs
+    loss: str = "xent"                   # xent | xent+dae (paper Web-50)
+    dae_coef: float = 1.0
+    metrics_frame: bool = True
+
+    def __post_init__(self):
+        if self.schedule not in ("inverse_sqrt", "cosine", "constant"):
+            raise ValueError(f"schedule {self.schedule!r}")
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches {self.microbatches}")

@@ -1,18 +1,25 @@
 """MoE execution-backend registry (port of ``repro/core/backend.py`` at one
 device).
 
-  oracle -- plain torch (``core/moe.py::moe_oracle``, one virtual shard);
-            the ground truth.
-  cuda   -- the kernel pipeline, counterpart of the reference's ``pallas``
-            backend: routing tables built once per layer, then the
-            dispatch gather -> grouped-matmul expert FFN -> weighted
-            combine gather. On CPU tensors the kernels' wrappers run their
-            plain versions, so the pipeline is testable without a card.
-  auto   -- (default) oracle.
+  oracle     -- plain torch (``core/moe.py::moe_oracle``, one virtual
+                shard); the ground truth.
+  cuda       -- the kernel pipeline, counterpart of the reference's
+                ``pallas`` backend: routing tables built once per layer,
+                then the dispatch gather -> grouped-matmul expert FFN ->
+                weighted combine gather.
+  cuda_fused -- the one-launch fused kernel (B4), counterpart of the
+                reference's ``pallas_fused``: routing tables, then gather
+                + expert FFN + weighted scatter in one kernel. The
+                reference falls back to ``pallas`` under an active mesh or
+                a compressed comm substrate (``backend.py:204``); the port
+                has neither yet, so no config can ask for that fallback
+                and ``cuda_fused`` never turns into the pipeline.
+  auto       -- (default) oracle.
 
-Every backend shares the router and the Gating Dropout branch selection,
-so routing is identical by construction; outputs differ only by kernel
-arithmetic.
+On CPU tensors the kernels' wrappers run their plain versions, so both
+kernel backends are testable without a card. Every backend shares the
+router, the Gating Dropout branch selection and the aux dicts, so routing
+is identical by construction; outputs differ only by kernel arithmetic.
 """
 from __future__ import annotations
 
@@ -60,15 +67,13 @@ def oracle_backend(params, x: torch.Tensor, cfg: ModelConfig,
     return M.moe_oracle(params, x, cfg, ep=1, **kw)
 
 
-@register_backend("cuda")
-def cuda_backend(params, x: torch.Tensor, cfg: ModelConfig, *,
-                 generator: Optional[torch.Generator] = None,
-                 decision: Optional[bool] = None, is_training: bool = True,
-                 token_ids: Optional[torch.Tensor] = None,
-                 token_valid: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, Dict]:
-    """Kernel pipeline: route -> routing_tables (once) -> dispatch ->
-    grouped-matmul FFN -> combine. Matches the oracle at ep=1."""
+def _kernel_backend(pipeline: Callable, params, x: torch.Tensor,
+                    cfg: ModelConfig, *, generator, decision, is_training,
+                    token_ids, token_valid) -> Tuple[torch.Tensor, Dict]:
+    """Route -> routing_tables (once per layer) -> ``pipeline(xf, info,
+    tables, experts, E, cap)``, with the routed, Gate-Drop local and
+    expert-drop branches shared by both kernel backends. Matches the
+    oracle at ep=1."""
     moe = cfg.moe
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
@@ -82,19 +87,15 @@ def cuda_backend(params, x: torch.Tensor, cfg: ModelConfig, *,
     cf = moe.capacity_factor if is_training else moe.eval_capacity_factor
     cap = min(R.capacity(T, E, moe.top_k, cf), T)
 
-    def pipeline(info: R.DispatchInfo) -> torch.Tensor:
-        tables = K.routing_tables(info, E, cap)    # built once, used twice
-        buf = K.moe_dispatch_op(xf, info, E, cap, tables=tables)
-        w_in = experts["w_in"]
-        out = K.expert_ffn_op(buf.to(w_in.dtype), w_in, experts.get("w_gate"),
-                              experts["w_out"], cfg.act)
-        return K.moe_combine_op(out.to(xf.dtype), info, tables=tables)
+    def run(info: R.DispatchInfo) -> torch.Tensor:
+        tables = K.routing_tables(info, E, cap)
+        return pipeline(xf, info, tables, experts, E, cap)
 
     def routed():
         rr = R.route(wr, xf, moe, generator=generator,
                      is_training=is_training, token_ids=tok)
         info = R.dispatch_info(rr, E, cap, valid=tv)
-        return pipeline(info), M._routed_aux(rr, info, moe)
+        return run(info), M._routed_aux(rr, info, moe)
 
     def local():
         # one device: the "local group" is all E experts (the reference's
@@ -106,10 +107,49 @@ def cuda_backend(params, x: torch.Tensor, cfg: ModelConfig, *,
         if tv is not None:
             valid = valid & tv
         info = R.dispatch_info(rr, E, cap, valid=valid)
-        return pipeline(info), M._local_aux(rr, info, moe, T)
+        return run(info), M._local_aux(rr, info, moe, T)
 
     def expert_drop():
         return torch.zeros_like(xf), M._zero_aux(E, x.device)
 
     y, aux = M._select_branch(moe, decision, routed, local, expert_drop)
     return y.reshape(shape), aux
+
+
+@register_backend("cuda")
+def cuda_backend(params, x: torch.Tensor, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator] = None,
+                 decision: Optional[bool] = None, is_training: bool = True,
+                 token_ids: Optional[torch.Tensor] = None,
+                 token_valid: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Kernel pipeline: dispatch -> grouped-matmul FFN -> combine, the two
+    gathers sharing one set of routing tables."""
+    def pipeline(xf, info, tables, experts, E, cap):
+        buf = K.moe_dispatch_op(xf, info, E, cap, tables=tables)
+        w_in = experts["w_in"]
+        out = K.expert_ffn_op(buf.to(w_in.dtype), w_in, experts.get("w_gate"),
+                              experts["w_out"], cfg.act)
+        return K.moe_combine_op(out.to(xf.dtype), info, tables=tables)
+
+    return _kernel_backend(pipeline, params, x, cfg, generator=generator,
+                           decision=decision, is_training=is_training,
+                           token_ids=token_ids, token_valid=token_valid)
+
+
+@register_backend("cuda_fused")
+def cuda_fused_backend(params, x: torch.Tensor, cfg: ModelConfig, *,
+                       generator: Optional[torch.Generator] = None,
+                       decision: Optional[bool] = None, is_training: bool = True,
+                       token_ids: Optional[torch.Tensor] = None,
+                       token_valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """One-launch fused kernel per MoE layer: same router, branches and
+    aux as ``cuda``; the (E, C, d) buffer and its round trips are gone."""
+    def pipeline(xf, info, tables, experts, E, cap):
+        return K.fused_moe_op(xf, info, experts["w_in"], experts.get("w_gate"),
+                              experts["w_out"], E, cap, cfg.act, tables=tables)
+
+    return _kernel_backend(pipeline, params, x, cfg, generator=generator,
+                           decision=decision, is_training=is_training,
+                           token_ids=token_ids, token_valid=token_valid)

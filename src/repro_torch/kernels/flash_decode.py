@@ -14,7 +14,10 @@ shapes (S <= 64) by launch latency. Its plain version is
 ``flash_decode_paged``) comes with the paged scheduler.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises. ``flash_decode.launches`` counts launches.
+or raises. ``flash_decode.launches`` counts launches. Decode only: like
+the reference's kernel it has no backward, so a call with grad mode on
+and an input that requires grad raises rather than return a tensor cut
+off from autograd (on both devices).
 """
 from __future__ import annotations
 
@@ -52,6 +55,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.require_dtype("flash_decode", q, _DTYPES)
     build.require_dtype("flash_decode", k, _DTYPES)
     build.require_contiguous("flash_decode", q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_decode has no backward (decode only): call "
+                           "it under torch.no_grad() or on detached inputs")
     if q.device.type == "cpu":
         return plain(q, k, v, index)
     idx = torch.as_tensor(index, dtype=torch.int32, device=q.device)

@@ -1,18 +1,18 @@
 """Torch ops around the kernels (port of ``repro/kernels/ops.py``).
 
 ``routing_tables`` turns the router's DispatchInfo into the gather form
-the dispatch and combine kernels consume, once per layer: both gathers
-reuse the same tables.
+the dispatch, combine and fused kernels consume, once per layer: both
+gathers of the pipeline (or the fused kernel's gather, scatter and
+backward) reuse the same tables.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.router import DispatchInfo
-from repro_torch.kernels import grouped_ffn, moe_dispatch
+from repro_torch.kernels import grouped_ffn, moe_dispatch, moe_megakernel, ref
 
 
 class RoutingTables(NamedTuple):
@@ -65,12 +65,26 @@ def moe_combine_op(buf: torch.Tensor, info: DispatchInfo, *,
                                 info.topk_w, info.keep)
 
 
+def fused_moe_op(x: torch.Tensor, info: DispatchInfo, w_in: torch.Tensor,
+                 w_gate: Optional[torch.Tensor], w_out: torch.Tensor,
+                 n_experts: int, cap: int, act: str = "silu", *,
+                 tables: Optional[RoutingTables] = None) -> torch.Tensor:
+    """One-launch fused equivalent of dispatch -> expert_ffn_op -> combine:
+    (T, d) -> (T, d) without the (E, C, d) buffer in device memory."""
+    if tables is None:
+        tables = routing_tables(info, n_experts, cap)
+    return moe_megakernel.fused_moe(x, w_in, w_gate, w_out, info.topk_w,
+                                    info.keep, tables.slot_token,
+                                    tables.slot_valid, tables.token_slot,
+                                    act=act)
+
+
 def expert_ffn_op(buf: torch.Tensor, w_in: torch.Tensor,
                   w_gate: Optional[torch.Tensor], w_out: torch.Tensor,
                   act: str = "silu") -> torch.Tensor:
     """Expert FFN from grouped-matmul kernels; the activation runs in f32
     (GELU is the tanh approximation, as ``jax.nn.gelu``'s default)."""
-    actf = F.silu if act == "silu" else (lambda h: F.gelu(h, approximate="tanh"))
+    actf = ref.activation(act)
     h = grouped_ffn.grouped_matmul(buf, w_in)
     if w_gate is not None:
         g = grouped_ffn.grouped_matmul(buf, w_gate)

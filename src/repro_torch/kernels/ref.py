@@ -6,13 +6,26 @@ the CPU path of the kernel's wrapper, and what ``chip_smoke.py`` and the
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (E, C, d), w: (E, d, f) -> (E, C, f). f32 accumulation, output
     in x's dtype."""
     return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def grouped_matmul_dx_ref(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dy: (E, C, f), w: (E, d, f) -> dy @ w^T (E, C, d), in dy's dtype."""
+    return torch.bmm(dy.float(), w.float().transpose(1, 2)).to(dy.dtype)
+
+
+def grouped_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, d), dy: (E, C, f) -> x^T @ dy (E, d, f), in x's dtype."""
+    return torch.bmm(x.float().transpose(1, 2), dy.float()).to(x.dtype)
 
 
 def dispatch_ref(x: torch.Tensor, slot_token: torch.Tensor,
@@ -64,3 +77,60 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.masked_fill(~valid[:, None, :], -1e30)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, ve).to(q.dtype)
+
+
+def activation(name: str):
+    """The expert FFN's activation in f32: silu, or GELU in the tanh
+    approximation (``jax.nn.gelu``'s default)."""
+    if name == "silu":
+        return F.silu
+    return lambda h: F.gelu(h, approximate="tanh")
+
+
+def fused_moe_ref(x: torch.Tensor, w_in: torch.Tensor,
+                  w_gate: Optional[torch.Tensor], w_out: torch.Tensor,
+                  wcomb: torch.Tensor, slot_token: torch.Tensor,
+                  slot_valid: torch.Tensor, token_slot: torch.Tensor,
+                  act: str) -> torch.Tensor:
+    """The fused MoE FFN in its slot formulation (the reference's
+    ``moe_megakernel._ref_forward``): gather each slot's token row (zero
+    where the slot is empty), expert FFN by batched matmul with the
+    activation in f32, then each token's weighted sum over its k slots.
+
+    x: (T, d) in the weights' dtype; w_in / w_gate: (E, d, f); w_out:
+    (E, f, d); wcomb: (T, K) f32 = topk_w * keep; slot_token / slot_valid:
+    (E*C,); token_slot: (T, K). Returns (T, d) in x's dtype. Also the
+    backward of the fused kernel, by autograd through these ops."""
+    t = x.shape[0]
+    e = w_in.shape[0]
+    s = slot_token.shape[0]
+    actf = activation(act)
+    rows = x.index_select(0, slot_token.long().clamp(0, t - 1))
+    buf = torch.where(slot_valid[:, None], rows, torch.zeros((), dtype=x.dtype,
+                                                              device=x.device))
+    bufe = buf.reshape(e, s // e, -1).to(w_in.dtype)
+    h = torch.bmm(bufe, w_in)
+    if w_gate is not None:
+        g = torch.bmm(bufe, w_gate)
+        h = actf(g.float()).to(h.dtype) * h
+    else:
+        h = actf(h.float()).to(h.dtype)
+    out = torch.bmm(h, w_out).reshape(s, -1)
+    idx = token_slot.long().clamp(0, s - 1).reshape(-1)
+    picked = out.index_select(0, idx).reshape(token_slot.shape + (out.shape[-1],))
+    y = torch.einsum("tkd,tk->td", picked.float(), wcomb.float())
+    return y.to(x.dtype)
+
+
+def fused_moe_f32_ref(x: torch.Tensor, w_in: torch.Tensor,
+                      w_gate: Optional[torch.Tensor], w_out: torch.Tensor,
+                      wcomb: torch.Tensor, slot_token: torch.Tensor,
+                      slot_valid: torch.Tensor, token_slot: torch.Tensor,
+                      act: str) -> torch.Tensor:
+    """What the fused kernel computes, as the TPU kernel does: every input
+    upcast to f32, ``fused_moe_ref`` in f32, the result rounded once to
+    x's dtype. (``fused_moe_ref`` in bf16 rounds the FFN's intermediates
+    to bf16; it is the backward's formulation, not the kernel's.)"""
+    up = [None if t is None else t.float() for t in (x, w_in, w_gate, w_out)]
+    return fused_moe_ref(*up, wcomb, slot_token, slot_valid, token_slot,
+                         act).to(x.dtype)

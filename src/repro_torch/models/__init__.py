@@ -1,4 +1,5 @@
-from repro_torch.models.model import (decode_step, init_cache, init_model,
-                                      model_apply, prefill)
+from repro_torch.models.model import (decode_step, head_matrix, init_cache,
+                                      init_model, model_apply, prefill)
 
-__all__ = ["decode_step", "init_cache", "init_model", "model_apply", "prefill"]
+__all__ = ["decode_step", "head_matrix", "init_cache", "init_model",
+           "model_apply", "prefill"]

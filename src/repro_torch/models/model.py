@@ -4,6 +4,7 @@
 Public API:
   init_model(gen, cfg)                          -> params
   model_apply(params, batch, cfg, ...)          -> (logits, aux)    [eval/train]
+  head_matrix(params, cfg)                      -> (d, vocab) output head
   prefill(params, batch, cfg, max_seq)          -> (logits, caches)
   decode_step(params, caches, token, index,...) -> (logits, caches)
   init_cache(cfg, batch, max_seq, dtype)        -> caches
@@ -71,15 +72,24 @@ def _encode(params: Params, batch: Dict, cfg: ModelConfig, *, generator,
 # forward / prefill / decode
 # ---------------------------------------------------------------------------
 
+def head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
 def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x.to(cfg.torch_param_dtype), head).float()
+    return torch.matmul(x.to(cfg.torch_param_dtype),
+                        head_matrix(params, cfg)).float()
 
 
 def model_apply(params: Params, batch: Dict, cfg: ModelConfig, *,
                 generator: Optional[torch.Generator] = None, decision=None,
-                is_training: bool = True) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence forward, logits for every position."""
+                is_training: bool = True,
+                return_hidden: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward, logits for every position.
+
+    ``return_hidden=True`` returns the final-norm hidden states instead of
+    logits: the training loss applies the head itself, chunked, so the
+    (B, L, V) f32 logits need not exist at once."""
     tokens = batch["tokens"]
     x = L.embed_apply(params["embed"], tokens).to(cfg.torch_dtype)
     cross_src, enc_aux = _encode(params, batch, cfg, generator=generator,
@@ -90,6 +100,8 @@ def model_apply(params: Params, batch: Dict, cfg: ModelConfig, *,
                               cross_src=cross_src, token_ids=tokens)
     x = L.norm_apply(params["final_norm"], x, cfg)
     aux = {k: aux[k] + enc_aux[k] for k in aux}
+    if return_hidden:
+        return x, aux
     return _logits(params, x, cfg), aux
 
 

@@ -9,21 +9,32 @@ here a Python loop applies each repeat's slice (a view, no copy).
 
 Modes:
   train   -- full sequence, logits for every position, MoE aux losses.
+             With ``cfg.remat`` and grad mode on, each layer is
+             recomputed in the backward (``torch.utils.checkpoint``, the
+             reference's per-layer ``jax.checkpoint``): the MoE forward,
+             and so its kernel launches, run twice per training step.
   prefill -- full sequence + returns a decode cache.
   decode  -- one token against the cache (updated in place).
+
+Router jitter in training draws from a generator of each layer's own,
+seeded from the step's generator and the layer's index (the reference
+folds the layer index into the step's key), so a recomputed layer draws
+the same noise and routes the same tokens.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import _zero_aux, init_moe_params, moe_apply
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten_with_paths, tree_map, unflatten_paths
 
 Params = Dict[str, Any]
 
@@ -219,6 +230,38 @@ def _add_aux(a, b):
     return b if a is None else tree_map(torch.add, a, b)
 
 
+def _layer_generator(generator: Optional[torch.Generator],
+                     layer: int) -> Optional[torch.Generator]:
+    """The layer's own generator, seeded from the step generator's seed and
+    the layer index."""
+    if generator is None:
+        return None
+    seed = (generator.initial_seed() * 1_000_003 + layer) % (1 << 63)
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
+def _run_layer(spec: LayerSpec, p: Params, x: torch.Tensor, *, layer: int,
+               generator, is_training: bool, **kw):
+    """``_layer_apply`` with the layer's generator made inside the call, so
+    that a remat recomputation draws the same router jitter as the
+    forward did."""
+    gen = _layer_generator(generator, layer) if is_training else generator
+    return _layer_apply(spec, p, x, generator=gen, is_training=is_training,
+                        **kw)
+
+
+def _unbind_repeats(seg_p: Params) -> List[Params]:
+    """A segment's stacked parameters as one tree of views per repeat.
+    ``unbind`` rather than indexing: its backward stacks the repeats'
+    gradients into ONE buffer, where each index's backward would allocate
+    a zero buffer of the whole stack (3.2 GB per expert weight of the
+    zcode-m3-base encoder)."""
+    flat = {k: v.unbind(0) for k, v in flatten_with_paths(seg_p).items()}
+    n = len(next(iter(flat.values())))
+    return [unflatten_paths({k: v[r] for k, v in flat.items()})
+            for r in range(n)]
+
+
 def apply_stack(params: List[Params], segs: List[Segment], x: torch.Tensor,
                 cfg: ModelConfig, *, mode: str,
                 caches: Optional[List[Params]] = None, index=None,
@@ -231,20 +274,29 @@ def apply_stack(params: List[Params], segs: List[Segment], x: torch.Tensor,
     decode updates ``caches`` in place and returns them."""
     new_caches: List[Params] = []
     aux_total = None
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    layer = 0
     for si, (seg, seg_p) in enumerate(zip(segs, params)):
         per_rep = []
+        rep_params = _unbind_repeats(seg_p)
         for r in range(seg.repeats):
             for pi, spec in enumerate(seg.pattern):
-                lp = tree_map(lambda a: a[r], seg_p[f"p{pi}"])
+                lp = rep_params[r][f"p{pi}"]
                 lc = (None if mode != "decode"
                       else tree_map(lambda a: a[r], caches[si][f"p{pi}"]))
-                x, nc, aux = _layer_apply(
-                    spec, lp, x, cfg, mode=mode, cache=lc, index=index,
-                    generator=generator, decision=decision,
-                    is_training=is_training, cross_src=cross_src,
-                    token_ids=token_ids, token_valid=token_valid,
-                    flash_decode=flash_decode, max_seq=max_seq,
-                    cache_dtype=cache_dtype)
+                fn = functools.partial(
+                    _run_layer, spec, layer=layer, cfg=cfg, mode=mode,
+                    cache=lc, index=index, generator=generator,
+                    decision=decision, is_training=is_training,
+                    cross_src=cross_src, token_ids=token_ids,
+                    token_valid=token_valid, flash_decode=flash_decode,
+                    max_seq=max_seq, cache_dtype=cache_dtype)
+                layer += 1
+                if remat:
+                    x, nc, aux = checkpoint(fn, lp, x, use_reentrant=False,
+                                            preserve_rng_state=False)
+                else:
+                    x, nc, aux = fn(lp, x)
                 if mode == "prefill":
                     per_rep.append((pi, nc))
                 aux_total = _add_aux(aux_total, aux)

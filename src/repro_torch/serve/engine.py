@@ -213,11 +213,14 @@ def _check_local_routing(cfg: ModelConfig, gen: GenerateConfig):
             "skips the MoE layer entirely — not a serving mode")
 
 
+@torch.no_grad()
 def generate(params, batch: Dict[str, Any], cfg: ModelConfig,
              gen: GenerateConfig = GenerateConfig(),
              seed: int = 0) -> GenerateResult:
     """Generate ``gen.max_new`` tokens for the prompts ``batch["tokens"]``
     (B, P) plus the family's conditioning inputs (``enc_tokens``), on the
-    device the parameters and batch live on. ``seed`` keys sampling."""
+    device the parameters and batch live on. ``seed`` keys sampling. Runs
+    without autograd, so parameters that require grad (a model in
+    training) serve as they are."""
     _check_local_routing(cfg, gen)
     return _generate_sample(params, batch, seed, cfg, gen)

@@ -25,11 +25,12 @@ def jx():
     """The JAX package's kernels, imported here and not at module level so
     that the ``cuda`` tests run where JAX is not installed (the GPU
     machine; run there with ``--noconftest``)."""
+    jax = pytest.importorskip("jax")
     jnp = pytest.importorskip("jax.numpy")
     from repro import kernels
     from repro.kernels import moe_dispatch as md
     from repro.kernels import ops as jops
-    return types.SimpleNamespace(jnp=jnp, flash_decode=kernels.flash_decode,
+    return types.SimpleNamespace(jax=jax, jnp=jnp, flash_decode=kernels.flash_decode,
                                  grouped_matmul=kernels.grouped_matmul,
                                  dispatch=md.dispatch, combine=md.combine,
                                  expert_ffn_op=jops.expert_ffn_op)
@@ -119,6 +120,101 @@ def test_combine_matches_pallas(t, k, s, d, keep_p, dtype, jx):
 
 
 # ---------------------------------------------------------------------------
+# gradients: the autograd.Functions against jax.grad through the Pallas VJPs
+# ---------------------------------------------------------------------------
+
+def _jax_grad(jx, fn, args, r, argnums):
+    """jax.grad of sum(fn(*args) * r) in f32."""
+    jnp = jx.jnp
+    return jx.jax.grad(lambda *a: (fn(*a).astype(jnp.float32) * jnp.asarray(r)).sum(),
+                       argnums=argnums)(*args)
+
+
+def _torch_grad(out, r, leaves):
+    (out.float() * torch.from_numpy(r)).sum().backward()
+    return [leaf.grad for leaf in leaves]
+
+
+@pytest.mark.parametrize("e,c,d,f", [(2, 1, 64, 128), (3, 5, 100, 70)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_grads_match_pallas_vjp(e, c, d, f, dtype, jx):
+    """dx = dy @ w^T and dw = x^T @ dy (the card's grouped_matmul_dx/_dw)
+    against the reference's _gmm_bwd, the Pallas kernel on swapped axes."""
+    rs = np.random.RandomState(5)
+    ja, tx = _pair(jx, rs.randn(e, c, d).astype(np.float32), dtype)
+    jw, tw = _pair(jx, (rs.randn(e, d, f) * d ** -0.5).astype(np.float32), dtype)
+    r = rs.randn(e, c, f).astype(np.float32)
+    tx.requires_grad_(True)
+    tw.requires_grad_(True)
+    y = grouped_ffn.grouped_matmul(tx, tw)
+    assert type(y.grad_fn).__name__ == "_GroupedMatmulBackward"
+    got = _torch_grad(y, r, [tx, tw])
+    want = _jax_grad(jx, lambda a, b: jx.grouped_matmul(a, b, interpret=True),
+                     (ja, jw), r, (0, 1))
+    for g, w in zip(got, want):
+        assert g.dtype == getattr(torch, dtype)
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("t,s,valid_p", [(16, 24, 0.7), (6, 8, 0.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dispatch_grads_match_pallas_vjp(t, s, valid_p, dtype, jx):
+    """Scatter-add of dy rows onto their tokens in f32, masked by the
+    slot's validity (the reference's _dispatch_bwd)."""
+    rs = np.random.RandomState(6)
+    d = 40
+    ja, tx = _pair(jx, rs.randn(t, d).astype(np.float32), dtype)
+    st = rs.randint(-1, t + 2, size=s).astype(np.int32)
+    sv = rs.rand(s) < valid_p
+    r = rs.randn(s, d).astype(np.float32)
+    tx.requires_grad_(True)
+    y = moe_dispatch.dispatch(tx, torch.from_numpy(st), torch.from_numpy(sv))
+    assert type(y.grad_fn).__name__ == "_DispatchBackward"
+    (got,) = _torch_grad(y, r, [tx])
+    (want,) = _jax_grad(jx, lambda a: jx.dispatch(a, jx.jnp.asarray(st), jx.jnp.asarray(sv),
+                                                  interpret=True), (ja,), r, (0,))
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("t,k,s,keep_p", [(12, 1, 16, 0.8), (10, 2, 12, 0.8),
+                                          (5, 2, 6, 0.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_combine_grads_match_pallas_vjp(t, k, s, keep_p, dtype, jx):
+    """dbuf (scatter of w * dy) and d weights (<dy, buf[slot]>, through
+    w = weights * keep) against the reference's _combine_bwd."""
+    rs = np.random.RandomState(7)
+    d = 37
+    jb, tb = _pair(jx, rs.randn(s, d).astype(np.float32), dtype)
+    ts = rs.randint(0, s, size=(t, k)).astype(np.int32)
+    w = rs.rand(t, k).astype(np.float32)
+    keep = rs.rand(t, k) < keep_p
+    r = rs.randn(t, d).astype(np.float32)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    tb.requires_grad_(True)
+    y = moe_dispatch.combine(tb, torch.from_numpy(ts), tw, torch.from_numpy(keep))
+    assert type(y.grad_fn).__name__ == "_CombineBackward"
+    got = _torch_grad(y, r, [tb, tw])
+    jnp = jx.jnp
+    want = _jax_grad(jx, lambda b, w_: jx.combine(b, jnp.asarray(ts), w_, jnp.asarray(keep),
+                                                  interpret=True),
+                     (jb, jnp.asarray(w)), r, (0, 1))
+    _close(got[0], want[0], dtype)
+    _close(got[1], want[1], "float32" if dtype == "float32" else dtype)
+
+
+def test_flash_decode_raises_under_grad():
+    """Decode only, no backward: under grad it raises instead of returning
+    a tensor cut off from autograd; without grad it runs."""
+    q = torch.randn(1, 2, 8, requires_grad=True)
+    kv = torch.randn(1, 4, 2, 8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_decode.flash_decode(q, kv, kv, 3)
+    with torch.no_grad():
+        assert flash_decode.flash_decode(q, kv, kv, 3).shape == (1, 2, 8)
+    assert flash_decode.flash_decode(q.detach(), kv, kv, 3).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
 # B5 flash decode
 # ---------------------------------------------------------------------------
 
@@ -199,14 +295,19 @@ def test_wrappers_check_inputs():
 
 def test_cpu_path_never_launches_or_builds():
     reset_launch_counts()
-    grouped_ffn.grouped_matmul(torch.randn(2, 3, 4), torch.randn(2, 4, 5))
+    w = torch.randn(2, 4, 5, requires_grad=True)
+    grouped_ffn.grouped_matmul(torch.randn(2, 3, 4), w).sum().backward()
+    assert w.grad.shape == w.shape
     moe_dispatch.dispatch(torch.randn(4, 8), torch.zeros(3, dtype=torch.int32),
                           torch.ones(3, dtype=torch.bool))
     assert launch_counts() == {"dispatch": 0, "combine": 0,
-                               "grouped_matmul": 0, "flash_decode": 0}
+                               "grouped_matmul": 0, "grouped_matmul_dx": 0,
+                               "grouped_matmul_dw": 0, "fused_moe": 0,
+                               "flash_decode": 0}
     assert build._lib is None
     assert {p.name for p in build.sources()} == {
-        "moe_dispatch.cu", "grouped_ffn.cu", "flash_decode.cu", "errors.cu"}
+        "moe_dispatch.cu", "grouped_ffn.cu", "flash_decode.cu", "errors.cu",
+        "moe_megakernel.cu"}
     assert build.lib_path().parts[-4:-2] == ("build", "kernels")
 
 
@@ -280,3 +381,26 @@ def test_cuda_flash_decode_matches_plain(qdt, kvdt):
         idx[0] = 0
         _gpu_close(flash_decode.flash_decode(q, k, v, idx),
                    ref.flash_decode_ref(q, k, v, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_grouped_matmul_bwd_matches_plain(dtype):
+    """The two backward kernels at the training site (C = 8) and ragged
+    shapes, and the Function's backward launching them."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    for e, c, d, f in ((128, 8, 512, 2048), (4, 1, 100, 70), (3, 17, 130, 200)):
+        x = torch.randn(e, c, d, generator=g, device=dev).to(dtype)
+        w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dtype)
+        dy = torch.randn(e, c, f, generator=g, device=dev).to(dtype)
+        _gpu_close(grouped_ffn.grouped_matmul_dx(dy, w), ref.grouped_matmul_dx_ref(dy, w))
+        _gpu_close(grouped_ffn.grouped_matmul_dw(x, dy), ref.grouped_matmul_dw_ref(x, dy))
+    reset_launch_counts()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    grouped_ffn.grouped_matmul(x, w).backward(dy)
+    assert (grouped_ffn.grouped_matmul_dx.launches,
+            grouped_ffn.grouped_matmul_dw.launches) == (1, 1)
+    _gpu_close(x.grad, ref.grouped_matmul_dx_ref(dy, w.detach()))
+    _gpu_close(w.grad, ref.grouped_matmul_dw_ref(x.detach(), dy))

@@ -231,7 +231,13 @@ def test_port_imports_no_jax_and_no_reference():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 20, mods\n"
+        "need = {'repro_torch.core.gating_dropout', 'repro_torch.optim.adam',\n"
+        "        'repro_torch.training.steps', 'repro_torch.training.loop',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.data.prefetch',\n"
+        "        'repro_torch.checkpoint.checkpoint', 'repro_torch.launch.train',\n"
+        "        'repro_torch.kernels.moe_megakernel'}\n"
+        "assert need <= set(mods), sorted(need - set(mods))\n"
+        "assert len(mods) >= 33, mods\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

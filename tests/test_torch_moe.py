@@ -200,7 +200,7 @@ def test_cuda_backend_matches_pallas_backend(decision, masked):
 
 
 def test_backend_registry():
-    assert port_backend.available_backends() == ("cuda", "oracle")
+    assert port_backend.available_backends() == ("cuda", "cuda_fused", "oracle")
     assert port_backend.resolve_backend(MoEConfig()) == "oracle"
     with pytest.raises(KeyError):
         port_backend.get_backend("pallas")
