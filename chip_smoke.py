@@ -93,7 +93,15 @@ REPLACES = {
                        "src/repro/kernels/grouped_ffn.py:44"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:64"),
+    "flash_decode_paged": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                           "src/repro/kernels/flash_decode.py:124"),
 }
+# phase 7: the serving trace (closed loop, all queued at t = 0)
+TRACE_N, TRACE_PROMPT, TRACE_BUDGET, TRACE_PREFIX = 32, 64, 32, 32
+SCHED_SLOTS, SCHED_ADMIT, SCHED_BUCKETS = 8, 4, (8, 16, 32, 64)
+PAGE_SIZE, PAGES_SMALL = 16, 20        # the small arena must preempt
+TIMED_REPLAYS = 3
+NEAR_TIE = 1e-4                         # top-two logit gap of a tolerated divergence
 
 
 def log(*a):
@@ -196,12 +204,41 @@ def work(name: str, args):
                     + 1).sum())
         nbytes = 2 * q.numel() * q.element_size() + 2 * live * kv * hd * k.element_size() + 4 * b
         return nbytes, 4.0 * live * (h // kv) * kv * hd, "float32"
+    if name == "flash_decode_paged":
+        q, k, v, bt, idx = args
+        b, h, hd = q.shape
+        ps, kv = k.shape[1], k.shape[2]
+        # the live pages of each row: blocks 0 .. index // ps
+        pages = int((idx.long() // ps + 1).sum())
+        live = int((idx.long() + 1).sum())
+        nbytes = (2 * q.numel() * q.element_size() + 2 * pages * ps * kv * hd * k.element_size()
+                  + 4 * pages + 4 * b)
+        return nbytes, 4.0 * live * h * hd, "float32"
     raise KeyError(name)
 
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against plain versions
 # ---------------------------------------------------------------------------
+
+class _Counted:
+    """A wrapper that reads and resets the launch count of the function it
+    stands in for, so that counts taken during a capture are the kernel's."""
+
+    def __init__(self, fn, orig):
+        self._fn, self._orig = fn, orig
+
+    def __call__(self, *args, **kw):
+        return self._fn(*args, **kw)
+
+    @property
+    def launches(self):
+        return self._orig.launches
+
+    @launches.setter
+    def launches(self, n):
+        self._orig.launches = n
+
 
 class Capture:
     """Records the inputs (args, kwargs) of each kernel wrapper's first
@@ -218,7 +255,7 @@ class Capture:
         mods = {"dispatch": moe_dispatch, "combine": moe_dispatch,
                 "grouped_matmul": grouped_ffn, "grouped_matmul_dx": grouped_ffn,
                 "grouped_matmul_dw": grouped_ffn, "fused_moe": moe_megakernel,
-                "flash_decode": flash_decode}
+                "flash_decode": flash_decode, "flash_decode_paged": flash_decode}
         self.sites = [(mods[n], n) for n in names]
         self.calls = {name: [] for name in names}
 
@@ -238,9 +275,8 @@ class Capture:
                         for a in args), dict(kw)))
                 return _orig(*args, **kw)
 
-            rec.launches = 0      # the original bumps `<name>.launches`
             self.saved.append((mod, name, orig))
-            setattr(mod, name, rec)
+            setattr(mod, name, _Counted(rec, orig))
         return self
 
     def __exit__(self, *exc):
@@ -300,7 +336,8 @@ def plain_of(name):
             "grouped_matmul_dx": ref.grouped_matmul_dx_ref,
             "grouped_matmul_dw": ref.grouped_matmul_dw_ref,
             "fused_moe": _fused_plain,
-            "flash_decode": ref.flash_decode_ref}[name]
+            "flash_decode": ref.flash_decode_ref,
+            "flash_decode_paged": ref.flash_decode_paged_ref}[name]
 
 
 def kernel_of(name):
@@ -850,7 +887,8 @@ def expected_train_launches(cfg, backend: str, dropped_experts: bool = False):
     fwd = n_moe_layers(cfg) * (2 if cfg.remat else 1)
     n = n_moe_layers(cfg)
     zero = {k: 0 for k in ("dispatch", "combine", "grouped_matmul", "grouped_matmul_dx",
-                           "grouped_matmul_dw", "fused_moe", "flash_decode")}
+                           "grouped_matmul_dw", "fused_moe", "flash_decode",
+                           "flash_decode_paged")}
     if dropped_experts:
         return zero
     if backend == "cuda_fused":
@@ -988,15 +1026,379 @@ def train_slice(full, dev, backend: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the serving schedulers and B6
+# ---------------------------------------------------------------------------
+
+def sched_trace(vocab: int):
+    """TRACE_N requests queued at t = 0, drawn from seed SEED + 7: budgets
+    uniform over [2, TRACE_BUDGET], SRC_TOKENS source tokens each. Odd
+    requests: prompts uniform over [2, TRACE_PROMPT] tokens. Even requests
+    (half) share one TRACE_PREFIX-token prompt prefix (two full pages at
+    PAGE_SIZE 16) and one source sentence, with a tail uniform over [1,
+    TRACE_PROMPT - TRACE_PREFIX] tokens: a page is shared only under an
+    equal source (every decoder layer after the first reads it)."""
+    import numpy as np
+    from repro_torch.launch.serve import SRC_TOKENS
+    from repro_torch.serve import Request
+    rs = np.random.RandomState(SEED + 7)
+    prefix = rs.randint(3, vocab, TRACE_PREFIX)
+    shared_src = rs.randint(3, vocab, SRC_TOKENS)
+    reqs = []
+    for i in range(TRACE_N):
+        budget = int(rs.randint(2, TRACE_BUDGET + 1))
+        if i % 2 == 0:
+            tail = rs.randint(3, vocab, int(rs.randint(1, TRACE_PROMPT - TRACE_PREFIX + 1)))
+            toks, src = np.concatenate([prefix, tail]), shared_src
+        else:
+            toks = rs.randint(3, vocab, int(rs.randint(2, TRACE_PROMPT + 1)))
+            src = rs.randint(3, vocab, SRC_TOKENS)
+        reqs.append(Request(rid=i, tokens=toks.astype(np.int64),
+                            extras={"enc_tokens": src.astype(np.int64)},
+                            max_new=budget, arrival=0.0))
+    return reqs
+
+
+def run_scheduler(params, cfg, gen, reqs, paged=None, n_pages=0, tracer=None):
+    """Serve ``reqs`` through a fresh scheduler (the slot pool, or the page
+    arena when ``paged``), with the launch counts reset just before and
+    read just after. Returns ({rid: tokens}, scheduler, launch counts,
+    wall seconds)."""
+    import dataclasses as dc
+    from repro_torch.configs import PagedKVConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import ContinuousScheduler, PagedScheduler
+    kw = dict(n_slots=SCHED_SLOTS, prefill_buckets=SCHED_BUCKETS, admit_width=SCHED_ADMIT,
+              registry=MetricsRegistry(), tracer=tracer)
+    if paged:
+        sched = PagedScheduler(params, cfg, gen, paged=PagedKVConfig(
+            page_size=PAGE_SIZE, n_slots_equiv=SCHED_SLOTS, n_pages=n_pages), **kw)
+    else:
+        sched = ContinuousScheduler(params, cfg, gen, **kw)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sched.run([dc.replace(r) for r in reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {r.rid: r.tokens for r in res}, sched, launch_counts(), wall
+
+
+def expected_sched_launches(cfg, stats, paged: bool):
+    """Launches of a scheduler run: per admission group the encoder's and
+    decoder's MoE layers, per decode tick the decoder's MoE layers and one
+    flash decode per decoder layer (B6 on the page arena, B5 on the slot
+    pool)."""
+    n_dec = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
+    n_enc = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.encdec.n_encoder_layers))
+    moe = (n_enc + n_dec) * stats["prefill_calls"] + n_dec * stats["decode_steps"]
+    attn = cfg.n_layers * stats["decode_steps"]
+    return {"dispatch": moe, "combine": moe, "grouped_matmul": 2 * moe,
+            "grouped_matmul_dx": 0, "grouped_matmul_dw": 0, "fused_moe": 0,
+            "flash_decode": 0 if paged else attn, "flash_decode_paged": attn if paged else 0}
+
+
+def check_launches(label, cfg, sched, counts, paged: bool):
+    want = expected_sched_launches(cfg, sched.stats, paged)
+    log(f"sched {label}: launches {counts} over {sched.stats['prefill_calls']} admissions "
+        f"and {sched.stats['decode_steps']} decode ticks")
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want}")
+
+
+def oneshot_check(params, cfg, gen, reqs, want, max_seq, dev):
+    """Each request's tokens against one-shot B=1 ``generate`` at the
+    pool's cache length. A divergence must be a near-tie: the top-two gap
+    of the one-shot logits at the first differing token, read by feeding
+    the common prefix, is under NEAR_TIE. Returns (#equal, gaps)."""
+    import dataclasses as dc
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve import generate
+    n_equal, gaps = 0, []
+    for r in reqs:
+        batch = {"tokens": torch.as_tensor(r.tokens[None], device=dev),
+                 "enc_tokens": torch.as_tensor(r.extras["enc_tokens"][None], device=dev)}
+        one = generate(params, batch, cfg, dc.replace(gen, max_new=r.max_new,
+                                                       max_seq=max_seq))
+        got = one.tokens[0].cpu().numpy()
+        if (got == want[r.rid]).all():
+            n_equal += 1
+            continue
+        t = int((got != want[r.rid]).argmax())
+        with torch.no_grad():
+            lg, caches = prefill(params, batch, cfg, max_seq=max_seq)
+            for i in range(t):
+                lg, caches = decode_step(params, caches,
+                                         torch.as_tensor([[int(got[i])]], device=dev),
+                                         len(r.tokens) + i, cfg, flash_decode=True)
+        top = lg[0, -1].float().topk(2).values
+        gaps.append((r.rid, t, float(top[0] - top[1])))
+    return n_equal, gaps
+
+
+def paged_ragged_cases(dev):
+    """(args, gathered contiguous k, v) of B6 off the main path: page sizes
+    1, 8, 16, 17; query heads per kv head 1, 2, 8; head dims 32, 64, 128;
+    index 0 and the last slot of the last page; rows 0 and 1 sharing a
+    physical page; tables pointing at the scratch page (filled with large
+    values) past each row's index; nb = 1 and B = 1; f32, bf16 cache,
+    bf16."""
+    g = torch.Generator().manual_seed(4323)
+    cases = []
+    for qdt, kvdt in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                      (torch.bfloat16, torch.bfloat16)):
+        for b, h, kv, hd, ps, nb in ((8, 8, 8, 64, 16, 6), (3, 8, 4, 32, 1, 40),
+                                     (4, 8, 1, 128, 8, 5), (2, 16, 2, 64, 17, 3),
+                                     (1, 8, 8, 64, 16, 1), (5, 8, 8, 64, 16, 6)):
+            n_pages = b * nb + 3
+            tables = torch.randperm(n_pages, generator=g)[:b * nb].reshape(b, nb).to(torch.int32)
+            if b > 1:
+                tables[1, 0] = tables[0, 0]
+            index = torch.randint(0, nb * ps, (b,), generator=g)
+            index[0] = 0
+            index[-1] = nb * ps - 1
+            for r in range(b):
+                tables[r, int(index[r]) // ps + 1:] = n_pages
+            ka = torch.randn(n_pages + 1, ps, kv, hd, generator=g)
+            va = torch.randn(n_pages + 1, ps, kv, hd, generator=g)
+            ka[n_pages], va[n_pages] = 1e4, -1e4
+            q = torch.randn(b, h, hd, generator=g)
+            args = (q.to(dev, qdt), ka.to(dev, kvdt), va.to(dev, kvdt),
+                    tables.to(dev), index.to(dev))
+            cases.append((args, *gathered(args)))
+    return cases
+
+
+def gathered(args):
+    """The contiguous (B, nb * ps, KV, hd) cache the block tables address."""
+    q, k, v, bt, _ = args
+    b, nb, ps = q.shape[0], bt.shape[1], k.shape[1]
+    flat = bt.long().reshape(-1)
+    return (k.index_select(0, flat).reshape(b, nb * ps, *k.shape[2:]).contiguous(),
+            v.index_select(0, flat).reshape(b, nb * ps, *v.shape[2:]).contiguous())
+
+
+def b6_checks(main_calls, dev):
+    """B6 against its plain version at the main path's captured inputs
+    and the ragged cases, and bitwise against B5 on the gathered cache.
+    Returns the max abs err over the main path's inputs."""
+    from repro_torch.kernels import flash_decode as FD
+    err = 0.0
+    for args in main_calls:
+        out = FD.flash_decode_paged(*args)
+        torch.cuda.synchronize()
+        err = max(err, check("flash_decode_paged", out, plain_of("flash_decode_paged")(*args)))
+        check("flash_decode_paged vs B5", out, FD.flash_decode(args[0], *gathered(args),
+                                                               args[4]), exact=True)
+    shapes = [" x ".join(str(tuple(a.shape)) for a in args) for args in main_calls]
+    log(f"kernel flash_decode_paged: main-path inputs {shapes} ({[str(a[1].dtype) for a in main_calls]} "
+        f"arena), max abs err {err:.3e}, bitwise equal to flash_decode on the gathered cache")
+    cases = paged_ragged_cases(dev)
+    for args, gk, gv in cases:
+        out = FD.flash_decode_paged(*args)
+        torch.cuda.synchronize()
+        check("flash_decode_paged ragged", out, plain_of("flash_decode_paged")(*args))
+        check("flash_decode_paged ragged vs B5", out, FD.flash_decode(args[0], gk, gv, args[4]),
+              exact=True)
+    log(f"kernel flash_decode_paged: {len(cases)} ragged cases agree with the plain version "
+        "and equal flash_decode bitwise (page sizes 1/8/16/17, rep 1/2/8, head dims "
+        "32/64/128, index 0 and the last slot, a shared page, scratch past the index, "
+        "nb = 1, B = 1; f32, bf16 cache, bf16)")
+    return err
+
+
+def b6_timing(args, dev):
+    """B6 at the main path's decode inputs: device ms against the live
+    pages' bytes over HBM's rate, the plain version, and the library's
+    index_select of the pages + SDPA (two calls)."""
+    from repro_torch.kernels import flash_decode as FD
+    q, k, v, bt, idx = args
+    b, nb, ps = q.shape[0], bt.shape[1], k.shape[1]
+    nbytes, flops, wdt = work("flash_decode_paged", args)
+    b_ms, b_by = bound(nbytes, flops, wdt)
+    flat = bt.long().reshape(-1)
+    q4 = q.to(k.dtype)[:, :, None, :]
+    mask = (torch.arange(nb * ps, device=dev)[None, :] <= idx.long()[:, None])[:, None, None, :]
+
+    def library():
+        gk = k.index_select(0, flat).reshape(b, nb * ps, *k.shape[2:]).transpose(1, 2)
+        gv = v.index_select(0, flat).reshape(b, nb * ps, *v.shape[2:]).transpose(1, 2)
+        return F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask)
+
+    t = dict(ms=device_ms(lambda: FD.flash_decode_paged(*args)),
+             plain_ms=device_ms(lambda: plain_of("flash_decode_paged")(*args)),
+             bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library),
+             shape=" x ".join(str(tuple(a.shape)) for a in args))
+    log(f"time flash_decode_paged@decode [{t['shape']}, {int((idx.long() // ps + 1).sum())} "
+        f"live pages]: kernel {t['ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by}), plain "
+        f"{t['plain_ms']:.6f} ms, library (index_select + SDPA, two calls) "
+        f"{t['library_ms']:.6f} ms")
+    return t
+
+
+def sched_parity(params, cfg, reqs, dev):
+    """f32 at non-binding capacity: slot pool with B5, page arena with B6,
+    a small arena that preempts; tokens equal across all three, and against
+    one-shot B=1 up to near-ties. Returns the B6 inputs captured at the
+    first paged decode tick."""
+    from repro_torch.serve import GenerateConfig
+    cfg32 = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, eval_capacity_factor=float(cfg.moe.n_experts)))
+    gen = GenerateConfig(max_new=TRACE_BUDGET, eos_id=-1, flash_decode=True)
+    slot, ss, c_slot, w_slot = run_scheduler(params, cfg32, gen, reqs)
+    check_launches("slot pool f32", cfg32, ss, c_slot, paged=False)
+    with Capture(names=("flash_decode_paged",)) as cap:
+        paged, ps, c_paged, w_paged = run_scheduler(params, cfg32, gen, reqs, paged=True)
+    check_launches("paged f32", cfg32, ps, c_paged, paged=True)
+    small, sm, c_small, _ = run_scheduler(params, cfg32, gen, reqs, paged=True,
+                                          n_pages=PAGES_SMALL)
+    check_launches(f"paged f32 {PAGES_SMALL} pages", cfg32, sm, c_small, paged=True)
+    log(f"sched f32: slot pool {ss.stats} in {w_slot:.2f} s; paged {ps.stats} in "
+        f"{w_paged:.2f} s; {PAGES_SMALL}-page arena {sm.stats}")
+    bad = [r.rid for r in reqs if not ((paged[r.rid] == slot[r.rid]).all()
+                                       and (small[r.rid] == slot[r.rid]).all())]
+    if bad:
+        raise AssertionError(f"paged and slot-pool tokens differ for requests {bad}")
+    if not (sm.stats["preemptions"] > 0 and sm.stats["swap_ins"] == sm.stats["preemptions"]):
+        raise AssertionError(f"the {PAGES_SMALL}-page arena did not preempt and swap in: "
+                             f"{sm.stats}")
+    if ps.stats["prefix_hits"] == 0 or ps.stats["finished"] != TRACE_N:
+        raise AssertionError(f"paged run: {ps.stats}")
+    log(f"sched f32: per-request tokens of the {TRACE_N} requests equal across the slot pool "
+        f"(B5), the page arena (B6) and the {PAGES_SMALL}-page arena "
+        f"({sm.stats['preemptions']} preemptions, {sm.stats['swap_ins']} swap-ins)")
+    n_equal, gaps = oneshot_check(params, cfg32, gen, reqs, slot, ss.max_seq, dev)
+    log(f"sched f32: one-shot B=1 generate at max_seq {ss.max_seq}: {n_equal} of {TRACE_N} "
+        f"requests equal; divergences (rid, first token, top-two logit gap): {gaps}")
+    if any(gap >= NEAR_TIE for _, _, gap in gaps):
+        raise AssertionError(f"a divergence from one-shot is not a near-tie: {gaps}")
+    return [a for a, _ in cap.calls["flash_decode_paged"][:1]]
+
+
+def tick_calls(params, cfg, gen, reqs, paged: bool) -> float:
+    """A replay whose decode ticks run under ``CallCount``: the PyTorch
+    calls from Python per decode tick (the host's dispatch work)."""
+    from repro_torch.serve import ContinuousScheduler
+    cc = CallCount()
+    orig = ContinuousScheduler._decode_tick        # the paged scheduler's too
+
+    def counted(self):
+        with cc:
+            orig(self)
+
+    ContinuousScheduler._decode_tick = counted
+    try:
+        _, sched, _, _ = run_scheduler(params, cfg, gen, reqs, paged=paged)
+    finally:
+        ContinuousScheduler._decode_tick = orig
+    return cc.n / sched.stats["decode_steps"]
+
+
+def sched_timing(params, cfg, reqs, dev):
+    """bf16 at the config's capacity: one warm-up replay per scheduler (its
+    decode ticks' PyTorch calls counted), then TIMED_REPLAYS timed replays
+    of each, taken in turns (slot, paged, paged, slot, ...) so that drift of
+    the host's speed within the call falls on both; each replay on a fresh
+    scheduler. Returns (B6 inputs captured at the first paged tick, B6
+    launches of the first timed paged replay)."""
+    import statistics
+    from repro_torch.launch.serve import spread
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import GenerateConfig, paged_kv_bytes
+    gen = GenerateConfig(max_new=TRACE_BUDGET, eos_id=-1, flash_decode=True)
+    label = {False: "slot pool (B5)", True: "paged (B6)"}
+    calls = {paged: tick_calls(params, cfg, gen, reqs, paged) for paged in (False, True)}
+    torch.cuda.reset_peak_memory_stats()
+    rows, last = {False: [], True: []}, {}
+    captured, launches = [], None
+    for i in range(TIMED_REPLAYS):
+        for paged in ((False, True) if i % 2 == 0 else (True, False)):
+            first_paged = paged and not rows[True]
+            tracer = Tracer(enabled=True)
+            cap = Capture(names=("flash_decode_paged",))
+            with cap if first_paged else contextlib.nullcontext():
+                out, sched, counts, wall = run_scheduler(params, cfg, gen, reqs, paged=paged,
+                                                         tracer=tracer)
+            check_launches(f"{label[paged]} bf16 replay {i}", cfg, sched, counts, paged)
+            if first_paged:
+                captured = [a for a, _ in cap.calls["flash_decode_paged"][:1]]
+                launches = counts["flash_decode_paged"]
+            ttft = sched.metrics.histogram("serve/ttft_s").percentiles((50, 90))
+            lat = sched.metrics.histogram("serve/per_token_latency_s").percentiles((50, 90))
+            rows[paged].append(dict(
+                tok_s=sum(len(t) for t in out.values()) / wall, wall_s=wall,
+                ttft_p50_ms=ttft[50] * 1e3, ttft_p90_ms=ttft[90] * 1e3,
+                tpot_p50_ms=lat[50] * 1e3, tpot_p90_ms=lat[90] * 1e3,
+                decode_tick_ms=statistics.median(tracer.durations("sched.decode")) * 1e3,
+                prefill_ms=statistics.median(tracer.durations("sched.prefill")) * 1e3))
+            last[paged] = sched
+    peak = torch.cuda.max_memory_allocated()
+    for paged in (False, True):
+        sched, st = last[paged], last[paged].stats
+        med = {k: statistics.median(r[k] for r in rows[paged]) for k in rows[paged][0]}
+        log(f"sched {label[paged]} bf16, capacity {cfg.moe.eval_capacity_factor}, median "
+            f"[min, max] of {TIMED_REPLAYS} replays of {TRACE_N} requests (in turns): "
+            + ", ".join(f"{k} {med[k]:.2f} {spread([r[k] for r in rows[paged]])}" for k in med)
+            + f"; {calls[paged]:.0f} PyTorch calls from Python per decode tick; self-attention "
+            f"KV {paged_kv_bytes(sched.pool, cfg) / 2**20:.2f} MiB; {st['decode_steps']} ticks, "
+            f"{st['prefill_calls']} admissions"
+            + (f", prefix hit rate {st['prefix_hits'] / max(st['prefix_lookups'], 1):.3f}, "
+               f"{st['cow_copies']} COW copies, {st['preemptions']} preemptions, peak "
+               f"{st['peak_pages_in_use']} of {sched.layout.n_pages} pages" if paged else ""))
+    log(f"sched bf16: peak memory over the timed replays {peak / 2**30:.2f} GiB")
+    return captured, launches
+
+
+def beam_phase(params, batch, cfg, dev):
+    """One beam-4 ``generate`` for the phase-4 prompts, timed (host clock
+    around a warm call), with B5's launches asserted."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import GenerateConfig, generate
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, beam_width=4, flash_decode=True)
+    generate(params, batch, cfg, gen)                                       # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = generate(params, batch, cfg, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    if (counts["flash_decode"] != cfg.n_layers * res.steps or counts["flash_decode_paged"]
+            or res.tokens.shape != (BATCH, MAX_NEW) or not torch.isfinite(res.scores).all()):
+        raise AssertionError(f"beam: launches {counts}, {res.steps} steps, tokens "
+                             f"{tuple(res.tokens.shape)}, scores {res.scores.tolist()}")
+    log(f"beam 4 bf16: {BATCH} x {PROMPT} prompts, {res.steps} decode steps in {ms:.2f} ms "
+        f"({BATCH * MAX_NEW / ms * 1e3:.0f} tokens/s of best hypotheses); flash_decode "
+        f"launches {counts['flash_decode']} = {cfg.n_layers} layers x {res.steps} steps; "
+        f"first row {res.tokens[0].tolist()}, scores {[round(x, 3) for x in res.scores.tolist()]}")
+
+
+def sched_phase(params, batch, cfg, dev):
+    """Phase 7. Returns (B6 max abs err, B6 timing, B6 launches)."""
+    reqs = sched_trace(cfg.vocab)
+    lens = [len(r.tokens) for r in reqs]
+    log(f"sched trace: {TRACE_N} requests at t = 0, prompts {min(lens)}-{max(lens)} tokens, "
+        f"budgets {min(r.max_new for r in reqs)}-{max(r.max_new for r in reqs)}, "
+        f"{TRACE_N // 2} sharing a {TRACE_PREFIX}-token prefix and a source")
+    main_f32 = sched_parity(params, cfg, reqs, dev)
+    main_bf16, launches = sched_timing(params, cfg, reqs, dev)
+    err = b6_checks(main_f32 + main_bf16, dev)
+    timing = b6_timing(main_bf16[0], dev)
+    beam_phase(params, batch, cfg, dev)
+    return err, timing, launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
-def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts):
+def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged):
     """One entry per kernel for the JSON line: serving kernels at their
     decode site with their launches per ``generate``, training kernels at
     the training site with their launches per step (B4 on ``cuda_fused``,
-    B1's backward on ``cuda``); every entry also lists its launches per
-    training step on both kernel backends."""
+    B1's backward on ``cuda``), B6 at the paged scheduler's decode site
+    with its launches over one bf16 replay of the trace; every entry also
+    lists its launches per training step on both kernel backends."""
     kernels = []
     for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
                  "combine", "fused_moe", "flash_decode"):
@@ -1018,12 +1420,22 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts):
         if "pipeline_ms" in t:
             entry["pipeline_ms"] = t["pipeline_ms"]
         kernels.append(entry)
+    err, t, launches = paged
+    src, rep = REPLACES["flash_decode_paged"]
+    kernels.append({"name": "flash_decode_paged", "route": "cuda", "source": src,
+                    "replaces": rep, "launches": launches, "max_abs_err": err,
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                    "library": "index_select of the pages + scaled_dot_product_attention "
+                               "(two calls)",
+                    "site": "paged decode", "shape": t["shape"],
+                    "train_launches": {b: c["flash_decode_paged"] for b, c in t_counts.items()}})
     return kernels
 
 
 def serve_phases(full, dev):
-    """Phases 3-5 on the serving path; every tensor they made is freed on
-    return. Returns (errs, timing, counts)."""
+    """Phases 3-5 and 7 on the serving path; every tensor they made is
+    freed on return. Returns (errs, timing, counts, phase 7's B6 result)."""
     from repro_torch.launch.serve import generator, synth_batch
     from repro_torch.models import init_model
     from repro_torch.serve import GenerateConfig, generate
@@ -1050,8 +1462,12 @@ def serve_phases(full, dev):
 
     # 5. kernel path against plain path, f32 activations
     e2e_phase(params, batch, cfg, gen, dev)
+    # 7. the schedulers and B6, on the seeded weights
+    t0 = time.perf_counter()
+    paged = sched_phase(params, batch, cfg, dev)
+    log(f"scheduler phase: {time.perf_counter() - t0:.1f} s")
     sensitivity(params, batch, cfg, dev)          # scales params in place
-    return errs, timing, counts
+    return errs, timing, counts, paged
 
 
 def main() -> int:
@@ -1082,10 +1498,10 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
-    # 3-5. serving
+    # 3-5 and 7. serving
     full = get_config("zcode-m3-base")
     t0 = time.perf_counter()
-    errs, timing, counts = serve_phases(full, dev)
+    errs, timing, counts, paged = serve_phases(full, dev)
     torch.cuda.empty_cache()
     log(f"serving phases: {time.perf_counter() - t0:.1f} s; device memory now allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -1103,7 +1519,7 @@ def main() -> int:
     print(json.dumps({"train": {b: {k: v for k, v in t.items()}
                                 for b, t in t_slice.items()}}), flush=True)
 
-    kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts)
+    kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

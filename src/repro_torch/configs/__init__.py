@@ -3,8 +3,8 @@ this port serves; the reference's other families join with their slices."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (EncDecConfig, GatingDropoutConfig,
-                                      ModelConfig, MoEConfig, TrainConfig,
-                                      reduced)
+                                      ModelConfig, MoEConfig, PagedKVConfig,
+                                      TrainConfig, reduced)
 from repro_torch.configs.zcode_m3 import CONFIG as _ZCODE_BASE
 from repro_torch.configs.zcode_m3 import CONFIG_BIG as _ZCODE_BIG
 
@@ -20,4 +20,5 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "EncDecConfig", "GatingDropoutConfig", "ModelConfig",
-           "MoEConfig", "TrainConfig", "get_config", "reduced"]
+           "MoEConfig", "PagedKVConfig", "TrainConfig", "get_config",
+           "reduced"]

@@ -1,5 +1,5 @@
 """Config dataclasses of the port (the subset of ``repro.configs.base`` the
-encoder-decoder MoE needs, and ``TrainConfig``).
+encoder-decoder MoE needs, ``PagedKVConfig`` and ``TrainConfig``).
 
 Plain frozen dataclasses, field for field the reference's defaults, so a
 config built here describes the same model as the reference's. The
@@ -174,6 +174,32 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
                                            encoder_seq=32)
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)
+
+
+@dataclass(frozen=True)
+class PagedKVConfig:
+    """Block-table-addressed decode cache (vLLM-style page pool), field for
+    field the reference's.
+
+    ``page_size`` logical positions per physical page. ``n_pages`` is the
+    usable arena size (one extra scratch page is always appended); 0
+    derives it from the slot pool it replaces: ``n_slots_equiv *
+    ceil(seq_len / page_size)``, equal paged KV bytes to an
+    ``n_slots_equiv``-row slot pool. ``prefix_caching`` shares full
+    prompt-prefix pages across requests via a token-hash page cache;
+    ``reserve_pages`` is the admission headroom (a request is admitted
+    only when its prompt pages + this reserve are free or evictable)."""
+    page_size: int = 16
+    n_pages: int = 0
+    n_slots_equiv: int = 8
+    prefix_caching: bool = True
+    reserve_pages: int = 1
+
+    def __post_init__(self):
+        if self.page_size < 1:
+            raise ValueError(f"page_size {self.page_size}")
+        if self.reserve_pages < 0:
+            raise ValueError(f"reserve_pages {self.reserve_pages}")
 
 
 @dataclass(frozen=True)

@@ -7,6 +7,7 @@
   grouped_ffn.grouped_matmul_dw    B1  its backward, x^T @ dy
   moe_megakernel.fused_moe         B4  gather + expert FFN + scatter, one launch
   flash_decode.flash_decode        B5  single-token decode attention
+  flash_decode.flash_decode_paged  B6  the same over a paged KV cache
 
 Each wrapper takes its plain version (``ref.py``) on a CPU tensor and
 launches its CUDA kernel (``csrc/``, built by ``build.py`` at first use) on
@@ -28,7 +29,8 @@ def wrappers() -> Dict[str, Callable]:
             "grouped_matmul_dx": grouped_ffn.grouped_matmul_dx,
             "grouped_matmul_dw": grouped_ffn.grouped_matmul_dw,
             "fused_moe": moe_megakernel.fused_moe,
-            "flash_decode": flash_decode.flash_decode}
+            "flash_decode": flash_decode.flash_decode,
+            "flash_decode_paged": flash_decode.flash_decode_paged}
 
 
 def launch_counts() -> Dict[str, int]:

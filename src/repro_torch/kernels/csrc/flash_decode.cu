@@ -1,21 +1,33 @@
 // B5 flash decode: attention of one query token per row against a
-// contiguous (B, S, KV, hd) cache, positions > index[b] masked.
+// contiguous (B, S, KV, hd) cache, positions > index[b] masked; and B6,
+// the same over a paged cache: a page arena (n_pages + 1, ps, KV, hd)
+// addressed through per-row block tables (B, nb).
 //
-// Replaces repro/kernels/flash_decode.py::_flash_decode_jit / _kernel. The
-// TPU kernel walks grid (B, KV, S/bs) with the S axis sequential, carrying
-// the online-softmax state (m, l, acc) in VMEM scratch across grid steps.
-// Blocks on the H100 run in no order, so the S loop moves inside the
-// block: one block per (b, kv group), its 4 warps take every 4th position,
-// each warp carries its own (m, l, acc) in registers (lane i holds head
-// dims i, i+32, ...), and the warps merge their states through shared
-// memory at the end. The group's `rep` query heads share every K/V row the
-// block reads. Positions past index[b] are skipped: the TPU kernel gives
-// them probability exp(-1e30 - m) = 0, so the result is the same.
+// B5 replaces repro/kernels/flash_decode.py::_flash_decode_jit / _kernel.
+// The TPU kernel walks grid (B, KV, S/bs) with the S axis sequential,
+// carrying the online-softmax state (m, l, acc) in VMEM scratch across
+// grid steps. Blocks on the H100 run in no order, so the S loop moves
+// inside the block: one block per (b, kv group), its 4 warps take every
+// 4th position, each warp carries its own (m, l, acc) in registers (lane i
+// holds head dims i, i+32, ...), and the warps merge their states through
+// shared memory at the end. The group's `rep` query heads share every K/V
+// row the block reads. Positions past index[b] are skipped: the TPU kernel
+// gives them probability exp(-1e30 - m) = 0, so the result is the same.
 //
-// What bounds it on the H100: bytes — every live K/V row is read once and
-// used for 2 * rep * hd flops. At the serving shapes (S <= 64, B * KV = 64
-// blocks) it is bound by launch latency; long caches need a split over S
-// across blocks (flash-decoding), which is later work.
+// B6 replaces repro/kernels/flash_decode.py::_flash_decode_paged_jit /
+// _paged_kernel. The TPU kernel gathers page bt[b, j] into VMEM in its DMA
+// prologue (scalar prefetch) and runs B5's body on it. Here the gather is
+// the row address itself: logical position j of row b lives at arena row
+// (bt[b * nb + j / ps] * ps + j % ps). Both kernels run one device body
+// (attend_rows) over the same logical positions in the same order, so B6
+// equals B5 bitwise on the cache its tables address. A table entry outside
+// [0, n_pages] is clamped into the arena rather than read out of bounds.
+//
+// What bounds them on the H100: bytes -- every live K/V row is read once
+// and used for 2 * rep * hd flops. At the serving shapes (S <= 96, B * KV
+// <= 72 blocks) they are bound by launch latency; long caches need a split
+// over S across blocks (flash-decoding), and B6 a TMA page copy, which is
+// later work.
 
 #include "common.cuh"
 
@@ -32,16 +44,40 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                    const TKV* __restrict__ v, const int32_t* __restrict__ index,
-                    TQ* __restrict__ out, int S, int KV, int rep, int hd, float scale) {
+// Row address of logical position j of row b, kv group g, in a contiguous
+// (B, S, KV, hd) cache.
+struct ContiguousRows {
+  int S, KV, hd;
+  __device__ __forceinline__ size_t operator()(int b, int j, int g) const {
+    return ((static_cast<size_t>(b) * S + j) * KV + g) * hd;
+  }
+};
+
+// The same in a page arena (n_pages + 1, ps, KV, hd) through block tables
+// bt (B, nb): position j lives in page bt[b, j / ps] at offset j % ps.
+struct PagedRows {
+  const int32_t* __restrict__ bt;
+  int nb, ps, n_arena, KV, hd;
+  __device__ __forceinline__ size_t operator()(int b, int j, int g) const {
+    const int page = clamp_index(bt[static_cast<size_t>(b) * nb + j / ps], n_arena);
+    return ((static_cast<size_t>(page) * ps + j % ps) * KV + g) * hd;
+  }
+};
+
+// One block per (kv group g = blockIdx.x, row b = blockIdx.y) over logical
+// positions [0, min(index[b], n_pos - 1)]; `rows` maps a position to its
+// K/V row.
+template <typename TQ, typename TKV, typename Rows>
+__device__ __forceinline__ void attend_rows(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                                            const TKV* __restrict__ v,
+                                            const int32_t* __restrict__ index,
+                                            TQ* __restrict__ out, const Rows& rows, int n_pos,
+                                            int KV, int rep, int hd, float scale) {
   const int g = blockIdx.x;
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int last = min(index[b], S - 1);
+  const int last = min(index[b], n_pos - 1);
   const int H = KV * rep;
 
   float qr[kMaxRep][kMaxDimsPerLane];
@@ -62,7 +98,7 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 
   for (int j = warp; j <= last; j += kWarps) {
-    const size_t row = ((static_cast<size_t>(b) * S + j) * KV + g) * hd;
+    const size_t row = rows(b, j, g);
     float kr[kMaxDimsPerLane], vr[kMaxDimsPerLane];
 #pragma unroll
     for (int i = 0; i < kMaxDimsPerLane; ++i) {
@@ -124,13 +160,43 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 }
 
 template <typename TQ, typename TKV>
-void launch_flash_decode(const void* q, const void* k, const void* v, const int32_t* index,
-                         void* out, int B, int S, int KV, int rep, int hd, float scale,
-                         cudaStream_t stream) {
-  const dim3 grid(KV, B);
-  flash_decode_kernel<TQ, TKV><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), index,
-      static_cast<TQ*>(out), S, KV, rep, hd, scale);
+__global__ void __launch_bounds__(kWarps * 32)
+flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                    const TKV* __restrict__ v, const int32_t* __restrict__ index,
+                    TQ* __restrict__ out, int S, int KV, int rep, int hd, float scale) {
+  attend_rows(q, k, v, index, out, ContiguousRows{S, KV, hd}, S, KV, rep, hd, scale);
+}
+
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_decode_paged_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                          const TKV* __restrict__ v, const int32_t* __restrict__ bt,
+                          const int32_t* __restrict__ index, TQ* __restrict__ out, int nb,
+                          int ps, int n_arena, int KV, int rep, int hd, float scale) {
+  attend_rows(q, k, v, index, out, PagedRows{bt, nb, ps, n_arena, KV, hd}, nb * ps, KV, rep,
+              hd, scale);
+}
+
+// Launches the (TQ, TKV) instance that q_dtype and kv_dtype name; false if
+// the pair is not one the kernels take.
+template <typename Launch>
+bool dispatch_dtypes(int q_dtype, int kv_dtype, Launch&& launch) {
+  if (q_dtype == kReproF32 && kv_dtype == kReproF32) {
+    launch(float{}, float{});
+  } else if (q_dtype == kReproF32 && kv_dtype == kReproBF16) {
+    launch(float{}, __nv_bfloat16{});
+  } else if (q_dtype == kReproBF16 && kv_dtype == kReproBF16) {
+    launch(__nv_bfloat16{}, __nv_bfloat16{});
+  } else if (q_dtype == kReproBF16 && kv_dtype == kReproF32) {
+    launch(__nv_bfloat16{}, float{});
+  } else {
+    return false;
+  }
+  return true;
+}
+
+bool bad_shape(int rep, int hd) {
+  return rep < 1 || rep > kMaxRep || hd < 1 || hd > 32 * kMaxDimsPerLane;
 }
 
 }  // namespace
@@ -138,22 +204,38 @@ void launch_flash_decode(const void* q, const void* k, const void* v, const int3
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, const void* index,
                                   void* out, int B, int S, int KV, int rep, int hd,
                                   float scale, int q_dtype, int kv_dtype, void* stream) {
-  if (rep < 1 || rep > kMaxRep || hd < 1 || hd > 32 * kMaxDimsPerLane) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_shape(rep, hd)) return static_cast<int>(cudaErrorInvalidValue);
   const auto* idx = static_cast<const int32_t*>(index);
   auto st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kReproF32 && kv_dtype == kReproF32) {
-    launch_flash_decode<float, float>(q, k, v, idx, out, B, S, KV, rep, hd, scale, st);
-  } else if (q_dtype == kReproF32 && kv_dtype == kReproBF16) {
-    launch_flash_decode<float, __nv_bfloat16>(q, k, v, idx, out, B, S, KV, rep, hd, scale, st);
-  } else if (q_dtype == kReproBF16 && kv_dtype == kReproBF16) {
-    launch_flash_decode<__nv_bfloat16, __nv_bfloat16>(q, k, v, idx, out, B, S, KV, rep, hd,
-                                                      scale, st);
-  } else if (q_dtype == kReproBF16 && kv_dtype == kReproF32) {
-    launch_flash_decode<__nv_bfloat16, float>(q, k, v, idx, out, B, S, KV, rep, hd, scale, st);
-  } else {
+  const bool ok = dispatch_dtypes(q_dtype, kv_dtype, [&](auto tq, auto tkv) {
+    using TQ = decltype(tq);
+    using TKV = decltype(tkv);
+    flash_decode_kernel<TQ, TKV><<<dim3(KV, B), kWarps * 32, 0, st>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), idx,
+        static_cast<TQ*>(out), S, KV, rep, hd, scale);
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_flash_decode_paged(const void* q, const void* k, const void* v,
+                                        const void* block_tables, const void* index, void* out,
+                                        int B, int nb, int ps, int n_arena, int KV, int rep,
+                                        int hd, float scale, int q_dtype, int kv_dtype,
+                                        void* stream) {
+  if (bad_shape(rep, hd) || nb < 1 || ps < 1 || n_arena < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto* bt = static_cast<const int32_t*>(block_tables);
+  const auto* idx = static_cast<const int32_t*>(index);
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool ok = dispatch_dtypes(q_dtype, kv_dtype, [&](auto tq, auto tkv) {
+    using TQ = decltype(tq);
+    using TKV = decltype(tkv);
+    flash_decode_paged_kernel<TQ, TKV><<<dim3(KV, B), kWarps * 32, 0, st>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), bt,
+        idx, static_cast<TQ*>(out), nb, ps, n_arena, KV, rep, hd, scale);
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

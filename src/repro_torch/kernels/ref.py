@@ -79,6 +79,27 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhs,bshd->bhd", p, ve).to(q.dtype)
 
 
+def flash_decode_paged_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, block_tables: torch.Tensor,
+                           index: torch.Tensor) -> torch.Tensor:
+    """Single-token decode attention over a paged cache (the reference's
+    non-flash paged read, ``models/attention.py:235-239``).
+
+    q: (B, H, hd); k, v: page arena (n_pages + 1, page_size, KV, hd);
+    block_tables: (B, n_blocks) int; index: (B,). Gathers each row's pages
+    into a contiguous (B, n_blocks * page_size, KV, hd) view, masks
+    positions > index[b] and takes the softmax in f32; returns (B, H, hd)
+    in q's dtype.
+    """
+    b = q.shape[0]
+    ps = k.shape[1]
+    nb = block_tables.shape[1]
+    bt = block_tables.long()
+    gk = k[bt].reshape((b, nb * ps) + tuple(k.shape[2:]))
+    gv = v[bt].reshape((b, nb * ps) + tuple(v.shape[2:]))
+    return flash_decode_ref(q, gk, gv, index)
+
+
 def activation(name: str):
     """The expert FFN's activation in f32: silu, or GELU in the tanh
     approximation (``jax.nn.gelu``'s default)."""

@@ -1,14 +1,31 @@
-"""Serving CLI, one-shot batched decode (port of the one-shot mode of
-``repro/launch/serve.py``).
+"""Serving CLI: one-shot batched decode (greedy, sampled or beam search)
+or a continuous-batching loop over a slot pool or a paged KV cache (port
+of ``repro/launch/serve.py``).
+
+One-shot:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zcode-m3-base \
       --batch 8 --prompt-len 32 --max-new 32 --eos -1 \
       --backend cuda --flash-decode
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zcode-m3-base \
+      --backend cuda --flash-decode --beam 4          # beam search
+
+The first ``generate`` call builds the kernels and warms the allocator;
+``TIMED_ROUNDS`` rounds after it are timed by ``time_generate``.
+
+Continuous batching (``serve/scheduler.py``): ``--trace N`` synthesizes N
+requests with Poisson arrivals (``--rate`` requests/s), prompt lengths
+uniform over [2, largest bucket] and token budgets uniform over [2,
+--max-new], serves them through the ``ContinuousScheduler`` (or, with
+``--paged``, the ``PagedScheduler``) twice, and reports the second
+replay's throughput, TTFT and per-token latency percentiles, the
+scheduler's counters and, paged, the page arena's:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zcode-m3-base \
+      --trace 32 --slots 8 --paged --backend cuda --flash-decode --eos -1
 
 Runs on the GPU unless ``--device cpu`` is given, and fails without one.
 Parameters, prompts and sampling draw from distinct streams of ``--seed``.
-The first ``generate`` call builds the kernels and warms the allocator;
-``TIMED_ROUNDS`` rounds after it are timed by ``time_generate``.
 """
 from __future__ import annotations
 
@@ -18,11 +35,15 @@ import json
 import statistics
 import time
 
+import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import PagedKVConfig, get_config, reduced
 from repro_torch.models import init_model
-from repro_torch.serve import GenerateConfig, generate
+from repro_torch.obs import MetricsRegistry, monotonic
+from repro_torch.serve import (ContinuousScheduler, GenerateConfig,
+                               PagedScheduler, Request, generate,
+                               paged_kv_bytes)
 
 SRC_TOKENS = 32   # source sentence length of the synthetic MT batch
 TIMED_ROUNDS = 5  # host-clock rounds behind each reported median
@@ -93,6 +114,98 @@ def spread(values) -> str:
     return f"[{min(values):.2f}, {max(values):.2f}]"
 
 
+def synth_trace(cfg, seed: int, n: int, rate: float, buckets, max_new: int):
+    """Synthetic request trace drawn from ``np.random.RandomState(seed)``:
+    Poisson arrivals (exponential gaps at ``rate`` requests/s, the first at
+    t = 0), prompt lengths uniform over [2, max bucket], token budgets
+    uniform over [2, max_new], tokens uniform over [3, vocab) and, for the
+    encoder-decoder, SRC_TOKENS source tokens per request."""
+    rs = np.random.RandomState(seed)
+    gaps = rs.exponential(1.0 / rate, size=n)
+    arrivals = np.cumsum(gaps) - gaps[0]
+    reqs = []
+    for i in range(n):
+        plen = int(rs.randint(2, buckets[-1] + 1))
+        budget = int(rs.randint(2, max_new + 1))
+        toks = rs.randint(3, cfg.vocab, size=plen).astype(np.int64)
+        extras = {}
+        if cfg.encdec is not None:
+            extras["enc_tokens"] = rs.randint(3, cfg.vocab,
+                                              size=SRC_TOKENS).astype(np.int64)
+        reqs.append(Request(rid=i, tokens=toks, extras=extras, max_new=budget,
+                            arrival=float(arrivals[i])))
+    return reqs
+
+
+def trace_cache_section(sched: PagedScheduler) -> dict:
+    """Page-arena occupancy of a --paged trace: what the arena held
+    against what it pins."""
+    lay = sched.layout
+    return {
+        "page_size": lay.page_size,
+        "n_pages": lay.n_pages,
+        "n_blocks": lay.n_blocks,
+        "peak_pages_in_use": sched.stats["peak_pages_in_use"],
+        "peak_kv_bytes": int(sched.stats["peak_pages_in_use"] * sched.page_bytes),
+        "arena_kv_bytes": (int(paged_kv_bytes(sched.pool, sched.cfg))
+                           if sched.pool is not None else 0),
+        "prefix_hit_rate": (sched.stats["prefix_hits"]
+                            / max(sched.stats["prefix_lookups"], 1)),
+        "prefix_hits": sched.stats["prefix_hits"],
+        "cow_copies": sched.stats["cow_copies"],
+        "preemptions": sched.stats["preemptions"],
+        "swap_ins": sched.stats["swap_ins"],
+        "mean_alive_slots": (float(np.mean(sched.alive_log))
+                             if sched.alive_log else 0.0),
+    }
+
+
+def run_trace(args, cfg, params, gen, device) -> dict:
+    """Serve ``--trace`` requests through a scheduler, twice: the first
+    replay builds the kernels and warms the allocator, the second, on a
+    fresh scheduler, is reported. One JSON record."""
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    reqs = synth_trace(cfg, 3 * args.seed + 1, args.trace, args.rate, buckets,
+                       gen.max_new)
+    for _ in range(2):
+        reg = MetricsRegistry()
+        kw = dict(n_slots=args.slots, prefill_buckets=buckets,
+                  admit_width=args.admit_width, seed=3 * args.seed + 2,
+                  registry=reg)
+        if args.paged:
+            paged = PagedKVConfig(page_size=args.page_size, n_pages=args.pages,
+                                  prefix_caching=not args.no_prefix_cache)
+            sched = PagedScheduler(params, cfg, gen, paged=paged, **kw)
+        else:
+            sched = ContinuousScheduler(params, cfg, gen, **kw)
+        t0 = monotonic()
+        results = sched.run([dataclasses.replace(r) for r in reqs])
+        _sync(device)
+        wall = monotonic() - t0
+    n_tok = int(sum(r.length for r in results))
+    rec = {
+        "mode": "paged" if args.paged else "continuous",
+        "arch": cfg.arch_id,
+        "device": str(device),
+        "n_requests": len(results),
+        "n_tokens": n_tok,
+        "wall_s": wall,
+        "tok_s": n_tok / wall,
+        "req_s": len(results) / wall,
+        "ttft_s": reg.histogram("serve/ttft_s").percentiles((50, 90, 99)),
+        "per_token_latency_s": reg.histogram(
+            "serve/per_token_latency_s").percentiles((50, 90, 99)),
+        "scheduler": dict(sched.stats),
+        "slots": args.slots,
+        "buckets": list(buckets),
+        "local_routing": gen.local_routing,
+        "tokens": {r.rid: r.tokens.tolist() for r in results},
+    }
+    if args.paged:
+        rec["cache"] = trace_cache_section(sched)
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="zcode-m3-base")
@@ -107,6 +220,8 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0,
                     help="sampling pool size (0 = full vocab)")
+    ap.add_argument("--beam", type=int, default=1,
+                    help=">1 = beam search (overrides sampling)")
     ap.add_argument("--backend", default=None, choices=[None, "oracle", "cuda"],
                     help="MoE execution backend (cuda = the kernel pipeline)")
     ap.add_argument("--flash-decode", action="store_true",
@@ -114,6 +229,26 @@ def main(argv=None):
     ap.add_argument("--local-routing", action="store_true",
                     help="Gate-Drop local routing at decode")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    # continuous batching
+    ap.add_argument("--trace", type=int, default=0,
+                    help="N>0: serve N synthetic Poisson-arrival requests "
+                         "through the continuous-batching scheduler")
+    ap.add_argument("--rate", type=float, default=100.0,
+                    help="trace arrival rate, requests/s")
+    ap.add_argument("--slots", type=int, default=8, help="decode slots")
+    ap.add_argument("--admit-width", type=int, default=None,
+                    help="admission group width (default min(4, slots))")
+    ap.add_argument("--buckets", default="8,16,32,64",
+                    help="prefill length buckets, comma-separated")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve --trace through the paged-KV scheduler")
+    ap.add_argument("--page-size", type=int, default=PagedKVConfig.page_size,
+                    help="KV page size in tokens (--paged)")
+    ap.add_argument("--pages", type=int, default=PagedKVConfig.n_pages,
+                    help="physical page count (0 = n_slots_equiv full-length "
+                         "requests' worth, --paged)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable shared-prefix page caching (--paged)")
     ap.add_argument("--json-out", default=None, help="write metrics JSON here")
     args = ap.parse_args(argv)
 
@@ -128,10 +263,33 @@ def main(argv=None):
     batch = synth_batch(cfg, generator(device, args.seed, 1), args.batch,
                         args.prompt_len)
     gen = GenerateConfig(max_new=args.max_new, temperature=args.temperature,
-                         top_k=args.top_k, eos_id=args.eos,
+                         top_k=args.top_k, beam_width=args.beam, eos_id=args.eos,
                          local_routing=args.local_routing,
                          flash_decode=args.flash_decode)
     sample_seed = 3 * args.seed + 2
+
+    if args.trace > 0:
+        rec = run_trace(args, cfg, params, gen, device)
+        print(f"arch={rec['arch']} device={device} {rec['mode']}: served "
+              f"{rec['n_requests']} requests, {rec['n_tokens']} tokens in "
+              f"{rec['wall_s']:.2f} s ({rec['tok_s']:.0f} tok/s)")
+        print("TTFT p50/p90/p99: "
+              + "/".join(f"{rec['ttft_s'][p] * 1e3:.1f}" for p in (50, 90, 99))
+              + " ms; per-token latency p50/p90/p99: "
+              + "/".join(f"{rec['per_token_latency_s'][p] * 1e3:.2f}"
+                         for p in (50, 90, 99)) + " ms")
+        print("scheduler:", rec["scheduler"])
+        if "cache" in rec:
+            k = rec["cache"]
+            print(f"cache[paged {k['page_size']}tok]: peak "
+                  f"{k['peak_pages_in_use']}/{k['n_pages']} pages "
+                  f"({k['peak_kv_bytes'] / 2**20:.2f} MiB KV), prefix hit rate "
+                  f"{k['prefix_hit_rate']:.2f}, {k['cow_copies']} COW, "
+                  f"{k['preemptions']} preemptions")
+        if args.json_out:
+            with open(args.json_out, "w") as f:
+                json.dump(rec, f, indent=1)
+        return
 
     t0 = time.perf_counter()
     generate(params, batch, cfg, gen, seed=sample_seed)
@@ -140,7 +298,7 @@ def main(argv=None):
     med, rounds, res = time_generate(params, batch, cfg, gen, seed=sample_seed)
     n_tok = int(res.lengths.sum())
     print(f"arch={cfg.arch_id} device={device} batch={args.batch} "
-          f"prompt={args.prompt_len} new={args.max_new}")
+          f"prompt={args.prompt_len} new={args.max_new} beam={args.beam}")
     print(f"first (build + warm-up): {t_first:.2f} s; median of {TIMED_ROUNDS}: "
           f"prefill {med['prefill_ms']:.2f} ms {spread(rounds['prefill_ms'])}, "
           f"decode {med['decode_ms_per_step']:.2f} ms/step "
@@ -150,6 +308,7 @@ def main(argv=None):
     print("sample:", res.tokens[0][:16].tolist())
     if args.json_out:
         rec = {"mode": "oneshot", "arch": cfg.arch_id, "device": str(device),
+               "beam": args.beam, "scores": res.scores.tolist(),
                "n_tokens": n_tok, "wall_s": med["total_ms"] / 1e3,
                "tok_s": med["tok_s"], "first_s": t_first, "steps": res.steps,
                "median": med, "rounds": rounds, "tokens": res.tokens.tolist()}

@@ -1,13 +1,15 @@
 """Attention: GQA with RoPE, full (quadratic) attention, decode against a
-full KV cache, cross-attention (port of ``repro/models/attention.py``).
+full or paged KV cache, cross-attention (port of
+``repro/models/attention.py``).
 
 Shapes: q (B, Lq, H, hd); k, v (B, Lk, KV, hd) with H % KV == 0.
 
 Prefill attention stays plain torch: the reference's prefill attention is
 not a TPU kernel either (its blocked path in ``models/flash.py`` is plain
 JAX, taken only past 2048 keys, beyond these archs' ``max_seq``). The
-decode read goes through the flash-decode kernel when ``flash=True``.
-Sliding-window ring caches and the paged cache come with later slices.
+decode read goes through a flash-decode kernel when ``flash=True``: B5 on
+a contiguous cache, B6 on a paged one. Sliding-window ring caches come
+with the families that use them (zcode has no window).
 """
 from __future__ import annotations
 
@@ -108,8 +110,9 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 
 
 def decode_self_attention(p: Params, x: torch.Tensor, cache: Params,
-                          cfg: ModelConfig, index, *,
-                          flash: bool = False) -> Tuple[torch.Tensor, Params]:
+                          cfg: ModelConfig, index, *, flash: bool = False,
+                          block_tables: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, Params]:
     """One-token decode against a full cache. x: (B, 1, d); ``index`` is
     the absolute position of the new token: an int (every row at one
     position) or a (B,) tensor (slot-pool decode, each row at its own).
@@ -118,7 +121,17 @@ def decode_self_attention(p: Params, x: torch.Tensor, cache: Params,
     returns an updated copy; writing in place spares a cache copy per
     step), and the same dict is returned. ``flash=True`` reads the cache
     through the flash-decode kernel; its ``pos <= index`` mask is the same
-    predicate as the plain path's ``kv_valid``."""
+    predicate as the plain path's ``kv_valid``.
+
+    ``block_tables`` (B, n_blocks) int32 switches to PAGED addressing:
+    ``cache["k"]``/``["v"]`` are then a page arena (n_pages + 1, page_size,
+    KV, hd) shared by all rows, and row b's position p lives at arena
+    ``[block_tables[b, p // page_size], p % page_size]``. The new row is
+    written through the table, then read through B6 (``flash=True``) or by
+    gathering the row's pages into a contiguous (B, n_blocks * page_size,
+    KV, hd) view under the same ``pos <= index`` mask, so positions past
+    ``index`` (unwritten tail, the scratch page, another owner's bytes)
+    get zero probability. Requires a per-row ``index``."""
     b = x.shape[0]
     q, k, v = attn_qkv(p, x)
     per_row = torch.is_tensor(index) and index.dim() == 1
@@ -127,6 +140,25 @@ def decode_self_attention(p: Params, x: torch.Tensor, cache: Params,
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
+    if block_tables is not None:
+        if not per_row:
+            raise ValueError("paged decode requires per-row positions")
+        ps, nb = ck.shape[1], block_tables.shape[1]
+        page = block_tables.gather(1, (index // ps).long()[:, None])[:, 0].long()
+        off = index % ps
+        ck[page, off] = k[:, 0].to(ck.dtype)
+        cv[page, off] = v[:, 0].to(cv.dtype)
+        if flash:
+            o = FD.flash_decode_paged(q[:, 0].contiguous(), ck, cv,
+                                      block_tables, index)[:, None]
+        else:
+            bt = block_tables.long()
+            gk = ck[bt].reshape((b, nb * ps) + tuple(ck.shape[2:]))
+            gv = cv[bt].reshape((b, nb * ps) + tuple(cv.shape[2:]))
+            valid = (torch.arange(nb * ps, device=x.device)[None, :]
+                     <= index[:, None])
+            o = full_attention(q, gk, gv, causal=False, kv_valid=valid)
+        return attn_out(p, o, x.dtype), cache
     s = ck.shape[1]
     if per_row:
         rows = torch.arange(b, device=x.device)

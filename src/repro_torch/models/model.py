@@ -106,11 +106,14 @@ def model_apply(params: Params, batch: Dict, cfg: ModelConfig, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device=None) -> List[Params]:
-    """Zero decode cache; ``device="meta"`` gives shapes without memory."""
+               device=None, n_cross: Optional[int] = None) -> List[Params]:
+    """Zero decode cache; ``device="meta"`` gives shapes without memory.
+    ``n_cross`` is the source length of the cross-attention K/V (default
+    the config's ``encoder_seq``)."""
     dtype = dtype or cfg.torch_dtype
     return T.init_stack_cache(T.layer_plan(cfg), cfg, batch, max_seq,
-                              cfg.encdec.encoder_seq, dtype, device)
+                              n_cross or cfg.encdec.encoder_seq, dtype,
+                              device)
 
 
 def prefill(params: Params, batch: Dict, cfg: ModelConfig, *,
@@ -145,14 +148,18 @@ def decode_step(params: Params, caches: List[Params], token: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 local_routing: bool = False,
                 token_valid: Optional[torch.Tensor] = None,
-                flash_decode: bool = False
+                flash_decode: bool = False,
+                block_tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Params]]:
     """token: (B, 1); index: absolute position of this token — an int, or a
     (B,) tensor where every row sits at its own position. Gating Dropout is
     off at inference, but ``local_routing=True`` reuses its local routing
     path as the decision. ``token_valid`` (B,) keeps rows out of expert
     capacity. ``flash_decode=True`` reads attention caches through the
-    flash-decode kernel. ``caches`` are updated in place and returned."""
+    flash-decode kernels. ``block_tables`` (B, n_blocks) int32 reads and
+    writes the self-attention caches as page arenas (``serve/paged.py``);
+    it needs a (B,) ``index``. ``caches`` are updated in place and
+    returned."""
     x = L.embed_apply(params["embed"], token).to(cfg.torch_dtype)
     if token_valid is not None and token_valid.dim() == 1:
         token_valid = token_valid[:, None]            # (B,) -> (B, L=1)
@@ -162,6 +169,7 @@ def decode_step(params: Params, caches: List[Params], token: torch.Tensor,
                                  decision=bool(local_routing),
                                  is_training=False, token_ids=token,
                                  token_valid=token_valid,
-                                 flash_decode=flash_decode)
+                                 flash_decode=flash_decode,
+                                 block_tables=block_tables)
     x = L.norm_apply(params["final_norm"], x, cfg)
     return _logits(params, x, cfg), caches

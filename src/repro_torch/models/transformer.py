@@ -181,16 +181,19 @@ def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
                  index, generator, decision, is_training: bool,
                  cross_src: Optional[torch.Tensor], token_ids,
                  token_valid=None, flash_decode: bool = False,
-                 max_seq: int = 0, cache_dtype=None
+                 block_tables=None, max_seq: int = 0, cache_dtype=None
                  ) -> Tuple[torch.Tensor, Optional[Params], Dict]:
-    """One transformer layer. Returns (x, new_cache, aux)."""
+    """One transformer layer. Returns (x, new_cache, aux). ``block_tables``
+    (decode only) addresses the self-attention cache as a page arena; the
+    cross-attention K/V stay slot-addressed."""
     new_cache: Params = {}
     l = x.shape[1]
     # ---- self-attention ----
     h = L.norm_apply(p["ln1"], x, cfg)
     if mode == "decode":
         o, new_cache["attn"] = A.decode_self_attention(
-            p["attn"], h, cache["attn"], cfg, index, flash=flash_decode)
+            p["attn"], h, cache["attn"], cfg, index, flash=flash_decode,
+            block_tables=block_tables)
     else:
         q, k, v = A.attn_qkv(p["attn"], h)
         pos = torch.arange(l, device=x.device)
@@ -267,11 +270,14 @@ def apply_stack(params: List[Params], segs: List[Segment], x: torch.Tensor,
                 caches: Optional[List[Params]] = None, index=None,
                 generator=None, decision=None, is_training=True,
                 cross_src=None, token_ids=None, token_valid=None,
-                flash_decode=False, max_seq: int = 0, cache_dtype=None):
+                flash_decode=False, block_tables=None, max_seq: int = 0,
+                cache_dtype=None):
     """Run all segments. Returns (x, caches, aux_sum).
 
     prefill builds new caches (stacked over each segment's repeats);
-    decode updates ``caches`` in place and returns them."""
+    decode updates ``caches`` in place and returns them, reading the
+    self-attention caches through ``block_tables`` when given (paged
+    decode)."""
     new_caches: List[Params] = []
     aux_total = None
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -290,7 +296,8 @@ def apply_stack(params: List[Params], segs: List[Segment], x: torch.Tensor,
                     decision=decision, is_training=is_training,
                     cross_src=cross_src, token_ids=token_ids,
                     token_valid=token_valid, flash_decode=flash_decode,
-                    max_seq=max_seq, cache_dtype=cache_dtype)
+                    block_tables=block_tables, max_seq=max_seq,
+                    cache_dtype=cache_dtype)
                 layer += 1
                 if remat:
                     x, nc, aux = checkpoint(fn, lp, x, use_reentrant=False,

@@ -287,6 +287,18 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError):
         flash_decode.flash_decode(torch.randn(1, 3, 8), torch.randn(1, 4, 2, 8),
                                   torch.randn(1, 4, 2, 8), 0)   # 3 % 2 heads
+    arena = torch.randn(5, 4, 2, 8)
+    bt = torch.zeros(2, 3, dtype=torch.int32)
+    with pytest.raises(TypeError):                              # int64 tables
+        flash_decode.flash_decode_paged(torch.randn(2, 4, 8), arena, arena,
+                                        bt.long(), torch.zeros(2, dtype=torch.long))
+    with pytest.raises(ValueError):                             # index per row
+        flash_decode.flash_decode_paged(torch.randn(2, 4, 8), arena, arena, bt,
+                                        torch.zeros(3, dtype=torch.long))
+    with pytest.raises(ValueError):                             # non-contiguous
+        flash_decode.flash_decode_paged(torch.randn(2, 4, 8), arena, arena,
+                                        torch.zeros(3, 2, dtype=torch.int32).t(),
+                                        torch.zeros(2, dtype=torch.long))
     # no silent fallback: a tensor that is neither on the CPU nor on a card
     # has no kernel and no plain path
     with pytest.raises(ValueError, match="no kernel"):
@@ -303,7 +315,7 @@ def test_cpu_path_never_launches_or_builds():
     assert launch_counts() == {"dispatch": 0, "combine": 0,
                                "grouped_matmul": 0, "grouped_matmul_dx": 0,
                                "grouped_matmul_dw": 0, "fused_moe": 0,
-                               "flash_decode": 0}
+                               "flash_decode": 0, "flash_decode_paged": 0}
     assert build._lib is None
     assert {p.name for p in build.sources()} == {
         "moe_dispatch.cu", "grouped_ffn.cu", "flash_decode.cu", "errors.cu",

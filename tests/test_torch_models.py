@@ -235,9 +235,11 @@ def test_port_imports_no_jax_and_no_reference():
         "        'repro_torch.training.steps', 'repro_torch.training.loop',\n"
         "        'repro_torch.data.pipeline', 'repro_torch.data.prefetch',\n"
         "        'repro_torch.checkpoint.checkpoint', 'repro_torch.launch.train',\n"
-        "        'repro_torch.kernels.moe_megakernel'}\n"
+        "        'repro_torch.kernels.moe_megakernel', 'repro_torch.serve.paged',\n"
+        "        'repro_torch.serve.scheduler', 'repro_torch.obs.registry',\n"
+        "        'repro_torch.obs.trace', 'repro_torch.kernels.flash_decode'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
-        "assert len(mods) >= 33, mods\n"
+        "assert len(mods) >= 43, mods\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
