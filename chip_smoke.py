@@ -208,10 +208,12 @@ def work(name: str, args):
         q, k, v, bt, idx = args
         b, h, hd = q.shape
         ps, kv = k.shape[1], k.shape[2]
-        # the live pages of each row: blocks 0 .. index // ps
-        pages = int((idx.long() // ps + 1).sum())
-        live = int((idx.long() + 1).sum())
-        nbytes = (2 * q.numel() * q.element_size() + 2 * pages * ps * kv * hd * k.element_size()
+        # row b reads positions 0 .. min(index, nb * ps - 1): their K/V rows
+        # and the table entries of the blocks that hold them
+        last = idx.long().reshape(-1).expand(b).clamp(max=bt.shape[1] * ps - 1)
+        live = int((last + 1).sum())
+        pages = int((last // ps + 1).sum())
+        nbytes = (2 * q.numel() * q.element_size() + 2 * live * kv * hd * k.element_size()
                   + 4 * pages + 4 * b)
         return nbytes, 4.0 * live * h * hd, "float32"
     raise KeyError(name)
@@ -1208,8 +1210,8 @@ def b6_checks(main_calls, dev):
 
 
 def b6_timing(args, dev):
-    """B6 at the main path's decode inputs: device ms against the live
-    pages' bytes over HBM's rate, the plain version, and the library's
+    """B6 at the main path's decode inputs: device ms against the bytes of
+    the live positions over HBM's rate, the plain version, and the library's
     index_select of the pages + SDPA (two calls)."""
     from repro_torch.kernels import flash_decode as FD
     q, k, v, bt, idx = args
@@ -1229,8 +1231,8 @@ def b6_timing(args, dev):
              plain_ms=device_ms(lambda: plain_of("flash_decode_paged")(*args)),
              bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library),
              shape=" x ".join(str(tuple(a.shape)) for a in args))
-    log(f"time flash_decode_paged@decode [{t['shape']}, {int((idx.long() // ps + 1).sum())} "
-        f"live pages]: kernel {t['ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by}), plain "
+    log(f"time flash_decode_paged@decode [{t['shape']}, {int((idx.long() + 1).sum())} "
+        f"live positions, {nbytes} bytes]: kernel {t['ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by}), plain "
         f"{t['plain_ms']:.6f} ms, library (index_select + SDPA, two calls) "
         f"{t['library_ms']:.6f} ms")
     return t

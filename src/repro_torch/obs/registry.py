@@ -1,16 +1,16 @@
 """Serving metrics registry (the parts of ``repro/obs/registry.py`` the
 schedulers use): histograms with NaN-safe percentiles, and series.
 
-One registry backs the serving metrics of a scheduler: its ``tick_log``
-and ``alive_log`` are views over two ``Series``, and TTFT and per-token
-latency land in ``Histogram``s at retire time. Everything here is host
+One registry backs the serving metrics of a scheduler: its ``alive_log``
+is a view over a ``Series``, and TTFT and per-token latency land in
+``Histogram``s at retire time. Everything here is host
 work: observing a metric never touches a device. Counters, gauges,
 snapshots and the Prometheus and JSON exports come with
 ``--metrics-out``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List
 
 import numpy as np
 
@@ -41,26 +41,20 @@ class Histogram:
 
 
 class Series:
-    """Ordered (label, value) pairs. ``items`` and ``values`` return the
-    live backing lists, so views over them stay exact aliases."""
+    """Ordered values. ``values`` returns the live backing list, so views
+    over it stay exact aliases."""
 
     kind = "series"
 
     def __init__(self, name: str, help: str = ""):
         self.name, self.help = name, help
-        self._items: List[Tuple[Optional[str], float]] = []
         self._values: List[float] = []
 
-    def append(self, value: float, label: Optional[str] = None) -> None:
-        self._items.append((label, value))
+    def append(self, value: float) -> None:
         self._values.append(value)
 
     def __len__(self) -> int:
-        return len(self._items)
-
-    @property
-    def items(self) -> List[Tuple[Optional[str], float]]:
-        return self._items
+        return len(self._values)
 
     @property
     def values(self) -> List[float]:

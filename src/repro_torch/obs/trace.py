@@ -1,19 +1,18 @@
 """Host-side span tracer (the parts of ``repro/obs/trace.py`` the
-schedulers use): one monotonic clock, nested spans and instant events
+schedulers use): one monotonic clock and nested spans whose durations are
 recorded in host memory.
 
 ``monotonic()`` (``time.perf_counter``) is the one clock of the port's
 serving loop: arrivals, admission, first-token and finish times and span
 durations all read it. A disabled tracer's ``span`` returns a shared
 no-op context manager after one attribute check. Recording touches only
-the clock and a list append, never a device; span arguments must be host
-scalars. The Chrome-trace export comes with ``--trace-out``.
+the clock and a list append, never a device. Span arguments, instant
+events and the Chrome-trace export come with ``--trace-out``.
 """
 from __future__ import annotations
 
-import threading
 import time
-from typing import Any, Dict, List, Tuple
+from typing import List, Tuple
 
 __all__ = ["Tracer", "get_tracer", "monotonic"]
 
@@ -38,56 +37,37 @@ _NULL = _NullCtx()
 
 
 class _Span:
-    """One open span; records a complete ('X') event on exit."""
-    __slots__ = ("_tr", "_name", "_args", "_t0")
+    """One open span; records its name and duration on exit."""
+    __slots__ = ("_tr", "_name", "_t0")
 
-    def __init__(self, tr: "Tracer", name: str, args: Dict[str, Any]):
-        self._tr, self._name, self._args = tr, name, args
+    def __init__(self, tr: "Tracer", name: str):
+        self._tr, self._name = tr, name
 
     def __enter__(self) -> "_Span":
         self._t0 = monotonic()
         return self
 
     def __exit__(self, *exc) -> bool:
-        t1 = monotonic()
-        self._tr._record("X", self._name, self._t0, t1 - self._t0, self._args)
+        self._tr._spans.append((self._name, monotonic() - self._t0))
         return False
 
 
 class Tracer:
-    """Nested spans ('X' events) and instants ('i') on the monotonic
-    clock, each tagged with its recording thread."""
+    """Nested spans on the monotonic clock."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
-        self._events: List[Tuple[str, str, float, float, int,
-                                 Dict[str, Any]]] = []
+        self._spans: List[Tuple[str, float]] = []
 
-    def _record(self, ph: str, name: str, ts: float, dur: float,
-                args: Dict[str, Any]) -> None:
-        self._events.append((ph, name, ts, dur, threading.get_ident(), args))
-
-    def span(self, name: str, **args):
+    def span(self, name: str):
         """Context manager timing the enclosed block."""
         if not self.enabled:
             return _NULL
-        return _Span(self, name, args)
-
-    def instant(self, name: str, **args) -> None:
-        if not self.enabled:
-            return
-        self._record("i", name, monotonic(), 0.0, args)
-
-    @property
-    def events(self) -> List[Tuple[str, str, float, float, int,
-                                   Dict[str, Any]]]:
-        """(ph, name, t_start, dur, tid, args) tuples in record order,
-        seconds on the monotonic clock."""
-        return list(self._events)
+        return _Span(self, name)
 
     def durations(self, name: str) -> List[float]:
         """Seconds of every completed span called ``name``."""
-        return [e[3] for e in self._events if e[0] == "X" and e[1] == name]
+        return [dur for n, dur in self._spans if n == name]
 
 
 _GLOBAL = Tracer(enabled=False)

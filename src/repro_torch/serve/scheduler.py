@@ -161,9 +161,6 @@ class ContinuousScheduler:
         # one registry backs every serving metric of this scheduler
         self.metrics = registry if registry is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else get_tracer()
-        # (kind, tokens) per executed device call, in order
-        self._ticks = self.metrics.series(
-            "serve/tick_log", "device calls: label=kind, value=tokens")
         # live-slot count per decode tick
         self._alive_series = self.metrics.series(
             "serve/alive_log", "live slots per decode tick")
@@ -175,10 +172,6 @@ class ContinuousScheduler:
         # clock state so the tick API (submit + step) works without run()
         self._t0 = monotonic()
         self._skip = 0.0
-
-    @property
-    def tick_log(self) -> List[Tuple[str, int]]:
-        return self._ticks.items
 
     @property
     def alive_log(self) -> List[int]:
@@ -250,13 +243,6 @@ class ContinuousScheduler:
         return True
 
     def _admit(self, now: float):
-        if not (self._free and self._queue
-                and self._queue[0].arrival <= now):
-            return
-        with self.tracer.span("sched.admit", queued=len(self._queue)):
-            self._admit_loop(now)
-
-    def _admit_loop(self, now: float):
         while self._free and self._queue \
                 and self._queue[0].arrival <= now:
             # the head of the queue sets the bucket; same-bucket peers in
@@ -356,13 +342,12 @@ class ContinuousScheduler:
                                        first_token_at=t_first)
             self.stats["admitted"] += 1
         self.stats["prefill_calls"] += 1
-        self._ticks.append(W * bucket, label="prefill")
         self.stats["max_concurrent"] = max(
             self.stats["max_concurrent"],
             int(self._active[:self.n_slots].sum()))
 
     def _prefill_group(self, group: List[Request], bucket: int, now: float):
-        with self.tracer.span("sched.prefill", bucket=bucket, group=len(group)):
+        with self.tracer.span("sched.prefill"):
             W, lengths, slots, seeds, host = self._stage_group(group, bucket)
             dev = to_device_packed(dict(host, lengths=lengths, slots=slots),
                                    self.device)
@@ -397,8 +382,7 @@ class ContinuousScheduler:
         alive = self._active & ~self._done
         if not alive[:self.n_slots].any():
             return
-        with self.tracer.span("sched.decode",
-                              alive=int(alive[:self.n_slots].sum())):
+        with self.tracer.span("sched.decode"):
             self._decode_tick_body(alive)
 
     def _decode_tick_body(self, alive):
@@ -421,7 +405,6 @@ class ContinuousScheduler:
             self._done[s] = self._token_done(int(nxt[s]), int(self._ngen[s]),
                                              int(self._budget[s]))
         self.stats["decode_steps"] += 1
-        self._ticks.append(self.n_slots + 1, label="decode")
 
     # -- driving loop -------------------------------------------------------
 
@@ -615,10 +598,6 @@ class PagedScheduler(ContinuousScheduler):
                 shared = list(hit)
                 self.stats["prefix_hits"] += 1
                 self._prefix.hits += 1
-                self.tracer.instant("prefix_cache.hit", rid=req.rid,
-                                    shared_pages=len(shared))
-            else:
-                self.tracer.instant("prefix_cache.miss", rid=req.rid)
         n_fresh = need - len(shared)
         if self._free_capacity() < n_fresh + self.paged.reserve_pages:
             return False                # backpressure
@@ -635,7 +614,7 @@ class PagedScheduler(ContinuousScheduler):
                                n_slots=self.n_slots + 1, layout=self.layout)
 
     def _prefill_group(self, group: List[Request], bucket: int, now: float):
-        with self.tracer.span("sched.prefill", bucket=bucket, group=len(group)):
+        with self.tracer.span("sched.prefill"):
             self._prefill_group_paged(group, bucket, now)
 
     def _prefill_group_paged(self, group: List[Request], bucket: int,
@@ -674,8 +653,7 @@ class PagedScheduler(ContinuousScheduler):
         need = self.layout.pages_for(st.pos)
         if self._free_capacity() < need + self.paged.reserve_pages:
             return False
-        with self.tracer.span("sched.swap_in", rid=req.rid, pages=need):
-            self._swap_in(req, st, need)
+        self._swap_in(req, st, need)
         return True
 
     def _swap_in(self, req: Request, st: _SwapState, need: int):
@@ -727,9 +705,7 @@ class PagedScheduler(ContinuousScheduler):
             self._meta[self._slot_rid[s]]["admitted_at"], s))
 
     def _preempt(self, s: int):
-        rid = self._slot_rid[s]
-        with self.tracer.span("sched.preempt.swap_out", rid=rid, slot=s):
-            self._swap_out(s, rid)
+        self._swap_out(s, self._slot_rid[s])
 
     def _swap_out(self, s: int, rid: int):
         # the victim's own write block may have been copied earlier in this
@@ -779,12 +755,11 @@ class PagedScheduler(ContinuousScheduler):
         w = 1
         while w < len(src):
             w *= 2
-        with self.tracer.span("sched.cow_flush", pairs=len(src), width=w):
-            src = src + [scratch] * (w - len(src))
-            dst = dst + [scratch] * (w - len(dst))
-            dev = to_device_packed({"src": np.asarray(src), "dst": np.asarray(dst)},
-                                   self.device)
-            self.pool = copy_pages(self.pool, self.cfg, dev["src"], dev["dst"])
+        src = src + [scratch] * (w - len(src))
+        dst = dst + [scratch] * (w - len(dst))
+        dev = to_device_packed({"src": np.asarray(src), "dst": np.asarray(dst)},
+                               self.device)
+        self.pool = copy_pages(self.pool, self.cfg, dev["src"], dev["dst"])
 
     def _ensure_writable(self, alive):
         """Pre-decode pass: every live slot's write block must point at a

@@ -27,6 +27,7 @@ from repro.configs import PagedKVConfig as JaxPagedKVConfig  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import reduced as jax_reduced  # noqa: E402
 from repro.models import init_model as jax_init_model  # noqa: E402
+from repro.serve import ContinuousScheduler as JaxContinuousScheduler  # noqa: E402
 from repro.serve import GenerateConfig as JaxGenerateConfig  # noqa: E402
 from repro.serve import PagedScheduler as JaxPagedScheduler  # noqa: E402
 from repro.serve import Request as JaxRequest  # noqa: E402
@@ -177,15 +178,20 @@ def test_scheduler_tokens_equal_oneshot_generate(refs, model):
         np.testing.assert_array_equal(res.tokens[0].numpy(), want[rid])
 
 
+def _same_prompt_spec():
+    """One target prompt under source A, source B, then source A again."""
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(3, 96, size=12).astype(np.int32)
+    srcs = [rng.integers(3, 96, size=32).astype(np.int32) for _ in range(2)]
+    return [(0, prompt, srcs[0], 6), (1, prompt, srcs[1], 6), (2, prompt, srcs[0], 6)]
+
+
 def test_prefix_cache_keys_on_the_source(model):
     """Requests with one target prompt but different sources must not
     share pages (their decoder K/V differ past the first layer); the same
     prompt under the same source does. Paged tokens equal the slot
     pool's either way. (The reference keys on the prompt alone.)"""
-    rng = np.random.default_rng(5)
-    prompt = rng.integers(3, 96, size=12).astype(np.int32)
-    srcs = [rng.integers(3, 96, size=32).astype(np.int32) for _ in range(2)]
-    spec = [(0, prompt, srcs[0], 6), (1, prompt, srcs[1], 6), (2, prompt, srcs[0], 6)]
+    spec = _same_prompt_spec()
     gen_kw, paged_kw = dict(max_new=6, eos_id=-1), dict(page_size=8)
     slot, _ = _port(ContinuousScheduler, model, "cuda", gen_kw, paged_kw, spec,
                     n_slots=1)
@@ -194,6 +200,32 @@ def test_prefix_cache_keys_on_the_source(model):
     assert not np.array_equal(slot[0], slot[1])
     for rid in slot:
         np.testing.assert_array_equal(paged[rid], slot[rid])
+
+
+def test_reference_prefix_cache_ignores_the_source(model):
+    """The fault the source-keyed prefix cache repairs: the reference's
+    paged scheduler keys prefix pages on the target prompt alone, so
+    request 1 (same prompt, other source) decodes against request 0's
+    cached K/V. Its tokens then differ from the reference slot pool's from
+    the second token on, while the port's paged scheduler gives the slot
+    pool's tokens to every request."""
+    jcfg, jp, _ = model
+    spec = _same_prompt_spec()
+    g = JaxGenerateConfig(max_new=6, eos_id=-1)
+    kw = dict(SCHED, n_slots=1)
+    slot = {r.rid: np.asarray(r.tokens) for r in
+            JaxContinuousScheduler(jp, jcfg, g, **kw).run(_reqs(JaxRequest, spec))}
+    ref = JaxPagedScheduler(jp, jcfg, g, paged=JaxPagedKVConfig(page_size=8), **kw)
+    paged = {r.rid: np.asarray(r.tokens) for r in ref.run(_reqs(JaxRequest, spec))}
+    assert ref.stats["prefix_hits"] == 2                 # requests 1 and 2
+    for rid in (0, 2):
+        np.testing.assert_array_equal(paged[rid], slot[rid])
+    assert paged[1][0] == slot[1][0]                     # prefill: own source
+    assert not np.array_equal(paged[1][1:], slot[1][1:])
+    port, _ = _port(PagedScheduler, model, "cuda", dict(max_new=6, eos_id=-1),
+                    dict(page_size=8), spec, n_slots=1)
+    for rid in slot:
+        np.testing.assert_array_equal(port[rid], slot[rid])
 
 
 def test_paged_scheduler_rejects_undersized_arena_and_overflow(model):
