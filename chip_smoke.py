@@ -8,9 +8,10 @@ Phases (any failure exits non-zero):
   2. build    -- compile every kernel of src/repro_torch/kernels/csrc;
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the inputs captured from the main path's first prefill
-                 and first decode step, plus ragged cases; times against
+                 and first decode step, plus ragged cases (B1's variant,
+                 streaming or tiled, asserted per case); times against
                  the bytes/FLOP bound, the plain version and one library
-                 call;
+                 call (B1 against torch.bmm in turns);
   4. slice    -- zcode-m3-base at full width and depth (bf16 activations,
                  f32 params, random weights from a seed) generates for 8
                  requests through the kernel backend with flash decode; the
@@ -27,14 +28,16 @@ Phases (any failure exits non-zero):
                  tokens per step): K f32 steps of cuda_fused, cuda and the
                  plain oracle path from one seeded init, gated against each
                  other (loss, grad norm, balance per step, parameters
-                 after K); B4 and B1's backward kernels against their plain
-                 versions at the inputs captured from the first step, plus
-                 ragged cases, and timed; then both kernel backends in the
-                 model's own dtype (bf16 activations): launch counts per
-                 step asserted (routed, Gate-Drop and Gate-Expert-Drop
-                 steps), step time, tokens/s, peak memory, a CUDA-event
-                 split into forward, backward and Adam, and the device's
-                 busy time from a torch.profiler trace.
+                 after K); B4 and B1's forward and backward kernels against
+                 their plain versions at the inputs captured from the
+                 first step, plus ragged cases, and timed; then both
+                 kernel backends in the model's own dtype (bf16
+                 activations): launch counts per step asserted (routed,
+                 Gate-Drop and Gate-Expert-Drop steps; every B1 forward
+                 and dw launch streaming), step time, tokens/s, peak
+                 memory, a CUDA-event split into forward, backward and
+                 Adam, and the device's busy time from a torch.profiler
+                 trace.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -139,6 +142,13 @@ def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
+def in_turns(kernel, library):
+    """Device ms of ``kernel`` and ``library`` timed in turns (kernel,
+    library, library, kernel), each the mean of its two readings."""
+    k1, l1, l2, k2 = (device_ms(f) for f in (kernel, library, library, kernel))
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -240,6 +250,14 @@ class _Counted:
     @launches.setter
     def launches(self, n):
         self._orig.launches = n
+
+    @property
+    def launches_streaming(self):
+        return self._orig.launches_streaming
+
+    @launches_streaming.setter
+    def launches_streaming(self, n):
+        self._orig.launches_streaming = n
 
 
 class Capture:
@@ -347,6 +365,40 @@ def kernel_of(name):
     return wrappers()[name]
 
 
+B1_STREAMED = ("grouped_matmul", "grouped_matmul_dw")
+# B1 shapes (E, C, d, f) at full width around C = 16, the streaming limit
+B1_FULL_WIDTH = [(4, c, d, f) for c in (4, 8, 9, 16) for d, f in ((512, 2048), (2048, 512))]
+
+
+def b1_variant(args) -> str:
+    """The B1 kernel ``grouped_ffn.variant`` picks for these inputs (the
+    output, a fresh allocation, is aligned)."""
+    from repro_torch.kernels import grouped_ffn
+    a, b = args                  # (x, w) or (x, dy): x is (E, C, d), f is b's last axis
+    _, c, d = a.shape
+    return grouped_ffn.variant(c, d, b.shape[2], a.element_size(), a.data_ptr(),
+                               b.data_ptr())
+
+
+def run_kernel(name, args, kw=None):
+    """Runs kernel ``name`` once. Returns (out, variant): for B1's forward
+    and dw the variant it took by its launch counters, asserted equal to
+    what ``grouped_ffn.variant`` predicts; None for the other kernels."""
+    fn = kernel_of(name)
+    if name not in B1_STREAMED:
+        return fn(*args, **(kw or {})), None
+    before = fn.launches_streaming
+    out = fn(*args)
+    took = "streaming" if fn.launches_streaming > before else "tiled"
+    if took != b1_variant(args):
+        raise AssertionError(f"{name}: took {took}, variant says {b1_variant(args)}")
+    return out, took
+
+
+def b1_case(args, took) -> str:
+    return f"{_dt(args[0])} {tuple(args[0].shape)}x{tuple(args[1].shape)} {took}"
+
+
 def ragged_cases(dev):
     """(name, args, exact) cases off the main path's shapes."""
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -381,8 +433,11 @@ def ragged_cases(dev):
                                   torch.zeros(4, 2, dtype=torch.bool, device=dev)),
                       False))
         # grouped matmul: C = 1, C < 16, C > 16, non-divisible d and f
+        # (tiled); C = 4, 8, 9, 16 at full width, a ragged last stage of d
+        # and a ragged column slab (streaming)
         for e, c, d, f in ((4, 1, 512, 2048), (3, 5, 100, 70), (2, 17, 64, 64),
-                           (2, 100, 130, 200)):
+                           (2, 100, 130, 200), *B1_FULL_WIDTH, (3, 5, 96, 64),
+                           (2, 2, 40, 136)):
             cases.append(("grouped_matmul", (rn(e, c, d, dtype=dt),
                                              rn(e, d, f, dtype=dt) * d ** -0.5),
                           False))
@@ -407,9 +462,10 @@ def kernel_phase(calls, dev):
     for name in ("dispatch", "combine", "grouped_matmul", "flash_decode"):
         if not calls[name]:
             raise AssertionError(f"{name}: never called on the main path")
-        max_err = 0.0
+        max_err, variants = 0.0, []
         for args, _ in calls[name]:
-            res = kernel_of(name)(*args)
+            res, took = run_kernel(name, args)
+            variants += [took] if took else []
             torch.cuda.synchronize()
             max_err = max(max_err, check(name, res, plain_of(name)(*args),
                                          exact=name == "dispatch"))
@@ -418,16 +474,20 @@ def kernel_phase(calls, dev):
                   for args, _ in calls[name]]
         log(f"kernel {name}: {len(calls[name])} main-path input shapes "
             f"{shapes}, max abs err {max_err:.3e} (exact={name == 'dispatch'}, "
-            f"tol {TOL})")
-    n_rag = 0
+            f"tol {TOL})" + (f", variants {variants}" if variants else ""))
+        if variants and set(variants) != {"streaming"}:
+            raise AssertionError(f"{name}: a main-path input took the tiled kernel")
+    n_rag, b1_rag = 0, []
     for name, args, exact in ragged_cases(dev):
-        res = kernel_of(name)(*args)
+        res, took = run_kernel(name, args)
+        b1_rag += [b1_case(args, took)] if took else []
         torch.cuda.synchronize()
         check(f"{name} ragged", res, plain_of(name)(*args), exact=exact)
         n_rag += 1
     log(f"kernels: {n_rag} ragged cases agree with their plain versions "
         "(k=2, capacity 1, all dropped, non-divisible d/f, index 0, mixed "
         "per-row indices, f32 and bf16)")
+    log(f"kernel grouped_matmul ragged cases and their variants: {b1_rag}")
 
     def library(name, args):
         if name == "grouped_matmul":
@@ -461,13 +521,19 @@ def kernel_phase(calls, dev):
         for site, args in sites:
             nbytes, flops, wdt = work(name, args)
             b_ms, b_by = bound(nbytes, flops, wdt)
-            k_ms = device_ms(lambda: kernel_of(name)(*args))
-            p_ms = device_ms(lambda: plain_of(name)(*args))
-            l_ms = device_ms(library(name, args))
+            if name == "grouped_matmul":
+                k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library(name, args))
+                p_ms = device_ms(lambda: plain_of(name)(*args))
+            else:
+                k_ms = device_ms(lambda: kernel_of(name)(*args))
+                p_ms = device_ms(lambda: plain_of(name)(*args))
+                l_ms = device_ms(library(name, args))
             shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
             log(f"time {name}@{site} [{shape}]: kernel {k_ms:.6f} ms, bound "
                 f"{b_ms:.6f} ms ({b_by}), plain {p_ms:.6f} ms, library "
-                f"{l_ms:.6f} ms")
+                f"{l_ms:.6f} ms" + (f" (torch.bmm, timed in turns with the kernel; "
+                                    f"{b1_variant(args)} variant, {b_ms / k_ms * 100:.1f}% "
+                                    "of the bound)" if name == "grouped_matmul" else ""))
             timing[(name, site)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                         bound_by=b_by, library_ms=l_ms,
                                         shape=shape)
@@ -491,7 +557,7 @@ def slice_phase(params, batch, cfg, gen, dev):
     """One counted ``generate`` (launch counts asserted, peak memory), then
     timed rounds (the serving CLI's), then one decode step replayed as a CUDA graph.
     Returns the launch counts."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts, streaming_counts
     from repro_torch.launch.serve import TIMED_ROUNDS, spread, time_generate
     from repro_torch.models import prefill
     from repro_torch.serve import generate
@@ -504,6 +570,7 @@ def slice_phase(params, batch, cfg, gen, dev):
     res = generate(params, batch, cfg, gen)
     torch.cuda.synchronize()
     counts = launch_counts()
+    streamed = streaming_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = res.steps
     n_moe_dec = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
@@ -519,6 +586,7 @@ def slice_phase(params, batch, cfg, gen, dev):
     if counts != expect or served != {"flash_decode": 186, "dispatch": 102,
                                       "combine": 102, "grouped_matmul": 204}:
         raise AssertionError(f"launch counts {counts} != {expect}")
+    check_streamed("slice", counts, streamed)
     toks = res.tokens
     if toks.shape != (BATCH, MAX_NEW) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
         raise AssertionError(f"bad tokens {tuple(toks.shape)}")
@@ -713,7 +781,8 @@ def train_parity(full, dev):
     param_tol = adam_drift_bound(tc, PARITY_STEPS)
     captured, ref = {}, None
     for backend, names in (("oracle", ()), ("cuda_fused", ("fused_moe",)),
-                           ("cuda", ("grouped_matmul_dx", "grouped_matmul_dw"))):
+                           ("cuda", ("grouped_matmul", "grouped_matmul_dx",
+                                     "grouped_matmul_dw"))):
         cfg = train_cfg(full, backend, "float32")
         state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
         step = make_train_step(cfg, tc)
@@ -805,28 +874,36 @@ def bwd_ragged_cases(dev):
             w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
             dy = torch.randn(e, c, f, generator=g, device=dev).to(dt)
             cases += [("grouped_matmul_dx", (dy, w)), ("grouped_matmul_dw", (x, dy))]
+        for e, c, d, f in (*B1_FULL_WIDTH, (3, 5, 96, 64), (2, 2, 40, 136)):
+            x = torch.randn(e, c, d, generator=g, device=dev).to(dt)
+            dy = torch.randn(e, c, f, generator=g, device=dev).to(dt)
+            cases.append(("grouped_matmul_dw", (x, dy)))
     return cases
 
 
 def train_kernel_phase(captured, dev):
-    """B4 and B1's backward kernels against their plain versions at the
-    inputs captured from the first training step and in ragged cases, then
-    timed at the training site. Returns ({name: max abs err}, {name: times})."""
+    """B4 and B1's kernels against their plain versions at the inputs
+    captured from the first training step and in ragged cases, then timed
+    at the training site (B1's forward at its d = 2048 product, the decode
+    site's layout). Returns ({name: max abs err}, {name: times})."""
     from repro_torch.kernels import moe_dispatch, ops
     errs = {}
-    for name in ("fused_moe", "grouped_matmul_dx", "grouped_matmul_dw"):
+    for name in ("fused_moe", "grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw"):
         if not captured.get(name):
             raise AssertionError(f"{name}: never called on the training path")
-        err = 0.0
+        err, variants = 0.0, []
         for args, kw in captured[name]:
-            out = kernel_of(name)(*args, **kw)
+            out, took = run_kernel(name, args, kw)
+            variants += [took] if took else []
             torch.cuda.synchronize()
             err = max(err, check(name, out, plain_of(name)(*args, **kw)))
         errs[name] = err
         shapes = [" x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
                   for args, _ in captured[name]]
         log(f"kernel {name}: training-site inputs {shapes}, max abs err {err:.3e} "
-            f"(tol {TOL['float32']})")
+            f"(tol {TOL['float32']})" + (f", variants {variants}" if variants else ""))
+        if variants and set(variants) != {"streaming"}:
+            raise AssertionError(f"{name}: a training-site input took the tiled kernel")
     n = 0
     for args, kw, drop_all in fused_ragged_cases(dev):
         out = kernel_of("fused_moe")(*args, **kw)
@@ -835,21 +912,24 @@ def train_kernel_phase(captured, dev):
         if drop_all and float(out.abs().max()) != 0.0:
             raise AssertionError("fused_moe: all dropped but output not zero")
         n += 1
+    b1_rag = []
     for name, args in bwd_ragged_cases(dev):
-        check(f"{name} ragged", kernel_of(name)(*args), plain_of(name)(*args))
+        out, took = run_kernel(name, args)
+        b1_rag += [b1_case(args, took)] if took else []
+        check(f"{name} ragged", out, plain_of(name)(*args))
         n += 1
     torch.cuda.synchronize()
+    log(f"kernel grouped_matmul_dw ragged cases and their variants: {b1_rag}")
     log(f"train kernels: {n} ragged cases agree with their plain versions (B4: k=2, "
         "capacity 1, all dropped, T=1, ragged d and f, d > 512, 16-row tiles, gelu and "
-        "gated silu; B1 dx/dw: C=1, C=17, C=100, ragged d and f; f32 and bf16)")
+        "gated silu; B1 dx/dw: C=1, C=17, C=100, ragged d and f; B1 dw: C=4, 8, 9, 16 at "
+        "full width, a ragged slab; f32 and bf16)")
 
     timing = {}
     for name in errs:
-        args, kw = captured[name][0]
+        args, kw = captured[name][-1 if name == "grouped_matmul" else 0]
         nbytes, flops, wdt = work(name, args)
         b_ms, b_by = bound(nbytes, flops, wdt)
-        k_ms = device_ms(lambda: kernel_of(name)(*args, **kw))
-        p_ms = device_ms(lambda: plain_of(name)(*args, **kw))
         extra = {}
         if name == "fused_moe":
             # no single PyTorch call computes gather + FFN + scatter; beside
@@ -863,15 +943,20 @@ def train_kernel_phase(captured, dev):
                 return moe_dispatch.combine(out.to(x.dtype).reshape(e * cap, -1), ts,
                                             topk_w, keep)
             check("cuda pipeline vs fused_moe", pipeline(), kernel_of(name)(*args, **kw))
-            l_ms = None
+            k_ms, l_ms = device_ms(lambda: kernel_of(name)(*args, **kw)), None
+            p_ms = device_ms(lambda: plain_of(name)(*args, **kw))
             extra["pipeline_ms"] = device_ms(pipeline)
             lib = "null (no single PyTorch call computes gather + FFN + scatter)"
         else:
             a, b = args
-            lhs, rhs = ((a, b.transpose(1, 2)) if name == "grouped_matmul_dx"
-                        else (a.transpose(1, 2), b))
-            l_ms = device_ms(lambda: torch.bmm(lhs, rhs))
-            lib = f"{l_ms:.6f} ms (torch.bmm on the transposed view)"
+            lhs, rhs = {"grouped_matmul": (a, b), "grouped_matmul_dx": (a, b.transpose(1, 2)),
+                        "grouped_matmul_dw": (a.transpose(1, 2), b)}[name]
+            k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), lambda: torch.bmm(lhs, rhs))
+            p_ms = device_ms(lambda: plain_of(name)(*args))
+            view = "" if name == "grouped_matmul" else " on the transposed view"
+            lib = (f"{l_ms:.6f} ms (torch.bmm{view}, timed in turns with the kernel); "
+                   f"{b1_variant(args) if name in B1_STREAMED else 'tiled'} variant, "
+                   f"{b_ms / k_ms * 100:.1f}% of the bound")
         shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
         log(f"time {name}@train [{shape}]: kernel {k_ms:.6f} ms, bound {b_ms:.6f} ms "
             f"({b_by}), plain {p_ms:.6f} ms, library {lib}" +
@@ -923,7 +1008,7 @@ def train_slice(full, dev, backend: str):
     step): step 2 is a Gate-Drop step), launch counts asserted on a routed,
     a Gate-Drop and a Gate-Expert-Drop step, a CUDA-event split of one step
     and a profiled step. Returns the counts of the routed step."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts, streaming_counts
     from repro_torch.launch.serve import generator, spread
     from repro_torch.models import init_model
     from repro_torch.optim.adam import adam_update
@@ -973,6 +1058,7 @@ def train_slice(full, dev, backend: str):
         log(f"train {backend}: launches on a {label} step {got}")
         if got != want:
             raise AssertionError(f"{backend} {label} step launches {got} != {want}")
+        check_streamed(f"train {backend} {label} step", got, streaming_counts())
         counts[label] = got
         if not math.isfinite(float(m["loss"])):
             raise AssertionError(f"{backend}: non-finite loss")
@@ -1086,6 +1172,15 @@ def run_scheduler(params, cfg, gen, reqs, paged=None, n_pages=0, tracer=None):
     return {r.rid: r.tokens for r in res}, sched, launch_counts(), wall
 
 
+def check_streamed(label, counts, streamed):
+    """Every launch of B1's forward and dw in a main-path run took the
+    streaming kernel."""
+    log(f"{label}: B1 launches on the streaming kernel {streamed} of "
+        f"{ {k: counts[k] for k in B1_STREAMED} }")
+    if any(streamed[k] != counts[k] for k in B1_STREAMED):
+        raise AssertionError(f"{label}: B1 launches {counts} not all streaming: {streamed}")
+
+
 def expected_sched_launches(cfg, stats, paged: bool):
     """Launches of a scheduler run: per admission group the encoder's and
     decoder's MoE layers, per decode tick the decoder's MoE layers and one
@@ -1101,11 +1196,21 @@ def expected_sched_launches(cfg, stats, paged: bool):
 
 
 def check_launches(label, cfg, sched, counts, paged: bool):
+    """Launch counts of a scheduler run; at the config's capacity (not the
+    f32 parity runs' capacity E, where an admission's C is its token count,
+    up to 256 rows) every B1 forward launch must be streaming."""
+    from repro_torch.kernels import streaming_counts
     want = expected_sched_launches(cfg, sched.stats, paged)
     log(f"sched {label}: launches {counts} over {sched.stats['prefill_calls']} admissions "
         f"and {sched.stats['decode_steps']} decode ticks")
     if counts != want:
         raise AssertionError(f"{label}: launches {counts} != {want}")
+    if cfg.moe.eval_capacity_factor < cfg.moe.n_experts:
+        check_streamed(f"sched {label}", counts, streaming_counts())
+    else:
+        log(f"sched {label}: B1 launches on the streaming kernel {streaming_counts()} "
+            f"(capacity {cfg.moe.eval_capacity_factor}: admissions of more than 16 tokens "
+            "take the tiled kernel)")
 
 
 def oneshot_check(params, cfg, gen, reqs, want, max_seq, dev):
@@ -1419,6 +1524,11 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged):
                  "train_launches": {b: c[name] for b, c in t_counts.items()}}
         if site == "decode":
             entry["prefill_ms"] = timing.get((name, "prefill"), {}).get("ms")
+        if name.startswith("grouped_matmul"):
+            entry["variant"] = "streaming" if name in B1_STREAMED else "tiled"
+        if name == "grouped_matmul":
+            entry["prefill"] = timing[(name, "prefill")]
+            entry["train_site"] = {**t_timing[name], "max_abs_err": t_errs[name]}
         if "pipeline_ms" in t:
             entry["pipeline_ms"] = t["pipeline_ms"]
         kernels.append(entry)
@@ -1496,9 +1606,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {lib.relative_to(REPO)}")
-    for line in (lib.parent / "nvcc.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5 and 7. serving
     full = get_config("zcode-m3-base")
@@ -1527,6 +1635,31 @@ def main() -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def ptxas_report(path: Path):
+    """Each kernel's registers and spills from the build's ptxas report,
+    and what the card reports for B1's variants."""
+    import re
+    import shutil
+    from repro_torch.kernels import grouped_ffn
+    entry = "?"
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            if shutil.which("c++filt"):
+                entry = subprocess.run(["c++filt", entry], capture_output=True,
+                                       text=True).stdout.strip()
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas: {entry}: {line.split(':', 1)[-1].strip()}")
+    for kind in ("stream_fwd", "stream_dw", "tiled_fwd", "tiled_dx"):
+        for dt in (torch.float32, torch.bfloat16):
+            infos = {c: grouped_ffn.variant_info(kind, dt, c) for c in (1, 4, 8, 16)}
+            log(f"B1 {kind} {_dt(torch.empty(0, dtype=dt))} (C rounded up to 1/4/8/16): "
+                + "; ".join(f"C={c}: {i['registers']} registers, {i['smem_bytes']} B shared, "
+                            f"{i['spill_bytes']} B spilled, {i['blocks_per_sm']} blocks/SM"
+                            for c, i in infos.items()))
 
 
 def _leaves(tree):

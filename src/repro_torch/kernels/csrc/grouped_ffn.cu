@@ -1,7 +1,7 @@
 // B1 grouped matmul: out[e] = A[e] @ B[e] for every expert e, f32
-// accumulation, output in the input dtype. One kernel serves the forward
-// and both backward products, reading a transposed operand in place
-// through its layout (no transposed copy is made):
+// accumulation, output in the input dtype. Three products share this file,
+// each reading a transposed operand in place through its layout (no
+// transposed copy is made):
 //
 //   forward  out = x  @ w     A = x  (E, C, D)            B = w  (E, D, F)
 //   dx       dx  = dy @ w^T   A = dy (E, C, F)            B = w^T, read from w (E, D, F)
@@ -11,25 +11,70 @@
 // custom VJP _gmm_bwd, which runs the same Pallas kernel on
 // jnp.swapaxes'd operands. The TPU kernel walks grid (E, C/bc, F/bf,
 // D/bd) with the D axis sequential and an f32 VMEM accumulator; blocks
-// are exact divisors of the shape (platform.py::fit_block). Here a block
-// owns one (BM x 64) output tile of one expert, loops over the reduction
-// axis inside the block in steps of 16 through shared memory and keeps its
-// accumulator in registers; ragged tile edges are masked, so any sizes
-// work, C = 1 (one decode token per expert) included. A transposed operand
-// is loaded with neighbouring threads on its contiguous axis, so every
-// layout reads whole 64-byte runs.
+// are exact divisors of the shape (platform.py::fit_block).
 //
-// What bounds it on the H100: on the serving and training paths C is 1 to
-// 8 rows, so the forward and dx read every expert's weight matrix once for
-// a handful of rows, and dw writes one (e.g. 537 MB of f32 for
-// (128, 512, 2048)) from a reduction over only C rows: all three are bound
-// by the bytes of the weight-sized operand. BM adapts to M (16 rows for
-// M <= 16, 64 above) so that small C does not pay for 64-row tiles of
-// arithmetic. It runs on the CUDA cores in f32; wgmma and TMA come later.
+// What bounds it on the H100. On the serving and training paths C is 1
+// to 8 rows per expert (16 at most), so each product does at most 2 * C
+// flops per weight-sized element it moves: <= 8 flops per f32 byte at C =
+// 16, against the 20 the f32 CUDA cores need per byte of HBM (67 TFLOP/s
+// over 3.35 TB/s). All three are bound by the bytes of the weight-sized
+// operand: the forward and dx read every expert's w once (537 MB of f32
+// at (128, 2048, 512)), dw writes one. Tensor cores cannot help: an f32
+// wgmma runs in TF32 (10-bit mantissa), which misses the f32 gate of
+// 1e-4 + 1e-4 |ref| against the plain version, and the work is not
+// bound by operations anyway. So there are two designs, both on the CUDA
+// cores in f32, and the wrapper (kernels/grouped_ffn.py::variant) picks
+// one per call:
+//
+// * Streaming kernels, for C <= 16 with 16-byte row strides and 16-byte
+//   aligned pointers (every call on the main path):
+//   - forward (gmm_stream_fwd): a persistent grid walks work items
+//     (expert, 128-column slab of F); each item reduces over all of D, so
+//     no sum crosses blocks (no atomics, the same result on every run).
+//     One producer warp streams w through a 4-stage ring in shared memory
+//     with cp.async.bulk (global -> shared, completing on an mbarrier):
+//     one copy per row segment (512 bytes in f32, 256 in bf16), 16 KB of w
+//     per stage (32 rows in f32, 64 in bf16), plus the stage's C x R
+//     slice of x[e], so x is staged in chunks over D beside the ring. No
+//     tensor map is needed, so a launch costs no host-side encode. What
+//     sets the rate is the bytes in flight per SM, so the block holds
+//     nothing else in shared memory: four consumer warps own 32 columns
+//     each, their lanes split each stage's rows in four groups, and the
+//     groups' f32 sums meet at the end of an item by two xor-shuffles in
+//     a fixed order. That leaves 66-74 KB per block, three blocks on every
+//     SM at every C <= 16, and ~150 KB of loads in flight per SM (HBM3
+//     needs ~25 KB at ~1 us unloaded). A lane's unit is one 16-byte word
+//     of x's row (4 rows in f32, 8 in bf16) by 4 columns, so the shared
+//     memory pipe serves one x load per row c of x and unit, not one per
+//     row. The grid is the resident-block count cut down so that every
+//     block gets the same number of items (512 items at decode: 256
+//     blocks of 2, not a 3.9-wave tail over 132 SMs).
+//   - dw (gmm_stream_dw): bound by writing dw, ~50x the bytes of x and dy
+//     together (10.5 MB at the training site, they stay in L2). A block owns 64 rows of D x
+//     (512 bytes of F) of one expert, loads its slices of x[e] (read
+//     transposed in place) and dy[e] into shared memory with 16-byte
+//     cp.async, keeps each thread's C x (4 f32 or 8 bf16) dy values in
+//     registers, unrolls the C-long reduction, and writes each output run
+//     with one 16-byte streaming store (st.global.cs), so a warp writes a
+//     whole 512-byte run and the 537 MB written does not evict x and dy
+//     from L2. Stores leave the thread at once, so no shared-memory tile
+//     or TMA store is needed to keep them in flight: with 4 blocks of 256
+//     threads per SM at C = 8 (2-8 by C), each thread issuing 8 stores,
+//     enough are always queued.
+// * The tiled kernel (grouped_matmul_kernel), for everything else (C >
+//   16, ragged row strides, misaligned views) and for dx: a block owns a
+//   (16 or 64) x 64 output tile of one expert and loops over the reduction
+//   axis in steps of 16 through shared memory, masking ragged edges, so
+//   any sizes work. It moves 4-byte words with one stage in flight and
+//   reaches ~35-55% of the byte bound; dx keeps it for now.
 
 #include "common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// tiled kernel (any shape)
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;   // 16 x 16 threads
 constexpr int kBN = 64;         // 16 threads x 4 columns
@@ -145,12 +190,453 @@ int dispatch_dtype(const void* a, const void* b, void* out, int E, int M, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// streaming kernels (C <= 16)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxStreamC = 16;
+constexpr int kNW = 4;                        // consumer warps (forward)
+constexpr int kRowGroups = 4;                 // forward: row groups of a warp's lanes
+constexpr int kFwdThreads = (kNW + 1) * 32;   // + one producer warp
+constexpr int kSBN = 128;                     // forward: columns per work item
+constexpr int kStages = 4;
+constexpr int kStageW = 16384;                // forward: bytes of w per stage
+constexpr int kDwBM = 64;                     // dw: rows of D per block
+constexpr int kDwThreads = 256;
+
+__device__ __forceinline__ int ceil_div_d(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// spins until the phase of parity ``parity`` of ``bar`` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on ``bar``
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// four adjacent values of shared memory as f32 (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);   // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+}
+
+// 16 bytes of output (4 f32 or 8 bf16) with one streaming store
+__device__ __forceinline__ void store16_cs(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+
+__device__ __forceinline__ void store16_cs(__nv_bfloat16* p, const float (&v)[8]) {
+  __stcs(reinterpret_cast<uint4*>(p), make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                                                 pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7])));
+}
+
+// Shared memory of the forward kernel: kStages x (w stage, x stage), then
+// the full and empty barriers.
+template <typename T, int CT>
+struct FwdSmem {
+  static constexpr int kRows = kStageW / (kSBN * static_cast<int>(sizeof(T)));  // 32 f32, 64 bf16
+  static constexpr int kX = CT * kRows * static_cast<int>(sizeof(T));           // CT x 128 bytes
+  static constexpr int kStage = kStageW + kX;
+  static constexpr int kBars = kStages * kStage;
+  static constexpr int kTotal = kBars + 2 * kStages * 8;
+};
+
+// 16 bytes of shared memory (4 f32 or 8 bf16) as f32
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) { load4(p, v); }
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// One lane's unit of a stage: U = 16 / sizeof(T) adjacent rows r0.. (a
+// whole 16-byte word of each row of x), 4 columns. Loads the U row pieces
+// of w, then per row c of x one 16-byte load of its U values. d is a
+// multiple of U (its rows are 16-byte words), so a unit is all in d or
+// all past it.
+template <typename T, int CT, int R>
+__device__ __forceinline__ void consume_unit(const T* ws, const T* xs, int r0, int col,
+                                             float (&acc)[CT][4]) {
+  constexpr int U = 16 / sizeof(T);
+  float wv[U][4];
+#pragma unroll
+  for (int i = 0; i < U; ++i) load4(ws + (r0 + i) * kSBN + col, wv[i]);
+#pragma unroll
+  for (int c = 0; c < CT; ++c) {           // rows c >= C are never stored
+    float xv[U];
+    load16(xs + c * R + r0, xv);
+#pragma unroll
+    for (int i = 0; i < U; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[c][j] += xv[i] * wv[i][j];
+  }
+}
+
+// out (E, C, F) = x (E, C, D) @ w (E, D, F), C <= CT <= 16; F and D of
+// 16-byte rows, pointers 16-byte aligned (checked on the host).
+//
+// Warp w < kNW consumes columns 32w .. 32w + 31 of the item's slab: lane l
+// owns columns 32w + 4(l % 8) .. + 3 and row group g = l / 8, which takes
+// units g and g + 4 of each stage's R / U = 8 units. A quarter-warp reads
+// 128 contiguous bytes of one row (f32). At the end of an item the four
+// row groups' sums meet by two xor-shuffles (the same order every run) and
+// group 0 stores.
+template <typename T, int CT>
+__global__ void __launch_bounds__(kFwdThreads, 3)
+gmm_stream_fwd(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int E,
+               int C, int D, int F) {
+  using L = FwdSmem<T, CT>;
+  constexpr int R = L::kRows;
+  constexpr int U = 16 / sizeof(T);
+  static_assert(R / U == 2 * kRowGroups, "two units per row group and stage");
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_slab = ceil_div_d(F, kSBN);
+  const int n_items = E * n_slab;
+  const int n_k = ceil_div_d(D, R);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);        // the producer's arrive + the copies' bytes
+      mbar_init(&empty[s], kNW);     // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kNW) {
+    // producer: fills stage after stage, item after item, in the order
+    // the consumers read them
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int e = item / n_slab, n0 = (item % n_slab) * kSBN;
+      const int cols = min(kSBN, F - n0);
+      const T* we = w + static_cast<size_t>(e) * D * F + n0;
+      const T* xe = x + static_cast<size_t>(e) * C * D;
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int k0 = kt * R, rows = min(R, D - k0);
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + stage * L::kStage;
+        if (lane == 0)
+          mbar_arrive_expect_tx(&full[stage], (rows * cols + C * rows) * sizeof(T));
+        __syncwarp();
+        for (int r = lane; r < rows; r += 32)
+          bulk_g2s(st + r * kSBN * sizeof(T), we + static_cast<size_t>(k0 + r) * F,
+                   cols * sizeof(T), &full[stage]);
+        for (int c = lane; c < C; c += 32)
+          bulk_g2s(st + kStageW + c * R * sizeof(T), xe + static_cast<size_t>(c) * D + k0,
+                   rows * sizeof(T), &full[stage]);
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  const int col = warp * 32 + (lane % 8) * 4;
+  const int g = lane / 8;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int e = item / n_slab, n0 = (item % n_slab) * kSBN;
+    const int cols = min(kSBN, F - n0);
+    float acc[CT][4];
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int rows = min(R, D - kt * R);   // a multiple of U
+      mbar_wait(&full[stage], phase);
+      const T* ws = reinterpret_cast<const T*>(smem + stage * L::kStage);
+      const T* xs = reinterpret_cast<const T*>(smem + stage * L::kStage + kStageW);
+#pragma unroll
+      for (int q = 0; q < R / U / kRowGroups; ++q) {
+        const int r0 = (g + q * kRowGroups) * U;
+        if (r0 < rows) consume_unit<T, CT, R>(ws, xs, r0, col, acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == kStages) { stage = 0; phase ^= 1; }
+    }
+
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[c][j] += __shfl_xor_sync(0xffffffffu, acc[c][j], 8);
+        acc[c][j] += __shfl_xor_sync(0xffffffffu, acc[c][j], 16);
+      }
+    if (g == 0 && col < cols) {
+#pragma unroll
+      for (int c = 0; c < CT; ++c)
+        if (c < C) store4(out + (static_cast<size_t>(e) * C + c) * F + n0 + col, acc[c]);
+    }
+  }
+}
+
+// dw (E, D, F) = x^T @ dy: x (E, C, D) read transposed in place, dy (E, C,
+// F), C <= CT <= 16; D and F of 16-byte rows, pointers 16-byte aligned.
+template <typename T, int CT>
+__global__ void __launch_bounds__(kDwThreads)
+gmm_stream_dw(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dw, int C,
+              int D, int F) {
+  constexpr int VEC = 16 / sizeof(T);          // outputs per 16-byte store
+  constexpr int BN = 32 * VEC;                 // a warp's 512-byte run
+  __shared__ __align__(16) T xs[CT][kDwBM];
+  __shared__ __align__(16) T ds[CT][BN];
+
+  const int e = blockIdx.z, m0 = blockIdx.y * kDwBM, n0 = blockIdx.x * BN;
+  const int rows = min(kDwBM, D - m0), cols = min(BN, F - n0);
+  const int xc = rows / VEC, dc = cols / VEC;  // 16-byte chunks per row slice
+  for (int i = threadIdx.x; i < C * (xc + dc); i += kDwThreads) {
+    if (i < C * xc) {
+      const int c = i / xc, j = (i % xc) * VEC;
+      cp_async16(&xs[c][j], x + (static_cast<size_t>(e) * C + c) * D + m0 + j);
+    } else {
+      const int c = (i - C * xc) / dc, j = ((i - C * xc) % dc) * VEC;
+      cp_async16(&ds[c][j], dy + (static_cast<size_t>(e) * C + c) * F + n0 + j);
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, col = (threadIdx.x % 32) * VEC;
+  if (col >= cols) return;
+  float dv[CT][VEC];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) dv[c][j] = c < C ? to_f32(ds[c][col + j]) : 0.f;
+
+  T* out = dw + (static_cast<size_t>(e) * D + m0) * F + n0 + col;
+#pragma unroll 4
+  for (int m = warp; m < rows; m += kDwThreads / 32) {
+    float o[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) o[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      if (c < C) {
+        const float xv = to_f32(xs[c][m]);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) o[j] += xv * dv[c][j];
+      }
+    }
+    store16_cs(out + static_cast<size_t>(m) * F, o);
+  }
+}
+
+// Whether the streaming kernels take (C, K, N) rows with these pointers:
+// the same rule as grouped_ffn.py::variant, checked again here so that a
+// bulk copy is never issued on a ragged or misaligned row.
+template <typename T>
+bool stream_ok(const void* a, const void* b, const void* out, int C, int K, int N) {
+  return C >= 1 && C <= kMaxStreamC && (K * sizeof(T)) % 16 == 0 && (N * sizeof(T)) % 16 == 0 &&
+         aligned16(a) && aligned16(b) && aligned16(out);
+}
+
+// resident blocks of the forward kernel over the whole card, measured once
+// per instantiation (after raising its shared-memory limit)
+template <typename T, int CT>
+int fwd_max_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    const int bytes = FwdSmem<T, CT>::kTotal;
+    cudaFuncSetAttribute(gmm_stream_fwd<T, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gmm_stream_fwd<T, CT>, kFwdThreads,
+                                                  bytes);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
+}
+
+template <typename T, int CT>
+void launch_stream_fwd(const void* x, const void* w, void* out, int E, int C, int D, int F,
+                       cudaStream_t st) {
+  const int items = E * ceil_div(F, kSBN);
+  const int waves = ceil_div(items, fwd_max_blocks<T, CT>());
+  gmm_stream_fwd<T, CT><<<ceil_div(items, waves), kFwdThreads, FwdSmem<T, CT>::kTotal, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), E, C, D, F);
+}
+
+template <typename T, int CT>
+void launch_stream_dw(const void* x, const void* dy, void* dw, int E, int C, int D, int F,
+                      cudaStream_t st) {
+  const dim3 grid(ceil_div(F, 32 * (16 / static_cast<int>(sizeof(T)))), ceil_div(D, kDwBM), E);
+  gmm_stream_dw<T, CT><<<grid, kDwThreads, 0, st>>>(static_cast<const T*>(x),
+                                                     static_cast<const T*>(dy), static_cast<T*>(dw),
+                                                     C, D, F);
+}
+
+// C rounded up to the compiled row counts 1, 4, 8, 16
+template <typename T>
+void stream_fwd_rows(const void* a, const void* b, void* o, int E, int C, int D, int F,
+                     cudaStream_t st) {
+  if (C == 1) launch_stream_fwd<T, 1>(a, b, o, E, C, D, F, st);
+  else if (C <= 4) launch_stream_fwd<T, 4>(a, b, o, E, C, D, F, st);
+  else if (C <= 8) launch_stream_fwd<T, 8>(a, b, o, E, C, D, F, st);
+  else launch_stream_fwd<T, 16>(a, b, o, E, C, D, F, st);
+}
+
+template <typename T>
+void stream_dw_rows(const void* a, const void* b, void* o, int E, int C, int D, int F,
+                    cudaStream_t st) {
+  if (C == 1) launch_stream_dw<T, 1>(a, b, o, E, C, D, F, st);
+  else if (C <= 4) launch_stream_dw<T, 4>(a, b, o, E, C, D, F, st);
+  else if (C <= 8) launch_stream_dw<T, 8>(a, b, o, E, C, D, F, st);
+  else launch_stream_dw<T, 16>(a, b, o, E, C, D, F, st);
+}
+
+template <bool DW>
+int dispatch_stream(const void* a, const void* b, void* out, int E, int C, int D, int F,
+                    int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == kReproF32) {
+    if (!stream_ok<float>(a, b, out, C, D, F)) return static_cast<int>(cudaErrorInvalidValue);
+    (DW ? stream_dw_rows<float> : stream_fwd_rows<float>)(a, b, out, E, C, D, F, st);
+  } else if (dtype == kReproBF16) {
+    if (!stream_ok<__nv_bfloat16>(a, b, out, C, D, F))
+      return static_cast<int>(cudaErrorInvalidValue);
+    (DW ? stream_dw_rows<__nv_bfloat16> : stream_fwd_rows<__nv_bfloat16>)(a, b, out, E, C, D, F,
+                                                                          st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fill_info(const void* fn, int dyn_smem, int threads, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, dyn_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.sharedSizeBytes) + dyn_smem;
+  info[2] = static_cast<int>(attr.localSizeBytes);
+  info[3] = per_sm;
+  return 0;
+}
+
+template <typename T, int CT>
+int variant_info(int kind, int* info) {
+  switch (kind) {
+    case 0:
+      fwd_max_blocks<T, CT>();        // raises the kernel's shared-memory limit
+      return fill_info(reinterpret_cast<const void*>(gmm_stream_fwd<T, CT>),
+                          FwdSmem<T, CT>::kTotal, kFwdThreads, info);
+    case 1:
+      return fill_info(reinterpret_cast<const void*>(gmm_stream_dw<T, CT>), 0, kDwThreads,
+                          info);
+    case 2:
+      return fill_info(reinterpret_cast<const void*>(grouped_matmul_kernel<T, 1, false, false>),
+                          0, kThreads, info);
+    case 3:
+      return fill_info(reinterpret_cast<const void*>(grouped_matmul_kernel<T, 1, false, true>),
+                          0, kThreads, info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int variant_info_rows(int kind, int C, int* info) {
+  if (C == 1) return variant_info<T, 1>(kind, info);
+  if (C <= 4) return variant_info<T, 4>(kind, info);
+  if (C <= 8) return variant_info<T, 8>(kind, info);
+  return variant_info<T, 16>(kind, info);
+}
+
 }  // namespace
 
-// out (E, C, F) = x (E, C, D) @ w (E, D, F)
+// out (E, C, F) = x (E, C, D) @ w (E, D, F); tiled kernel, any shape
 extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int E, int C, int D,
                                     int F, int dtype, void* stream) {
   return dispatch_dtype<false, false>(x, w, out, E, C, D, F, dtype, stream);
+}
+
+// the same product on the streaming kernel (C <= 16, 16-byte rows and
+// pointers; refuses other inputs with cudaErrorInvalidValue)
+extern "C" int repro_grouped_matmul_stream(const void* x, const void* w, void* out, int E, int C,
+                                           int D, int F, int dtype, void* stream) {
+  return dispatch_stream<false>(x, w, out, E, C, D, F, dtype, stream);
 }
 
 // dx (E, C, D) = dy (E, C, F) @ w^T, w (E, D, F) read transposed in place
@@ -163,4 +649,21 @@ extern "C" int repro_grouped_matmul_dx(const void* dy, const void* w, void* dx, 
 extern "C" int repro_grouped_matmul_dw(const void* x, const void* dy, void* dw, int E, int C,
                                        int D, int F, int dtype, void* stream) {
   return dispatch_dtype<true, false>(x, dy, dw, E, D, C, F, dtype, stream);
+}
+
+// the same product on the streaming kernel (same rule as the forward's)
+extern "C" int repro_grouped_matmul_dw_stream(const void* x, const void* dy, void* dw, int E,
+                                              int C, int D, int F, int dtype, void* stream) {
+  return dispatch_stream<true>(x, dy, dw, E, C, D, F, dtype, stream);
+}
+
+// What the device reports for one kernel instantiation: info = {registers
+// per thread, shared memory per block (static + dynamic) in bytes, local
+// (spill) bytes per thread, resident blocks per SM}. kind: 0 streaming
+// forward, 1 streaming dw (both at C rounded up to 1, 4, 8, 16), 2 tiled
+// forward and 3 tiled dx (both the C <= 16 tile).
+extern "C" int repro_grouped_ffn_variant_info(int kind, int dtype, int C, int* info) {
+  if (dtype == kReproF32) return variant_info_rows<float>(kind, C, info);
+  if (dtype == kReproBF16) return variant_info_rows<__nv_bfloat16>(kind, C, info);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,28 +1,45 @@
 """Grouped (per-expert) matmul — the MoE compute hot spot.
 
 x (E, C, d) @ w (E, d, f) -> (E, C, f) for every expert, f32
-accumulation, output in x's dtype. The kernel (``csrc/grouped_ffn.cu``)
-replaces the TPU kernel ``repro/kernels/grouped_ffn.py::_gmm_impl`` /
-``_kernel``: a block owns one output tile of one expert and loops over the
-reduction axis through shared memory; ragged edges are masked instead of
-shrinking the tile to a divisor (the reference's ``platform.fit_block``),
-so C = 1 works.
+accumulation, output in x's dtype. The kernels (``csrc/grouped_ffn.cu``)
+replace the TPU kernel ``repro/kernels/grouped_ffn.py::_gmm_impl`` /
+``_kernel``.
 
 ``grouped_matmul`` is differentiable: its backward (the reference's
 ``_gmm_bwd``, the same GEMM on transposed operands) is two more entry
-points of the same kernel, ``grouped_matmul_dx`` (dy @ w^T) and
-``grouped_matmul_dw`` (x^T @ dy), which read the transposed operand in
-place: w^T is never copied out of w (1.07 GB per MoE layer of
-zcode-m3-base).
+points, ``grouped_matmul_dx`` (dy @ w^T) and ``grouped_matmul_dw`` (x^T @
+dy), which read the transposed operand in place: w^T is never copied out
+of w (1.07 GB per MoE layer of zcode-m3-base).
 
-On the serving and training paths C is 1-8 rows, so every entry point is
-bound by the bytes of the weight-sized operand (read by the forward and
-dx, written by dw). The plain versions are ``ref.grouped_matmul_ref``,
+What bounds them on the H100: on the serving and training paths C is 1-8
+rows (16 at most), so every entry point is bound by the bytes of the
+weight-sized operand (read by the forward and dx, written by dw), at most
+8 flops per f32 byte against the 20 the f32 CUDA cores could do. Tensor
+cores would not help and an f32 ``wgmma`` runs in TF32, which misses the
+f32 gate, so all kernels run on the CUDA cores in f32. ``variant`` picks
+one of two designs per call:
+
+* ``"streaming"`` (C <= 16, rows of 16-byte multiples, 16-byte aligned
+  pointers: every call on the main path), forward and dw only. The
+  forward streams w through a 4-stage shared-memory ring filled by bulk
+  asynchronous copies (``cp.async.bulk`` on an mbarrier, one producer
+  warp) in a persistent grid of (expert, column slab) items, with x
+  staged beside it in chunks over d and the split-d partial sums added in
+  a fixed order (no atomics). dw loads its x and dy slices once and
+  writes dw with 16-byte streaming stores, a whole 512-byte run per warp.
+* ``"tiled"`` (anything else, and dx always): one output tile per block,
+  the reduction axis looped through shared memory, ragged edges masked,
+  so any shape works (C = 17, d = 130, f = 70, misaligned views).
+
+The plain versions are ``ref.grouped_matmul_ref``,
 ``ref.grouped_matmul_dx_ref`` and ``ref.grouped_matmul_dw_ref``.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises. ``grouped_matmul.launches``, ``grouped_matmul_dx.launches`` and
-``grouped_matmul_dw.launches`` count launches.
+A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
+raises. ``grouped_matmul.launches``, ``grouped_matmul_dx.launches`` and
+``grouped_matmul_dw.launches`` count launches of either variant;
+``grouped_matmul.launches_streaming`` and
+``grouped_matmul_dw.launches_streaming`` count those that took the
+streaming kernel.
 """
 from __future__ import annotations
 
@@ -43,6 +60,20 @@ _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 plain = grouped_matmul_ref
 plain_dx = grouped_matmul_dx_ref
 plain_dw = grouped_matmul_dw_ref
+STREAM_MAX_C = 16
+
+
+def variant(c: int, d: int, f: int, itemsize: int, *addresses: int) -> str:
+    """The kernel a (C, d, f) product of ``itemsize``-byte elements takes
+    on the card: ``"streaming"`` where 1 <= C <= 16, rows of d and of f
+    are whole 16-byte words and every operand's address is 16-byte
+    aligned (its bulk and 16-byte copies need all three), else
+    ``"tiled"``. The same rule for the forward (x, w, out) and dw (x, dy,
+    dw); ``repro_grouped_matmul*_stream`` checks it again."""
+    if (1 <= c <= STREAM_MAX_C and (d * itemsize) % 16 == 0
+            and (f * itemsize) % 16 == 0 and all(a % 16 == 0 for a in addresses)):
+        return "streaming"
+    return "tiled"
 
 
 def _check(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -53,18 +84,25 @@ def _check(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def _launch(entry: str, a: torch.Tensor, b: torch.Tensor, out_shape,
-            e: int, c: int, d: int, f: int) -> torch.Tensor:
-    """Launch ``entry`` (x, w)-shaped as (E, C, d, f) into a new tensor."""
+            e: int, c: int, d: int, f: int, stream_entry: str = ""):
+    """Launch ``entry`` (x, w)-shaped as (E, C, d, f) into a new tensor, or
+    ``stream_entry`` where given and ``variant`` says ``"streaming"``.
+    Returns (out, whether the streaming kernel ran)."""
     build.require_cuda(entry, a, b)
-    out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    dt = a.dtype
+    out = torch.empty(out_shape, dtype=dt, device=a.device)
     if out.numel() == 0:
-        return out
+        return out, False
     if min(c, d, f) == 0:
-        return out.zero_()
-    fn = build.function(entry, _ARGTYPES)
-    build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), e, c, d, f,
-                   build.DTYPE_CODES[a.dtype], build.stream_of(a)), entry)
-    return out
+        return out.zero_(), False
+    ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr())
+    streaming = bool(stream_entry) and variant(
+        c, d, f, dt.itemsize, *ptrs) == "streaming"
+    name = stream_entry if streaming else entry
+    fn = build.function(name, _ARGTYPES)
+    build.check(fn(*ptrs, e, c, d, f, build.DTYPE_CODES[dt],
+                   build.stream_of(a)), name)
+    return out, streaming
 
 
 def grouped_matmul_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -79,7 +117,7 @@ def grouped_matmul_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return plain_dx(dy, w)
     e, c, f = dy.shape
     d = w.shape[1]
-    out = _launch("repro_grouped_matmul_dx", dy, w, (e, c, d), e, c, d, f)
+    out, _ = _launch("repro_grouped_matmul_dx", dy, w, (e, c, d), e, c, d, f)
     grouped_matmul_dx.launches += 1
     return out
 
@@ -95,8 +133,10 @@ def grouped_matmul_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         return plain_dw(x, dy)
     e, c, d = x.shape
     f = dy.shape[2]
-    out = _launch("repro_grouped_matmul_dw", x, dy, (e, d, f), e, c, d, f)
+    out, streaming = _launch("repro_grouped_matmul_dw", x, dy, (e, d, f),
+                             e, c, d, f, "repro_grouped_matmul_dw_stream")
     grouped_matmul_dw.launches += 1
+    grouped_matmul_dw.launches_streaming += streaming
     return out
 
 
@@ -111,9 +151,11 @@ class _GroupedMatmul(torch.autograd.Function):
         if x.device.type == "cpu":
             return plain(x, w)
         e, c, d = x.shape
-        out = _launch("repro_grouped_matmul", x, w, (e, c, w.shape[2]),
-                      e, c, d, w.shape[2])
+        out, streaming = _launch("repro_grouped_matmul", x, w,
+                                 (e, c, w.shape[2]), e, c, d, w.shape[2],
+                                 "repro_grouped_matmul_stream")
         grouped_matmul.launches += 1
+        grouped_matmul.launches_streaming += streaming
         return out
 
     @staticmethod
@@ -139,5 +181,22 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 grouped_matmul.launches = 0
+grouped_matmul.launches_streaming = 0
 grouped_matmul_dx.launches = 0
 grouped_matmul_dw.launches = 0
+grouped_matmul_dw.launches_streaming = 0
+
+
+def variant_info(kind: str, dtype: torch.dtype, c: int) -> dict:
+    """What the card reports for one compiled kernel: registers per thread,
+    shared memory per block (bytes), spill bytes per thread and resident
+    blocks per SM. ``kind``: ``"stream_fwd"``, ``"stream_dw"`` (at C
+    rounded up to 1, 4, 8 or 16), ``"tiled_fwd"`` or ``"tiled_dx"`` (the
+    C <= 16 tile). Builds the library; needs a card."""
+    kinds = ("stream_fwd", "stream_dw", "tiled_fwd", "tiled_dx")
+    info = (ctypes.c_int * 4)()
+    fn = build.function("repro_grouped_ffn_variant_info", [_I, _I, _I, _P])
+    build.check(fn(kinds.index(kind), build.DTYPE_CODES[dtype], c,
+                   ctypes.cast(info, _P)), "repro_grouped_ffn_variant_info")
+    return dict(zip(("registers", "smem_bytes", "spill_bytes",
+                     "blocks_per_sm"), info))

@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (build, flash_decode, grouped_ffn,  # noqa: E402
                                  launch_counts, moe_dispatch, ops, ref,
-                                 reset_launch_counts)
+                                 reset_launch_counts, streaming_counts)
 
 
 @pytest.fixture(scope="module")
@@ -81,6 +81,47 @@ def test_expert_ffn_op_matches_pallas(jx):
         got = ops.expert_ffn_op(torch.from_numpy(buf), torch.from_numpy(w_in),
                                 None, torch.from_numpy(w_out), act)
         _close(got, want, "float32")
+
+
+# (C, d, f, element bytes, operand addresses) -> the B1 kernel on the card.
+# The main path: decode (C = 1, and the scheduler's 9 rows at capacity 2.0
+# give C = 1), prefill (C = 4) and training (C = 8), f32 weights, both
+# products of the expert FFN; then what must stay on the tiled kernel.
+_VARIANT_CASES = [
+    ((1, 2048, 512, 4, 0, 256, 512), "streaming"),       # decode, w_out
+    ((1, 512, 2048, 4, 0, 256, 512), "streaming"),       # decode, w_in
+    ((4, 512, 2048, 4, 0, 256, 512), "streaming"),       # prefill
+    ((8, 2048, 512, 4, 0, 256, 512), "streaming"),       # training
+    ((16, 512, 2048, 2, 0, 256, 512), "streaming"),      # bf16, C = 16
+    ((5, 96, 64, 4), "streaming"),                       # ragged stage and slab
+    ((17, 2048, 512, 4), "tiled"),                       # C = 17
+    ((100, 130, 200, 4), "tiled"),                       # C = 100, d = 130
+    ((5, 100, 70, 4), "tiled"),                          # f = 70: 280-byte rows
+    ((17, 130, 200, 4), "tiled"),                        # d = 130: 520-byte rows
+    ((5, 100, 64, 2), "tiled"),                          # bf16 d = 100: 200-byte rows
+    ((1, 2048, 512, 4, 0, 260, 512), "tiled"),           # a misaligned operand
+    ((0, 2048, 512, 4), "tiled"),                        # no rows
+]
+
+
+@pytest.mark.parametrize("args,want", _VARIANT_CASES)
+def test_grouped_matmul_variant_choice(args, want):
+    assert grouped_ffn.variant(*args) == want
+
+
+def test_grouped_matmul_variant_of_views():
+    """A view whose first element is off a 16-byte boundary must not take
+    the streaming kernel's bulk copies; the CPU path counts no launch."""
+    base = torch.randn(1 + 2 * 4 * 64)
+    x = base[1:].reshape(2, 4, 64)
+    w = torch.randn(2, 64, 32)
+    assert grouped_ffn.variant(4, 64, 32, 4, x.data_ptr(), w.data_ptr()) == "tiled"
+    assert grouped_ffn.variant(4, 64, 32, 4, base.data_ptr(), w.data_ptr()) \
+        == "streaming"
+    reset_launch_counts()
+    torch.testing.assert_close(grouped_ffn.grouped_matmul(x, w),
+                               ref.grouped_matmul_ref(x, w))
+    assert streaming_counts() == {"grouped_matmul": 0, "grouped_matmul_dw": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -416,3 +457,67 @@ def test_cuda_grouped_matmul_bwd_matches_plain(dtype):
             grouped_ffn.grouped_matmul_dw.launches) == (1, 1)
     _gpu_close(x.grad, ref.grouped_matmul_dx_ref(dy, w.detach()))
     _gpu_close(w.grad, ref.grouped_matmul_dw_ref(x.detach(), dy))
+
+
+_STREAM_SHAPES = [(4, c, d, f) for c in (1, 4, 8, 9, 16)
+                  for d, f in ((512, 2048), (2048, 512))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", _STREAM_SHAPES)
+def test_cuda_grouped_matmul_streaming_matches_plain(e, c, d, f, dtype):
+    """B1's streaming forward and dw kernels against their plain versions,
+    launched once each (per-variant counters), with the same result on a
+    second run (no atomics)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5 + c)
+    x = torch.randn(e, c, d, generator=g, device=dev).to(dtype)
+    w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dtype)
+    dy = torch.randn(e, c, f, generator=g, device=dev).to(dtype)
+    reset_launch_counts()
+    out = grouped_ffn.grouped_matmul(x, w)
+    dw = grouped_ffn.grouped_matmul_dw(x, dy)
+    assert streaming_counts() == {"grouped_matmul": 1, "grouped_matmul_dw": 1}
+    assert (grouped_ffn.grouped_matmul.launches,
+            grouped_ffn.grouped_matmul_dw.launches) == (1, 1)
+    _gpu_close(out, ref.grouped_matmul_ref(x, w))
+    _gpu_close(dw, ref.grouped_matmul_dw_ref(x, dy))
+    assert torch.equal(out, grouped_ffn.grouped_matmul(x, w))
+    assert torch.equal(dw, grouped_ffn.grouped_matmul_dw(x, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_grouped_matmul_unaligned_takes_tiled(dtype):
+    """An unaligned row tail (f = 70) and a view off a 16-byte boundary
+    take the tiled kernel: counted as launches, not as streaming ones."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(4, 5, 100, generator=g, device=dev).to(dtype)
+    w = (torch.randn(4, 100, 70, generator=g, device=dev) * 0.1).to(dtype)
+    dy = torch.randn(4, 5, 70, generator=g, device=dev).to(dtype)
+    base = torch.randn(1 + 4 * 5 * 64, generator=g, device=dev).to(dtype)
+    xv = base[1:].reshape(4, 5, 64)
+    wv = (torch.randn(4, 64, 64, generator=g, device=dev) * 0.1).to(dtype)
+    reset_launch_counts()
+    _gpu_close(grouped_ffn.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w))
+    _gpu_close(grouped_ffn.grouped_matmul_dw(x, dy), ref.grouped_matmul_dw_ref(x, dy))
+    _gpu_close(grouped_ffn.grouped_matmul(xv, wv), ref.grouped_matmul_ref(xv, wv))
+    _gpu_close(grouped_ffn.grouped_matmul_dw(xv, xv), ref.grouped_matmul_dw_ref(xv, xv))
+    assert (grouped_ffn.grouped_matmul.launches,
+            grouped_ffn.grouped_matmul_dw.launches) == (2, 2)
+    assert streaming_counts() == {"grouped_matmul": 0, "grouped_matmul_dw": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_matmul_variant_resources():
+    """The f32 streaming forward fits three blocks per SM at every C of
+    the main path (its rate follows the bytes in flight per SM), and no
+    main-path kernel spills."""
+    _card()
+    for c in (1, 4, 8):
+        fwd = grouped_ffn.variant_info("stream_fwd", torch.float32, c)
+        dw = grouped_ffn.variant_info("stream_dw", torch.float32, c)
+        assert fwd["blocks_per_sm"] == 3 and fwd["spill_bytes"] == 0, fwd
+        assert dw["blocks_per_sm"] >= 2 and dw["spill_bytes"] == 0, dw
