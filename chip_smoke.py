@@ -11,7 +11,8 @@ Phases (any failure exits non-zero):
                  and first decode step, plus ragged cases (B1's variant,
                  streaming or tiled, asserted per case); times against
                  the bytes/FLOP bound, the plain version and one library
-                 call (B1 against torch.bmm in turns);
+                 call (B1 against torch.bmm and B2 against index_select
+                 in turns);
   4. slice    -- zcode-m3-base at full width and depth (bf16 activations,
                  f32 params, random weights from a seed) generates for 8
                  requests through the kernel backend with flash decode; the
@@ -28,13 +29,14 @@ Phases (any failure exits non-zero):
                  tokens per step): K f32 steps of cuda_fused, cuda and the
                  plain oracle path from one seeded init, gated against each
                  other (loss, grad norm, balance per step, parameters
-                 after K); B4 and B1's forward and backward kernels against
-                 their plain versions at the inputs captured from the
-                 first step, plus ragged cases, and timed; then both
+                 after K); B4, B1's forward and backward kernels and B2
+                 against their plain versions at the inputs captured from
+                 the first step, plus ragged cases, and timed (dx at both
+                 products of the expert FFN); then both
                  kernel backends in the model's own dtype (bf16
                  activations): launch counts per step asserted (routed,
-                 Gate-Drop and Gate-Expert-Drop steps; every B1 forward
-                 and dw launch streaming), step time, tokens/s, peak
+                 Gate-Drop and Gate-Expert-Drop steps; every B1 forward,
+                 dx and dw launch streaming), step time, tokens/s, peak
                  memory, a CUDA-event split into forward, backward and
                  Adam, and the device's busy time from a torch.profiler
                  trace.
@@ -365,24 +367,25 @@ def kernel_of(name):
     return wrappers()[name]
 
 
-B1_STREAMED = ("grouped_matmul", "grouped_matmul_dw")
+B1_STREAMED = ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
 # B1 shapes (E, C, d, f) at full width around C = 16, the streaming limit
 B1_FULL_WIDTH = [(4, c, d, f) for c in (4, 8, 9, 16) for d, f in ((512, 2048), (2048, 512))]
 
 
-def b1_variant(args) -> str:
+def b1_variant(name, args) -> str:
     """The B1 kernel ``grouped_ffn.variant`` picks for these inputs (the
     output, a fresh allocation, is aligned)."""
     from repro_torch.kernels import grouped_ffn
-    a, b = args                  # (x, w) or (x, dy): x is (E, C, d), f is b's last axis
-    _, c, d = a.shape
-    return grouped_ffn.variant(c, d, b.shape[2], a.element_size(), a.data_ptr(),
+    a, b = args                  # (x, w), (dy, w) or (x, dy); a's rows are C
+    # dx: dy (E, C, f), w (E, d, f); forward and dw: (E, C, d), (E, ., f)
+    d = b.shape[1] if name == "grouped_matmul_dx" else a.shape[2]
+    return grouped_ffn.variant(a.shape[1], d, b.shape[2], a.element_size(), a.data_ptr(),
                                b.data_ptr())
 
 
 def run_kernel(name, args, kw=None):
-    """Runs kernel ``name`` once. Returns (out, variant): for B1's forward
-    and dw the variant it took by its launch counters, asserted equal to
+    """Runs kernel ``name`` once. Returns (out, variant): for B1's forward,
+    dx and dw the variant it took by its launch counters, asserted equal to
     what ``grouped_ffn.variant`` predicts; None for the other kernels."""
     fn = kernel_of(name)
     if name not in B1_STREAMED:
@@ -390,8 +393,8 @@ def run_kernel(name, args, kw=None):
     before = fn.launches_streaming
     out = fn(*args)
     took = "streaming" if fn.launches_streaming > before else "tiled"
-    if took != b1_variant(args):
-        raise AssertionError(f"{name}: took {took}, variant says {b1_variant(args)}")
+    if took != b1_variant(name, args):
+        raise AssertionError(f"{name}: took {took}, variant says {b1_variant(name, args)}")
     return out, took
 
 
@@ -454,6 +457,38 @@ def ragged_cases(dev):
     return cases
 
 
+def library_of(name, args):
+    """One PyTorch call computing the kernel's function on ``args``: its
+    yardstick (``library_ms``); the port never calls it."""
+    if name == "grouped_matmul":
+        return lambda: torch.bmm(*args)
+    if name == "grouped_matmul_dx":
+        dy, w = args
+        wt = w.transpose(1, 2)
+        return lambda: torch.bmm(dy, wt)
+    if name == "grouped_matmul_dw":
+        x, dy = args
+        xt = x.transpose(1, 2)
+        return lambda: torch.bmm(xt, dy)
+    if name == "dispatch":
+        x, st, _ = args
+        idx = st.long().clamp(0, x.shape[0] - 1)
+        return lambda: torch.index_select(x, 0, idx)
+    if name == "combine":
+        buf, ts, w, keep = args
+        psw = (w * keep).to(buf.dtype)
+        return lambda: F.embedding_bag(ts, buf, per_sample_weights=psw, mode="sum")
+    if name == "flash_decode":
+        q, k, v, idx = args
+        s = k.shape[1]
+        q4 = q.to(k.dtype)[:, :, None, :]
+        k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
+        pos = torch.arange(s, device=k.device)[None, :]
+        mask = (pos <= torch.as_tensor(idx).reshape(-1, 1))[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+    raise KeyError(name)
+
+
 def kernel_phase(calls, dev):
     """Checks every kernel at the captured main-path inputs and the ragged
     cases, then times it at the prefill and decode sites. Returns
@@ -489,28 +524,6 @@ def kernel_phase(calls, dev):
         "per-row indices, f32 and bf16)")
     log(f"kernel grouped_matmul ragged cases and their variants: {b1_rag}")
 
-    def library(name, args):
-        if name == "grouped_matmul":
-            return lambda: torch.bmm(*args)
-        if name == "dispatch":
-            x, st, _ = args
-            idx = st.long().clamp(0, x.shape[0] - 1)
-            return lambda: torch.index_select(x, 0, idx)
-        if name == "combine":
-            buf, ts, w, keep = args
-            psw = (w * keep).to(buf.dtype)
-            return lambda: F.embedding_bag(ts, buf, per_sample_weights=psw,
-                                           mode="sum")
-        if name == "flash_decode":
-            q, k, v, idx = args
-            b, s = k.shape[0], k.shape[1]
-            q4 = q.to(k.dtype)[:, :, None, :]
-            k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
-            pos = torch.arange(s, device=dev)[None, :]
-            mask = (pos <= torch.as_tensor(idx).reshape(-1, 1))[:, None, None, :]
-            return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
-        raise KeyError(name)
-
     timing = {}
     for name in out:
         # the first captured call is the prefill site, the last the decode
@@ -521,19 +534,24 @@ def kernel_phase(calls, dev):
         for site, args in sites:
             nbytes, flops, wdt = work(name, args)
             b_ms, b_by = bound(nbytes, flops, wdt)
-            if name == "grouped_matmul":
-                k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library(name, args))
+            if name in ("grouped_matmul", "dispatch"):      # in turns with the library
+                k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
                 p_ms = device_ms(lambda: plain_of(name)(*args))
             else:
                 k_ms = device_ms(lambda: kernel_of(name)(*args))
                 p_ms = device_ms(lambda: plain_of(name)(*args))
-                l_ms = device_ms(library(name, args))
+                l_ms = device_ms(library_of(name, args))
             shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
+            note = ""
+            if name == "grouped_matmul":
+                note = (f" (torch.bmm, timed in turns with the kernel; {b1_variant(name, args)} "
+                        f"variant, {b_ms / k_ms * 100:.1f}% of the bound)")
+            elif name == "dispatch":
+                note = (f" (index_select, timed in turns with the kernel: kernel / library "
+                        f"{k_ms / l_ms:.3f})")
             log(f"time {name}@{site} [{shape}]: kernel {k_ms:.6f} ms, bound "
                 f"{b_ms:.6f} ms ({b_by}), plain {p_ms:.6f} ms, library "
-                f"{l_ms:.6f} ms" + (f" (torch.bmm, timed in turns with the kernel; "
-                                    f"{b1_variant(args)} variant, {b_ms / k_ms * 100:.1f}% "
-                                    "of the bound)" if name == "grouped_matmul" else ""))
+                f"{l_ms:.6f} ms" + note)
             timing[(name, site)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                         bound_by=b_by, library_ms=l_ms,
                                         shape=shape)
@@ -782,7 +800,7 @@ def train_parity(full, dev):
     captured, ref = {}, None
     for backend, names in (("oracle", ()), ("cuda_fused", ("fused_moe",)),
                            ("cuda", ("grouped_matmul", "grouped_matmul_dx",
-                                     "grouped_matmul_dw"))):
+                                     "grouped_matmul_dw", "dispatch"))):
         cfg = train_cfg(full, backend, "float32")
         state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
         step = make_train_step(cfg, tc)
@@ -874,21 +892,51 @@ def bwd_ragged_cases(dev):
             w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
             dy = torch.randn(e, c, f, generator=g, device=dev).to(dt)
             cases += [("grouped_matmul_dx", (dy, w)), ("grouped_matmul_dw", (x, dy))]
+        # streaming at full width around C = 16, a ragged slab of d and a
+        # ragged last chunk of f
         for e, c, d, f in (*B1_FULL_WIDTH, (3, 5, 96, 64), (2, 2, 40, 136)):
             x = torch.randn(e, c, d, generator=g, device=dev).to(dt)
+            w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
             dy = torch.randn(e, c, f, generator=g, device=dev).to(dt)
-            cases.append(("grouped_matmul_dw", (x, dy)))
+            cases += [("grouped_matmul_dx", (dy, w)), ("grouped_matmul_dw", (x, dy))]
     return cases
 
 
+def tiled_dx(dy, w):
+    """dx on the tiled kernel, whatever ``grouped_ffn.variant`` says (its
+    launch is not counted)."""
+    from repro_torch.kernels import grouped_ffn
+    e, c, f = dy.shape
+    d = w.shape[1]
+    return grouped_ffn._launch("repro_grouped_matmul_dx", dy, w, (e, c, d), e, c, d, f)[0]
+
+
+def train_sites(captured):
+    """(name, site, (args, kw)) of the training-site timings: B1's forward
+    at its d = 2048 product (the decode site's layout), dx at both
+    products (w_out (E, d_ff, d): "train", w_in (E, d, d_ff): "train_up"),
+    dW, B4 and B2 at their one shape."""
+    dx = {("train" if args[1].shape[1] > args[1].shape[2] else "train_up"): (args, kw)
+          for args, kw in captured["grouped_matmul_dx"]}
+    if sorted(dx) != ["train", "train_up"]:
+        raise AssertionError(f"grouped_matmul_dx: training sites {sorted(dx)}")
+    return [("fused_moe", "train", captured["fused_moe"][0]),
+            ("grouped_matmul", "train", captured["grouped_matmul"][-1]),
+            ("grouped_matmul_dx", "train", dx["train"]),
+            ("grouped_matmul_dx", "train_up", dx["train_up"]),
+            ("grouped_matmul_dw", "train", captured["grouped_matmul_dw"][0]),
+            ("dispatch", "train", captured["dispatch"][0])]
+
+
 def train_kernel_phase(captured, dev):
-    """B4 and B1's kernels against their plain versions at the inputs
+    """B4, B1's kernels and B2 against their plain versions at the inputs
     captured from the first training step and in ragged cases, then timed
-    at the training site (B1's forward at its d = 2048 product, the decode
-    site's layout). Returns ({name: max abs err}, {name: times})."""
+    at the training sites (``train_sites``). Returns ({name: max abs err},
+    {(name, site): times})."""
     from repro_torch.kernels import moe_dispatch, ops
     errs = {}
-    for name in ("fused_moe", "grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw"):
+    for name in ("fused_moe", "grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw",
+                 "dispatch"):
         if not captured.get(name):
             raise AssertionError(f"{name}: never called on the training path")
         err, variants = 0.0, []
@@ -896,12 +944,14 @@ def train_kernel_phase(captured, dev):
             out, took = run_kernel(name, args, kw)
             variants += [took] if took else []
             torch.cuda.synchronize()
-            err = max(err, check(name, out, plain_of(name)(*args, **kw)))
+            err = max(err, check(name, out, plain_of(name)(*args, **kw),
+                                 exact=name == "dispatch"))
         errs[name] = err
         shapes = [" x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
                   for args, _ in captured[name]]
+        tol = "bitwise" if name == "dispatch" else f"tol {TOL['float32']}"
         log(f"kernel {name}: training-site inputs {shapes}, max abs err {err:.3e} "
-            f"(tol {TOL['float32']})" + (f", variants {variants}" if variants else ""))
+            f"({tol})" + (f", variants {variants}" if variants else ""))
         if variants and set(variants) != {"streaming"}:
             raise AssertionError(f"{name}: a training-site input took the tiled kernel")
     n = 0
@@ -915,19 +965,18 @@ def train_kernel_phase(captured, dev):
     b1_rag = []
     for name, args in bwd_ragged_cases(dev):
         out, took = run_kernel(name, args)
-        b1_rag += [b1_case(args, took)] if took else []
+        b1_rag += [f"{name[15:]} {b1_case(args, took)}"]
         check(f"{name} ragged", out, plain_of(name)(*args))
         n += 1
     torch.cuda.synchronize()
-    log(f"kernel grouped_matmul_dw ragged cases and their variants: {b1_rag}")
+    log(f"kernel grouped_matmul_dx/_dw ragged cases and their variants: {b1_rag}")
     log(f"train kernels: {n} ragged cases agree with their plain versions (B4: k=2, "
         "capacity 1, all dropped, T=1, ragged d and f, d > 512, 16-row tiles, gelu and "
-        "gated silu; B1 dx/dw: C=1, C=17, C=100, ragged d and f; B1 dw: C=4, 8, 9, 16 at "
-        "full width, a ragged slab; f32 and bf16)")
+        "gated silu; B1 dx/dw: C=1, C=17, C=100, ragged d and f; C=4, 8, 9, 16 at "
+        "full width, a ragged slab of d, a ragged last chunk of f; f32 and bf16)")
 
     timing = {}
-    for name in errs:
-        args, kw = captured[name][-1 if name == "grouped_matmul" else 0]
+    for name, site, (args, kw) in train_sites(captured):
         nbytes, flops, wdt = work(name, args)
         b_ms, b_by = bound(nbytes, flops, wdt)
         extra = {}
@@ -948,22 +997,29 @@ def train_kernel_phase(captured, dev):
             extra["pipeline_ms"] = device_ms(pipeline)
             lib = "null (no single PyTorch call computes gather + FFN + scatter)"
         else:
-            a, b = args
-            lhs, rhs = {"grouped_matmul": (a, b), "grouped_matmul_dx": (a, b.transpose(1, 2)),
-                        "grouped_matmul_dw": (a.transpose(1, 2), b)}[name]
-            k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), lambda: torch.bmm(lhs, rhs))
+            k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
             p_ms = device_ms(lambda: plain_of(name)(*args))
-            view = "" if name == "grouped_matmul" else " on the transposed view"
-            lib = (f"{l_ms:.6f} ms (torch.bmm{view}, timed in turns with the kernel); "
-                   f"{b1_variant(args) if name in B1_STREAMED else 'tiled'} variant, "
-                   f"{b_ms / k_ms * 100:.1f}% of the bound")
+            if name == "dispatch":
+                lib = (f"{l_ms:.6f} ms (index_select, timed in turns with the kernel: "
+                       f"kernel / library {k_ms / l_ms:.3f})")
+            else:
+                view = {"grouped_matmul": "", "grouped_matmul_dx": " on the w^T view",
+                        "grouped_matmul_dw": " on the x^T view"}[name]
+                lib = (f"{l_ms:.6f} ms (torch.bmm{view}, timed in turns with the kernel); "
+                       f"{b1_variant(name, args)} variant, {b_ms / k_ms * 100:.1f}% of the "
+                       "bound")
+            if name == "grouped_matmul_dx":
+                # the tiled kernel, which dx ran before the streaming one
+                check("grouped_matmul_dx tiled", tiled_dx(*args), plain_of(name)(*args))
+                extra["tiled_ms"] = device_ms(lambda: tiled_dx(*args))
         shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
-        log(f"time {name}@train [{shape}]: kernel {k_ms:.6f} ms, bound {b_ms:.6f} ms "
+        log(f"time {name}@{site} [{shape}]: kernel {k_ms:.6f} ms, bound {b_ms:.6f} ms "
             f"({b_by}), plain {p_ms:.6f} ms, library {lib}" +
             (f", cuda pipeline (B2 -> B1 x2 -> B3) {extra['pipeline_ms']:.6f} ms"
-             if extra else ""))
-        timing[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                            library_ms=l_ms, shape=shape, **extra)
+             if "pipeline_ms" in extra else "") +
+            (f", tiled kernel {extra['tiled_ms']:.6f} ms" if "tiled_ms" in extra else ""))
+        timing[(name, site)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=l_ms, shape=shape, **extra)
     return errs, timing
 
 
@@ -1173,7 +1229,7 @@ def run_scheduler(params, cfg, gen, reqs, paged=None, n_pages=0, tracer=None):
 
 
 def check_streamed(label, counts, streamed):
-    """Every launch of B1's forward and dw in a main-path run took the
+    """Every launch of B1's forward, dx and dw in a main-path run took the
     streaming kernel."""
     log(f"{label}: B1 launches on the streaming kernel {streamed} of "
         f"{ {k: counts[k] for k in B1_STREAMED} }")
@@ -1503,9 +1559,12 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged):
     """One entry per kernel for the JSON line: serving kernels at their
     decode site with their launches per ``generate``, training kernels at
     the training site with their launches per step (B4 on ``cuda_fused``,
-    B1's backward on ``cuda``), B6 at the paged scheduler's decode site
+    B1's backward on ``cuda``; dx at its down-projection site, with the
+    up-projection site beside it), B6 at the paged scheduler's decode site
     with its launches over one bf16 replay of the trace; every entry also
-    lists its launches per training step on both kernel backends."""
+    lists its launches per training step on both kernel backends, and the
+    kernels timed at the training site besides (B1's forward, B2) carry
+    that timing too."""
     kernels = []
     for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
                  "combine", "fused_moe", "flash_decode"):
@@ -1513,7 +1572,7 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged):
         if (name, "decode") in timing:
             t, site, launches, err = timing[(name, "decode")], "decode", counts[name], errs[name]
         else:
-            t, site = t_timing[name], "train"
+            t, site = t_timing[(name, "train")], "train"
             launches = t_counts["cuda_fused" if name == "fused_moe" else "cuda"][name]
             err = t_errs[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1526,9 +1585,12 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged):
             entry["prefill_ms"] = timing.get((name, "prefill"), {}).get("ms")
         if name.startswith("grouped_matmul"):
             entry["variant"] = "streaming" if name in B1_STREAMED else "tiled"
-        if name == "grouped_matmul":
+        if name in ("grouped_matmul", "dispatch"):
             entry["prefill"] = timing[(name, "prefill")]
-            entry["train_site"] = {**t_timing[name], "max_abs_err": t_errs[name]}
+            entry["train_site"] = {**t_timing[(name, "train")], "max_abs_err": t_errs[name]}
+        if name == "grouped_matmul_dx":
+            entry["tiled_ms"] = t["tiled_ms"]
+            entry["train_up_site"] = t_timing[(name, "train_up")]
         if "pipeline_ms" in t:
             entry["pipeline_ms"] = t["pipeline_ms"]
         kernels.append(entry)
@@ -1653,7 +1715,7 @@ def ptxas_report(path: Path):
                                        text=True).stdout.strip()
         elif "registers" in line or "spill" in line:
             log(f"  ptxas: {entry}: {line.split(':', 1)[-1].strip()}")
-    for kind in ("stream_fwd", "stream_dw", "tiled_fwd", "tiled_dx"):
+    for kind in ("stream_fwd", "stream_dx", "stream_dw", "tiled_fwd", "tiled_dx"):
         for dt in (torch.float32, torch.bfloat16):
             infos = {c: grouped_ffn.variant_info(kind, dt, c) for c in (1, 4, 8, 16)}
             log(f"B1 {kind} {_dt(torch.empty(0, dtype=dt))} (C rounded up to 1/4/8/16): "

@@ -27,7 +27,7 @@
 // one per call:
 //
 // * Streaming kernels, for C <= 16 with 16-byte row strides and 16-byte
-//   aligned pointers (every call on the main path):
+//   aligned pointers (every call on the main path), one per product:
 //   - forward (gmm_stream_fwd): a persistent grid walks work items
 //     (expert, 128-column slab of F); each item reduces over all of D, so
 //     no sum crosses blocks (no atomics, the same result on every run).
@@ -49,6 +49,24 @@
 //     row. The grid is the resident-block count cut down so that every
 //     block gets the same number of items (512 items at decode: 256
 //     blocks of 2, not a 3.9-wave tail over 132 SMs).
+//   - dx (gmm_stream_dx): the forward transposed. dx reduces over w's
+//     contiguous axis F, so a work item is (expert, slab of rows of D) and
+//     each w row segment is an unbroken run of memory: no transposed copy
+//     of w. The producer warp fills a ring with one bulk copy per 512-byte
+//     row segment (a stage holds the slab's rows x one chunk of F) and
+//     dy[e]'s C x chunk slice beside it, so F = 512 and F = 2048 stream
+//     alike and dy never sits whole in shared memory (64 KB at F = 2048,
+//     C = 8, which would cost a resident block per SM). A consumer warp
+//     owns 8 rows of the slab (4 above C = 4), its lanes one 16-byte word
+//     of each chunk; each lane keeps rows x C f32 sums over the whole
+//     item and reads each w word and each dy word of a stage once,
+//     holding its row words in registers while it walks dy's. At
+//     the end of an item a warp meets its lanes' sums by halving
+//     xor-shuffles (fewer than N shuffles for N sums, in a fixed order).
+//     What set its rate, measured: the size of each bulk copy (256-byte
+//     segments reached 65-70% of the bound at C = 8, 512-byte ones 85%)
+//     and resident blocks, so the ring takes as many stages as fit four
+//     blocks per SM (48-54 KB at C <= 8).
 //   - dw (gmm_stream_dw): bound by writing dw, ~50x the bytes of x and dy
 //     together (10.5 MB at the training site, they stay in L2). A block owns 64 rows of D x
 //     (512 bytes of F) of one expert, loads its slices of x[e] (read
@@ -62,11 +80,11 @@
 //     threads per SM at C = 8 (2-8 by C), each thread issuing 8 stores,
 //     enough are always queued.
 // * The tiled kernel (grouped_matmul_kernel), for everything else (C >
-//   16, ragged row strides, misaligned views) and for dx: a block owns a
-//   (16 or 64) x 64 output tile of one expert and loops over the reduction
-//   axis in steps of 16 through shared memory, masking ragged edges, so
-//   any sizes work. It moves 4-byte words with one stage in flight and
-//   reaches ~35-55% of the byte bound; dx keeps it for now.
+//   16, ragged row strides, misaligned views): a block owns a (16 or 64)
+//   x 64 output tile of one expert and loops over the reduction axis in
+//   steps of 16 through shared memory, masking ragged edges, so any sizes
+//   work. It moves 4-byte words with one stage in flight and reaches
+//   ~35-55% of the byte bound.
 
 #include "common.cuh"
 
@@ -195,13 +213,15 @@ int dispatch_dtype(const void* a, const void* b, void* out, int E, int M, int K,
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxStreamC = 16;
-constexpr int kNW = 4;                        // consumer warps (forward)
+constexpr int kNW = 4;                        // consumer warps (forward and dx)
 constexpr int kRowGroups = 4;                 // forward: row groups of a warp's lanes
-constexpr int kFwdThreads = (kNW + 1) * 32;   // + one producer warp
+constexpr int kFwdThreads = (kNW + 1) * 32;   // + one producer warp (forward and dx)
 constexpr int kSBN = 128;                     // forward: columns per work item
-constexpr int kStages = 4;
+constexpr int kStages = 4;                    // forward
 constexpr int kStageW = 16384;                // forward: bytes of w per stage
 constexpr int kDwBM = 64;                     // dw: rows of D per block
+constexpr int kDxChunk = 512;                 // dx: bytes of F per row segment and stage
+constexpr int kDxSmem = 57344 - 64;           // dx: ring bytes that fit four blocks per SM
 constexpr int kDwThreads = 256;
 
 __device__ __forceinline__ int ceil_div_d(int a, int b) { return (a + b - 1) / b; }
@@ -303,11 +323,13 @@ struct FwdSmem {
   static constexpr int kTotal = kBars + 2 * kStages * 8;
 };
 
-// 16 bytes of shared memory (4 f32 or 8 bf16) as f32
-__device__ __forceinline__ void load16(const float* p, float (&v)[4]) { load4(p, v); }
+// one 16-byte word (4 f32 or 8 bf16) held in registers, as f32
+__device__ __forceinline__ void word_f32(const uint4& t, float (&v)[4]) {
+  v[0] = __uint_as_float(t.x); v[1] = __uint_as_float(t.y);
+  v[2] = __uint_as_float(t.z); v[3] = __uint_as_float(t.w);
+}
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 t = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void word_f32(const uint4& t, float (&v)[8]) {
   const uint32_t u[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -315,6 +337,12 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+
+// 16 bytes of shared memory (4 f32 or 8 bf16) as f32
+template <typename T, int V>
+__device__ __forceinline__ void load16(const T* p, float (&v)[V]) {
+  word_f32(*reinterpret_cast<const uint4*>(p), v);
 }
 
 // One lane's unit of a stage: U = 16 / sizeof(T) adjacent rows r0.. (a
@@ -499,6 +527,187 @@ gmm_stream_dw(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__
   }
 }
 
+// Shared memory of the dx kernel: kStages x (w stage, dy stage), then the
+// full and empty barriers. A stage holds the slab's rows of w, each one
+// kDxChunk-byte segment of F, and dy[e]'s C x chunk slice beside them. A
+// warp owns kRK rows: 8 (a 32-row slab, 16 KB of w per stage) up to C = 4,
+// 4 (a 16-row slab) above, so that a lane's kRK x CT sums stay at 32
+// registers up to C = 8. The ring takes as many stages as fit four blocks
+// per SM: 3 at C = 1 and 4, 4 at C = 8, 3 at C = 16 (48-54 KB).
+template <typename T, int CT>
+struct DxSmem {
+  static constexpr int kRK = CT <= 4 ? 8 : 4;
+  static constexpr int kRows = kNW * kRK;
+  static constexpr int kW = kRows * kDxChunk;
+  static constexpr int kStage = kW + CT * kDxChunk;
+  static constexpr int kStages = kDxSmem / kStage;
+  static constexpr int kBars = kStages * kStage;
+  static constexpr int kTotal = kBars + 2 * kStages * 8;
+};
+
+// Sums N values per lane over the lanes of a warp (xor masks M, M / 2, ..,
+// 1) by halving exchanges: while a lane holds more than one value
+// it keeps the half that bit M of its lane selects and sends the other
+// half, so N values cost fewer than N shuffles, not N log2(lanes). The
+// order is fixed, so every run gives the same bits. With S the halving
+// steps taken, v[j] (j < N >> S) returns the sum of the values at index
+// p * (N >> S) + j, p the lane's top S bits.
+template <int N, int M>
+__device__ __forceinline__ void halve_reduce(float* v, int lane) {
+  if constexpr (M > 0) {
+    if constexpr (N > 1) {
+      const bool upper = lane & M;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const float send = upper ? v[i] : v[i + N / 2];
+        const float keep = upper ? v[i + N / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+      }
+      halve_reduce<N / 2, M / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], M);
+      halve_reduce<1, M / 2>(v, lane);
+    }
+  }
+}
+
+__host__ __device__ constexpr int log2_c(int n) { return n <= 1 ? 0 : 1 + log2_c(n / 2); }
+
+// NL (1 or 2) adjacent outputs of one row c of dx (NL rows of D) from f32
+// sums
+template <int NL>
+__device__ __forceinline__ void store_run(float* p, const float* v) {
+  if constexpr (NL == 2) *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else p[0] = v[0];
+}
+
+template <int NL>
+__device__ __forceinline__ void store_run(__nv_bfloat16* p, const float* v) {
+  if constexpr (NL == 2) *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v[0], v[1]);
+  else p[0] = __float2bfloat16_rn(v[0]);
+}
+
+// dx (E, C, D) = dy (E, C, F) @ w^T: w (E, D, F) read in place along its
+// contiguous axis F, C <= CT <= 16; D and F of 16-byte rows, pointers
+// 16-byte aligned (checked on the host).
+//
+// The forward transposed: a persistent grid walks work items (expert e,
+// slab of kRows rows of D); each item reduces over all of F, chunk by
+// chunk through the ring, so no sum crosses blocks. Consumer warp q owns
+// rows q * kRK .. + kRK - 1 of the slab and lane i owns 16-byte word i of
+// every chunk: per stage a lane reads each of its row words and each of
+// the C dy words once, holding its row words in registers while it walks
+// dy's, and keeps kRK x CT f32 sums across the item. At the end
+// of the item the warp meets its lanes' sums by halving exchanges
+// (halve_reduce) and each lane stores NL adjacent rows of one row c of dx.
+template <typename T, int CT>
+__global__ void __launch_bounds__(kFwdThreads, CT <= 8 ? 4 : 3)
+gmm_stream_dx(const T* __restrict__ dy, const T* __restrict__ w, T* __restrict__ dx, int E,
+              int C, int D, int F) {
+  using L = DxSmem<T, CT>;
+  constexpr int RK = L::kRK, SR = L::kRows, STAGES = L::kStages;
+  constexpr int V = 16 / sizeof(T);               // values per 16-byte word
+  constexpr int FC = kDxChunk / sizeof(T);        // values of F per stage
+  constexpr int N = RK * CT;                      // sums per lane: index c * RK + k
+  constexpr int STEPS = log2_c(N) < 5 ? log2_c(N) : 5;
+  constexpr int NL = N >> STEPS;                  // sums a lane keeps
+  static_assert(kDxChunk == 32 * 16, "one 16-byte word per lane and row");
+  static_assert(NL <= 2, "store_run writes one or two outputs");
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + STAGES;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_slab = ceil_div_d(D, SR);
+  const int n_items = E * n_slab;
+  const int n_k = ceil_div_d(F, FC);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kNW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kNW) {
+    // producer: per stage, one copy per row segment of w and per row of dy
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int e = item / n_slab, d0 = (item % n_slab) * SR;
+      const int rows = min(SR, D - d0);
+      const T* we = w + (static_cast<size_t>(e) * D + d0) * F;
+      const T* ye = dy + static_cast<size_t>(e) * C * F;
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int f0 = kt * FC;
+        const uint32_t bytes = min(FC, F - f0) * sizeof(T);
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + stage * L::kStage;
+        if (lane == 0) mbar_arrive_expect_tx(&full[stage], (rows + C) * bytes);
+        __syncwarp();
+        for (int r = lane; r < rows; r += 32)
+          bulk_g2s(st + r * kDxChunk, we + static_cast<size_t>(r) * F + f0, bytes, &full[stage]);
+        for (int c = lane; c < C; c += 32)
+          bulk_g2s(st + L::kW + c * kDxChunk, ye + static_cast<size_t>(c) * F + f0, bytes,
+                   &full[stage]);
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  const int row0 = warp * RK;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int e = item / n_slab, d0 = (item % n_slab) * SR;
+    const int rows = min(SR, D - d0);
+    float acc[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] = 0.f;
+
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int words = min(FC, F - kt * FC) / V;   // F's rows are whole words
+      mbar_wait(&full[stage], phase);
+      const unsigned char* ws = smem + stage * L::kStage + lane * 16;
+      const unsigned char* ys = ws + L::kW;
+      if (lane < words) {
+        // hold the row words, walk the C dy words (rows c >= C are never stored)
+        uint4 wv[RK];
+#pragma unroll
+        for (int k = 0; k < RK; ++k)
+          wv[k] = *reinterpret_cast<const uint4*>(ws + (row0 + k) * kDxChunk);
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          float yf[V];
+          load16(reinterpret_cast<const T*>(ys + c * kDxChunk), yf);
+#pragma unroll
+          for (int k = 0; k < RK; ++k) {
+            float wf[V];
+            word_f32(wv[k], wf);
+#pragma unroll
+            for (int j = 0; j < V; ++j) acc[c * RK + k] += yf[j] * wf[j];
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    }
+
+    halve_reduce<N, 16>(acc, lane);
+    // sums p * NL .. + NL - 1: row c of dx, rows k0 .. k0 + NL - 1 of the
+    // warp's; lanes that differ only below the top STEPS bits hold copies
+    const int p = lane >> (5 - STEPS);
+    const int c = p * NL / RK, k0 = p * NL % RK;
+    const bool owner = (lane & ((1 << (5 - STEPS)) - 1)) == 0;
+    if (owner && c < C && row0 + k0 < rows)
+      store_run<NL>(dx + (static_cast<size_t>(e) * C + c) * D + d0 + row0 + k0, acc);
+  }
+}
+
 // Whether the streaming kernels take (C, K, N) rows with these pointers:
 // the same rule as grouped_ffn.py::variant, checked again here so that a
 // bulk copy is never issued on a ragged or misaligned row.
@@ -508,21 +717,28 @@ bool stream_ok(const void* a, const void* b, const void* out, int C, int K, int 
          aligned16(a) && aligned16(b) && aligned16(out);
 }
 
-// resident blocks of the forward kernel over the whole card, measured once
-// per instantiation (after raising its shared-memory limit)
+// resident blocks of a persistent streaming kernel over the whole card,
+// after raising its shared-memory limit to ``bytes``
+template <typename K>
+int resident_blocks(K kernel, int bytes) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdThreads, bytes);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// measured once per instantiation
 template <typename T, int CT>
 int fwd_max_blocks() {
-  static int blocks = 0;
-  if (blocks == 0) {
-    const int bytes = FwdSmem<T, CT>::kTotal;
-    cudaFuncSetAttribute(gmm_stream_fwd<T, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gmm_stream_fwd<T, CT>, kFwdThreads,
-                                                  bytes);
-    blocks = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  static const int blocks = resident_blocks(gmm_stream_fwd<T, CT>, FwdSmem<T, CT>::kTotal);
+  return blocks;
+}
+
+template <typename T, int CT>
+int dx_max_blocks() {
+  static const int blocks = resident_blocks(gmm_stream_dx<T, CT>, DxSmem<T, CT>::kTotal);
   return blocks;
 }
 
@@ -535,6 +751,17 @@ void launch_stream_fwd(const void* x, const void* w, void* out, int E, int C, in
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), E, C, D, F);
 }
 
+// the grid is the resident-block count cut down so that every block gets
+// the same number of items, as the forward's
+template <typename T, int CT>
+void launch_stream_dx(const void* dy, const void* w, void* dx, int E, int C, int D, int F,
+                      cudaStream_t st) {
+  const int items = E * ceil_div(D, DxSmem<T, CT>::kRows);
+  const int waves = ceil_div(items, dx_max_blocks<T, CT>());
+  gmm_stream_dx<T, CT><<<ceil_div(items, waves), kFwdThreads, DxSmem<T, CT>::kTotal, st>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(w), static_cast<T*>(dx), E, C, D, F);
+}
+
 template <typename T, int CT>
 void launch_stream_dw(const void* x, const void* dy, void* dw, int E, int C, int D, int F,
                       cudaStream_t st) {
@@ -544,37 +771,36 @@ void launch_stream_dw(const void* x, const void* dy, void* dw, int E, int C, int
                                                      C, D, F);
 }
 
+enum StreamKind { kStreamFwd = 0, kStreamDx = 1, kStreamDw = 2 };
+
 // C rounded up to the compiled row counts 1, 4, 8, 16
-template <typename T>
-void stream_fwd_rows(const void* a, const void* b, void* o, int E, int C, int D, int F,
-                     cudaStream_t st) {
-  if (C == 1) launch_stream_fwd<T, 1>(a, b, o, E, C, D, F, st);
-  else if (C <= 4) launch_stream_fwd<T, 4>(a, b, o, E, C, D, F, st);
-  else if (C <= 8) launch_stream_fwd<T, 8>(a, b, o, E, C, D, F, st);
-  else launch_stream_fwd<T, 16>(a, b, o, E, C, D, F, st);
+template <typename T, int CT>
+void launch_stream(int kind, const void* a, const void* b, void* o, int E, int C, int D, int F,
+                   cudaStream_t st) {
+  if (kind == kStreamFwd) launch_stream_fwd<T, CT>(a, b, o, E, C, D, F, st);
+  else if (kind == kStreamDx) launch_stream_dx<T, CT>(a, b, o, E, C, D, F, st);
+  else launch_stream_dw<T, CT>(a, b, o, E, C, D, F, st);
 }
 
 template <typename T>
-void stream_dw_rows(const void* a, const void* b, void* o, int E, int C, int D, int F,
-                    cudaStream_t st) {
-  if (C == 1) launch_stream_dw<T, 1>(a, b, o, E, C, D, F, st);
-  else if (C <= 4) launch_stream_dw<T, 4>(a, b, o, E, C, D, F, st);
-  else if (C <= 8) launch_stream_dw<T, 8>(a, b, o, E, C, D, F, st);
-  else launch_stream_dw<T, 16>(a, b, o, E, C, D, F, st);
+void stream_rows(int kind, const void* a, const void* b, void* o, int E, int C, int D, int F,
+                 cudaStream_t st) {
+  if (C == 1) launch_stream<T, 1>(kind, a, b, o, E, C, D, F, st);
+  else if (C <= 4) launch_stream<T, 4>(kind, a, b, o, E, C, D, F, st);
+  else if (C <= 8) launch_stream<T, 8>(kind, a, b, o, E, C, D, F, st);
+  else launch_stream<T, 16>(kind, a, b, o, E, C, D, F, st);
 }
 
-template <bool DW>
-int dispatch_stream(const void* a, const void* b, void* out, int E, int C, int D, int F,
-                    int dtype, void* stream) {
+int dispatch_stream(int kind, const void* a, const void* b, void* out, int E, int C, int D,
+                    int F, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kReproF32) {
     if (!stream_ok<float>(a, b, out, C, D, F)) return static_cast<int>(cudaErrorInvalidValue);
-    (DW ? stream_dw_rows<float> : stream_fwd_rows<float>)(a, b, out, E, C, D, F, st);
+    stream_rows<float>(kind, a, b, out, E, C, D, F, st);
   } else if (dtype == kReproBF16) {
     if (!stream_ok<__nv_bfloat16>(a, b, out, C, D, F))
       return static_cast<int>(cudaErrorInvalidValue);
-    (DW ? stream_dw_rows<__nv_bfloat16> : stream_fwd_rows<__nv_bfloat16>)(a, b, out, E, C, D, F,
-                                                                          st);
+    stream_rows<__nv_bfloat16>(kind, a, b, out, E, C, D, F, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -611,6 +837,10 @@ int variant_info(int kind, int* info) {
     case 3:
       return fill_info(reinterpret_cast<const void*>(grouped_matmul_kernel<T, 1, false, true>),
                           0, kThreads, info);
+    case 4:
+      dx_max_blocks<T, CT>();         // raises the kernel's shared-memory limit
+      return fill_info(reinterpret_cast<const void*>(gmm_stream_dx<T, CT>),
+                          DxSmem<T, CT>::kTotal, kFwdThreads, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -636,13 +866,19 @@ extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int
 // pointers; refuses other inputs with cudaErrorInvalidValue)
 extern "C" int repro_grouped_matmul_stream(const void* x, const void* w, void* out, int E, int C,
                                            int D, int F, int dtype, void* stream) {
-  return dispatch_stream<false>(x, w, out, E, C, D, F, dtype, stream);
+  return dispatch_stream(kStreamFwd, x, w, out, E, C, D, F, dtype, stream);
 }
 
 // dx (E, C, D) = dy (E, C, F) @ w^T, w (E, D, F) read transposed in place
 extern "C" int repro_grouped_matmul_dx(const void* dy, const void* w, void* dx, int E, int C,
                                        int D, int F, int dtype, void* stream) {
   return dispatch_dtype<false, true>(dy, w, dx, E, C, F, D, dtype, stream);
+}
+
+// the same product on the streaming kernel (same rule as the forward's)
+extern "C" int repro_grouped_matmul_dx_stream(const void* dy, const void* w, void* dx, int E,
+                                              int C, int D, int F, int dtype, void* stream) {
+  return dispatch_stream(kStreamDx, dy, w, dx, E, C, D, F, dtype, stream);
 }
 
 // dw (E, D, F) = x^T @ dy, x (E, C, D) read transposed in place, dy (E, C, F)
@@ -654,14 +890,14 @@ extern "C" int repro_grouped_matmul_dw(const void* x, const void* dy, void* dw, 
 // the same product on the streaming kernel (same rule as the forward's)
 extern "C" int repro_grouped_matmul_dw_stream(const void* x, const void* dy, void* dw, int E,
                                               int C, int D, int F, int dtype, void* stream) {
-  return dispatch_stream<true>(x, dy, dw, E, C, D, F, dtype, stream);
+  return dispatch_stream(kStreamDw, x, dy, dw, E, C, D, F, dtype, stream);
 }
 
 // What the device reports for one kernel instantiation: info = {registers
 // per thread, shared memory per block (static + dynamic) in bytes, local
 // (spill) bytes per thread, resident blocks per SM}. kind: 0 streaming
-// forward, 1 streaming dw (both at C rounded up to 1, 4, 8, 16), 2 tiled
-// forward and 3 tiled dx (both the C <= 16 tile).
+// forward, 1 streaming dw, 4 streaming dx (at C rounded up to 1, 4, 8,
+// 16), 2 tiled forward and 3 tiled dx (both the C <= 16 tile).
 extern "C" int repro_grouped_ffn_variant_info(int kind, int dtype, int C, int* info) {
   if (dtype == kReproF32) return variant_info_rows<float>(kind, C, info);
   if (dtype == kReproBF16) return variant_info_rows<__nv_bfloat16>(kind, C, info);

@@ -20,26 +20,28 @@ f32 gate, so all kernels run on the CUDA cores in f32. ``variant`` picks
 one of two designs per call:
 
 * ``"streaming"`` (C <= 16, rows of 16-byte multiples, 16-byte aligned
-  pointers: every call on the main path), forward and dw only. The
-  forward streams w through a 4-stage shared-memory ring filled by bulk
-  asynchronous copies (``cp.async.bulk`` on an mbarrier, one producer
-  warp) in a persistent grid of (expert, column slab) items, with x
-  staged beside it in chunks over d and the split-d partial sums added in
-  a fixed order (no atomics). dw loads its x and dy slices once and
-  writes dw with 16-byte streaming stores, a whole 512-byte run per warp.
-* ``"tiled"`` (anything else, and dx always): one output tile per block,
-  the reduction axis looped through shared memory, ragged edges masked,
-  so any shape works (C = 17, d = 130, f = 70, misaligned views).
+  pointers: every call on the main path). The forward streams w through
+  a 4-stage shared-memory ring filled by bulk asynchronous copies
+  (``cp.async.bulk`` on an mbarrier, one producer warp) in a persistent
+  grid of (expert, column slab) items, with x staged beside it in chunks
+  over d and the split-d partial sums added in a fixed order (no
+  atomics). dx is the forward transposed: items of (expert, slab of d
+  rows), w's rows streamed in chunks along their contiguous axis f with
+  dy's slice beside each chunk, every sum over f kept in one lane's
+  registers and met across lanes by xor-shuffles in a fixed order. dw
+  loads its x and dy slices once and writes dw with 16-byte streaming
+  stores, a whole 512-byte run per warp.
+* ``"tiled"`` (anything else): one output tile per block, the reduction
+  axis looped through shared memory, ragged edges masked, so any shape
+  works (C = 17, d = 130, f = 70, misaligned views).
 
 The plain versions are ``ref.grouped_matmul_ref``,
 ``ref.grouped_matmul_dx_ref`` and ``ref.grouped_matmul_dw_ref``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
 raises. ``grouped_matmul.launches``, ``grouped_matmul_dx.launches`` and
-``grouped_matmul_dw.launches`` count launches of either variant;
-``grouped_matmul.launches_streaming`` and
-``grouped_matmul_dw.launches_streaming`` count those that took the
-streaming kernel.
+``grouped_matmul_dw.launches`` count launches of either variant; their
+``.launches_streaming`` count those that took the streaming kernel.
 """
 from __future__ import annotations
 
@@ -68,8 +70,9 @@ def variant(c: int, d: int, f: int, itemsize: int, *addresses: int) -> str:
     on the card: ``"streaming"`` where 1 <= C <= 16, rows of d and of f
     are whole 16-byte words and every operand's address is 16-byte
     aligned (its bulk and 16-byte copies need all three), else
-    ``"tiled"``. The same rule for the forward (x, w, out) and dw (x, dy,
-    dw); ``repro_grouped_matmul*_stream`` checks it again."""
+    ``"tiled"``. The same rule for the forward (x, w, out), dx (dy, w,
+    dx) and dw (x, dy, dw); ``repro_grouped_matmul*_stream`` checks it
+    again."""
     if (1 <= c <= STREAM_MAX_C and (d * itemsize) % 16 == 0
             and (f * itemsize) % 16 == 0 and all(a % 16 == 0 for a in addresses)):
         return "streaming"
@@ -117,8 +120,10 @@ def grouped_matmul_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return plain_dx(dy, w)
     e, c, f = dy.shape
     d = w.shape[1]
-    out, _ = _launch("repro_grouped_matmul_dx", dy, w, (e, c, d), e, c, d, f)
+    out, streaming = _launch("repro_grouped_matmul_dx", dy, w, (e, c, d),
+                             e, c, d, f, "repro_grouped_matmul_dx_stream")
     grouped_matmul_dx.launches += 1
+    grouped_matmul_dx.launches_streaming += streaming
     return out
 
 
@@ -183,6 +188,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 grouped_matmul.launches = 0
 grouped_matmul.launches_streaming = 0
 grouped_matmul_dx.launches = 0
+grouped_matmul_dx.launches_streaming = 0
 grouped_matmul_dw.launches = 0
 grouped_matmul_dw.launches_streaming = 0
 
@@ -190,10 +196,10 @@ grouped_matmul_dw.launches_streaming = 0
 def variant_info(kind: str, dtype: torch.dtype, c: int) -> dict:
     """What the card reports for one compiled kernel: registers per thread,
     shared memory per block (bytes), spill bytes per thread and resident
-    blocks per SM. ``kind``: ``"stream_fwd"``, ``"stream_dw"`` (at C
-    rounded up to 1, 4, 8 or 16), ``"tiled_fwd"`` or ``"tiled_dx"`` (the
-    C <= 16 tile). Builds the library; needs a card."""
-    kinds = ("stream_fwd", "stream_dw", "tiled_fwd", "tiled_dx")
+    blocks per SM. ``kind``: ``"stream_fwd"``, ``"stream_dw"``,
+    ``"stream_dx"`` (at C rounded up to 1, 4, 8 or 16), ``"tiled_fwd"`` or
+    ``"tiled_dx"`` (the C <= 16 tile). Builds the library; needs a card."""
+    kinds = ("stream_fwd", "stream_dw", "tiled_fwd", "tiled_dx", "stream_dx")
     info = (ctypes.c_int * 4)()
     fn = build.function("repro_grouped_ffn_variant_info", [_I, _I, _I, _P])
     build.check(fn(kinds.index(kind), build.DTYPE_CODES[dtype], c,

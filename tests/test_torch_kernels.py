@@ -86,12 +86,15 @@ def test_expert_ffn_op_matches_pallas(jx):
 # (C, d, f, element bytes, operand addresses) -> the B1 kernel on the card.
 # The main path: decode (C = 1, and the scheduler's 9 rows at capacity 2.0
 # give C = 1), prefill (C = 4) and training (C = 8), f32 weights, both
-# products of the expert FFN; then what must stay on the tiled kernel.
+# products of the expert FFN, and dx at both training sites (operands dy,
+# w, dx); then what must stay on the tiled kernel.
 _VARIANT_CASES = [
     ((1, 2048, 512, 4, 0, 256, 512), "streaming"),       # decode, w_out
     ((1, 512, 2048, 4, 0, 256, 512), "streaming"),       # decode, w_in
     ((4, 512, 2048, 4, 0, 256, 512), "streaming"),       # prefill
     ((8, 2048, 512, 4, 0, 256, 512), "streaming"),       # training
+    ((8, 2048, 512, 4, 0, 4096, 8192), "streaming"),     # dx, down: dy (128,8,512), w (128,2048,512)
+    ((8, 512, 2048, 4, 0, 4096, 8192), "streaming"),     # dx, up: dy (128,8,2048), w (128,512,2048)
     ((16, 512, 2048, 2, 0, 256, 512), "streaming"),      # bf16, C = 16
     ((5, 96, 64, 4), "streaming"),                       # ragged stage and slab
     ((17, 2048, 512, 4), "tiled"),                       # C = 17
@@ -111,17 +114,25 @@ def test_grouped_matmul_variant_choice(args, want):
 
 def test_grouped_matmul_variant_of_views():
     """A view whose first element is off a 16-byte boundary must not take
-    the streaming kernel's bulk copies; the CPU path counts no launch."""
+    the streaming kernel's bulk copies; the CPU path counts no launch,
+    forward, dx or dw."""
     base = torch.randn(1 + 2 * 4 * 64)
     x = base[1:].reshape(2, 4, 64)
     w = torch.randn(2, 64, 32)
     assert grouped_ffn.variant(4, 64, 32, 4, x.data_ptr(), w.data_ptr()) == "tiled"
     assert grouped_ffn.variant(4, 64, 32, 4, base.data_ptr(), w.data_ptr()) \
         == "streaming"
+    dy = base[1:1 + 2 * 4 * 32].reshape(2, 4, 32)       # dx's dy, off a boundary
+    assert grouped_ffn.variant(4, 64, 32, 4, dy.data_ptr(), w.data_ptr()) == "tiled"
     reset_launch_counts()
     torch.testing.assert_close(grouped_ffn.grouped_matmul(x, w),
                                ref.grouped_matmul_ref(x, w))
-    assert streaming_counts() == {"grouped_matmul": 0, "grouped_matmul_dw": 0}
+    torch.testing.assert_close(grouped_ffn.grouped_matmul_dx(dy, w),
+                               ref.grouped_matmul_dx_ref(dy, w))
+    torch.testing.assert_close(grouped_ffn.grouped_matmul_dw(x, dy),
+                               ref.grouped_matmul_dw_ref(x, dy))
+    assert streaming_counts() == {"grouped_matmul": 0, "grouped_matmul_dx": 0,
+                                  "grouped_matmul_dw": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +368,8 @@ def test_cpu_path_never_launches_or_builds():
                                "grouped_matmul": 0, "grouped_matmul_dx": 0,
                                "grouped_matmul_dw": 0, "fused_moe": 0,
                                "flash_decode": 0, "flash_decode_paged": 0}
+    assert streaming_counts() == {"grouped_matmul": 0, "grouped_matmul_dx": 0,
+                                  "grouped_matmul_dw": 0}
     assert build._lib is None
     assert {p.name for p in build.sources()} == {
         "moe_dispatch.cu", "grouped_ffn.cu", "flash_decode.cu", "errors.cu",
@@ -394,9 +407,11 @@ def test_cuda_grouped_matmul_matches_plain(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_dispatch_matches_plain(dtype):
+    """Bitwise, with invalid slots and out-of-range tokens; (1024, 1024,
+    512) is the training site's shape (1,024 slots)."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(1)
-    for t, s, d in ((256, 512, 512), (9, 4, 37), (50, 40, 100)):
+    for t, s, d in ((256, 512, 512), (1024, 1024, 512), (9, 4, 37), (50, 40, 100)):
         x = torch.randn(t, d, generator=g, device=dev).to(dtype)
         st = torch.randint(-1, t + 2, (s,), generator=g, device=dev,
                            dtype=torch.int32)
@@ -467,9 +482,9 @@ _STREAM_SHAPES = [(4, c, d, f) for c in (1, 4, 8, 9, 16)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("e,c,d,f", _STREAM_SHAPES)
 def test_cuda_grouped_matmul_streaming_matches_plain(e, c, d, f, dtype):
-    """B1's streaming forward and dw kernels against their plain versions,
-    launched once each (per-variant counters), with the same result on a
-    second run (no atomics)."""
+    """B1's streaming forward, dx and dw kernels against their plain
+    versions, launched once each (per-variant counters), with the same
+    result on a second run (no atomics)."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(5 + c)
     x = torch.randn(e, c, d, generator=g, device=dev).to(dtype)
@@ -477,13 +492,17 @@ def test_cuda_grouped_matmul_streaming_matches_plain(e, c, d, f, dtype):
     dy = torch.randn(e, c, f, generator=g, device=dev).to(dtype)
     reset_launch_counts()
     out = grouped_ffn.grouped_matmul(x, w)
+    dx = grouped_ffn.grouped_matmul_dx(dy, w)
     dw = grouped_ffn.grouped_matmul_dw(x, dy)
-    assert streaming_counts() == {"grouped_matmul": 1, "grouped_matmul_dw": 1}
-    assert (grouped_ffn.grouped_matmul.launches,
-            grouped_ffn.grouped_matmul_dw.launches) == (1, 1)
+    assert streaming_counts() == {"grouped_matmul": 1, "grouped_matmul_dx": 1,
+                                  "grouped_matmul_dw": 1}
+    assert (grouped_ffn.grouped_matmul.launches, grouped_ffn.grouped_matmul_dx.launches,
+            grouped_ffn.grouped_matmul_dw.launches) == (1, 1, 1)
     _gpu_close(out, ref.grouped_matmul_ref(x, w))
+    _gpu_close(dx, ref.grouped_matmul_dx_ref(dy, w))
     _gpu_close(dw, ref.grouped_matmul_dw_ref(x, dy))
     assert torch.equal(out, grouped_ffn.grouped_matmul(x, w))
+    assert torch.equal(dx, grouped_ffn.grouped_matmul_dx(dy, w))
     assert torch.equal(dw, grouped_ffn.grouped_matmul_dw(x, dy))
 
 
@@ -491,7 +510,8 @@ def test_cuda_grouped_matmul_streaming_matches_plain(e, c, d, f, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_grouped_matmul_unaligned_takes_tiled(dtype):
     """An unaligned row tail (f = 70) and a view off a 16-byte boundary
-    take the tiled kernel: counted as launches, not as streaming ones."""
+    take the tiled kernel, forward, dx and dw: counted as launches, not as
+    streaming ones."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn(4, 5, 100, generator=g, device=dev).to(dtype)
@@ -502,22 +522,27 @@ def test_cuda_grouped_matmul_unaligned_takes_tiled(dtype):
     wv = (torch.randn(4, 64, 64, generator=g, device=dev) * 0.1).to(dtype)
     reset_launch_counts()
     _gpu_close(grouped_ffn.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w))
+    _gpu_close(grouped_ffn.grouped_matmul_dx(dy, w), ref.grouped_matmul_dx_ref(dy, w))
     _gpu_close(grouped_ffn.grouped_matmul_dw(x, dy), ref.grouped_matmul_dw_ref(x, dy))
     _gpu_close(grouped_ffn.grouped_matmul(xv, wv), ref.grouped_matmul_ref(xv, wv))
+    _gpu_close(grouped_ffn.grouped_matmul_dx(xv, wv), ref.grouped_matmul_dx_ref(xv, wv))
     _gpu_close(grouped_ffn.grouped_matmul_dw(xv, xv), ref.grouped_matmul_dw_ref(xv, xv))
-    assert (grouped_ffn.grouped_matmul.launches,
-            grouped_ffn.grouped_matmul_dw.launches) == (2, 2)
-    assert streaming_counts() == {"grouped_matmul": 0, "grouped_matmul_dw": 0}
+    assert (grouped_ffn.grouped_matmul.launches, grouped_ffn.grouped_matmul_dx.launches,
+            grouped_ffn.grouped_matmul_dw.launches) == (2, 2, 2)
+    assert streaming_counts() == {"grouped_matmul": 0, "grouped_matmul_dx": 0,
+                                  "grouped_matmul_dw": 0}
 
 
 @pytest.mark.cuda
 def test_cuda_grouped_matmul_variant_resources():
-    """The f32 streaming forward fits three blocks per SM at every C of
-    the main path (its rate follows the bytes in flight per SM), and no
-    main-path kernel spills."""
+    """The f32 streaming forward fits three blocks per SM and dx four at
+    every C of the main path (their rate follows the bytes in flight per
+    SM), and no main-path kernel spills."""
     _card()
     for c in (1, 4, 8):
         fwd = grouped_ffn.variant_info("stream_fwd", torch.float32, c)
+        dx = grouped_ffn.variant_info("stream_dx", torch.float32, c)
         dw = grouped_ffn.variant_info("stream_dw", torch.float32, c)
         assert fwd["blocks_per_sm"] == 3 and fwd["spill_bytes"] == 0, fwd
+        assert dx["blocks_per_sm"] == 4 and dx["spill_bytes"] == 0, dx
         assert dw["blocks_per_sm"] >= 2 and dw["spill_bytes"] == 0, dw
