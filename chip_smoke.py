@@ -18,6 +18,11 @@ Phases (any failure exits non-zero):
                  requests through the kernel backend with flash decode; the
                  kernels' launch counts over one call are asserted, and the
                  call is timed over several rounds (median and spread);
+                 then the same through the fused backend (cuda_fused, B4
+                 and B5): launches asserted (every B4 streaming), timed,
+                 B4 checked and timed at the prefill and decode sites in
+                 turns with the cuda pipeline, and the f32 tokens of both
+                 backends gated equal up to near-ties;
   5. e2e      -- the same model in f32 activations, kernel path against
                  the plain path (oracle MoE, plain decode attention):
                  prefill logits and teacher-forced decode logits are gated;
@@ -31,8 +36,12 @@ Phases (any failure exits non-zero):
                  other (loss, grad norm, balance per step, parameters
                  after K); B4, B1's forward and backward kernels and B2
                  against their plain versions at the inputs captured from
-                 the first step, plus ragged cases, and timed (dx at both
-                 products of the expert FFN); then both
+                 the first step, plus ragged cases (each kernel's variant
+                 asserted), and timed (dx at both products of the expert
+                 FFN; B4 in turns with the cuda pipeline, also with every
+                 expert routed); B4's streaming kernel bitwise after CUDA
+                 graph replays, with NaN in the unrouted experts' weights,
+                 and all dropped; then both
                  kernel backends in the model's own dtype (bf16
                  activations): launch counts per step asserted (routed,
                  Gate-Drop and Gate-Expert-Drop steps; every B1 forward,
@@ -144,6 +153,19 @@ def device_ms(fn, reps: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
+def host_ms(fn, calls: int = 50) -> float:
+    """Host-clock ms per eager call of ``fn`` over ``calls`` calls queued
+    back to back and one device sync: the host's dispatch cost where the
+    device work per call is shorter."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
 def in_turns(kernel, library):
     """Device ms of ``kernel`` and ``library`` timed in turns (kernel,
     library, library, kernel), each the mean of its two readings."""
@@ -184,14 +206,15 @@ def work(name: str, args):
         return (e * c * d + e * c * f + e * d * f) * x.element_size(), \
             2.0 * e * c * d * f, _dt(x)
     if name == "fused_moe":
+        from repro_torch.kernels import moe_megakernel
         x, w_in, w_gate, w_out, topk_w, keep, st, sv, ts = args
         e, d, f = w_in.shape
-        cap = st.shape[0] // e
-        # only experts holding a kept slot need their weights, only kept
-        # slots need FLOPs (this run's routing)
-        valid = sv.reshape(e, cap)
-        live = int(valid.any(1).sum())
-        n_slots = int(valid.sum())
+        # only experts holding a slot of non-zero weight need their weights
+        # (the kernel's own test, moe_megakernel.live_experts; with softmax
+        # top-k the experts holding a kept slot), only kept slots need
+        # FLOPs (this run's routing)
+        live = int(moe_megakernel.live_experts(topk_w, keep, ts, e, st.shape[0]).sum())
+        n_slots = int(sv.sum())
         n_mats = 3 if w_gate is not None else 2
         t, k = ts.shape
         nbytes = (live * n_mats * d * f * w_in.element_size() + 2 * x.numel() * x.element_size()
@@ -368,6 +391,7 @@ def kernel_of(name):
 
 
 B1_STREAMED = ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
+STREAMED = B1_STREAMED + ("fused_moe",)       # kernels with a streaming variant
 # B1 shapes (E, C, d, f) at full width around C = 16, the streaming limit
 B1_FULL_WIDTH = [(4, c, d, f) for c in (4, 8, 9, 16) for d, f in ((512, 2048), (2048, 512))]
 
@@ -383,18 +407,31 @@ def b1_variant(name, args) -> str:
                                b.data_ptr())
 
 
+def b4_variant(args) -> str:
+    """The B4 kernel ``moe_megakernel.variant`` picks for these inputs, x in
+    the weights' dtype as the wrapper passes it."""
+    from repro_torch.kernels import moe_megakernel
+    x, w_in, w_gate, w_out, _, _, st, _, _ = args
+    e, d, f = w_in.shape
+    xw = x.to(w_in.dtype).contiguous()
+    return moe_megakernel.variant(st.shape[0] // e, d, f, w_in.element_size(), *(
+        t.data_ptr() for t in (xw, w_in, w_gate, w_out) if t is not None))
+
+
 def run_kernel(name, args, kw=None):
     """Runs kernel ``name`` once. Returns (out, variant): for B1's forward,
-    dx and dw the variant it took by its launch counters, asserted equal to
-    what ``grouped_ffn.variant`` predicts; None for the other kernels."""
+    dx and dw and for B4 the variant it took by its launch counters,
+    asserted equal to what ``grouped_ffn.variant`` or
+    ``moe_megakernel.variant`` predicts; None for the other kernels."""
     fn = kernel_of(name)
-    if name not in B1_STREAMED:
+    if name not in STREAMED:
         return fn(*args, **(kw or {})), None
     before = fn.launches_streaming
-    out = fn(*args)
+    out = fn(*args, **(kw or {}))
     took = "streaming" if fn.launches_streaming > before else "tiled"
-    if took != b1_variant(name, args):
-        raise AssertionError(f"{name}: took {took}, variant says {b1_variant(name, args)}")
+    want = b4_variant(args) if name == "fused_moe" else b1_variant(name, args)
+    if took != want:
+        raise AssertionError(f"{name}: took {took}, variant says {want}")
     return out, took
 
 
@@ -575,11 +612,9 @@ def slice_phase(params, batch, cfg, gen, dev):
     """One counted ``generate`` (launch counts asserted, peak memory), then
     timed rounds (the serving CLI's), then one decode step replayed as a CUDA graph.
     Returns the launch counts."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts, streaming_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import TIMED_ROUNDS, spread, time_generate
-    from repro_torch.models import prefill
     from repro_torch.serve import generate
-    from repro_torch.serve.engine import decode_pool_step
 
     generate(params, batch, cfg, gen)                 # warm-up
     torch.cuda.synchronize()
@@ -588,7 +623,7 @@ def slice_phase(params, batch, cfg, gen, dev):
     res = generate(params, batch, cfg, gen)
     torch.cuda.synchronize()
     counts = launch_counts()
-    streamed = streaming_counts()
+    streamed = streamed_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = res.steps
     n_moe_dec = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
@@ -620,8 +655,16 @@ def slice_phase(params, batch, cfg, gen, dev):
         f"{med['total_ms']:.2f} ms {spread(rounds['total_ms'])}, "
         f"{med['tok_s']:.0f} tokens/s {spread(rounds['tok_s'])}")
 
-    # the same decode step replayed as one CUDA graph: its device time
-    # without the host's per-op dispatch
+    decode_graph("slice", params, batch, cfg, med["decode_ms_per_step"], dev)
+    return counts, res.tokens
+
+
+def decode_graph(label, params, batch, cfg, decode_ms, dev):
+    """One decode step replayed as one CUDA graph (its device time without
+    the host's per-op dispatch) against the eager median, and the PyTorch
+    calls from Python in one eager step."""
+    from repro_torch.models import prefill
+    from repro_torch.serve.engine import decode_pool_step
     lg, fresh = prefill(params, batch, cfg, max_seq=PROMPT + MAX_NEW)
     pool = _pool(cfg, fresh, dev)
     tok = lg[:, 0].argmax(-1)
@@ -630,14 +673,106 @@ def slice_phase(params, batch, cfg, gen, dev):
     graph_ms = device_ms(lambda: decode_pool_step(params, pool, tok, pos, alive, cfg,
                                                   flash_decode=True),
                          reps=1, replays=20)
-    decode_ms = med["decode_ms_per_step"]
-    log(f"slice: decode step as one CUDA graph {graph_ms:.2f} ms on the device "
+    log(f"{label}: decode step as one CUDA graph {graph_ms:.2f} ms on the device "
         f"vs median {decode_ms:.2f} ms eager: the device is idle "
         f"{max(0.0, 1 - graph_ms / decode_ms) * 100:.0f}% of an eager step")
     with CallCount() as calls:
         decode_pool_step(params, pool, tok, pos, alive, cfg, flash_decode=True)
-    log(f"slice: {calls.n} PyTorch calls from Python per eager decode step")
-    return counts
+    log(f"{label}: {calls.n} PyTorch calls from Python per eager decode step")
+
+
+def fused_slice_phase(params, batch, cfg, gen, dev, cuda_tokens):
+    """Phase 4 on the ``cuda_fused`` backend: one counted bf16 ``generate``
+    (B4 once per MoE layer call, every launch streaming, B5 as on ``cuda``;
+    tokens against the ``cuda`` backend's, reported), the serving CLI's
+    timed rounds of both backends in turns, the decode step as one CUDA
+    graph, B4 at the captured prefill and decode sites against its
+    plain version and timed in turns with the ``cuda`` pipeline, and the
+    f32 tokens of both backends, gated equal up to near-ties. Returns
+    ({site: B4 timing}, B4 launches per generate)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import TIMED_ROUNDS, time_generate
+    from repro_torch.serve import generate
+
+    fused = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, backend="cuda_fused"))
+    generate(params, batch, fused, gen)                 # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res = generate(params, batch, fused, gen)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_moe_dec = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
+    n_moe_enc = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.encdec.n_encoder_layers))
+    expect = {**{name: 0 for name in counts}, "flash_decode": cfg.n_layers * res.steps,
+              "fused_moe": n_moe_enc + n_moe_dec + n_moe_dec * res.steps}
+    log(f"slice cuda_fused: launches {counts}, expected {expect}")
+    if counts != expect or (expect["fused_moe"], expect["flash_decode"]) != (102, 186):
+        raise AssertionError(f"cuda_fused launch counts {counts} != {expect}")
+    check_streamed("slice cuda_fused", counts, streamed_counts())
+    agree = float((res.tokens == cuda_tokens).float().mean())
+    log(f"slice cuda_fused bf16: tokens agree with the cuda backend's on {agree * 100:.1f}% "
+        f"of {res.tokens.numel()} (reported: bf16 activations round the two backends' "
+        f"MoE outputs at different places; the f32 gate follows); first row "
+        f"{res.tokens[0].tolist()}")
+    # the two backends' serving times in turns (cuda, fused, fused, cuda):
+    # host speed drifts within a call
+    runs = {"cuda": [], "cuda_fused": []}
+    for name in ("cuda", "cuda_fused", "cuda_fused", "cuda"):
+        med, _, _ = time_generate(params, batch, fused if name == "cuda_fused" else cfg, gen)
+        runs[name].append(med)
+    for name, meds in runs.items():
+        log(f"slice {name}, timed in turns: medians of {TIMED_ROUNDS} rounds, two readings: "
+            f"prefill {[round(m['prefill_ms'], 2) for m in meds]} ms, decode "
+            f"{[round(m['decode_ms_per_step'], 2) for m in meds]} ms/step, "
+            f"{[round(m['tok_s']) for m in meds]} tokens/s")
+    decode_graph("slice cuda_fused", params, batch, fused,
+                 sum(m["decode_ms_per_step"] for m in runs["cuda_fused"]) / 2, dev)
+
+    with Capture(names=("fused_moe",)) as cap:
+        generate(params, batch, fused, dataclasses.replace(gen, max_new=2))
+    torch.cuda.synchronize()
+    calls = cap.calls["fused_moe"]
+    timing = {site: b4_site(site, *calls[i]) for site, i in (("prefill", 0), ("decode", -1))}
+    del cap, calls
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    fused32 = dataclasses.replace(fused, dtype="float32")
+    a = generate(params, batch, cfg32, gen).tokens
+    b = generate(params, batch, fused32, gen).tokens
+    gaps = near_tie_gaps(params, batch, cfg32, a, b, dev)
+    log(f"slice f32: cuda_fused tokens equal the cuda backend's on "
+        f"{float((a == b).float().mean()) * 100:.1f}% of {a.numel()}; divergences (row, "
+        f"first token, top-two logit gap of the cuda path): {gaps}")
+    if any(gap >= NEAR_TIE for _, _, gap in gaps):
+        raise AssertionError(f"cuda_fused vs cuda: a divergence is not a near-tie: {gaps}")
+    return timing, counts["fused_moe"]
+
+
+def near_tie_gaps(params, batch, cfg, a, b, dev):
+    """For each row where the token lists ``a`` (``cfg``'s path) and ``b``
+    differ: (row, first differing token, top-two gap of ``cfg``'s logits
+    there), the whole batch teacher-forced with ``a`` (its rows share
+    expert capacity, as in ``generate``)."""
+    from repro_torch.models import prefill
+    from repro_torch.serve.engine import decode_pool_step
+    first = {r: int((a[r] != b[r]).nonzero()[0, 0]) for r in range(a.shape[0])
+             if not torch.equal(a[r], b[r])}
+    if not first:
+        return []
+    lg, caches = prefill(params, batch, cfg, max_seq=PROMPT + MAX_NEW)
+    logits, pool = lg[:, 0], _pool(cfg, caches, dev)
+    alive = torch.ones(a.shape[0], dtype=torch.bool, device=dev)
+    gaps = []
+    for i in range(max(first.values()) + 1):
+        if i > 0:
+            pos = torch.full((a.shape[0],), PROMPT + i - 1, device=dev)
+            logits, pool = decode_pool_step(params, pool, a[:, i - 1], pos, alive, cfg,
+                                            flash_decode=True)
+        for r, t in first.items():
+            if t == i:
+                top = logits[r].float().topk(2).values
+                gaps.append((r, t, float(top[0] - top[1])))
+    return gaps
 
 
 def e2e_phase(params, batch, cfg, gen, dev):
@@ -928,12 +1063,133 @@ def train_sites(captured):
             ("dispatch", "train", captured["dispatch"][0])]
 
 
+def b4_pipeline(args, kw):
+    """The port's unfused cuda pipeline (B2 -> B1 x 2 -> B3) on B4's inputs:
+    B4's yardstick, since no single PyTorch call computes gather + FFN +
+    scatter."""
+    from repro_torch.kernels import moe_dispatch, ops
+    x, w_in, w_gate, w_out, topk_w, keep, st, sv, ts = args
+    e, cap = w_in.shape[0], st.shape[0] // w_in.shape[0]
+
+    def pipeline():
+        buf = moe_dispatch.dispatch(x, st, sv).reshape(e, cap, -1)
+        out = ops.expert_ffn_op(buf.to(w_in.dtype), w_in, w_gate, w_out, kw["act"])
+        return moe_dispatch.combine(out.to(x.dtype).reshape(e * cap, -1), ts, topk_w, keep)
+    return pipeline
+
+
+def b4_site(site, args, kw):
+    """B4 at one site: against its plain version and the cuda pipeline, the
+    same bits on a second run at top-1, then timed in turns with the
+    pipeline (kernel, pipeline, pipeline, kernel). Returns its timing."""
+    from repro_torch.kernels import moe_megakernel
+    out, took = run_kernel("fused_moe", args, kw)
+    torch.cuda.synchronize()
+    err = check(f"fused_moe@{site}", out, plain_of("fused_moe")(*args, **kw))
+    pipeline = b4_pipeline(args, kw)
+    check(f"cuda pipeline vs fused_moe@{site}", pipeline(), out)
+    if args[4].shape[1] == 1:
+        check(f"fused_moe@{site} second run", kernel_of("fused_moe")(*args, **kw), out,
+              exact=True)
+    x, w_in, _, _, topk_w, keep, st, _, ts = args
+    live = int(moe_megakernel.live_experts(topk_w, keep, ts, w_in.shape[0], st.shape[0]).sum())
+    b_ms, b_by = bound(*work("fused_moe", args))
+    k_ms, pipe_ms = in_turns(lambda: kernel_of("fused_moe")(*args, **kw), pipeline)
+    p_ms = device_ms(lambda: plain_of("fused_moe")(*args, **kw))
+    # serving sites: the host's dispatch cost per call, beside the device's
+    host = {name: host_ms(fn) for name, fn in (
+        ("kernel", lambda: kernel_of("fused_moe")(*args, **kw)), ("pipeline", pipeline))
+        } if site in ("prefill", "decode") else None
+    shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
+    log(f"time fused_moe@{site} [{shape}, C={st.shape[0] // w_in.shape[0]}, {live} live "
+        f"experts, {took}]: kernel {k_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}; "
+        f"{b_ms / k_ms * 100:.1f}% of it), plain {p_ms:.6f} ms, library null (no single "
+        f"PyTorch call computes gather + FFN + scatter), cuda pipeline (B2 -> B1 x2 -> B3, "
+        f"timed in turns with the kernel) {pipe_ms:.6f} ms; max abs err {err:.3e}" + (
+            f"; host ms per eager call: kernel {host['kernel']:.4f}, pipeline "
+            f"{host['pipeline']:.4f}" if host else ""))
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                pipeline_ms=pipe_ms, shape=shape, live_experts=live, variant=took,
+                max_abs_err=err, host_ms=host)
+
+
+def balanced_args(args):
+    """B4's training-site inputs routed so that every expert holds C kept
+    slots of one token each (the bound with every expert read)."""
+    x, w_in, w_gate, w_out = args[:4]
+    s = args[6].shape[0]                  # E * C slots, as many as the site's tokens
+    g = torch.Generator(device=x.device).manual_seed(SEED + 31)
+    slots = torch.arange(s, dtype=torch.int32, device=x.device)
+    return (x[:s], w_in, w_gate, w_out,
+            torch.rand(s, 1, generator=g, device=x.device) * 0.9 + 0.1,
+            torch.ones(s, 1, dtype=torch.bool, device=x.device), slots,
+            torch.ones(s, dtype=torch.bool, device=x.device), slots[:, None].clone())
+
+
+def graph_replayed(fn):
+    """``fn()``'s output after three replays of a CUDA graph that captured
+    one call (after an eager warm-up on a side stream)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = fn()
+    for _ in range(3):
+        g.replay()
+    torch.cuda.synchronize()
+    return y
+
+
+def b4_checks(args, kw):
+    """B4's streaming kernel at the training site: the same bits after
+    CUDA-graph replays (its per-expert counts zeroed with the output);
+    the unrouted experts' weights set to NaN leave the output finite and
+    bitwise equal, and equal to the plain version on zeroed weights (they
+    are never read); all slots dropped gives exact zeros."""
+    from repro_torch.kernels import moe_megakernel
+    x, w_in, w_gate, w_out, topk_w, keep, st, sv, ts = args
+    fused = kernel_of("fused_moe")
+    out, took = run_kernel("fused_moe", args, kw)
+    check("fused_moe after CUDA-graph replays", graph_replayed(lambda: fused(*args, **kw)), out,
+          exact=True)
+    live = moe_megakernel.live_experts(topk_w, keep, ts, w_in.shape[0], st.shape[0])
+    poisoned, zeroed = [], []
+    for w in (w_in, w_gate, w_out):
+        if w is None:
+            poisoned.append(None)
+            zeroed.append(None)
+            continue
+        poisoned.append(w.clone())
+        poisoned[-1][~live] = float("nan")
+        zeroed.append(w.clone())
+        zeroed[-1][~live] = 0.0
+    pargs = (x, poisoned[0], poisoned[1], poisoned[2], *args[4:])
+    zargs = (x, zeroed[0], zeroed[1], zeroed[2], *args[4:])
+    pout, _ = run_kernel("fused_moe", pargs, kw)
+    torch.cuda.synchronize()
+    check("fused_moe with NaN unrouted weights vs plain on zeroed ones", pout,
+          plain_of("fused_moe")(*zargs, **kw))
+    check("fused_moe with NaN unrouted weights vs clean weights", pout, out, exact=True)
+    del poisoned, zeroed, pargs, zargs
+    dropped = kernel_of("fused_moe")(*args[:5], torch.zeros_like(keep), *args[6:], **kw)
+    torch.cuda.synchronize()
+    if float(dropped.abs().max()) != 0.0:
+        raise AssertionError("fused_moe: all dropped at the training site but output not zero")
+    log(f"kernel fused_moe@train ({took}): bitwise equal after 3 CUDA-graph replays; "
+        f"{int((~live).sum())} unrouted experts' weights set to NaN leave the output finite, "
+        f"bitwise equal and equal to the plain version on zeroed weights; all dropped "
+        f"gives exact zeros")
+
+
 def train_kernel_phase(captured, dev):
     """B4, B1's kernels and B2 against their plain versions at the inputs
-    captured from the first training step and in ragged cases, then timed
-    at the training sites (``train_sites``). Returns ({name: max abs err},
-    {(name, site): times})."""
-    from repro_torch.kernels import moe_dispatch, ops
+    captured from the first training step and in ragged cases, B4's
+    streaming checks (``b4_checks``), then timed at the training sites
+    (``train_sites``) and B4 at the balanced site. Returns ({name: max abs
+    err}, {(name, site): times})."""
     errs = {}
     for name in ("fused_moe", "grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw",
                  "dispatch"):
@@ -954,14 +1210,19 @@ def train_kernel_phase(captured, dev):
             f"({tol})" + (f", variants {variants}" if variants else ""))
         if variants and set(variants) != {"streaming"}:
             raise AssertionError(f"{name}: a training-site input took the tiled kernel")
-    n = 0
+    n, b4_rag = 0, []
     for args, kw, drop_all in fused_ragged_cases(dev):
-        out = kernel_of("fused_moe")(*args, **kw)
+        out, took = run_kernel("fused_moe", args, kw)
         torch.cuda.synchronize()
         check("fused_moe ragged", out, plain_of("fused_moe")(*args, **kw))
         if drop_all and float(out.abs().max()) != 0.0:
             raise AssertionError("fused_moe: all dropped but output not zero")
+        x, w_in = args[:2]
+        b4_rag.append(f"{_dt(w_in)} E={w_in.shape[0]} k={args[4].shape[1]} "
+                      f"C={args[6].shape[0] // w_in.shape[0]} T={x.shape[0]} "
+                      f"d={w_in.shape[1]} f={w_in.shape[2]} {took}")
         n += 1
+    log(f"kernel fused_moe ragged cases and their variants: {b4_rag}")
     b1_rag = []
     for name, args in bwd_ragged_cases(dev):
         out, took = run_kernel(name, args)
@@ -971,52 +1232,37 @@ def train_kernel_phase(captured, dev):
     torch.cuda.synchronize()
     log(f"kernel grouped_matmul_dx/_dw ragged cases and their variants: {b1_rag}")
     log(f"train kernels: {n} ragged cases agree with their plain versions (B4: k=2, "
-        "capacity 1, all dropped, T=1, ragged d and f, d > 512, 16-row tiles, gelu and "
+        "capacity 1, all dropped, T=1, ragged d and f, d > 512, C=12 and C=20, gelu and "
         "gated silu; B1 dx/dw: C=1, C=17, C=100, ragged d and f; C=4, 8, 9, 16 at "
         "full width, a ragged slab of d, a ragged last chunk of f; f32 and bf16)")
 
-    timing = {}
+    args, kw = captured["fused_moe"][0]
+    b4_checks(args, kw)
+    timing = {("fused_moe", "balanced"): b4_site("balanced", balanced_args(args), kw)}
     for name, site, (args, kw) in train_sites(captured):
-        nbytes, flops, wdt = work(name, args)
-        b_ms, b_by = bound(nbytes, flops, wdt)
-        extra = {}
         if name == "fused_moe":
-            # no single PyTorch call computes gather + FFN + scatter; beside
-            # it, the port's own unfused cuda pipeline on the same inputs
-            x, w_in, w_gate, w_out, topk_w, keep, st, sv, ts = args
-            e, cap = w_in.shape[0], st.shape[0] // w_in.shape[0]
-
-            def pipeline():
-                buf = moe_dispatch.dispatch(x, st, sv).reshape(e, cap, -1)
-                out = ops.expert_ffn_op(buf.to(w_in.dtype), w_in, w_gate, w_out, kw["act"])
-                return moe_dispatch.combine(out.to(x.dtype).reshape(e * cap, -1), ts,
-                                            topk_w, keep)
-            check("cuda pipeline vs fused_moe", pipeline(), kernel_of(name)(*args, **kw))
-            k_ms, l_ms = device_ms(lambda: kernel_of(name)(*args, **kw)), None
-            p_ms = device_ms(lambda: plain_of(name)(*args, **kw))
-            extra["pipeline_ms"] = device_ms(pipeline)
-            lib = "null (no single PyTorch call computes gather + FFN + scatter)"
+            timing[(name, site)] = b4_site(site, args, kw)
+            continue
+        b_ms, b_by = bound(*work(name, args))
+        extra = {}
+        k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
+        p_ms = device_ms(lambda: plain_of(name)(*args))
+        if name == "dispatch":
+            lib = (f"{l_ms:.6f} ms (index_select, timed in turns with the kernel: "
+                   f"kernel / library {k_ms / l_ms:.3f})")
         else:
-            k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
-            p_ms = device_ms(lambda: plain_of(name)(*args))
-            if name == "dispatch":
-                lib = (f"{l_ms:.6f} ms (index_select, timed in turns with the kernel: "
-                       f"kernel / library {k_ms / l_ms:.3f})")
-            else:
-                view = {"grouped_matmul": "", "grouped_matmul_dx": " on the w^T view",
-                        "grouped_matmul_dw": " on the x^T view"}[name]
-                lib = (f"{l_ms:.6f} ms (torch.bmm{view}, timed in turns with the kernel); "
-                       f"{b1_variant(name, args)} variant, {b_ms / k_ms * 100:.1f}% of the "
-                       "bound")
-            if name == "grouped_matmul_dx":
-                # the tiled kernel, which dx ran before the streaming one
-                check("grouped_matmul_dx tiled", tiled_dx(*args), plain_of(name)(*args))
-                extra["tiled_ms"] = device_ms(lambda: tiled_dx(*args))
+            view = {"grouped_matmul": "", "grouped_matmul_dx": " on the w^T view",
+                    "grouped_matmul_dw": " on the x^T view"}[name]
+            lib = (f"{l_ms:.6f} ms (torch.bmm{view}, timed in turns with the kernel); "
+                   f"{b1_variant(name, args)} variant, {b_ms / k_ms * 100:.1f}% of the "
+                   "bound")
+        if name == "grouped_matmul_dx":
+            # the tiled kernel, which dx ran before the streaming one
+            check("grouped_matmul_dx tiled", tiled_dx(*args), plain_of(name)(*args))
+            extra["tiled_ms"] = device_ms(lambda: tiled_dx(*args))
         shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
         log(f"time {name}@{site} [{shape}]: kernel {k_ms:.6f} ms, bound {b_ms:.6f} ms "
             f"({b_by}), plain {p_ms:.6f} ms, library {lib}" +
-            (f", cuda pipeline (B2 -> B1 x2 -> B3) {extra['pipeline_ms']:.6f} ms"
-             if "pipeline_ms" in extra else "") +
             (f", tiled kernel {extra['tiled_ms']:.6f} ms" if "tiled_ms" in extra else ""))
         timing[(name, site)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                     library_ms=l_ms, shape=shape, **extra)
@@ -1064,7 +1310,7 @@ def train_slice(full, dev, backend: str):
     step): step 2 is a Gate-Drop step), launch counts asserted on a routed,
     a Gate-Drop and a Gate-Expert-Drop step, a CUDA-event split of one step
     and a profiled step. Returns the counts of the routed step."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts, streaming_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import generator, spread
     from repro_torch.models import init_model
     from repro_torch.optim.adam import adam_update
@@ -1114,7 +1360,7 @@ def train_slice(full, dev, backend: str):
         log(f"train {backend}: launches on a {label} step {got}")
         if got != want:
             raise AssertionError(f"{backend} {label} step launches {got} != {want}")
-        check_streamed(f"train {backend} {label} step", got, streaming_counts())
+        check_streamed(f"train {backend} {label} step", got, streamed_counts())
         counts[label] = got
         if not math.isfinite(float(m["loss"])):
             raise AssertionError(f"{backend}: non-finite loss")
@@ -1228,13 +1474,19 @@ def run_scheduler(params, cfg, gen, reqs, paged=None, n_pages=0, tracer=None):
     return {r.rid: r.tokens for r in res}, sched, launch_counts(), wall
 
 
+def streamed_counts():
+    """Launches that took the streaming kernel: B1's forward, dx, dw, B4."""
+    from repro_torch.kernels import moe_megakernel, streaming_counts
+    return {**streaming_counts(), "fused_moe": moe_megakernel.fused_moe.launches_streaming}
+
+
 def check_streamed(label, counts, streamed):
-    """Every launch of B1's forward, dx and dw in a main-path run took the
-    streaming kernel."""
-    log(f"{label}: B1 launches on the streaming kernel {streamed} of "
-        f"{ {k: counts[k] for k in B1_STREAMED} }")
-    if any(streamed[k] != counts[k] for k in B1_STREAMED):
-        raise AssertionError(f"{label}: B1 launches {counts} not all streaming: {streamed}")
+    """Every launch of B1's forward, dx and dw and of B4 in a main-path run
+    took the streaming kernel."""
+    log(f"{label}: B1 and B4 launches on the streaming kernel {streamed} of "
+        f"{ {k: counts[k] for k in STREAMED} }")
+    if any(streamed[k] != counts[k] for k in STREAMED):
+        raise AssertionError(f"{label}: launches {counts} not all streaming: {streamed}")
 
 
 def expected_sched_launches(cfg, stats, paged: bool):
@@ -1255,16 +1507,15 @@ def check_launches(label, cfg, sched, counts, paged: bool):
     """Launch counts of a scheduler run; at the config's capacity (not the
     f32 parity runs' capacity E, where an admission's C is its token count,
     up to 256 rows) every B1 forward launch must be streaming."""
-    from repro_torch.kernels import streaming_counts
     want = expected_sched_launches(cfg, sched.stats, paged)
     log(f"sched {label}: launches {counts} over {sched.stats['prefill_calls']} admissions "
         f"and {sched.stats['decode_steps']} decode ticks")
     if counts != want:
         raise AssertionError(f"{label}: launches {counts} != {want}")
     if cfg.moe.eval_capacity_factor < cfg.moe.n_experts:
-        check_streamed(f"sched {label}", counts, streaming_counts())
+        check_streamed(f"sched {label}", counts, streamed_counts())
     else:
-        log(f"sched {label}: B1 launches on the streaming kernel {streaming_counts()} "
+        log(f"sched {label}: B1 launches on the streaming kernel {streamed_counts()} "
             f"(capacity {cfg.moe.eval_capacity_factor}: admissions of more than 16 tokens "
             "take the tiled kernel)")
 
@@ -1555,7 +1806,7 @@ def sched_phase(params, batch, cfg, dev):
 # main
 # ---------------------------------------------------------------------------
 
-def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged):
+def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve):
     """One entry per kernel for the JSON line: serving kernels at their
     decode site with their launches per ``generate``, training kernels at
     the training site with their launches per step (B4 on ``cuda_fused``,
@@ -1564,7 +1815,8 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged):
     with its launches over one bf16 replay of the trace; every entry also
     lists its launches per training step on both kernel backends, and the
     kernels timed at the training site besides (B1's forward, B2) carry
-    that timing too."""
+    that timing too; B4 carries its balanced site and, with its launches
+    per ``cuda_fused`` generate, its serving sites."""
     kernels = []
     for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
                  "combine", "fused_moe", "flash_decode"):
@@ -1591,8 +1843,13 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged):
         if name == "grouped_matmul_dx":
             entry["tiled_ms"] = t["tiled_ms"]
             entry["train_up_site"] = t_timing[(name, "train_up")]
-        if "pipeline_ms" in t:
-            entry["pipeline_ms"] = t["pipeline_ms"]
+        if name == "fused_moe":
+            b4_sites, b4_launches = b4_serve
+            entry.update(variant=t["variant"], live_experts=t["live_experts"],
+                         pipeline_ms=t["pipeline_ms"],
+                         balanced_site=t_timing[(name, "balanced")],
+                         serve_launches=b4_launches,
+                         decode_site=b4_sites["decode"], prefill_site=b4_sites["prefill"])
         kernels.append(entry)
     err, t, launches = paged
     src, rep = REPLACES["flash_decode_paged"]
@@ -1609,7 +1866,8 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged):
 
 def serve_phases(full, dev):
     """Phases 3-5 and 7 on the serving path; every tensor they made is
-    freed on return. Returns (errs, timing, counts, phase 7's B6 result)."""
+    freed on return. Returns (errs, timing, counts, phase 7's B6 result,
+    phase 4's B4 result on cuda_fused)."""
     from repro_torch.launch.serve import generator, synth_batch
     from repro_torch.models import init_model
     from repro_torch.serve import GenerateConfig, generate
@@ -1631,8 +1889,9 @@ def serve_phases(full, dev):
     errs, timing = kernel_phase(cap.calls, dev)
     del cap
 
-    # 4. the slice
-    counts = slice_phase(params, batch, cfg, gen, dev)
+    # 4. the slice, on the cuda backend, then on cuda_fused
+    counts, tokens = slice_phase(params, batch, cfg, gen, dev)
+    b4_serve = fused_slice_phase(params, batch, cfg, gen, dev, tokens)
 
     # 5. kernel path against plain path, f32 activations
     e2e_phase(params, batch, cfg, gen, dev)
@@ -1641,7 +1900,7 @@ def serve_phases(full, dev):
     paged = sched_phase(params, batch, cfg, dev)
     log(f"scheduler phase: {time.perf_counter() - t0:.1f} s")
     sensitivity(params, batch, cfg, dev)          # scales params in place
-    return errs, timing, counts, paged
+    return errs, timing, counts, paged, b4_serve
 
 
 def main() -> int:
@@ -1673,7 +1932,7 @@ def main() -> int:
     # 3-5 and 7. serving
     full = get_config("zcode-m3-base")
     t0 = time.perf_counter()
-    errs, timing, counts, paged = serve_phases(full, dev)
+    errs, timing, counts, paged, b4_serve = serve_phases(full, dev)
     torch.cuda.empty_cache()
     log(f"serving phases: {time.perf_counter() - t0:.1f} s; device memory now allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -1691,7 +1950,7 @@ def main() -> int:
     print(json.dumps({"train": {b: {k: v for k, v in t.items()}
                                 for b, t in t_slice.items()}}), flush=True)
 
-    kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged)
+    kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -1701,10 +1960,10 @@ def main() -> int:
 
 def ptxas_report(path: Path):
     """Each kernel's registers and spills from the build's ptxas report,
-    and what the card reports for B1's variants."""
+    and what the card reports for B1's and B4's variants."""
     import re
     import shutil
-    from repro_torch.kernels import grouped_ffn
+    from repro_torch.kernels import grouped_ffn, moe_megakernel
     entry = "?"
     for line in path.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1719,6 +1978,14 @@ def ptxas_report(path: Path):
         for dt in (torch.float32, torch.bfloat16):
             infos = {c: grouped_ffn.variant_info(kind, dt, c) for c in (1, 4, 8, 16)}
             log(f"B1 {kind} {_dt(torch.empty(0, dtype=dt))} (C rounded up to 1/4/8/16): "
+                + "; ".join(f"C={c}: {i['registers']} registers, {i['smem_bytes']} B shared, "
+                            f"{i['spill_bytes']} B spilled, {i['blocks_per_sm']} blocks/SM"
+                            for c, i in infos.items()))
+    for kind in ("stream", "tiled"):
+        for dt in (torch.float32, torch.bfloat16):
+            infos = {c: moe_megakernel.variant_info(kind, dt, c) for c in (1, 4, 8, 16)}
+            log(f"B4 {kind} {_dt(torch.empty(0, dtype=dt))} (C rounded up to 1/4/8/16; "
+                "ungated; 128 experts): "
                 + "; ".join(f"C={c}: {i['registers']} registers, {i['smem_bytes']} B shared, "
                             f"{i['spill_bytes']} B spilled, {i['blocks_per_sm']} blocks/SM"
                             for c, i in infos.items()))

@@ -12,7 +12,8 @@
 Each wrapper takes its plain version (``ref.py``) on a CPU tensor and
 launches its CUDA kernel (``csrc/``, built by ``build.py`` at first use) on
 a CUDA tensor, counting launches in ``<wrapper>.launches`` (B1's forward,
-dx and dw also in ``.launches_streaming``, see ``grouped_ffn.variant``). B1-B4 are
+dx and dw and B4 also in ``.launches_streaming``, see
+``grouped_ffn.variant`` and ``moe_megakernel.variant``). B1-B4 are
 differentiable through ``torch.autograd.Function``s that run the same
 code on both devices.
 """
@@ -39,7 +40,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def streaming_counts() -> Dict[str, int]:
-    """Launches of B1's forward, dx and dw that took the streaming kernel."""
+    """Launches of B1's forward, dx and dw that took the streaming kernel
+    (B4's: ``moe_megakernel.fused_moe.launches_streaming``)."""
     return {name: wrappers()[name].launches_streaming
             for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")}
 

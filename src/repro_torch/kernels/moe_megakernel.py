@@ -2,13 +2,29 @@
 
   y[t] = sum_k wcomb[t, k] * FFN_e(x[t])     for the slot (e, c) of (t, k)
 
-The kernel (``csrc/moe_megakernel.cu``) replaces the TPU kernel
+The kernels (``csrc/moe_megakernel.cu``) replace the TPU kernel
 ``repro/kernels/moe_megakernel.py::_fused_impl``. The (E, C, d) expert
-buffer never exists in device memory: each block gathers its expert's slot
-rows, runs both matmuls with the activation between them in f32, and
-scatters its weighted output rows into a zeroed (T, d) f32 buffer, which
-is cast once to x's dtype. Bound by the bytes of the expert weights
-(1.07 GB per MoE layer of zcode-m3-base in f32).
+buffer never exists in device memory: the kernel gathers each expert's
+slot rows, runs both matmuls with the activation between them in f32, and
+scatters the weighted output rows into a zeroed (T, d) f32 buffer, which
+is cast once to x's dtype. Bound by the bytes of the live experts'
+weights: an expert none of whose slots carries weight (``live_experts``)
+adds nothing and is not read (8.4 MB per expert of zcode-m3-base in f32).
+
+``variant`` picks one of two designs per call, each one launch:
+
+* ``"streaming"`` (C <= 16, rows of d and f of 16-byte multiples, 16-byte
+  aligned pointers: every call on the main path). A persistent grid walks
+  two phases of items over the live experts only: (expert, chunk of f)
+  items write h = act(x_e @ w_in) to an f32 workspace, then (expert, slice
+  of d, half of f) items add wslot x (h @ w_out) to the output once the
+  expert's h is whole; each streams its weight tile through a ring of
+  tensor copies (one producer warp, as B1's streaming forward). Top-1
+  calls give the same bits on every run and replay under a CUDA graph (the
+  per-expert counts are zeroed with the output, in the same fill).
+* ``"tiled"`` (anything else: C > 16, ragged rows, misaligned views): one
+  block per (expert, tile of slot rows), weights through 4-byte loads;
+  tiles with no weighted slot return at once.
 
 Weights arrive folded, as in the reference's ``_fused_jit``: ``wcomb =
 topk_w * keep`` (capacity drops, Gate-Drop local validity and serving's
@@ -24,10 +40,11 @@ which JAX takes with ``jax.vjp`` in jnp/XLA outside any Pallas kernel;
 here autograd through the same plain torch ops (gather, ``torch.bmm``,
 weighted gather), on both devices. The forward's plain version is
 ``ref.fused_moe_f32_ref``, the same formulation on inputs upcast to f32:
-like the TPU kernel, the CUDA kernel keeps every intermediate in f32.
+like the TPU kernel, the CUDA kernels keep every intermediate in f32.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises. ``fused_moe.launches`` counts launches.
+A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
+raises. ``fused_moe.launches`` counts launches of either variant,
+``fused_moe.launches_streaming`` those that took the streaming kernel.
 """
 from __future__ import annotations
 
@@ -43,16 +60,41 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = (torch.float32, torch.bfloat16)
 _ACTS = {"gelu": 0, "silu": 1}
-MAX_D = 1024          # model widths the kernel holds (columns per thread x threads)
+MAX_D = 1024          # model widths the tiled kernel holds (columns per thread x threads)
+STREAM_MAX_C = 16
 
 plain = fused_moe_f32_ref
 
 
+def variant(c: int, d: int, f: int, itemsize: int, *addresses: int) -> str:
+    """The kernel a call with C slots per expert, model width d and expert
+    width f of ``itemsize``-byte weights takes on the card:
+    ``"streaming"`` where 1 <= C <= 16, rows of d and of f are whole
+    16-byte words and every address (x, w_in, w_gate, w_out) is 16-byte
+    aligned (its bulk copies need all three), else ``"tiled"``.
+    ``repro_fused_moe_stream`` checks it again."""
+    if (1 <= c <= STREAM_MAX_C and (d * itemsize) % 16 == 0
+            and (f * itemsize) % 16 == 0 and all(a % 16 == 0 for a in addresses)):
+        return "streaming"
+    return "tiled"
+
+
 def _slot_weights(wcomb: torch.Tensor, token_slot: torch.Tensor,
-                  n_slots: int) -> torch.Tensor:
-    """wslot[s] = sum of wcomb over the (t, k) whose token_slot is s."""
-    return wcomb.new_zeros((n_slots,)).index_add_(
-        0, token_slot.reshape(-1).long(), wcomb.reshape(-1))
+                  into: torch.Tensor) -> torch.Tensor:
+    """wslot[s] = sum of wcomb over the (t, k) whose token_slot is s, added
+    into ``into`` (zeros, one per slot)."""
+    return into.index_add_(0, token_slot.reshape(-1), wcomb.reshape(-1))
+
+
+def live_experts(topk_w: torch.Tensor, keep: torch.Tensor,
+                 token_slot: torch.Tensor, n_experts: int,
+                 n_slots: int) -> torch.Tensor:
+    """(E,) bool: the experts that hold a slot of non-zero weight, the
+    only ones whose weights the kernels read (``fused_moe``'s arguments;
+    with softmax top-k, the experts holding a kept slot)."""
+    wcomb = (topk_w * keep).float()
+    wslot = _slot_weights(wcomb, token_slot.clamp(0, n_slots - 1), wcomb.new_zeros(n_slots))
+    return (wslot.reshape(n_experts, -1) != 0).any(1)
 
 
 def _kernel(x, w_in, w_gate, w_out, wcomb, slot_token, token_slot,
@@ -64,22 +106,37 @@ def _kernel(x, w_in, w_gate, w_out, wcomb, slot_token, token_slot,
     t, d = x.shape
     e, _, f = w_in.shape
     s = slot_token.shape[0]
-    if d > MAX_D:
-        raise ValueError(f"fused_moe: the kernel takes d <= {MAX_D}, got {d}")
-    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    # the output, the slot weights and the streaming kernel's per-expert
+    # counts (int32) zeroed by one fill
+    zeros = torch.zeros(t * d + s + e, dtype=torch.float32, device=x.device)
+    out = zeros[:t * d].view(t, d)
     if out.numel() == 0 or s == 0 or f == 0:
         return out.to(x.dtype)
-    wslot = _slot_weights(wcomb, token_slot, s)
-    fn = build.function("repro_fused_moe",
-                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _P])
-    build.check(fn(x.data_ptr(), w_in.data_ptr(),
-                   None if w_gate is None else w_gate.data_ptr(),
-                   w_out.data_ptr(), slot_token.data_ptr(), wslot.data_ptr(),
-                   out.data_ptr(), t, e, s // e, d, f, _ACTS[act],
-                   build.DTYPE_CODES[x.dtype], build.stream_of(x)),
-                "fused_moe")
+    wslot = _slot_weights(wcomb, token_slot, zeros[t * d:t * d + s])
+    c = s // e
+    ptrs = [x.data_ptr(), w_in.data_ptr(), w_out.data_ptr()]
+    if w_gate is not None:
+        ptrs.append(w_gate.data_ptr())
+    streaming = variant(c, d, f, x.element_size(), *ptrs) == "streaming"
+    head = (x.data_ptr(), w_in.data_ptr(),
+            None if w_gate is None else w_gate.data_ptr(), w_out.data_ptr(),
+            slot_token.data_ptr(), wslot.data_ptr(), out.data_ptr())
+    tail = (_ACTS[act], build.DTYPE_CODES[x.dtype], build.stream_of(x))
+    if streaming:
+        h = torch.empty(e * c * f, dtype=torch.float32, device=x.device)
+        name = "repro_fused_moe_stream"
+        fn = build.function(name, [_P] * 9 + [_I] * 7 + [_P])
+        counts = zeros[t * d + s:].view(torch.int32)
+        code = fn(*head, h.data_ptr(), counts.data_ptr(), t, e, c, d, f, *tail)
+    else:
+        if d > MAX_D:
+            raise ValueError(f"fused_moe: the tiled kernel takes d <= {MAX_D}, got {d}")
+        name = "repro_fused_moe"
+        fn = build.function(name, [_P] * 7 + [_I] * 7 + [_P])
+        code = fn(*head, t, e, c, d, f, *tail)
+    build.check(code, name)
     fused_moe.launches += 1
+    fused_moe.launches_streaming += streaming
     return out.to(x.dtype)
 
 
@@ -168,3 +225,18 @@ def fused_moe(x: torch.Tensor, w_in: torch.Tensor, w_gate: Optional[torch.Tensor
 
 
 fused_moe.launches = 0
+fused_moe.launches_streaming = 0
+
+
+def variant_info(kind: str, dtype: torch.dtype, c: int) -> dict:
+    """What the card reports for one compiled (ungated) kernel: registers
+    per thread, shared memory per block (bytes), spill bytes per thread and
+    resident blocks per SM. ``kind``: ``"stream"`` (at C rounded up to 1,
+    4, 8 or 16; shared memory for 128 experts) or ``"tiled"`` (its 8- or
+    16-row tile at d <= 512). Builds the library; needs a card."""
+    info = (ctypes.c_int * 4)()
+    fn = build.function("repro_fused_moe_variant_info", [_I, _I, _I, _P])
+    build.check(fn(("stream", "tiled").index(kind), build.DTYPE_CODES[dtype], c,
+                   ctypes.cast(info, _P)), "repro_fused_moe_variant_info")
+    return dict(zip(("registers", "smem_bytes", "spill_bytes",
+                     "blocks_per_sm"), info))

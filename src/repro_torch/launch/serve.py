@@ -9,6 +9,8 @@ One-shot:
       --backend cuda --flash-decode
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zcode-m3-base \
       --backend cuda --flash-decode --beam 4          # beam search
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zcode-m3-base \
+      --backend cuda_fused --flash-decode --eos -1    # the fused MoE kernel
 
 The first ``generate`` call builds the kernels and warms the allocator;
 ``TIMED_ROUNDS`` rounds after it are timed by ``time_generate``.
@@ -222,8 +224,10 @@ def main(argv=None):
                     help="sampling pool size (0 = full vocab)")
     ap.add_argument("--beam", type=int, default=1,
                     help=">1 = beam search (overrides sampling)")
-    ap.add_argument("--backend", default=None, choices=[None, "oracle", "cuda"],
-                    help="MoE execution backend (cuda = the kernel pipeline)")
+    ap.add_argument("--backend", default=None,
+                    choices=[None, "auto", "oracle", "cuda", "cuda_fused"],
+                    help="MoE execution backend (cuda = the kernel pipeline, "
+                         "cuda_fused = the one-launch fused kernel)")
     ap.add_argument("--flash-decode", action="store_true",
                     help="decode attention through the flash-decode kernel")
     ap.add_argument("--local-routing", action="store_true",

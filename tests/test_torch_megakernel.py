@@ -114,6 +114,47 @@ def test_fused_moe_matches_pallas(E, k, cap, T, d, f, gated, act, jx):
     _close(got, want)
 
 
+def test_fused_moe_variant_choice():
+    """``moe_megakernel.variant``, as ``grouped_ffn.variant`` for B1:
+    streaming at 1 <= C <= 16 with rows of d and f of whole 16-byte words
+    and x, w_in, w_gate, w_out 16-byte aligned (every call on the main
+    path: C = 1, 4, 8 at d = 512, f = 2048, f32), tiled past C = 16, on
+    rows that are not whole words, and on a view off a 16-byte boundary."""
+    v = moe_megakernel.variant
+    for c in (1, 4, 8, 12, 16):
+        assert v(c, 512, 2048, 4) == "streaming"
+    assert v(0, 512, 2048, 4) == v(17, 512, 2048, 4) == v(20, 1000, 600, 4) == "tiled"
+    assert v(8, 24, 40, 4) == v(8, 24, 40, 2) == "streaming"   # 96 / 160 and 48 / 80 bytes
+    assert v(1, 100, 70, 4) == "tiled"                         # rows of f: 280 bytes
+    assert v(8, 100, 64, 2) == "tiled"                         # rows of d: 200 bytes
+    assert v(8, 100, 64, 4) == "streaming"                     # rows of d: 400 bytes
+    base = torch.zeros(1 + 16 * 64)
+    x = base[1:].reshape(16, 64)                               # 4 bytes off
+    w_in, w_out = torch.zeros(4, 64, 32), torch.zeros(4, 32, 64)
+    w_gate = torch.zeros(1 + 4 * 64 * 32)[1:].reshape(4, 64, 32)
+    ptrs = (w_in.data_ptr(), w_out.data_ptr())
+    assert v(4, 64, 32, 4, base.data_ptr(), *ptrs) == "streaming"
+    assert v(4, 64, 32, 4, x.data_ptr(), *ptrs) == "tiled"
+    assert v(4, 64, 32, 4, base.data_ptr(), *ptrs, w_gate.data_ptr()) == "tiled"
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_live_experts_hold_a_kept_slot(k):
+    """The kernels skip an expert none of whose slots carries weight
+    (``live_experts``); with softmax top-k weights, which are positive,
+    those are the experts holding no kept slot, the ones chip_smoke's
+    bound leaves out. All dropped: no expert is live."""
+    E, cap = 16, 2
+    _, routing = make_case(E, k, cap, 24, 8, 8, seed=k)
+    r = {n: torch.from_numpy(v) for n, v in routing.items()}
+    live = moe_megakernel.live_experts(r["topk_w"], r["keep"], r["token_slot"], E, E * cap)
+    assert torch.equal(live, r["slot_valid"].reshape(E, cap).any(1))
+    assert 0 < int(live.sum()) < E
+    none = moe_megakernel.live_experts(r["topk_w"], torch.zeros_like(r["keep"]),
+                                       r["token_slot"], E, E * cap)
+    assert not none.any()
+
+
 def test_fused_moe_all_dropped_is_exact_zero(jx):
     case, routing = make_case(4, 2, 8, 24, 16, 16, keep_none=True)
     got, _, _ = _port(case, routing, "silu")
@@ -260,20 +301,31 @@ def _gpu_case(dev, E, k, cap, T, d, f, gated, dtype, keep_none=False, seed=0):
     return t, r
 
 
+def _took(args, act):
+    """Runs the kernel once; (output, the variant it took by its counters)."""
+    before = moe_megakernel.fused_moe.launches_streaming
+    got = moe_megakernel.fused_moe(*args, act=act)
+    took = "streaming" if moe_megakernel.fused_moe.launches_streaming > before else "tiled"
+    return got, took
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_fused_moe_matches_plain(dtype):
+    """Each case takes the variant ``moe_megakernel.variant`` names."""
     dev = _card()
-    cases = [(128, 1, 8, 1024, 512, 2048, False, "gelu"),   # the training site
-             (4, 2, 8, 37, 24, 40, True, "silu"),           # k=2, ragged d, f
-             (4, 1, 1, 16, 100, 70, False, "gelu"),         # capacity 1
-             (2, 1, 1, 1, 8, 8, True, "gelu"),              # one token
-             (8, 1, 20, 64, 1000, 600, True, "silu")]       # 16-row tiles, d > 512
-    for E, k, cap, T, d, f, gated, act in cases:
+    cases = [(128, 1, 8, 1024, 512, 2048, False, "gelu", "streaming"),   # training site
+             (4, 2, 8, 37, 24, 40, True, "silu", "streaming"),   # k=2, ragged d, f
+             (4, 1, 1, 16, 100, 70, False, "gelu", "tiled"),     # capacity 1, f ragged
+             (2, 1, 1, 1, 8, 8, True, "gelu", "streaming"),      # one token
+             (8, 1, 20, 64, 1000, 600, True, "silu", "tiled"),   # 16-row tiles, d > 512
+             (8, 2, 12, 40, 512, 2048, False, "gelu", "streaming")]   # C = 12
+    for E, k, cap, T, d, f, gated, act, variant in cases:
         t, r = _gpu_case(dev, E, k, cap, T, d, f, gated, dtype)
         args = (t["x"], t["w_in"], t["w_gate"], t["w_out"], r["topk_w"], r["keep"],
                 r["slot_token"], r["slot_valid"], r["token_slot"])
-        got = moe_megakernel.fused_moe(*args, act=act)
+        got, took = _took(args, act)
+        assert took == variant, (E, k, cap, T, d, f, dtype)
         wcomb = (r["topk_w"] * r["keep"]).float()
         want = ref.fused_moe_f32_ref(t["x"], t["w_in"], t["w_gate"], t["w_out"], wcomb,
                                      r["slot_token"], r["slot_valid"],
@@ -286,6 +338,55 @@ def test_cuda_fused_moe_matches_plain(dtype):
                                    r["topk_w"], r["keep"], r["slot_token"],
                                    r["slot_valid"], r["token_slot"])
     assert float(got.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("balanced", [False, True])
+def test_cuda_fused_moe_streaming_skips_unrouted_and_replays(balanced):
+    """The streaming kernel at full width (E = 128, d = 512, f = 2048, C =
+    8, f32): against the plain version; the same bits on a second run and
+    after CUDA-graph replays (top-1: an output element takes two additions
+    onto zero, whose sum does not depend on their order, and every call
+    zeroes the per-expert counts with the output); with 64 tokens most
+    experts are unrouted, and NaN in their weights changes no bit (they
+    are never read). Balanced: every expert holds 8 kept slots."""
+    dev = _card()
+    E, cap, T, d, f = 128, 8, (1024 if balanced else 64), 512, 2048
+    t, r = _gpu_case(dev, E, 1, cap, T, d, f, False, torch.float32, seed=4)
+    if balanced:
+        slots = torch.arange(E * cap, dtype=torch.int32, device=dev)
+        r = {"topk_w": torch.rand(T, 1, device=dev) + 0.1,
+             "keep": torch.ones(T, 1, dtype=torch.bool, device=dev),
+             "slot_token": slots, "slot_valid": torch.ones(E * cap, dtype=torch.bool,
+                                                           device=dev),
+             "token_slot": slots[:, None].clone()}
+    args = [t["x"], t["w_in"], None, t["w_out"], r["topk_w"], r["keep"], r["slot_token"],
+            r["slot_valid"], r["token_slot"]]
+    got, took = _took(args, "gelu")
+    assert took == "streaming"
+    want = ref.fused_moe_f32_ref(*args[:4], (r["topk_w"] * r["keep"]).float(),
+                                 *args[6:], "gelu")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, moe_megakernel.fused_moe(*args, act="gelu"))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe_megakernel.fused_moe(*args, act="gelu")
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = moe_megakernel.fused_moe(*args, act="gelu")
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got)
+    live = moe_megakernel.live_experts(r["topk_w"], r["keep"], r["token_slot"], E, E * cap)
+    assert bool(live.all()) == balanced
+    if not balanced:
+        args[1], args[3] = t["w_in"].clone(), t["w_out"].clone()
+        args[1][~live] = float("nan")
+        args[3][~live] = float("nan")
+        assert torch.equal(moe_megakernel.fused_moe(*args, act="gelu"), got)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 tokens from ``generate`` on bridged weights, reduced zcode-m3-base in f32,
 through the kernel pipeline with flash decode (the JAX package's
 ``pallas`` backend with ``flash_decode=True``, Pallas in interpret mode),
-with and without EOS and with local routing.
+with and without EOS and with local routing; and through the fused kernel
+(the port's ``cuda_fused`` against the JAX package's ``pallas_fused``).
 """
 import dataclasses
 import json
@@ -33,12 +34,17 @@ def _flat(tree):
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+PIPELINE = ("cuda", "pallas")         # (port backend, JAX package backend)
+FUSED = ("cuda_fused", "pallas_fused")
+
+
 @pytest.fixture(scope="module")
-def setup():
+def setup(request):
+    backend, jax_backend = getattr(request, "param", PIPELINE)
     jcfg = jax_reduced(jax_get_config("zcode-m3-base"))
     tcfg = reduced(get_config("zcode-m3-base"))
-    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, backend="pallas"))
-    tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, backend="cuda"))
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, backend=jax_backend))
+    tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, backend=backend))
     # a scaled-up init keeps greedy decoding from collapsing onto one token
     jp = jax.tree.map(lambda a: a * 3.0 if a.ndim >= 2 else a,
                       jax_init_model(jax.random.PRNGKey(7), jcfg))
@@ -58,7 +64,12 @@ def _both(setup, **gen):
     return got, want
 
 
-@pytest.mark.parametrize("local_routing", [False, True])
+@pytest.mark.parametrize("setup,local_routing", [
+    pytest.param(PIPELINE, False, id="False"),
+    pytest.param(PIPELINE, True, id="True"),
+    pytest.param(FUSED, False, id="cuda_fused-False"),
+    pytest.param(FUSED, True, id="cuda_fused-True"),
+], indirect=["setup"])
 def test_greedy_tokens_match_jax(setup, local_routing):
     got, want = _both(setup, max_new=8, eos_id=-1, local_routing=local_routing)
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
@@ -122,6 +133,22 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert rec["device"] == "cpu" and rec["n_tokens"] == 6 and rec["steps"] == 2
     assert all(len(v) == cli.TIMED_ROUNDS for v in rec["rounds"].values())
     assert "sample:" in capsys.readouterr().out
+
+
+def test_cli_serves_with_the_fused_kernel_on_cpu(tmp_path):
+    """``--backend cuda_fused`` (and ``auto``, the oracle) give the
+    pipeline's greedy tokens on the CPU, where every kernel wrapper takes
+    its plain version."""
+    tokens = {}
+    for backend in ("cuda", "cuda_fused", "auto"):
+        out = tmp_path / f"{backend}.json"
+        cli.main(["--arch", "zcode-m3-base", "--reduced", "--device", "cpu",
+                  "--batch", "2", "--prompt-len", "4", "--max-new", "3", "--eos", "-1",
+                  "--backend", backend, "--flash-decode", "--json-out", str(out)])
+        tokens[backend] = json.loads(out.read_text())["tokens"]
+    assert tokens["cuda_fused"] == tokens["cuda"] == tokens["auto"]
+    with pytest.raises(SystemExit):
+        cli.main(["--backend", "pallas_fused"])
 
 
 def test_cli_needs_a_card_unless_asked_for_cpu():
