@@ -48,15 +48,32 @@ Phases (any failure exits non-zero):
                  dx and dw launch streaming), step time, tokens/s, peak
                  memory, a CUDA-event split into forward, backward and
                  Adam, and the device's busy time from a torch.profiler
-                 trace.
+                 trace;
+  8. full cache -- B5 and B6 at zcode-m3-base's full 1,024-position cache
+                 (every row at position 1,023; B6 through a permuted page
+                 arena): against the plain version, B6 bitwise against B5,
+                 both bitwise on a second run and after CUDA-graph
+                 replays, and timed cold (each call in the timed graph
+                 finds its cache out of L2) in turns with SDPA (B5) and
+                 index_select + SDPA (B6); then the decode step at depth
+                 1,023 as one CUDA graph (run inside the serving phases,
+                 on their weights).
+
+  python3 chip_smoke.py --only full_cache
+
+runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
+seeded weights) and prints their numbers as one JSON line: the quick way
+to compare two trees' B5 and B6 at these sites in one call.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -116,6 +133,15 @@ SCHED_SLOTS, SCHED_ADMIT, SCHED_BUCKETS = 8, 4, (8, 16, 32, 64)
 PAGE_SIZE, PAGES_SMALL = 16, 20        # the small arena must preempt
 TIMED_REPLAYS = 3
 NEAR_TIE = 1e-4                         # top-two logit gap of a tolerated divergence
+# phase 8: zcode-m3-base's full cache (its max_seq), every row at the last
+# position; N_COLD caches of 16.8 MB each rotate in a timed graph, more than
+# the card's 50 MB L2, so each call finds its cache cold as a decode step does
+FULL_SEQ, N_COLD = 1024, 8
+# per-row positions of the boundary check: tile (64) and split edges
+FULL_BOUNDARY = (0, 63, 64, 127, 128, 511, 512, 1023)
+# a cache of more than 8 splits (4 rows of 4,160 positions: 17 splits of
+# 256 on 132 SMs), so that the merge runs over several batches of 8 splits
+LONG_ROWS, LONG_SEQ = 4, 4160
 
 
 def log(*a):
@@ -171,6 +197,14 @@ def in_turns(kernel, library):
     library, library, kernel), each the mean of its two readings."""
     k1, l1, l2, k2 = (device_ms(f) for f in (kernel, library, library, kernel))
     return (k1 + k2) / 2, (l1 + l2) / 2
+
+
+def rotating(fns):
+    """One callable that calls ``fns`` in turn, one per call: timed in a
+    graph over inputs that together exceed L2, each call finds its own
+    inputs cold."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -481,13 +515,18 @@ def ragged_cases(dev):
             cases.append(("grouped_matmul", (rn(e, c, d, dtype=dt),
                                              rn(e, d, f, dtype=dt) * d ** -0.5),
                           False))
-    # flash decode: q/kv dtype pairs, GQA, head dims, index 0, mixed indices
+    # flash decode: q/kv dtype pairs, GQA, head dims (33: 66-byte bf16 rows
+    # take 2-byte copies), index 0, mixed indices, one split and several,
+    # rows at tile and split edges of the full cache
     for qdt, kvdt in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                       (torch.bfloat16, torch.bfloat16)):
         for b, h, kv, s, hd in ((4, 8, 8, 64, 64), (3, 8, 2, 300, 128),
-                                (2, 8, 1, 1000, 40)):
+                                (2, 8, 1, 1000, 40), (3, 8, 4, 500, 33),
+                                (8, 8, 8, FULL_SEQ, 64)):
             idx = ri(0, s, b)
             idx[0] = 0
+            if s == FULL_SEQ:
+                idx = torch.tensor(FULL_BOUNDARY, dtype=torch.int32, device=dev)
             cases.append(("flash_decode", (rn(b, h, hd, dtype=qdt),
                                            rn(b, s, kv, hd, dtype=kvdt),
                                            rn(b, s, kv, hd, dtype=kvdt), idx), False))
@@ -523,6 +562,20 @@ def library_of(name, args):
         pos = torch.arange(s, device=k.device)[None, :]
         mask = (pos <= torch.as_tensor(idx).reshape(-1, 1))[:, None, None, :]
         return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+    if name == "flash_decode_paged":       # two calls: no one call reads pages
+        q, k, v, bt, idx = args
+        b, nb, ps = q.shape[0], bt.shape[1], k.shape[1]
+        flat = bt.long().reshape(-1)
+        q4 = q.to(k.dtype)[:, :, None, :]
+        pos = torch.arange(nb * ps, device=k.device)[None, :]
+        mask = (pos <= idx.long()[:, None])[:, None, None, :]
+
+        def library():
+            gk = k.index_select(0, flat).reshape(b, nb * ps, *k.shape[2:]).transpose(1, 2)
+            gv = v.index_select(0, flat).reshape(b, nb * ps, *v.shape[2:]).transpose(1, 2)
+            return F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask)
+
+        return library
     raise KeyError(name)
 
 
@@ -571,7 +624,7 @@ def kernel_phase(calls, dev):
         for site, args in sites:
             nbytes, flops, wdt = work(name, args)
             b_ms, b_by = bound(nbytes, flops, wdt)
-            if name in ("grouped_matmul", "dispatch"):      # in turns with the library
+            if name in ("grouped_matmul", "dispatch", "flash_decode"):  # in turns
                 k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
                 p_ms = device_ms(lambda: plain_of(name)(*args))
             else:
@@ -586,13 +639,36 @@ def kernel_phase(calls, dev):
             elif name == "dispatch":
                 note = (f" (index_select, timed in turns with the kernel: kernel / library "
                         f"{k_ms / l_ms:.3f})")
+            elif name == "flash_decode":
+                note = f" (SDPA, timed in turns with the kernel; n_split {n_split_of(args)})"
             log(f"time {name}@{site} [{shape}]: kernel {k_ms:.6f} ms, bound "
                 f"{b_ms:.6f} ms ({b_by}), plain {p_ms:.6f} ms, library "
                 f"{l_ms:.6f} ms" + note)
             timing[(name, site)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                         bound_by=b_by, library_ms=l_ms,
                                         shape=shape)
+            if name == "flash_decode":
+                timing[(name, site)]["n_split"] = n_split_of(args)
+    timing[("flash_decode", "floor")] = b5_floor(calls["flash_decode"][-1][0])
     return out, timing
+
+
+def b5_floor(args):
+    """B5's launch floor: the main path's decode inputs with every row at
+    position 0 (one live position per row), timed in turns with SDPA."""
+    q, k, v, _ = args
+    fargs = (q, k, v, torch.zeros(q.shape[0], dtype=torch.int32, device=q.device))
+    nbytes, flops, wdt = work("flash_decode", fargs)
+    b_ms, b_by = bound(nbytes, flops, wdt)
+    k_ms, l_ms = in_turns(lambda: kernel_of("flash_decode")(*fargs),
+                          library_of("flash_decode", fargs))
+    t = dict(ms=k_ms, plain_ms=device_ms(lambda: plain_of("flash_decode")(*fargs)),
+             bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+             shape=" x ".join(str(tuple(a.shape)) for a in fargs), index="0 on every row")
+    log(f"time flash_decode@floor [{t['shape']}, every index 0]: kernel {k_ms:.6f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}), plain {t['plain_ms']:.6f} ms, library {l_ms:.6f} ms (SDPA, "
+        "in turns): the launch floor of the main-path time")
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -1555,15 +1631,17 @@ def paged_ragged_cases(dev):
     1, 8, 16, 17; query heads per kv head 1, 2, 8; head dims 32, 64, 128;
     index 0 and the last slot of the last page; rows 0 and 1 sharing a
     physical page; tables pointing at the scratch page (filled with large
-    values) past each row's index; nb = 1 and B = 1; f32, bf16 cache,
-    bf16."""
+    values) past each row's index; nb = 1 and B = 1; several splits (pages
+    of 1 over the full cache, pages of 17 across a split's edge); f32, bf16
+    cache, bf16."""
     g = torch.Generator().manual_seed(4323)
     cases = []
     for qdt, kvdt in ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                       (torch.bfloat16, torch.bfloat16)):
         for b, h, kv, hd, ps, nb in ((8, 8, 8, 64, 16, 6), (3, 8, 4, 32, 1, 40),
                                      (4, 8, 1, 128, 8, 5), (2, 16, 2, 64, 17, 3),
-                                     (1, 8, 8, 64, 16, 1), (5, 8, 8, 64, 16, 6)):
+                                     (1, 8, 8, 64, 16, 1), (5, 8, 8, 64, 16, 6),
+                                     (4, 8, 8, 64, 1, FULL_SEQ), (4, 8, 2, 64, 17, 16)):
             n_pages = b * nb + 3
             tables = torch.randperm(n_pages, generator=g)[:b * nb].reshape(b, nb).to(torch.int32)
             if b > 1:
@@ -1617,36 +1695,28 @@ def b6_checks(main_calls, dev):
     log(f"kernel flash_decode_paged: {len(cases)} ragged cases agree with the plain version "
         "and equal flash_decode bitwise (page sizes 1/8/16/17, rep 1/2/8, head dims "
         "32/64/128, index 0 and the last slot, a shared page, scratch past the index, "
-        "nb = 1, B = 1; f32, bf16 cache, bf16)")
+        "nb = 1, B = 1, several splits; f32, bf16 cache, bf16)")
     return err
 
 
-def b6_timing(args, dev):
+def b6_timing(args):
     """B6 at the main path's decode inputs: device ms against the bytes of
     the live positions over HBM's rate, the plain version, and the library's
-    index_select of the pages + SDPA (two calls)."""
+    index_select of the pages + SDPA (two calls, in turns with the
+    kernel)."""
     from repro_torch.kernels import flash_decode as FD
-    q, k, v, bt, idx = args
-    b, nb, ps = q.shape[0], bt.shape[1], k.shape[1]
+    idx = args[4]
     nbytes, flops, wdt = work("flash_decode_paged", args)
     b_ms, b_by = bound(nbytes, flops, wdt)
-    flat = bt.long().reshape(-1)
-    q4 = q.to(k.dtype)[:, :, None, :]
-    mask = (torch.arange(nb * ps, device=dev)[None, :] <= idx.long()[:, None])[:, None, None, :]
-
-    def library():
-        gk = k.index_select(0, flat).reshape(b, nb * ps, *k.shape[2:]).transpose(1, 2)
-        gv = v.index_select(0, flat).reshape(b, nb * ps, *v.shape[2:]).transpose(1, 2)
-        return F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask)
-
-    t = dict(ms=device_ms(lambda: FD.flash_decode_paged(*args)),
-             plain_ms=device_ms(lambda: plain_of("flash_decode_paged")(*args)),
-             bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(library),
+    k_ms, l_ms = in_turns(lambda: FD.flash_decode_paged(*args),
+                          library_of("flash_decode_paged", args))
+    t = dict(ms=k_ms, plain_ms=device_ms(lambda: plain_of("flash_decode_paged")(*args)),
+             bound_ms=b_ms, bound_by=b_by, library_ms=l_ms, n_split=n_split_of(args),
              shape=" x ".join(str(tuple(a.shape)) for a in args))
     log(f"time flash_decode_paged@decode [{t['shape']}, {int((idx.long() + 1).sum())} "
-        f"live positions, {nbytes} bytes]: kernel {t['ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by}), plain "
-        f"{t['plain_ms']:.6f} ms, library (index_select + SDPA, two calls) "
-        f"{t['library_ms']:.6f} ms")
+        f"live positions, {nbytes} bytes, n_split {t['n_split']}]: kernel {t['ms']:.6f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by}), plain {t['plain_ms']:.6f} ms, library (index_select "
+        f"+ SDPA, two calls, timed in turns with the kernel) {t['library_ms']:.6f} ms")
     return t
 
 
@@ -1797,16 +1867,176 @@ def sched_phase(params, batch, cfg, dev):
     main_f32 = sched_parity(params, cfg, reqs, dev)
     main_bf16, launches = sched_timing(params, cfg, reqs, dev)
     err = b6_checks(main_f32 + main_bf16, dev)
-    timing = b6_timing(main_bf16[0], dev)
+    timing = b6_timing(main_bf16[0])
     beam_phase(params, batch, cfg, dev)
     return err, timing, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: B5 and B6 at the full cache
+# ---------------------------------------------------------------------------
+
+def n_split_of(args):
+    """Blocks per (row, kv head) over the cache that the wrapper's split
+    plan gives these B5 (4 args) or B6 (5 args) inputs."""
+    from repro_torch.kernels import flash_decode as FD
+    return FD.plan_of(args[0], args[1], args[3] if len(args) == 5 else None)[0]
+
+
+def full_cache_cases(cfg, dev):
+    """N_COLD B5 inputs (q, k, v, index) and N_COLD B6 inputs (q, arena k,
+    arena v, tables, index) at zcode-m3-base's widths and full cache: q (8,
+    8, 64) f32 against k/v (8, 1024, 8, 64) bf16, every row at position
+    1,023; B6's arena (8 * 64 + 1, 16, 8, 64) bf16 addressed by tables
+    holding a seeded permutation of the pages (a server's arena after it
+    has run a while). Each input has a cache of its own."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    b, h, kv, hd = BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    nb = FULL_SEQ // PAGE_SIZE
+    idx = torch.full((b,), FULL_SEQ - 1, dtype=torch.int32, device=dev)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    b5, b6 = [], []
+    for _ in range(N_COLD):
+        q = rn(b, h, hd)
+        b5.append((q, rn(b, FULL_SEQ, kv, hd).bfloat16(), rn(b, FULL_SEQ, kv, hd).bfloat16(), idx))
+        tables = torch.randperm(b * nb, generator=g, device=dev).reshape(b, nb).to(torch.int32)
+        b6.append((q, rn(b * nb + 1, PAGE_SIZE, kv, hd).bfloat16(),
+                   rn(b * nb + 1, PAGE_SIZE, kv, hd).bfloat16(), tables, idx))
+    return b5, b6
+
+
+def full_cache_checks(b5, b6, dev):
+    """B5 and B6 against their plain versions at the full cache (every row
+    at 1,023, and rows at tile and split edges), B6 bitwise against B5 on
+    the gathered cache, and both bitwise on a second run and after three
+    CUDA-graph replays. Returns {name: max abs err at the full cache}."""
+    from repro_torch.kernels import flash_decode as FD
+    edges = torch.tensor(FULL_BOUNDARY, dtype=torch.int32, device=dev)
+    errs = {}
+    long5, long6 = long_cache_case(*b5[0][0].shape[1:], b5[0][1].shape[2], dev)
+    n_long = n_split_of(long5)
+    if n_long <= 8:
+        raise AssertionError(f"the long cache takes {n_long} splits, not more than 8")
+    for args5, args6 in ((b5[0], b6[0]), ((*b5[0][:3], edges), (*b6[0][:4], edges)),
+                         (long5, long6)):
+        out5 = FD.flash_decode(*args5)
+        out6 = FD.flash_decode_paged(*args6)
+        torch.cuda.synchronize()
+        e5 = check("flash_decode@full cache", out5, plain_of("flash_decode")(*args5))
+        e6 = check("flash_decode_paged@full cache", out6, plain_of("flash_decode_paged")(*args6))
+        check("flash_decode_paged@full cache vs B5", out6,
+              FD.flash_decode(args6[0], *gathered(args6), args6[4]), exact=True)
+        errs["flash_decode"] = max(errs.get("flash_decode", 0.0), e5)
+        errs["flash_decode_paged"] = max(errs.get("flash_decode_paged", 0.0), e6)
+    for name, args in (("flash_decode", b5[0]), ("flash_decode_paged", b6[0]),
+                       ("flash_decode", long5), ("flash_decode_paged", long6)):
+        fn = kernel_of(name)
+        first = fn(*args)
+        check(f"{name}@full cache, second run", fn(*args), first, exact=True)
+        check(f"{name}@full cache after CUDA-graph replays", graph_replayed(lambda: fn(*args)),
+              first, exact=True)
+    log(f"kernel flash_decode / flash_decode_paged @full cache: max abs err "
+        f"{errs['flash_decode']:.3e} / {errs['flash_decode_paged']:.3e} (rows at 1,023 and at "
+        f"positions {FULL_BOUNDARY}; {LONG_ROWS} rows of {LONG_SEQ} positions, {n_long} "
+        f"splits, at {[int(i) for i in long5[3]]}); B6 bitwise equal to B5 on the gathered "
+        "cache; both bitwise equal on a second run and after 3 CUDA-graph replays")
+    return errs
+
+
+def long_cache_case(h, hd, kv, dev):
+    """B5 inputs (q, k, v, index) and B6 inputs (q, arena k, arena v,
+    tables, index) of LONG_ROWS rows of LONG_SEQ positions at zcode's
+    widths, f32 q against a bf16 cache, B6 through a seeded permutation of
+    pages; rows at 0, the last position of the merge's first batch of 8
+    splits, the next position and the last."""
+    from repro_torch.kernels import flash_decode as FD
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    b, nb = LONG_ROWS, LONG_SEQ // PAGE_SIZE
+    q = torch.randn(b, h, hd, generator=g, device=dev)
+    k, v = (torch.randn(b * nb + 1, PAGE_SIZE, kv, hd, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    tables = torch.randperm(b * nb, generator=g, device=dev).reshape(b, nb).to(torch.int32)
+    per = FD.plan_of(q, k, tables)[1]
+    idx = torch.tensor([0, 8 * per - 1, 8 * per, LONG_SEQ - 1], dtype=torch.int32, device=dev)
+    b6 = (q, k, v, tables, idx)
+    return (q, *gathered(b6), idx), b6
+
+
+def full_cache_phase(cfg, dev):
+    """Phase 8's kernel sites: checks (``full_cache_checks``), then each
+    kernel timed cold, rotating over N_COLD caches in the timed graph, in
+    turns with its library yardstick. Returns {name: timing}."""
+    b5, b6 = full_cache_cases(cfg, dev)
+    errs = full_cache_checks(b5, b6, dev)
+    out = {}
+    for name, cases in (("flash_decode", b5), ("flash_decode_paged", b6)):
+        nbytes, flops, wdt = work(name, cases[0])
+        b_ms, b_by = bound(nbytes, flops, wdt)
+        k_ms, l_ms = in_turns(rotating([lambda a=a: kernel_of(name)(*a) for a in cases]),
+                              rotating([library_of(name, a) for a in cases]))
+        p_ms = device_ms(rotating([lambda a=a: plain_of(name)(*a) for a in cases]))
+        t = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                 max_abs_err=errs[name], n_split=n_split_of(cases[0]), cold_caches=N_COLD,
+                 shape=" x ".join(str(tuple(a.shape)) for a in cases[0]))
+        lib = "SDPA" if name == "flash_decode" else "index_select + SDPA, two calls"
+        log(f"time {name}@full cache, cold [{t['shape']}, every index {FULL_SEQ - 1}, "
+            f"{nbytes} bytes, n_split {t['n_split']}, {N_COLD} caches rotated]: kernel "
+            f"{k_ms:.6f} ms ({b_ms / k_ms * 100:.1f}% of the bound), bound {b_ms:.6f} ms "
+            f"({b_by}), plain {p_ms:.6f} ms, library ({lib}, in turns) {l_ms:.6f} ms")
+        out[name] = t
+    del b5, b6
+    torch.cuda.empty_cache()
+    return out
+
+
+def deep_decode_graph(params, batch, cfg, dev):
+    """The decode step at depth FULL_SEQ - 1 as one CUDA graph (device ms):
+    a slot pool of max_seq FULL_SEQ whose self-attention K/V hold seeded
+    random values and every row at position FULL_SEQ - 1, so each decoder
+    layer's B5 reads its whole cache, cold behind the step's MoE weights."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import prefill
+    from repro_torch.serve.engine import decode_pool_step
+    from repro_torch.tree import flatten_with_paths
+    lg, fresh = prefill(params, batch, cfg, max_seq=FULL_SEQ)
+    pool = _pool(cfg, fresh, dev)
+    del fresh
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    kv_bytes = 0
+    for path, t in flatten_with_paths(pool).items():
+        if "/attn/" in f"/{path}":                        # self-attention K/V
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+            kv_bytes += t.numel() * t.element_size()
+    tok = lg[:, 0].argmax(-1)
+    pos = torch.full((BATCH,), FULL_SEQ - 1, device=dev)
+    alive = torch.ones(BATCH, dtype=torch.bool, device=dev)
+
+    def step():
+        return decode_pool_step(params, pool, tok, pos, alive, cfg, flash_decode=True)
+
+    reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    launches = launch_counts()["flash_decode"]
+    if launches != cfg.n_layers:
+        raise AssertionError(f"decode step at depth {FULL_SEQ - 1}: {launches} flash_decode "
+                             f"launches, expected {cfg.n_layers}")
+    ms = device_ms(step, reps=1, replays=20)
+    log(f"decode step at depth {FULL_SEQ - 1} as one CUDA graph: {ms:.4f} ms on the device "
+        f"({BATCH} rows, self-attention K/V {kv_bytes / 2**20:.1f} MiB, {launches} B5 "
+        "launches at the full cache's shapes)")
+    del pool
+    return dict(ms=ms, self_attn_kv_bytes=kv_bytes, flash_decode_launches=launches)
 
 
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
-def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve):
+def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve, fc):
     """One entry per kernel for the JSON line: serving kernels at their
     decode site with their launches per ``generate``, training kernels at
     the training site with their launches per step (B4 on ``cuda_fused``,
@@ -1816,7 +2046,9 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
     lists its launches per training step on both kernel backends, and the
     kernels timed at the training site besides (B1's forward, B2) carry
     that timing too; B4 carries its balanced site and, with its launches
-    per ``cuda_fused`` generate, its serving sites."""
+    per ``cuda_fused`` generate, its serving sites; B5 and B6 their
+    full-cache sites (phase 8), B5 its launch floor and the decode step at
+    depth 1,023 as one CUDA graph."""
     kernels = []
     for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
                  "combine", "fused_moe", "flash_decode"):
@@ -1843,6 +2075,9 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
         if name == "grouped_matmul_dx":
             entry["tiled_ms"] = t["tiled_ms"]
             entry["train_up_site"] = t_timing[(name, "train_up")]
+        if name == "flash_decode":
+            entry.update(n_split=t["n_split"], floor_site=timing[(name, "floor")],
+                         full_cache_site=fc[name], decode_step_graph=fc["decode_step_graph"])
         if name == "fused_moe":
             b4_sites, b4_launches = b4_serve
             entry.update(variant=t["variant"], live_experts=t["live_experts"],
@@ -1859,15 +2094,16 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                     "library": "index_select of the pages + scaled_dot_product_attention "
                                "(two calls)",
-                    "site": "paged decode", "shape": t["shape"],
+                    "site": "paged decode", "shape": t["shape"], "n_split": t["n_split"],
+                    "full_cache_site": fc["flash_decode_paged"],
                     "train_launches": {b: c["flash_decode_paged"] for b, c in t_counts.items()}})
     return kernels
 
 
 def serve_phases(full, dev):
-    """Phases 3-5 and 7 on the serving path; every tensor they made is
+    """Phases 3-5, 7 and 8 on the serving path; every tensor they made is
     freed on return. Returns (errs, timing, counts, phase 7's B6 result,
-    phase 4's B4 result on cuda_fused)."""
+    phase 4's B4 result on cuda_fused, phase 8's result)."""
     from repro_torch.launch.serve import generator, synth_batch
     from repro_torch.models import init_model
     from repro_torch.serve import GenerateConfig, generate
@@ -1888,9 +2124,12 @@ def serve_phases(full, dev):
     torch.cuda.synchronize()
     errs, timing = kernel_phase(cap.calls, dev)
     del cap
+    # 8. B5 and B6 at the full cache
+    fc = full_cache_phase(cfg, dev)
 
     # 4. the slice, on the cuda backend, then on cuda_fused
     counts, tokens = slice_phase(params, batch, cfg, gen, dev)
+    fc["decode_step_graph"] = deep_decode_graph(params, batch, cfg, dev)
     b4_serve = fused_slice_phase(params, batch, cfg, gen, dev, tokens)
 
     # 5. kernel path against plain path, f32 activations
@@ -1900,10 +2139,14 @@ def serve_phases(full, dev):
     paged = sched_phase(params, batch, cfg, dev)
     log(f"scheduler phase: {time.perf_counter() - t0:.1f} s")
     sensitivity(params, batch, cfg, dev)          # scales params in place
-    return errs, timing, counts, paged, b4_serve
+    return errs, timing, counts, paged, b4_serve, fc
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("full_cache",),
+                    help="run phases 1, 2 and this phase alone")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1927,12 +2170,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {lib.relative_to(REPO)}")
+    full = get_config("zcode-m3-base")
+    if args.only == "full_cache":
+        return full_cache_only(full, dev)
     ptxas_report(lib.parent / "nvcc.log")
 
-    # 3-5 and 7. serving
-    full = get_config("zcode-m3-base")
+    # 3-5, 7 and 8. serving
     t0 = time.perf_counter()
-    errs, timing, counts, paged, b4_serve = serve_phases(full, dev)
+    errs, timing, counts, paged, b4_serve, fc = serve_phases(full, dev)
     torch.cuda.empty_cache()
     log(f"serving phases: {time.perf_counter() - t0:.1f} s; device memory now allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -1950,7 +2195,8 @@ def main() -> int:
     print(json.dumps({"train": {b: {k: v for k, v in t.items()}
                                 for b, t in t_slice.items()}}), flush=True)
 
-    kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve)
+    kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
+                           fc)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -1958,12 +2204,26 @@ def main() -> int:
     return 0
 
 
+def full_cache_only(full, dev) -> int:
+    """``--only full_cache``: phase 8 on its own seeded weights; prints its
+    numbers as one JSON line."""
+    from repro_torch.launch.serve import generator, synth_batch
+    from repro_torch.models import init_model
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(full.moe, backend="cuda"))
+    fc = full_cache_phase(cfg, dev)
+    params = init_model(generator(dev, SEED, 0), cfg)
+    batch = synth_batch(cfg, generator(dev, SEED, 1), BATCH, PROMPT)
+    fc["decode_step_graph"] = deep_decode_graph(params, batch, cfg, dev)
+    print(json.dumps({"full_cache": fc}), flush=True)
+    return 0
+
+
 def ptxas_report(path: Path):
     """Each kernel's registers and spills from the build's ptxas report,
-    and what the card reports for B1's and B4's variants."""
+    and what the card reports for B1's, B5's, B6's and B4's variants."""
     import re
     import shutil
-    from repro_torch.kernels import grouped_ffn, moe_megakernel
+    from repro_torch.kernels import flash_decode, grouped_ffn, moe_megakernel
     entry = "?"
     for line in path.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1981,6 +2241,17 @@ def ptxas_report(path: Path):
                 + "; ".join(f"C={c}: {i['registers']} registers, {i['smem_bytes']} B shared, "
                             f"{i['spill_bytes']} B spilled, {i['blocks_per_sm']} blocks/SM"
                             for c, i in infos.items()))
+    for paged in (False, True):
+        for qdt, kvdt in ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+                          (torch.bfloat16, torch.bfloat16)):
+            infos = {(hd, rep): flash_decode.variant_info(paged, qdt, kvdt, hd, rep)
+                     for hd, rep in ((64, 1), (128, 1), (64, 8), (128, 8))}
+            log(f"{'B6' if paged else 'B5'} q {_dt(torch.empty(0, dtype=qdt))}, cache "
+                f"{_dt(torch.empty(0, dtype=kvdt))} (128 positions per split, pages of 16): "
+                + "; ".join(f"hd={hd} rep={rep}: {i['registers']} registers, "
+                            f"{i['smem_bytes']} B shared, {i['spill_bytes']} B spilled, "
+                            f"{i['blocks_per_sm']} blocks/SM"
+                            for (hd, rep), i in infos.items()))
     for kind in ("stream", "tiled"):
         for dt in (torch.float32, torch.bfloat16):
             infos = {c: moe_megakernel.variant_info(kind, dt, c) for c in (1, 4, 8, 16)}

@@ -1,8 +1,9 @@
 """Builds the CUDA sources in ``csrc/`` and binds them with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface; no PyTorch header is included,
-so the build takes seconds. The library lands in ``build/kernels/<hash>/``
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
+for ``sm_90a``, and one more links them into a shared library with a plain
+C interface; no PyTorch header is included, so the build takes as long as
+its largest source. The library lands in ``build/kernels/<hash>/``
 at the repository root (listed in ``.gitignore``), keyed on a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one loads
 at once. The build happens at first use, inside the first kernel launch or
@@ -28,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
 
 # dtype codes of csrc/common.cuh
@@ -76,14 +77,32 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, sources())]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise KernelError(f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    tag = f"{os.getpid()}.tmp"
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources():
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{stderr[-4000:]}")
+    if not failed:
+        r = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(f"link ({r.returncode}):\n{r.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (out.parent / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        raise KernelError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

@@ -1,5 +1,6 @@
-// Helpers of the weight-streaming kernels (B1's streaming products in
-// grouped_ffn.cu, B4's streaming kernel in moe_megakernel.cu).
+// Helpers of the streaming kernels (B1's streaming products in
+// grouped_ffn.cu, B4's streaming kernel in moe_megakernel.cu, B5 and B6 in
+// flash_decode.cu).
 //
 // Device side: the mbarrier and bulk-copy wrappers of a ring of shared
 // memory stages that one producer warp fills with cp.async.bulk (global ->

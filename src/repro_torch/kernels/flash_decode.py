@@ -4,23 +4,31 @@ contiguous (B5) or paged (B6).
 ``flash_decode``: q (B, H, hd), k/v (B, S, KV, hd), index scalar or (B,):
 positions past index[b] are masked; softmax in f32; output in q's dtype.
 Its kernel replaces the TPU kernel
-``repro/kernels/flash_decode.py::_flash_decode_jit`` / ``_kernel``: the
-TPU's sequential grid axis over S becomes a loop inside one block per
-(row, kv head), four warps carrying their own online-softmax state that
-merge at the end; the GQA group's query heads share every K/V row read.
+``repro/kernels/flash_decode.py::_flash_decode_jit`` / ``_kernel``, whose
+grid walks S sequentially carrying the online-softmax state.
 
 ``flash_decode_paged``: the same over a page arena k/v (n_pages + 1, ps,
 KV, hd) through block tables (B, nb): row b's logical position p lives at
 arena page ``block_tables[b, p // ps]``, offset ``p % ps``. Its kernel
 replaces ``_flash_decode_paged_jit`` / ``_paged_kernel``, whose DMA
-prologue gathers the pages; on the H100 the table lookup is the row
-address inside B5's loop. Both kernels share one device body
-(``csrc/flash_decode.cu::attend_rows``), so B6 equals B5 bitwise on the
-contiguous cache its tables address.
+prologue gathers the pages.
 
-Both are bound by bytes on the H100 (every live K/V row read once); at the
-serving shapes (at most 96 positions) by launch latency. Their plain
-versions are ``ref.flash_decode_ref`` and ``ref.flash_decode_paged_ref``.
+Both are bound by bytes on the H100 (every live K/V row read once). Their
+kernels (``csrc/flash_decode.cu``) split the cache over blocks
+(flash-decoding): the grid is (KV, B, n_split), each block takes one
+contiguous range of positions, a multiple of ``TILE``, and stages its K/V
+rows into shared memory with 16-byte asynchronous copies, and the last
+block of a (row, kv head) to finish merges the ranges' partial softmax
+states in range order, in the same launch. ``split_plan`` picks the ranges
+from the cache's capacity, the rows, the kv heads and the SM count alone,
+never from ``index``, so the wrapper reads nothing from the device and a
+call can be captured in a CUDA graph. B5 and B6 share the plan and the device body, so
+B6 equals B5 bitwise on the contiguous cache its tables address. At the
+serving shapes (at most 96 positions) ``n_split`` is 1: one block per (row,
+kv head), no workspace, no merge.
+
+Their plain versions are ``ref.flash_decode_ref`` and
+``ref.flash_decode_paged_ref``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. ``flash_decode.launches`` and ``flash_decode_paged.launches``
@@ -32,6 +40,10 @@ devices).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import threading
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,9 +55,78 @@ _I = ctypes.c_int
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_REP = 8          # query heads per kv head the kernel holds in registers
 MAX_HEAD_DIM = 128
+# split plan (TILE is csrc/flash_decode.cu's kTile)
+TILE = 64              # positions per staged tile
+MIN_SPLIT_TILES = 2    # a shorter range is not worth a partial and a merge
+MAX_SPLIT_TILES = 64   # bounds B6's table slice in shared memory
+BLOCKS_PER_SM = 4      # blocks wanted over the card before ranges stop shrinking
 
 plain = flash_decode_ref
 plain_paged = flash_decode_paged_ref
+
+
+def split_plan(capacity: int, rows: int, kv_heads: int, sms: int) -> Tuple[int, int]:
+    """(n_split, positions per split) for a cache of ``capacity`` positions
+    (B5: S; B6: n_blocks * page_size) read by ``rows * kv_heads`` blocks
+    per split on a card of ``sms`` SMs. Split i covers positions [i * per,
+    min((i + 1) * per, capacity)); ``per`` is a multiple of ``TILE``. Ranges
+    shrink until the grid holds about ``BLOCKS_PER_SM`` blocks per SM, but
+    not below ``MIN_SPLIT_TILES`` tiles, so caches of fewer than 192
+    positions take one split; a range holds at most ``MAX_SPLIT_TILES``
+    tiles."""
+    tiles = max(1, math.ceil(capacity / TILE))
+    want = math.ceil(BLOCKS_PER_SM * sms / max(1, rows * kv_heads))
+    n = max(1, min(want, tiles // MIN_SPLIT_TILES), math.ceil(tiles / MAX_SPLIT_TILES))
+    per = math.ceil(tiles / n)
+    return math.ceil(tiles / per), per * TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan_of(q: torch.Tensor, k: torch.Tensor,
+            block_tables: Optional[torch.Tensor] = None,
+            sms: Optional[int] = None) -> Tuple[int, int]:
+    """``split_plan`` for B5's inputs (q, k) or, given ``block_tables``,
+    B6's (q, arena k, tables): from shapes alone. ``sms`` defaults to the
+    SM count of q's card."""
+    cap = k.shape[1] * (block_tables.shape[1] if block_tables is not None else 1)
+    return split_plan(cap, q.shape[0], k.shape[2], sms or _sm_count(q.device))
+
+
+def _workspace(q: torch.Tensor, n_split: int) -> Optional[torch.Tensor]:
+    """f32 partial states (m, l and the unnormalised output per query head)
+    of every split, merged inside the launch; none for one split."""
+    if n_split == 1:
+        return None
+    b, h, hd = q.shape
+    return torch.empty(b * h * n_split * (hd + 2), dtype=torch.float32, device=q.device)
+
+
+_split_lock = threading.Lock()
+_split_streams: dict = {}   # device index -> stream of the last eager launch that split
+
+
+def _launch(q: torch.Tensor, n_split: int, call):
+    """Returns ``call()``, the kernel's launch. A launch that splits counts
+    its blocks in at the library's arrival counters (one per (row, kv head),
+    zero between launches because the merging block resets its own), so two
+    such launches must not run at once: an eager one is ordered after the
+    last one on its card, whatever that one's stream. A launch captured
+    into a CUDA graph is not ordered so: replay a graph that splits only
+    while no other launch that splits runs."""
+    if n_split == 1:
+        return call()
+    with _split_lock:
+        if not torch.cuda.is_current_stream_capturing():
+            stream = torch.cuda.current_stream(q.device)
+            last = _split_streams.get(q.device.index)
+            if last is not None and last != stream:
+                stream.wait_stream(last)
+            _split_streams[q.device.index] = stream
+        return call()
 
 
 def _check_common(name: str, q, k, v) -> None:
@@ -81,7 +162,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_common("flash_decode", q, k, v)
     if q.device.type == "cpu":
         return plain(q, k, v, index)
-    idx = torch.as_tensor(index, dtype=torch.int32, device=q.device)
+    idx = torch.as_tensor(index, device=q.device)
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.to(torch.int32)
     idx = idx.reshape(-1).expand(b).contiguous()
     rep = h // kv
     _check_kernel_shape("flash_decode", rep, hd)
@@ -89,13 +172,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0 or s == 0:
         return out.zero_()
+    n_split, per = plan_of(q, k)
+    ws = _workspace(q, n_split)
     fn = build.function("repro_flash_decode",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
-                         _I, _I, _P])
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-                   out.data_ptr(), b, s, kv, rep, hd, hd ** -0.5,
-                   build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
-                   build.stream_of(q)), "flash_decode")
+                        [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _I, _I, _P])
+    build.check(_launch(q, n_split, lambda: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
+        out.data_ptr(), ws.data_ptr() if ws is not None else None, b, s, kv, rep, hd, n_split,
+        per, hd ** -0.5, build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
+        build.stream_of(q))), "flash_decode")
     flash_decode.launches += 1
     return out
 
@@ -135,21 +221,40 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return plain_paged(q, k, v, block_tables, index)
     rep = h // kv
     _check_kernel_shape("flash_decode_paged", rep, hd)
-    idx = index.to(torch.int32).contiguous()
+    idx = index.contiguous()
     build.require_cuda("flash_decode_paged", q, k, v, block_tables, idx)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    n_split, per = plan_of(q, k, block_tables)
+    ws = _workspace(q, n_split)
     fn = build.function("repro_flash_decode_paged",
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _I, _I, _P])
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   block_tables.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                   b, nb, ps, n_arena, kv, rep, hd, hd ** -0.5,
-                   build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
-                   build.stream_of(q)), "flash_decode_paged")
+                        [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, ctypes.c_float, _I, _I, _P])
+    build.check(_launch(q, n_split, lambda: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), block_tables.data_ptr(), idx.data_ptr(),
+        int(idx.dtype == torch.int64), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, b, nb, ps, n_arena, kv, rep, hd, n_split,
+        per, hd ** -0.5, build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
+        build.stream_of(q))), "flash_decode_paged")
     flash_decode_paged.launches += 1
     return out
 
 
 flash_decode_paged.launches = 0
+
+
+def variant_info(paged: bool, q_dtype: torch.dtype, kv_dtype: torch.dtype, hd: int = 64,
+                 rep: int = 1, per: int = 2 * TILE, ps: int = 16) -> dict:
+    """What the card reports for B5's (or B6's) kernel at head dim ``hd``,
+    ``rep`` query heads per kv head, ``per`` positions per split and page
+    size ``ps``: registers per thread, shared memory per block (bytes),
+    spill bytes per thread and resident blocks per SM. Builds the library;
+    needs a card."""
+    info = (ctypes.c_int * 4)()
+    fn = build.function("repro_flash_decode_variant_info",
+                        [_I, _I, _I, _I, _I, _I, _I, _P])
+    build.check(fn(int(paged), build.DTYPE_CODES[q_dtype], build.DTYPE_CODES[kv_dtype], hd, rep,
+                   per, ps, ctypes.cast(info, _P)),
+                "repro_flash_decode_variant_info")
+    return dict(zip(("registers", "smem_bytes", "spill_bytes", "blocks_per_sm"), info))

@@ -321,6 +321,117 @@ def test_flash_decode_ignores_keys_past_index():
 
 
 # ---------------------------------------------------------------------------
+# B5 and B6's split over the cache: the host's plan and the merge's math
+# ---------------------------------------------------------------------------
+
+_PLAN_CASES = [(1, 1, 1, 132), (34, 8, 8, 132), (96, 9, 8, 132), (191, 1, 1, 132),
+               (192, 1, 1, 132), (300, 3, 2, 132), (1000, 2, 1, 132), (1024, 8, 8, 132),
+               (1024, 8, 8, 114), (1025, 4, 8, 132), (4096, 64, 8, 132),
+               (32768, 1, 1, 132), (32768, 64, 8, 132)]
+
+
+@pytest.mark.parametrize("cap,rows,kv,sms", _PLAN_CASES)
+def test_split_plan_covers_the_capacity(cap, rows, kv, sms):
+    """Splits [i * per, (i + 1) * per) cover [0, cap) exactly, each a whole
+    number of tiles, none empty; at most MAX_SPLIT_TILES tiles each."""
+    n, per = flash_decode.split_plan(cap, rows, kv, sms)
+    assert per % flash_decode.TILE == 0 and per >= flash_decode.TILE
+    assert n * per >= cap > (n - 1) * per
+    assert per <= flash_decode.MAX_SPLIT_TILES * flash_decode.TILE
+
+
+def test_split_plan_at_the_serving_and_full_cache_shapes():
+    """One split at the main path's 34-96-position caches (no workspace, no
+    merge) on any card size; zcode's full 1,024-position cache over 8 rows
+    of 8 kv heads takes 8 splits of 128 on 132 SMs."""
+    for cap in range(1, 97):
+        for rows in (1, 8, 9, 32):
+            for sms in (1, 66, 114, 132, 1000):
+                assert flash_decode.split_plan(cap, rows, 8, sms)[0] == 1
+    assert flash_decode.split_plan(1024, 8, 8, 132) == (8, 128)
+
+
+@pytest.mark.parametrize("nb,ps", [(6, 16), (64, 16), (1024, 1), (300, 1), (16, 17), (5, 17)])
+def test_split_plan_b5_equals_b6_and_reads_no_index(nb, ps):
+    """B5 over S = nb * ps and B6 over nb pages of ps take the same plan,
+    from shapes alone: on meta tensors, which hold no values, and with no
+    index among the plan's inputs."""
+    import inspect
+    q = torch.empty(4, 8, 64, device="meta")
+    kc = torch.empty(4, nb * ps, 8, 64, device="meta", dtype=torch.bfloat16)
+    arena = torch.empty(4 * nb + 1, ps, 8, 64, device="meta", dtype=torch.bfloat16)
+    bt = torch.empty(4, nb, device="meta", dtype=torch.int32)
+    assert (flash_decode.plan_of(q, kc, sms=132) == flash_decode.plan_of(q, arena, bt, sms=132)
+            == flash_decode.split_plan(nb * ps, 4, 8, 132))
+    for fn in (flash_decode.split_plan, flash_decode.plan_of):
+        assert "index" not in inspect.signature(fn).parameters
+
+
+def _partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index, per: int):
+    """The partial softmax states of B5's kernel split over the cache: for
+    each range [lo, lo + per) of positions, (m, l, acc) per (row, query
+    head): the range's max logit, its sum of exp(logit - m) and its
+    unnormalised output, in f32. A range past a row's index has m = -1e30,
+    l = 0 and acc = 0."""
+    b, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    ke = k.repeat_interleave(rep, dim=2).float()
+    ve = v.repeat_interleave(rep, dim=2).float()
+    logits = torch.einsum("bhd,bshd->bhs", q.float(), ke) * (hd ** -0.5)
+    idx = torch.as_tensor(index, device=q.device).reshape(-1).expand(b)
+    valid = (torch.arange(s, device=q.device)[None, :] <= idx[:, None])[:, None, :]
+    parts = []
+    for lo in range(0, s, per):
+        lg, ok = logits[..., lo:lo + per], valid[..., lo:lo + per].expand(b, h, -1)
+        m = torch.where(ok, lg, torch.full_like(lg, -1e30)).amax(-1)
+        p = torch.where(ok, torch.exp(lg - m[..., None]), torch.zeros_like(lg))
+        parts.append((m, p.sum(-1), torch.einsum("bhs,bshd->bhd", p, ve[:, lo:lo + per])))
+    return parts
+
+
+def _merge(parts) -> torch.Tensor:
+    """The merge of ``_partials``, in range order: out =
+    sum_i w_i acc_i / sum_i w_i l_i with w_i = exp(m_i - max m), where a
+    range with l = 0 takes no part (weight 0, its acc never read). f32."""
+    live = [l > 0 for _, l, _ in parts]
+    m_all = torch.stack([torch.where(ok, m, torch.full_like(m, -1e30))
+                         for (m, _, _), ok in zip(parts, live)]).amax(0)
+    l_all = torch.zeros_like(m_all)
+    out = torch.zeros_like(parts[0][2])
+    for (m, l, acc), ok in zip(parts, live):
+        w = torch.exp(m - m_all)
+        l_all = l_all + torch.where(ok, l * w, torch.zeros_like(l))
+        out = out + torch.where(ok[..., None], acc * w[..., None], torch.zeros_like(acc))
+    return torch.where(l_all[..., None] > 0, out / l_all[..., None], torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("s,per", [(1024, 128), (300, 192), (130, 64)])
+def test_split_merge_matches_flash_decode_ref(s, per):
+    """The merge formula in plain torch: partials of disjoint ranges merged
+    in order equal ``flash_decode_ref`` within 1e-6 (f32), with rows at 0,
+    a split's last position, the next split's first and the last; a range
+    past a row's index (l = 0) takes weight 0, whatever its m and acc. This
+    checks the formula, not the kernel's merge, which runs only on the card
+    (``test_cuda_flash_decode_matches_plain``, ``chip_smoke.py`` phase 8)."""
+    rs = np.random.RandomState(s)
+    b, h, kv, hd = 5, 8, 2, 64
+    q = torch.from_numpy(rs.randn(b, h, hd).astype(np.float32))
+    k = torch.from_numpy(rs.randn(b, s, kv, hd).astype(np.float32))
+    v = torch.from_numpy(rs.randn(b, s, kv, hd).astype(np.float32))
+    idx = torch.tensor([0, per - 1, per, s - 1, s // 2])
+    parts = _partials(q, k, v, idx, per)
+    want = ref.flash_decode_ref(q, k, v, idx)
+    torch.testing.assert_close(_merge(parts), want, atol=1e-6, rtol=0)
+    _, l_last, acc_last = parts[-1]
+    assert torch.equal(l_last[0], torch.zeros(h)) and torch.equal(acc_last[0], torch.zeros(h, hd))
+    poisoned = [(torch.where(l > 0, m, torch.full_like(m, 1e30)), l,
+                 torch.where(l[..., None] > 0, acc, torch.full_like(acc, float("nan"))))
+                for m, l, acc in parts]
+    assert torch.equal(_merge(poisoned), _merge(parts))
+
+
+# ---------------------------------------------------------------------------
 # wrapper contract
 # ---------------------------------------------------------------------------
 
@@ -439,16 +550,93 @@ def test_cuda_combine_matches_plain(dtype):
                                       (torch.float32, torch.bfloat16),
                                       (torch.bfloat16, torch.bfloat16)])
 def test_cuda_flash_decode_matches_plain(qdt, kvdt):
+    """B5 against its plain version: one split (64 positions), ragged
+    splits (300, 1,000), zcode's full 1,024-position cache with rows at 0,
+    a split's last position, the next split's first and 1,023, a 4,160-
+    position cache of 17 splits (the merge takes them in batches of 8, 8
+    and 1) with rows at the edge of the first batch, and head dims 40 and 33
+    (rows of 80 and 66 bytes take narrower copies); the long caches bitwise
+    on a second run and after 3 CUDA-graph replays."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(3)
-    for b, h, kv, s, hd in ((8, 8, 8, 64, 64), (3, 8, 2, 300, 128), (2, 8, 1, 1000, 40)):
+    for b, h, kv, s, hd in ((8, 8, 8, 64, 64), (3, 8, 2, 300, 128), (2, 8, 1, 1000, 40),
+                            (4, 8, 8, 1024, 64), (4, 8, 4, 1024, 33), (4, 8, 8, 4160, 64)):
         q = torch.randn(b, h, hd, generator=g, device=dev).to(qdt)
         k = torch.randn(b, s, kv, hd, generator=g, device=dev).to(kvdt)
         v = torch.randn(b, s, kv, hd, generator=g, device=dev).to(kvdt)
-        idx = torch.randint(0, s, (b,), generator=g, device=dev)
-        idx[0] = 0
-        _gpu_close(flash_decode.flash_decode(q, k, v, idx),
-                   ref.flash_decode_ref(q, k, v, idx))
+        n_split, per = flash_decode.plan_of(q, k)
+        if s >= 1024:
+            edge = 8 * per if n_split > 8 else per   # the first merge batch's or split's end
+            idx = torch.tensor([0, edge - 1, edge, s - 1], device=dev)
+        else:
+            idx = torch.randint(0, s, (b,), generator=g, device=dev)
+            idx[0] = 0
+        out = flash_decode.flash_decode(q, k, v, idx)
+        _gpu_close(out, ref.flash_decode_ref(q, k, v, idx))
+        if s == 4160:
+            assert n_split > 8, n_split
+        if s >= 1024:
+            assert n_split > 1
+            assert torch.equal(flash_decode.flash_decode(q, k, v, idx), out)
+            assert torch.equal(_graph_replayed(lambda: flash_decode.flash_decode(q, k, v, idx)),
+                               out)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_split_launches_on_two_streams():
+    """Launches that split, issued in turns on two streams with no sync
+    between them (two server threads, each with its stream), are ordered by
+    the wrapper, since they share the arrival counters: each output equals
+    the same call's on one stream, bitwise."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    cases = []
+    for _ in range(2):
+        q = torch.randn(8, 8, 64, generator=g, device=dev)
+        k, v = (torch.randn(8, 1024, 8, 64, generator=g, device=dev).bfloat16() for _ in range(2))
+        cases.append((q, k, v, torch.randint(0, 1024, (8,), generator=g, device=dev)))
+    assert flash_decode.plan_of(cases[0][0], cases[0][1])[0] > 1
+    want = [flash_decode.flash_decode(*c) for c in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(40):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(flash_decode.flash_decode(*cases[i % 2]))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert torch.equal(out, want[i % 2]), i
+
+
+def _graph_replayed(fn):
+    """``fn()``'s output after three replays of a CUDA graph that captured
+    one call (after an eager warm-up on a side stream)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = fn()
+    for _ in range(3):
+        g.replay()
+    torch.cuda.synchronize()
+    return y
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_variant_resources():
+    """The serving instance (f32 q, bf16 cache, hd 64, one query head per
+    kv head) does not spill and fits four blocks per SM, B5 and B6, at one
+    tile and at two tiles per split (zcode's full cache: 512 blocks, all
+    resident at once on 132 SMs)."""
+    _card()
+    for paged in (False, True):
+        for per in (flash_decode.TILE, 2 * flash_decode.TILE):
+            info = flash_decode.variant_info(paged, torch.float32, torch.bfloat16, per=per)
+            assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 4, info
 
 
 @pytest.mark.cuda

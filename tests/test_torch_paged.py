@@ -39,19 +39,23 @@ def jx():
                                  cfg=jreduced(jget("zcode-m3-base"), **REDUCED))
 
 
-def paged_case(gen, b, h, kv, hd, ps, nb, qdt, kvdt, device):
+def paged_case(gen, b, h, kv, hd, ps, nb, qdt, kvdt, device, index=None):
     """A permuted page arena holding B rows of nb pages, rows 0 and 1
     sharing their first page, every row's pages past its index pointing at
     the scratch page (index n_pages, filled with large values that must
-    not leak in): (q, arena k, arena v, tables, index, contiguous k, v)."""
+    not leak in): (q, arena k, arena v, tables, index, contiguous k, v).
+    The index is drawn (row 0 at 0, the last row at the last position)
+    unless given."""
     n_pages = b * nb + 3
     perm = torch.randperm(n_pages, generator=gen, device="cpu")[:b * nb]
     tables = perm.reshape(b, nb).to(torch.int32)
     if b > 1:
         tables[1, 0] = tables[0, 0]
-    index = torch.randint(0, nb * ps, (b,), generator=gen, device="cpu")
-    index[0] = 0
-    index[-1] = nb * ps - 1
+    if index is None:
+        index = torch.randint(0, nb * ps, (b,), generator=gen, device="cpu")
+        index[0] = 0
+        index[-1] = nb * ps - 1
+    index = torch.as_tensor(index)
     for r in range(b):
         live = int(index[r]) // ps + 1
         tables[r, live:] = n_pages
@@ -65,27 +69,6 @@ def paged_case(gen, b, h, kv, hd, ps, nb, qdt, kvdt, device):
     to = lambda t, dt: t.to(device=device, dtype=dt).contiguous()
     return (to(q, qdt), to(ka, kvdt), to(va, kvdt), tables.to(device),
             index.to(device), to(kc, kvdt), to(vc, kvdt))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
-                                      (torch.float32, torch.bfloat16),
-                                      (torch.bfloat16, torch.bfloat16)])
-def test_cuda_flash_decode_paged_matches_plain_and_b5(qdt, kvdt):
-    """B6 against its plain version, and bitwise equal to B5 on the
-    contiguous cache its tables address; page sizes 1, 8, 16, 17, GQA
-    groups 1, 2, 8, head dims 32, 64, 128, nb = 1 and B = 1."""
-    dev = _card()
-    g = torch.Generator().manual_seed(5)
-    for b, h, kv, hd, ps, nb in ((8, 8, 8, 64, 16, 6), (3, 8, 4, 32, 1, 40),
-                                 (4, 8, 1, 128, 8, 5), (2, 16, 2, 64, 17, 3),
-                                 (1, 8, 8, 64, 16, 1)):
-        q, ka, va, bt, idx, kc, vc = paged_case(g, b, h, kv, hd, ps, nb, qdt, kvdt, dev)
-        reset_launch_counts()
-        out = flash_decode.flash_decode_paged(q, ka, va, bt, idx)
-        assert flash_decode.flash_decode_paged.launches == 1
-        _gpu_close(out, ref.flash_decode_paged_ref(q, ka, va, bt, idx))
-        assert torch.equal(out, flash_decode.flash_decode(q, kc, vc, idx))
 
 
 # ---------------------------------------------------------------------------
@@ -306,15 +289,27 @@ def test_swap_out_is_a_copy_and_round_trips(jx):
 def test_cuda_flash_decode_paged_matches_plain_and_b5(qdt, kvdt):
     """B6 against its plain version, and bitwise equal to B5 on the
     contiguous cache its tables address; page sizes 1, 8, 16, 17, GQA
-    groups 1, 2, 8, head dims 32, 64, 128, nb = 1 and B = 1."""
+    groups 1, 2, 8, head dims 32, 64, 128, nb = 1 and B = 1 (one split);
+    zcode's full 1,024-position cache (16-position pages, and pages of 1)
+    and pages of 17 over 272 positions, with rows at 0, a split's last
+    position, the next split's first and the last (several splits)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(5)
     for b, h, kv, hd, ps, nb in ((8, 8, 8, 64, 16, 6), (3, 8, 4, 32, 1, 40),
                                  (4, 8, 1, 128, 8, 5), (2, 16, 2, 64, 17, 3),
-                                 (1, 8, 8, 64, 16, 1)):
-        q, ka, va, bt, idx, kc, vc = paged_case(g, b, h, kv, hd, ps, nb, qdt, kvdt, dev)
+                                 (1, 8, 8, 64, 16, 1), (4, 8, 8, 64, 16, 64),
+                                 (4, 8, 8, 64, 1, 1024), (4, 8, 2, 64, 17, 16)):
+        index = None
+        if nb * ps > 96:                               # split boundaries
+            n, per = flash_decode.split_plan(nb * ps, b, kv,
+                                             torch.cuda.get_device_properties(dev)
+                                             .multi_processor_count)
+            assert n > 1
+            index = [0, per - 1, per, nb * ps - 1]
+        q, ka, va, bt, idx, kc, vc = paged_case(g, b, h, kv, hd, ps, nb, qdt, kvdt, dev,
+                                                index)
         reset_launch_counts()
         out = flash_decode.flash_decode_paged(q, ka, va, bt, idx)
         assert flash_decode.flash_decode_paged.launches == 1
