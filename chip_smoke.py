@@ -11,8 +11,15 @@ Phases (any failure exits non-zero):
                  and first decode step, plus ragged cases (B1's variant,
                  streaming or tiled, asserted per case); times against
                  the bytes/FLOP bound, the plain version and one library
-                 call (B1 against torch.bmm and B2 against index_select
-                 in turns);
+                 call, in turns (B1 against torch.bmm, B2 against
+                 index_select, B3 against embedding_bag); B3 at top-1 the
+                 same bits on a second run, with PDL off and after
+                 CUDA-graph replays, and timed with its programmatic
+                 dependent launch (PDL) off (its time: 20 B3 in a graph
+                 with PDL would overlap each other) and on, in turns, as
+                 are the pair B1 (down projection) -> B3 in one graph
+                 (the main path's order) and an empty kernel (the launch
+                 floor);
   4. slice    -- zcode-m3-base at full width and depth (bf16 activations,
                  f32 params, random weights from a seed) generates for 8
                  requests through the kernel backend with flash decode; the
@@ -34,12 +41,13 @@ Phases (any failure exits non-zero):
                  tokens per step): K f32 steps of cuda_fused, cuda and the
                  plain oracle path from one seeded init, gated against each
                  other (loss, grad norm, balance per step, parameters
-                 after K); B4, B1's forward and backward kernels and B2
-                 against their plain versions at the inputs captured from
-                 the first step, plus ragged cases (each kernel's variant
-                 asserted), and timed (dx at both products of the expert
-                 FFN; B4 in turns with the cuda pipeline, also with every
-                 expert routed); B4's streaming kernel bitwise after CUDA
+                 after K); B4, B1's forward and backward kernels, B2 and
+                 B3 against their plain versions at the inputs captured
+                 from the first step, plus ragged cases (each kernel's
+                 variant asserted), and timed (dx at both products of the
+                 expert FFN; B4 in turns with the cuda pipeline, also with
+                 every expert routed; B3 and the pair B1 -> B3 as in
+                 phase 3); B4's streaming kernel bitwise after CUDA
                  graph replays, with NaN in the unrouted experts' weights,
                  and all dropped; then both
                  kernel backends in the model's own dtype (bf16
@@ -72,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -192,11 +201,11 @@ def host_ms(fn, calls: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
-def in_turns(kernel, library):
-    """Device ms of ``kernel`` and ``library`` timed in turns (kernel,
-    library, library, kernel), each the mean of its two readings."""
-    k1, l1, l2, k2 = (device_ms(f) for f in (kernel, library, library, kernel))
-    return (k1 + k2) / 2, (l1 + l2) / 2
+def in_turns(*fns):
+    """Device ms of each of ``fns`` timed in turns (a, b, .., b, a), each
+    the mean of its two readings."""
+    ms = [device_ms(f) for f in (*fns, *fns[::-1])]
+    return tuple((ms[i] + ms[-1 - i]) / 2 for i in range(len(fns)))
 
 
 def rotating(fns):
@@ -495,9 +504,12 @@ def ragged_cases(dev):
         x = rn(16, 64, dtype=dt)
         cases.append(("dispatch", (x, ri(0, 16, 8), torch.zeros(8, dtype=torch.bool,
                                                                   device=dev)), True))
-        # combine: k=1 and k=2, vector and scalar paths, all dropped
-        for t, k, s, d in ((32, 1, 64, 512), (32, 2, 48, 512), (7, 2, 5, 100)):
-            buf = rn(s, d, dtype=dt)
+        # combine: k=1 (the top-1 instance), 2, 5 and 40 (steps of 4 rows),
+        # vector and scalar paths (d = 100; a view off a 16-byte boundary),
+        # all dropped
+        for t, k, s, d, off in ((32, 1, 64, 512, 0), (32, 2, 48, 512, 0), (7, 2, 5, 100, 0),
+                                (9, 1, 16, 512, 1), (10, 5, 40, 512, 0), (3, 40, 50, 96, 0)):
+            buf = rn(off + s * d, dtype=dt)[off:].view(s, d)
             keep = torch.rand(t, k, generator=g, device=dev) < 0.8
             cases.append(("combine", (buf, ri(0, s, t, k),
                                       torch.rand(t, k, generator=g, device=dev),
@@ -581,8 +593,10 @@ def library_of(name, args):
 
 def kernel_phase(calls, dev):
     """Checks every kernel at the captured main-path inputs and the ragged
-    cases, then times it at the prefill and decode sites. Returns
-    ({name: max abs err over the main-path inputs}, {(name, site): times})."""
+    cases, then times it at the prefill and decode sites (B3 by
+    ``combine_site``), the pair B1 -> B3 at decode and the launch floor.
+    Returns ({name: max abs err over the main-path inputs}, {(name, site):
+    times})."""
     out = {}
     for name in ("dispatch", "combine", "grouped_matmul", "flash_decode"):
         if not calls[name]:
@@ -622,15 +636,13 @@ def kernel_phase(calls, dev):
         if len(calls[name]) > 1:
             sites.insert(0, ("prefill", calls[name][0][0]))
         for site, args in sites:
+            if name == "combine":
+                timing[(name, site)] = combine_site(site, args)
+                continue
             nbytes, flops, wdt = work(name, args)
             b_ms, b_by = bound(nbytes, flops, wdt)
-            if name in ("grouped_matmul", "dispatch", "flash_decode"):  # in turns
-                k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
-                p_ms = device_ms(lambda: plain_of(name)(*args))
-            else:
-                k_ms = device_ms(lambda: kernel_of(name)(*args))
-                p_ms = device_ms(lambda: plain_of(name)(*args))
-                l_ms = device_ms(library_of(name, args))
+            k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
+            p_ms = device_ms(lambda: plain_of(name)(*args))
             shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
             note = ""
             if name == "grouped_matmul":
@@ -650,7 +662,107 @@ def kernel_phase(calls, dev):
             if name == "flash_decode":
                 timing[(name, site)]["n_split"] = n_split_of(args)
     timing[("flash_decode", "floor")] = b5_floor(calls["flash_decode"][-1][0])
+    decode = calls["combine"][-1][0]
+    timing[("combine", "pair")] = pdl_pair("decode", calls["grouped_matmul"][-1][0], decode)
+    timing[("launch_floor", "decode")] = launch_floor(-(-decode[1].shape[0] // 4))
     return out, timing
+
+
+def combine_no_pdl(buf, ts, w, keep):
+    """B3's kernel launched without PDL (``repro_moe_combine`` with pdl 0,
+    which the wrapper never passes), into a new tensor; not counted."""
+    from repro_torch.kernels import build
+    fn = build.function("repro_moe_combine", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p])
+    out = torch.empty((ts.shape[0], buf.shape[1]), dtype=buf.dtype, device=buf.device)
+    build.check(fn(buf.data_ptr(), ts.data_ptr(), w.data_ptr(), keep.data_ptr(), out.data_ptr(),
+                   ts.shape[0], buf.shape[0], ts.shape[1], buf.shape[1],
+                   build.DTYPE_CODES[buf.dtype], 0, torch.cuda.current_stream().cuda_stream),
+                "combine without PDL")
+    return out
+
+
+def combine_site(site, args):
+    """B3 at one site: against its plain version; at top-1 the same bits
+    on a second run, with PDL off and after CUDA-graph replays; then timed
+    in turns: the kernel with PDL off (``ms``: each call in the timed
+    graph follows another B3, and with PDL it would overlap that B3, which
+    the main path never runs), the kernel as the wrapper launches it (PDL
+    on: ``pdl_self_overlap_ms``) and ``embedding_bag``."""
+    kernel = kernel_of("combine")
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    plain = plain_of("combine")(*args)
+    err = check(f"combine@{site}", out, plain)
+    top1 = args[1].shape[1] == 1
+    if top1:
+        check(f"combine@{site} second run", kernel(*args), out, exact=True)
+        check(f"combine@{site} PDL off", combine_no_pdl(*args), out, exact=True)
+        check(f"combine@{site} after CUDA-graph replays",
+              graph_replayed(lambda: kernel(*args)), out, exact=True)
+    fns = {"ms": lambda: combine_no_pdl(*args), "pdl_self_overlap_ms": lambda: kernel(*args),
+           "library_ms": library_of("combine", args)}
+    t = dict(zip(fns, in_turns(*fns.values())))
+    b_ms, b_by = bound(*work("combine", args))
+    t.update(plain_ms=device_ms(lambda: plain_of("combine")(*args)), bound_ms=b_ms,
+             bound_by=b_by, max_abs_err=err, bitwise_plain=torch.equal(out, plain),
+             shape=" x ".join(str(tuple(a.shape)) for a in args))
+    log(f"time combine@{site} [{t['shape']}]: kernel {t['ms']:.6f} ms with PDL off (PDL on "
+        f"{t['pdl_self_overlap_ms']:.6f}, overlapping the B3 before it in the graph), bound "
+        f"{b_ms:.6f} ms ({b_by}; {b_ms / t['ms'] * 100:.2f}% of it), plain "
+        f"{t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} ms (embedding_bag; all timed "
+        f"in turns); max abs err {err:.3e}" + (
+            "; top-1: bitwise on a second run, PDL off and after 3 graph replays; bitwise "
+            f"the plain version: {t['bitwise_plain']}" if top1 else ""))
+    return t
+
+
+def pdl_pair(site, b1_args, combine_args):
+    """B1's down projection -> B3 as the main path runs them (the cast of
+    B1's f32 output to B3's dtype between them at a bf16 site), 20 pairs
+    in one graph, B3 with PDL on and off, in turns."""
+    from repro_torch.kernels import grouped_ffn, moe_dispatch
+    x, w = b1_args
+    buf, ts, wt, keep = combine_args
+    b3 = {True: moe_dispatch.combine, False: combine_no_pdl}
+    if x.shape[0] * x.shape[1] * w.shape[2] != buf.numel():
+        raise AssertionError(f"pair@{site}: B1 out {x.shape[:2]}x{w.shape[2]} vs B3 buf "
+                             f"{tuple(buf.shape)}")
+
+    def pair(pdl):
+        def run():
+            y = grouped_ffn.grouped_matmul(x, w).to(buf.dtype).reshape(buf.shape)
+            return b3[pdl](y, ts, wt, keep)
+        return run
+
+    out = pair(True)()
+    y = grouped_ffn.grouped_matmul(x, w).to(buf.dtype).reshape(buf.shape)
+    check(f"B1 -> combine@{site}", out, plain_of("combine")(y, ts, wt, keep))
+    check(f"B1 -> combine@{site} PDL off", pair(False)(), out, exact=True)
+    on, off = in_turns(pair(True), pair(False))
+    cast = " -> cast" if buf.dtype != x.dtype else ""
+    log(f"time B1 -> combine@{site} [B1 {tuple(x.shape)} x {tuple(w.shape)} {_dt(x)}{cast} -> "
+        f"B3 {tuple(buf.shape)} {_dt(buf)}]: 20 pairs in one graph, per pair: B3 with PDL "
+        f"{on:.6f} ms, without {off:.6f} ms (in turns)")
+    return dict(pdl_ms=on, no_pdl_ms=off, cast=bool(cast),
+                shape=f"B1 {tuple(x.shape)} x {tuple(w.shape)} -> B3 {tuple(buf.shape)}")
+
+
+def launch_floor(blocks: int):
+    """An empty kernel of ``blocks`` x 128 threads (``repro_launch_floor``:
+    B3's launch path, no work), 20 launches in one graph, with PDL and
+    without, in turns: the floor of a launch-bound kernel."""
+    from repro_torch.kernels import build
+    fn = build.function("repro_launch_floor", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+    def launcher(pdl: int):
+        return lambda: build.check(
+            fn(blocks, pdl, torch.cuda.current_stream().cuda_stream), "launch floor")
+
+    on, off = in_turns(launcher(1), launcher(0))
+    log(f"time launch floor [{blocks} x 128 threads, empty]: {on:.6f} ms with PDL, {off:.6f} "
+        "ms without (20 launches in one graph, in turns)")
+    return dict(pdl_ms=on, no_pdl_ms=off, blocks=blocks)
 
 
 def b5_floor(args):
@@ -1011,7 +1123,7 @@ def train_parity(full, dev):
     captured, ref = {}, None
     for backend, names in (("oracle", ()), ("cuda_fused", ("fused_moe",)),
                            ("cuda", ("grouped_matmul", "grouped_matmul_dx",
-                                     "grouped_matmul_dw", "dispatch"))):
+                                     "grouped_matmul_dw", "dispatch", "combine"))):
         cfg = train_cfg(full, backend, "float32")
         state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
         step = make_train_step(cfg, tc)
@@ -1126,7 +1238,7 @@ def train_sites(captured):
     """(name, site, (args, kw)) of the training-site timings: B1's forward
     at its d = 2048 product (the decode site's layout), dx at both
     products (w_out (E, d_ff, d): "train", w_in (E, d, d_ff): "train_up"),
-    dW, B4 and B2 at their one shape."""
+    dW, B4, B2 and B3 at their one shape."""
     dx = {("train" if args[1].shape[1] > args[1].shape[2] else "train_up"): (args, kw)
           for args, kw in captured["grouped_matmul_dx"]}
     if sorted(dx) != ["train", "train_up"]:
@@ -1136,7 +1248,8 @@ def train_sites(captured):
             ("grouped_matmul_dx", "train", dx["train"]),
             ("grouped_matmul_dx", "train_up", dx["train_up"]),
             ("grouped_matmul_dw", "train", captured["grouped_matmul_dw"][0]),
-            ("dispatch", "train", captured["dispatch"][0])]
+            ("dispatch", "train", captured["dispatch"][0]),
+            ("combine", "train", captured["combine"][0])]
 
 
 def b4_pipeline(args, kw):
@@ -1261,14 +1374,15 @@ def b4_checks(args, kw):
 
 
 def train_kernel_phase(captured, dev):
-    """B4, B1's kernels and B2 against their plain versions at the inputs
-    captured from the first training step and in ragged cases, B4's
+    """B4, B1's kernels, B2 and B3 against their plain versions at the
+    inputs captured from the first training step and in ragged cases, B4's
     streaming checks (``b4_checks``), then timed at the training sites
-    (``train_sites``) and B4 at the balanced site. Returns ({name: max abs
-    err}, {(name, site): times})."""
+    (``train_sites``; B3 by ``combine_site``), B4 at the balanced site and
+    the pair B1 -> B3. Returns ({name: max abs err}, {(name, site):
+    times})."""
     errs = {}
     for name in ("fused_moe", "grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw",
-                 "dispatch"):
+                 "dispatch", "combine"):
         if not captured.get(name):
             raise AssertionError(f"{name}: never called on the training path")
         err, variants = 0.0, []
@@ -1319,6 +1433,9 @@ def train_kernel_phase(captured, dev):
         if name == "fused_moe":
             timing[(name, site)] = b4_site(site, args, kw)
             continue
+        if name == "combine":
+            timing[(name, site)] = combine_site(site, args)
+            continue
         b_ms, b_by = bound(*work(name, args))
         extra = {}
         k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
@@ -1342,6 +1459,8 @@ def train_kernel_phase(captured, dev):
             (f", tiled kernel {extra['tiled_ms']:.6f} ms" if "tiled_ms" in extra else ""))
         timing[(name, site)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                     library_ms=l_ms, shape=shape, **extra)
+    timing[("combine", "pair")] = pdl_pair("train", captured["grouped_matmul"][-1][0],
+                                           captured["combine"][0][0])
     return errs, timing
 
 
@@ -2045,7 +2164,9 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
     with its launches over one bf16 replay of the trace; every entry also
     lists its launches per training step on both kernel backends, and the
     kernels timed at the training site besides (B1's forward, B2) carry
-    that timing too; B4 carries its balanced site and, with its launches
+    that timing too (B3, timed with PDL off, also its prefill site, its
+    time with PDL on overlapping the B3 before it, the pair B1 -> B3 at
+    decode and at the training site and the launch floor); B4 carries its balanced site and, with its launches
     per ``cuda_fused`` generate, its serving sites; B5 and B6 their
     full-cache sites (phase 8), B5 its launch floor and the decode step at
     depth 1,023 as one CUDA graph."""
@@ -2069,9 +2190,14 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
             entry["prefill_ms"] = timing.get((name, "prefill"), {}).get("ms")
         if name.startswith("grouped_matmul"):
             entry["variant"] = "streaming" if name in B1_STREAMED else "tiled"
-        if name in ("grouped_matmul", "dispatch"):
+        if name in ("grouped_matmul", "dispatch", "combine"):
             entry["prefill"] = timing[(name, "prefill")]
             entry["train_site"] = {**t_timing[(name, "train")], "max_abs_err": t_errs[name]}
+        if name == "combine":
+            entry.update(pdl_self_overlap_ms=t["pdl_self_overlap_ms"],
+                         bitwise_plain=t["bitwise_plain"])
+            entry.update(pair_decode=timing[(name, "pair")], pair_train=t_timing[(name, "pair")],
+                         launch_floor=timing[("launch_floor", "decode")])
         if name == "grouped_matmul_dx":
             entry["tiled_ms"] = t["tiled_ms"]
             entry["train_up_site"] = t_timing[(name, "train_up")]

@@ -3,17 +3,36 @@
 // Replace repro/kernels/moe_dispatch.py::_dispatch_impl / _dispatch_kernel
 // and ::_combine_impl / _make_combine_kernel. On the TPU each grid step
 // DMAs one (1, bd) row named by the scalar-prefetched routing table. Here a
-// warp (dispatch) or a block (combine) owns a row and reads its index
-// itself; rows move as 16-byte words where the row width allows.
+// warp owns a row (dispatch: a slot row; combine: a token row) and its
+// lanes read the row's indices themselves; rows move as 16-byte words
+// where the row width allows.
 //
 // Both move bytes: dispatch copies S rows, combine reads K rows per token
-// and writes one. Neither does enough arithmetic to matter. At decode
-// dispatch copies 128 rows of 1 KB (128 KB, 0.04 us at the byte bound), so
-// launch and the latency of its dependent loads set its time: it loads a
-// slot's validity and token together and the row right after (one
-// dependent step, as index_select's), all of a lane's row words before
-// its stores, and runs 4 rows per block so that the training site's 1,024
-// slots spread over every SM.
+// and writes one. Neither does enough arithmetic to matter, and on this
+// card neither is bound by its bytes either: at decode dispatch copies 128
+// rows of 1 KB (0.04 us at the byte bound) and combine reads 8 rows and
+// writes 8 (~16 KB, 5 ns), so the launch and the latency of their
+// dependent loads set their time.
+//
+// dispatch loads a slot's validity and token together and the row right
+// after (one dependent step, as index_select's), all of a lane's row words
+// before its stores, and runs 4 rows per block so that the training site's
+// 1,024 slots spread over every SM.
+//
+// combine runs one warp per token, 4 tokens per block. Every lane loads
+// the table entries of up to 4 rows at once (the lanes share the address:
+// one request per warp), then all its words of those rows, then the FMAs,
+// so a row waits on one table load. Top-1 (every call of the main path)
+// takes an instance with no loop over k: in a kernel this short the fetch
+// of its own instructions sits on the chain too, and a shuffle of the
+// table entries from lanes 0..K-1 or a loop over k ran slower at decode
+// than the block-per-token kernel this replaced. It launches as a
+// programmatic dependent launch (PDL): its launch and the placement of
+// its blocks overlap the end of the kernel before it on the stream,
+// eagerly and as a CUDA-graph edge. The PDL rule: the kernel makes no
+// global load or store before griddepcontrol.wait, since the kernel
+// before it may still be writing the tables, the rows, or the memory the
+// allocator handed out as its output.
 
 #include "common.cuh"
 
@@ -70,59 +89,154 @@ void launch_dispatch(const void* x, const int32_t* slot_token, const uint8_t* sl
 
 // ---------------------------------------------------------------------------
 // combine: y[t] = sum_k topk_w[t,k] * keep[t,k] * buf[clip(token_slot[t,k])]
-// One block per token row, f32 accumulation in the order k = 0..K-1. A
+// One warp per token row, f32 accumulation in the order k = 0..K-1 (so a
+// top-1 output is one product onto zero, the plain version's bits). A
 // dropped (t, k) still reads its clipped row and multiplies it by 0, as the
-// TPU kernel does.
+// TPU kernel does, so a NaN row propagates as in the reference.
 // ---------------------------------------------------------------------------
 
 constexpr int kCombineThreads = 128;
+constexpr int kTokensPerBlock = kCombineThreads / 32;   // one warp per token row
+constexpr int kCombineWords = 4;    // a lane's words of one row per pass (2 KB rows in one)
+constexpr int kCombineRows = 4;     // rows whose words a lane loads before its first FMA (k > 1)
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Vec {
   T e[V];
 };
 
-template <typename T, int V>
+// PDL: returns once the kernel before this one on the stream has finished
+// and its writes are visible; at once when launched without the attribute
+__device__ __forceinline__ void wait_for_previous_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// R rows per step: R = 1 is the top-1 instance (k == 1, one step, no loop
+// over k: a short body, since a one-shot kernel waits on its instruction
+// fetches too), else k rows in steps of kCombineRows
+template <typename T, int V, int R>
 __global__ void __launch_bounds__(kCombineThreads)
 combine_rows_kernel(const T* __restrict__ buf, const int32_t* __restrict__ token_slot,
                     const float* __restrict__ topk_w, const uint8_t* __restrict__ keep,
-                    T* __restrict__ out, int n_slots, int k, int d) {
-  const int t = blockIdx.x;
+                    T* __restrict__ out, int n_tokens, int n_slots, int k, int d) {
+  wait_for_previous_grid();           // before any global access
+  const int t = blockIdx.x * kTokensPerBlock + threadIdx.x / 32;
+  if (t >= n_tokens) return;
+  const int lane = threadIdx.x % 32;
+  using Row = Vec<T, V>;
   const int n_vec = d / V;
-  for (int c = threadIdx.x; c < n_vec; c += blockDim.x) {
-    float acc[V];
+  const int n_rows = R == 1 ? 1 : k;
+  const Row* rows = reinterpret_cast<const Row*>(buf);
+  Row* dst = reinterpret_cast<Row*>(out + static_cast<size_t>(t) * d);
+  for (int base = 0; base < n_vec; base += 32 * kCombineWords) {
+    const int c0 = base + lane;
+    float acc[kCombineWords][V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = 0.f;
-    for (int kk = 0; kk < k; ++kk) {
-      const int tk = t * k + kk;
-      const int s = clamp_index(token_slot[tk], n_slots);
-      const float w = topk_w[tk] * (keep[tk] ? 1.f : 0.f);
-      const Vec<T, V> row =
-          reinterpret_cast<const Vec<T, V>*>(buf + static_cast<size_t>(s) * d)[c];
+    for (int r = 0; r < kCombineWords; ++r)
 #pragma unroll
-      for (int j = 0; j < V; ++j) acc[j] += w * to_f32(row.e[j]);
+      for (int e = 0; e < V; ++e) acc[r][e] = 0.f;
+    for (int j0 = 0; j0 < n_rows; j0 += R) {
+      // the step's table entries, loaded at once by every lane (one
+      // request per warp: the lanes share the address)
+      const Row* src[R];
+      float w[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int tk = t * k + min(j0 + j, n_rows - 1);
+        src[j] = rows + static_cast<size_t>(clamp_index(__ldg(token_slot + tk), n_slots)) * n_vec;
+        w[j] = __ldg(topk_w + tk) * (__ldg(keep + tk) ? 1.f : 0.f);
+      }
+      // then every word of the step's rows, then the FMAs in the order of k
+      Row v[R][kCombineWords];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int r = 0; r < kCombineWords; ++r) {
+          const int i = c0 + 32 * r;
+          v[j][r] = j0 + j < n_rows && i < n_vec ? src[j][i] : Row{};
+        }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (j0 + j < n_rows) {
+#pragma unroll
+          for (int r = 0; r < kCombineWords; ++r)
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[r][e] += w[j] * to_f32(v[j][r].e[e]);
+        }
+      }
     }
-    Vec<T, V> o;
 #pragma unroll
-    for (int j = 0; j < V; ++j) o.e[j] = from_f32<T>(acc[j]);
-    reinterpret_cast<Vec<T, V>*>(out + static_cast<size_t>(t) * d)[c] = o;
+    for (int r = 0; r < kCombineWords; ++r) {
+      const int i = c0 + 32 * r;
+      if (i < n_vec) {
+        Row o;
+#pragma unroll
+        for (int e = 0; e < V; ++e) o.e[e] = from_f32<T>(acc[r][e]);
+        dst[i] = o;
+      }
+    }
   }
 }
 
+// an empty kernel that obeys the PDL rule (repro_launch_floor); its one
+// argument keeps cudaLaunchKernelEx's argument array from being empty
+__global__ void launch_floor_kernel(int) { wait_for_previous_grid(); }
+
+// a copy of 16-byte words that lets its dependent launch before it stores
+// anything (repro_copy_early_trigger): a kernel launched after it with PDL
+// runs while it writes. With only the implicit trigger at a grid's end,
+// as every other kernel here has, a dependent starts once the writes are
+// visible, so a load issued before griddepcontrol.wait shows up only
+// after a kernel such as this one.
+__global__ void copy_early_trigger_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
+                                          long long n_words) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n_words;
+       i += static_cast<long long>(gridDim.x) * blockDim.x)
+    dst[i] = src[i];
+}
+
+// launches ``kernel`` on ``stream``, as a programmatic dependent of the
+// kernel before it where ``pdl`` is set; returns the launch's error
+template <typename... Params, typename... Args>
+cudaError_t launch_ex(void (*kernel)(Params...), int blocks, int threads, bool pdl,
+                      cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// the 16-byte vector path where d is whole words and both rows are
+// aligned, else one element a word (ragged d, a view off a 16-byte boundary)
 template <typename T>
-void launch_combine(const void* buf, const int32_t* token_slot, const float* topk_w,
-                    const uint8_t* keep, void* out, int n_tokens, int n_slots, int k, int d,
-                    cudaStream_t stream) {
+cudaError_t launch_combine(const void* buf, const int32_t* token_slot, const float* topk_w,
+                           const uint8_t* keep, void* out, int n_tokens, int n_slots, int k,
+                           int d, bool pdl, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const T* b = static_cast<const T*>(buf);
   T* o = static_cast<T*>(out);
-  if (d % V == 0 && aligned16(buf) && aligned16(out)) {
-    combine_rows_kernel<T, V><<<n_tokens, kCombineThreads, 0, stream>>>(
-        b, token_slot, topk_w, keep, o, n_slots, k, d);
-  } else {
-    combine_rows_kernel<T, 1><<<n_tokens, kCombineThreads, 0, stream>>>(
-        b, token_slot, topk_w, keep, o, n_slots, k, d);
-  }
+  const bool vec = d % V == 0 && aligned16(buf) && aligned16(out);
+  void (*kernel)(const T*, const int32_t*, const float*, const uint8_t*, T*, int, int, int, int) =
+      vec ? (k == 1 ? combine_rows_kernel<T, V, 1>
+                              : combine_rows_kernel<T, V, kCombineRows>)
+                    : (k == 1 ? combine_rows_kernel<T, 1, 1>
+                              : combine_rows_kernel<T, 1, kCombineRows>);
+  return launch_ex(kernel, ceil_div(n_tokens, kTokensPerBlock), kCombineThreads, pdl, stream, b,
+                   token_slot, topk_w, keep, o, n_tokens, n_slots, k, d);
+}
+
+// the launch's own error, else any error pending from before
+int launch_status(cudaError_t err) {
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
@@ -148,17 +262,42 @@ extern "C" int repro_moe_dispatch(const void* x, const void* slot_token, const v
 
 extern "C" int repro_moe_combine(const void* buf, const void* token_slot, const void* topk_w,
                                  const void* keep, void* out, int n_tokens, int n_slots, int k,
-                                 int d, int dtype, void* stream) {
+                                 int d, int dtype, int pdl, void* stream) {
   const auto* slots = static_cast<const int32_t*>(token_slot);
   const auto* w = static_cast<const float*>(topk_w);
   const auto* kp = static_cast<const uint8_t*>(keep);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kReproF32) {
-    launch_combine<float>(buf, slots, w, kp, out, n_tokens, n_slots, k, d, st);
-  } else if (dtype == kReproBF16) {
-    launch_combine<__nv_bfloat16>(buf, slots, w, kp, out, n_tokens, n_slots, k, d, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_status(launch_combine<float>(buf, slots, w, kp, out, n_tokens, n_slots, k,
+                                               d, pdl != 0, st));
   }
+  if (dtype == kReproBF16) {
+    return launch_status(launch_combine<__nv_bfloat16>(buf, slots, w, kp, out, n_tokens,
+                                                       n_slots, k, d, pdl != 0, st));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// one empty launch of ``blocks`` x 128 threads, as a programmatic dependent
+// of the kernel before it where ``pdl`` is set: B3's launch path with no
+// work, timed by chip_smoke.py as the floor of a launch-bound kernel
+extern "C" int repro_launch_floor(int blocks, int pdl, void* stream) {
+  return launch_status(launch_ex(launch_floor_kernel, blocks, kCombineThreads, pdl != 0,
+                                 static_cast<cudaStream_t>(stream), 0));
+}
+
+// dst <- src, nbytes a multiple of 16 and both 16-byte aligned, by a grid
+// that is resident at once and triggers its dependents as it starts: the
+// cuda tests launch B3 after it to show that B3 reads nothing before its
+// wait
+extern "C" int repro_copy_early_trigger(const void* src, void* dst, long long nbytes,
+                                        void* stream) {
+  if (nbytes % 16 != 0 || !aligned16(src) || !aligned16(dst))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  copy_early_trigger_kernel<<<2 * sms, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), static_cast<uint4*>(dst), nbytes / 16);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,12 @@ ops are pure gathers:
 
 Kernels (``csrc/moe_dispatch.cu``) replace the TPU kernels of
 ``repro/kernels/moe_dispatch.py`` (``_dispatch_impl``/``_dispatch_kernel``
-and ``_combine_impl``/``_make_combine_kernel``). Both are bound by bytes
-on the H100: dispatch moves each slot row once as 16-byte words, one warp
-per row; combine reads the K rows of a token in one block and sums them in
-f32. Each function's plain version is ``ref.dispatch_ref`` /
+and ``_combine_impl``/``_make_combine_kernel``). Their bytes are few, so
+the launch and the chain of dependent loads set their time on the H100:
+dispatch moves each slot row once as 16-byte words, one warp per row;
+combine sums the K rows of a token in f32, one warp per token, and
+launches as a programmatic dependent launch (PDL) of the kernel before
+it. Each function's plain version is ``ref.dispatch_ref`` /
 ``ref.combine_ref``.
 
 Both are differentiable through ``torch.autograd.Function``s whose
@@ -114,11 +116,14 @@ def _combine_fwd(buf: torch.Tensor, token_slot: torch.Tensor,
     out = torch.empty((t, d), dtype=buf.dtype, device=buf.device)
     if out.numel() == 0:
         return out
+    # the last int is pdl: launch as a programmatic dependent of the
+    # kernel before it on the stream (eagerly, and as a programmatic edge
+    # under CUDA-graph capture)
     fn = build.function("repro_moe_combine",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
     build.check(fn(buf.data_ptr(), token_slot.data_ptr(), weights.data_ptr(),
                    keep.data_ptr(), out.data_ptr(), t, s, k, d,
-                   build.DTYPE_CODES[buf.dtype], build.stream_of(buf)),
+                   build.DTYPE_CODES[buf.dtype], 1, build.stream_of(buf)),
                 "combine")
     combine.launches += 1
     return out

@@ -8,6 +8,7 @@ Tolerances: f32 1e-5 (sums in another order); bf16 outputs within 1e-2
 + 1.6e-2 * |ref|, about two bf16 ulps, since an f32 sum that differs in
 its last bits can round to the neighbouring bf16 value.
 """
+import ctypes
 import types
 
 import numpy as np
@@ -534,15 +535,217 @@ def test_cuda_dispatch_matches_plain(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_combine_matches_plain(dtype):
+    """The vector path (16-byte words) and the scalar one (d = 100; a view
+    off a 16-byte boundary); k = 1 (the top-1 instance), 2, 5 and 40 (one
+    step of 4 rows, two, and ten: the general instance)."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(2)
-    for t, k, s, d in ((256, 1, 512, 512), (32, 2, 48, 100), (7, 2, 5, 64)):
-        buf = torch.randn(s, d, generator=g, device=dev).to(dtype)
+    for t, k, s, d, offset in ((256, 1, 512, 512, 0), (32, 2, 48, 100, 0), (7, 2, 5, 64, 0),
+                               (9, 2, 16, 64, 1), (10, 5, 40, 512, 0), (3, 40, 50, 96, 0)):
+        base = torch.randn(offset + s * d, generator=g, device=dev).to(dtype)
+        buf = base[offset:].view(s, d)
         ts = torch.randint(0, s, (t, k), generator=g, device=dev, dtype=torch.int32)
         w = torch.rand(t, k, generator=g, device=dev)
         keep = torch.rand(t, k, generator=g, device=dev) < 0.8
         _gpu_close(moe_dispatch.combine(buf, ts, w, keep),
                    ref.combine_ref(buf, ts, w, keep))
+
+
+def _combine_no_pdl(buf, ts, w, keep):
+    """B3's kernel without PDL: its C entry with pdl 0, which the wrapper
+    never passes."""
+    fn = build.function("repro_moe_combine", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p])
+    out = torch.empty((ts.shape[0], buf.shape[1]), dtype=buf.dtype, device=buf.device)
+    build.check(fn(buf.data_ptr(), ts.data_ptr(), w.data_ptr(), keep.data_ptr(), out.data_ptr(),
+                   ts.shape[0], buf.shape[0], ts.shape[1], buf.shape[1],
+                   build.DTYPE_CODES[buf.dtype], 0, torch.cuda.current_stream().cuda_stream),
+                "combine")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_combine_top1_bitwise(dtype):
+    """Top-1 at the decode and training sites' shapes: one product onto
+    zero, so the same bits on a second run, with PDL off, and as the plain
+    version's."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    for t, s, d in ((8, 128, 512), (1024, 1024, 512)):
+        buf = torch.randn(s, d, generator=g, device=dev).to(dtype)
+        ts = torch.randint(-2, s + 2, (t, 1), generator=g, device=dev, dtype=torch.int32)
+        w = torch.rand(t, 1, generator=g, device=dev)
+        keep = torch.rand(t, 1, generator=g, device=dev) < 0.8
+        y = moe_dispatch.combine(buf, ts, w, keep)
+        assert torch.equal(y, moe_dispatch.combine(buf, ts, w, keep))
+        assert torch.equal(y, _combine_no_pdl(buf, ts, w, keep))
+        assert torch.equal(y, ref.combine_ref(buf, ts, w, keep))
+
+
+@pytest.mark.cuda
+def test_cuda_combine_dropped_nan_row_propagates():
+    """A dropped (t, k) still reads its row and multiplies it by 0, as the
+    reference does: a NaN row gives NaN there, and only there."""
+    dev = _card()
+    buf = torch.ones(6, 64, device=dev)
+    buf[3] = float("nan")
+    ts = torch.tensor([[3, 0], [1, 2], [0, 3]], dtype=torch.int32, device=dev)
+    w = torch.full((3, 2), 0.5, device=dev)
+    keep = torch.tensor([[False, True], [True, True], [True, False]], device=dev)
+    got = moe_dispatch.combine(buf, ts, w, keep)
+    want = ref.combine_ref(buf, ts, w, keep)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert got[[0, 2]].isnan().all() and not got[1].isnan().any()
+    torch.testing.assert_close(got[1], want[1])
+
+
+def _combine_arena(t, k, s, d, dtype, dev, head=0):
+    """B3's four inputs as views of one byte buffer, after ``head`` bytes
+    and in the order rows, tables, weights, keep, so that one kernel over
+    the buffer writes them all, the tables last; its size is whole 16-byte
+    words; returns (arena, views)."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    sizes = [s * d * es, t * k * 4, t * k * 4, t * k]
+    offs = [head]
+    for n in sizes[:-1]:
+        offs.append(offs[-1] + (n + 15) // 16 * 16)
+    arena = torch.zeros((offs[-1] + sizes[-1] + 15) // 16 * 16, dtype=torch.uint8, device=dev)
+
+    def view(i, dt, shape):
+        return arena[offs[i]:offs[i] + sizes[i]].view(dt).view(shape)
+
+    return arena, (view(0, dtype, (s, d)), view(1, torch.int32, (t, k)),
+                   view(2, torch.float32, (t, k)), view(3, torch.bool, (t, k)))
+
+
+def _fill_combine(views, g):
+    buf, ts, w, keep = views
+    s = buf.shape[0]
+    buf.copy_(torch.randn(buf.shape, generator=g, device=buf.device))
+    ts.copy_(torch.randint(-1, s + 1, ts.shape, generator=g, device=buf.device))
+    w.copy_(torch.rand(w.shape, generator=g, device=buf.device))
+    keep.copy_(torch.rand(keep.shape, generator=g, device=buf.device) < 0.8)
+
+
+def _copy_early_trigger(src, dst):
+    """dst <- src by ``repro_copy_early_trigger``: a copy kernel that lets
+    the kernel launched after it with PDL start as it starts."""
+    fn = build.function("repro_copy_early_trigger", [ctypes.c_void_p, ctypes.c_void_p,
+                                                     ctypes.c_longlong, ctypes.c_void_p])
+    build.check(fn(src.data_ptr(), dst.data_ptr(), src.numel(),
+                   torch.cuda.current_stream().cuda_stream), "copy")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("before", ["bitwise_not", "early_trigger_copy"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_combine_waits_for_the_kernel_before_it(dtype, before):
+    """B3 launched (with PDL) right after a kernel that writes all its
+    inputs in place, over one byte buffer (64 MiB of padding, then B3's
+    rows, tables, weights and keep, so the tables come last): equal to
+    plain on each of several calls, eagerly and in a CUDA graph replayed
+    with fresh inputs. ``bitwise_not`` is a torch kernel, which triggers
+    its dependent only at its grid's end; ``early_trigger_copy``
+    (``repro_copy_early_trigger``) triggers it as it starts, so B3 runs
+    while its inputs are written, and a global load that B3 issued before
+    griddepcontrol.wait would see the old values."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(8)
+    t, k, s, d = 1024, 1, 1024, 512                 # the training site's shape
+    head = 64 << 20
+    arena, views = _combine_arena(t, k, s, d, dtype, dev, head)
+    if before == "bitwise_not":
+        encode, write = torch.bitwise_not, lambda src: torch.bitwise_not(src, out=arena)
+    else:
+        encode, write = torch.clone, lambda src: _copy_early_trigger(src, arena)
+    fresh = []
+    for _ in range(6):
+        src, src_views = _combine_arena(t, k, s, d, dtype, dev, head)
+        _fill_combine(src_views, g)
+        fresh.append((encode(src), [v.clone() for v in src_views]))
+    for _ in range(3):
+        for encoded, want_views in fresh:
+            write(encoded)
+            y = moe_dispatch.combine(*views)
+            torch.cuda.synchronize()
+            assert torch.equal(y, ref.combine_ref(*want_views))
+
+    src = torch.zeros_like(arena)
+
+    def step():
+        write(src)
+        return moe_dispatch.combine(*views)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = step()
+    for _ in range(3):
+        for encoded, want_views in fresh:
+            src.copy_(encoded)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, ref.combine_ref(*want_views))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_b1_b3_pipeline_graph_replays(dtype):
+    """B1's down projection -> B3 (PDL) captured in one CUDA graph and
+    replayed with new rows, weights and tables: equal to the plain
+    versions each time."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(9)
+    e, c, f, d, t = 16, 8, 2048, 512, 128
+    h = torch.zeros(e, c, f, dtype=dtype, device=dev)
+    w_out = torch.zeros(e, f, d, dtype=dtype, device=dev)
+    ts = torch.zeros(t, 1, dtype=torch.int32, device=dev)
+    w = torch.zeros(t, 1, device=dev)
+    keep = torch.zeros(t, 1, dtype=torch.bool, device=dev)
+
+    def refill():
+        h.copy_(torch.randn(h.shape, generator=g, device=dev))
+        w_out.copy_(torch.randn(w_out.shape, generator=g, device=dev) * f ** -0.5)
+        ts.copy_(torch.randint(0, e * c, ts.shape, generator=g, device=dev))
+        w.copy_(torch.rand(w.shape, generator=g, device=dev))
+        keep.copy_(torch.rand(keep.shape, generator=g, device=dev) < 0.8)
+
+    def pipeline():
+        return moe_dispatch.combine(grouped_ffn.grouped_matmul(h, w_out).reshape(e * c, d),
+                                    ts, w, keep)
+
+    refill()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pipeline()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = pipeline()
+    for _ in range(3):
+        refill()
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.combine_ref(ref.grouped_matmul_ref(h, w_out).reshape(e * c, d), ts, w,
+                               keep)
+        _gpu_close(y, want)
+
+
+@pytest.mark.cuda
+def test_cuda_launch_floor_runs():
+    """The empty kernel chip_smoke.py times as the launch floor launches,
+    with and without PDL."""
+    _card()
+    fn = build.function("repro_launch_floor", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    for pdl in (1, 0):
+        build.check(fn(2, pdl, torch.cuda.current_stream().cuda_stream), "launch floor")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
