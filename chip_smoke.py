@@ -57,6 +57,23 @@ Phases (any failure exits non-zero):
                  memory, a CUDA-event split into forward, backward and
                  Adam, and the device's busy time from a torch.profiler
                  trace;
+  ep. expert parallelism -- after phase 6, its states freed: a one-rank
+                 NCCL group (launch/mesh.py::make_group) on the same seeded
+                 full-width zcode-m3-base: 3 Gate-Drop steps per run
+                 (routed, routed, dropped). f32: on the dense,
+                 hierarchical and overlapped wires the grouped cuda steps
+                 are bitwise the ungrouped ones; on the compressed wires
+                 (int8, fp8) they match the plain oracle on the same wire
+                 within phase 6's tolerance. bf16: grouped dense bitwise
+                 the ungrouped; per wire the launches of a routed, a
+                 Gate-Drop and a Gate-Expert-Drop step equal phase 6's
+                 cuda counts; cuda_fused under the group launches B2/B1/B3
+                 and no B4; no collective and comm_* = 0 throughout; the
+                 grouped and ungrouped steps timed in turns; the
+                 compressed wire's device time per layer; greedy_bleu at
+                 full width through Trainer(eval_every=1), BLEU and the
+                 eval's wall time, its scored tokens gated equal to
+                 generate's;
   8. full cache -- B5 and B6 at zcode-m3-base's full 1,024-position cache
                  (every row at position 1,023; B6 through a permuted page
                  arena): against the plain version, B6 bitwise against B5,
@@ -71,7 +88,8 @@ Phases (any failure exits non-zero):
 
 runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
-to compare two trees' B5 and B6 at these sites in one call.
+to compare two trees' B5 and B6 at these sites in one call; ``--only ep``
+runs phases 1, 2 and ep alone.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -1611,6 +1629,305 @@ def train_slice(full, dev, backend: str):
 
 
 # ---------------------------------------------------------------------------
+# phase ep: the expert-parallel path under a one-rank group
+# ---------------------------------------------------------------------------
+
+EP_STEPS = 3            # steps per run: the drop bits of seed 0 are 0, 0, 1
+EP_KEYS = ("loss", "xent", "acc", "grad_norm", "balance", "dropped_frac", "gate_dropped",
+           "comm_a2a_calls", "comm_bytes", "comm_wire_bytes", "comm_exposed_bytes",
+           "comm_hidden_bytes")
+EP_EXACT = ("dense", "hierarchical", "overlapped")      # bitwise the ungrouped step
+EP_COMPRESSED = ("compressed", "compressed_fp8")       # within phase 6's tolerance
+EP_TIMED_ROUNDS = 5
+
+
+def ep_cfg(full, backend: str, dtype: str, substrate: str = "dense",
+           mode: str = "gate_drop"):
+    """``train_cfg`` on the comm ``substrate`` ("compressed_fp8": the
+    compressed substrate with an fp8 wire)."""
+    cfg = train_cfg(full, backend, dtype, mode)
+    comm = dataclasses.replace(cfg.moe.comm, substrate=substrate.removesuffix("_fp8"),
+                               quant="fp8" if substrate.endswith("_fp8") else "int8")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, comm=comm))
+
+
+def fingerprint(params) -> torch.Tensor:
+    """Per leaf, the int64 sum of its 32-bit words: equal for bitwise-equal
+    leaves, and an order-free reduction, so it is the same on every run."""
+    from repro_torch.tree import flatten_with_paths
+    return torch.stack([p.detach().contiguous().view(torch.int32).sum(dtype=torch.int64)
+                        for p in flatten_with_paths(params).values()]).cpu()
+
+
+def ep_run(full, dev, cfg, ctx, keep_params: bool = False):
+    """EP_STEPS steps from the seeded init on ``cfg``, under ``ctx`` (None:
+    ungrouped). Returns (per-step metrics, fingerprint, params or None,
+    the transport's collective calls)."""
+    from repro_torch.comm import COUNTER
+    from repro_torch.launch.serve import generator
+    from repro_torch.models import init_model
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_paths
+    tc = train_tc(EP_STEPS)
+    batches = train_batches(dev, EP_STEPS)
+    state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
+    step = make_train_step(cfg, tc, ctx)
+    COUNTER.reset()
+    rows = []
+    for batch in batches:
+        state, m = step(state, batch)
+        rows.append({k: float(m[k]) for k in EP_KEYS})
+    torch.cuda.synchronize()
+    fp = fingerprint(state["params"])
+    params = ({k: v.detach() for k, v in flatten_with_paths(state["params"]).items()}
+              if keep_params else None)
+    calls = COUNTER.total_calls()
+    del state, step, batches
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"ep: non-finite training metrics {rows}")
+    return rows, fp, params, calls
+
+
+def ep_f32(full, dev, ctx):
+    """f32: the dense, hierarchical and overlapped wires under the group,
+    bitwise the ungrouped cuda steps; the compressed wires (int8, fp8)
+    under the group against the plain oracle under the same substrate,
+    within phase 6's tolerance. No collective, and comm_* reads 0."""
+    ref, ref_fp, _, _ = ep_run(full, dev, ep_cfg(full, "cuda", "float32"), None)
+    log(f"ep f32 ungrouped cuda: " + "; ".join(
+        f"loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f} dropped {int(r['gate_dropped'])}"
+        for r in ref))
+    if [r["gate_dropped"] for r in ref] != [0.0, 0.0, 1.0]:
+        raise AssertionError("ep: the steps must be routed, routed, Gate-Drop")
+    out = {}
+    for sub in EP_EXACT:
+        rows, fp, _, calls = ep_run(full, dev, ep_cfg(full, "cuda", "float32", sub), ctx)
+        bitwise = rows == ref and torch.equal(fp, ref_fp)
+        log(f"ep f32 grouped cuda {sub}: {EP_STEPS} steps bitwise the ungrouped ones: "
+            f"{bitwise}; collectives {calls}; comm_a2a_calls per step "
+            f"{[r['comm_a2a_calls'] for r in rows]}")
+        if not bitwise:
+            diff = {k: [(a[k], b[k]) for a, b in zip(rows, ref) if a[k] != b[k]] for k in EP_KEYS}
+            raise AssertionError(f"ep {sub}: grouped steps differ from the ungrouped: "
+                                 f"{ {k: v for k, v in diff.items() if v} }, leaves differing "
+                                 f"{int((fp != ref_fp).sum())}")
+        if calls or any(r[k] for r in rows for k in EP_KEYS if k.startswith("comm_")):
+            raise AssertionError(f"ep {sub}: collectives or wire bytes at ep = 1")
+        out[sub] = {"bitwise": bitwise, "collectives": calls}
+    tc = train_tc(EP_STEPS)
+    param_tol = adam_drift_bound(tc, EP_STEPS)
+    for sub in EP_COMPRESSED:
+        want, _, want_p, _ = ep_run(full, dev, ep_cfg(full, "oracle", "float32", sub), None,
+                                    keep_params=True)
+        rows, _, got_p, calls = ep_run(full, dev, ep_cfg(full, "cuda", "float32", sub), ctx,
+                                       keep_params=True)
+        worst = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for a, b in zip(rows, want))
+                 for k in ("loss", "grad_norm", "balance")}
+        diffs = torch.stack([(got_p[k] - want_p[k]).abs().max() for k in got_p])
+        pmax = float(diffs.max())
+        del got_p, want_p
+        torch.cuda.empty_cache()
+        log(f"ep f32 grouped cuda {sub} vs the plain oracle on {sub}: max relative diff "
+            f"per step {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} (tol "
+            f"{TRAIN_METRIC_RTOL}); parameters max abs diff {pmax:.3e} (tol "
+            f"{param_tol:.3e}); collectives {calls}")
+        if max(worst.values()) > TRAIN_METRIC_RTOL or pmax > param_tol or calls:
+            raise AssertionError(f"ep {sub}: the grouped compressed steps differ from the "
+                                 "plain oracle, or issued collectives")
+        out[sub] = {"max_rel_diff": worst, "param_max_abs_diff": pmax, "collectives": calls}
+    return out
+
+
+def ep_bf16(full, dev, ctx):
+    """bf16 (the model's dtype): per substrate, the launches of a routed, a
+    Gate-Drop and a Gate-Expert-Drop step under the group equal phase 6's
+    cuda counts (every B1 launch streaming), no collective; cuda_fused
+    under the group launches B2/B1/B3 and no B4; the grouped dense steps
+    bitwise the ungrouped; grouped and ungrouped steps timed in turns."""
+    from repro_torch.comm import COUNTER
+    from repro_torch.core.backend import fused_runs_pipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generator, spread
+    from repro_torch.models import init_model
+    from repro_torch.training import init_train_state, make_train_step
+    ref, ref_fp, _, _ = ep_run(full, dev, ep_cfg(full, "cuda", "bfloat16"), None)
+    rows, fp, _, _ = ep_run(full, dev, ep_cfg(full, "cuda", "bfloat16"), ctx)
+    bitwise = rows == ref and torch.equal(fp, ref_fp)
+    log(f"ep bf16 grouped cuda dense: {EP_STEPS} steps bitwise the ungrouped ones: {bitwise}")
+    if not bitwise:
+        raise AssertionError("ep bf16: grouped dense steps differ from the ungrouped ones")
+
+    n_steps = 3 * (len(EP_EXACT) + len(EP_COMPRESSED)) + 1 + 4 * EP_TIMED_ROUNDS + 2
+    cfg = ep_cfg(full, "cuda", "bfloat16")
+    tc = train_tc(n_steps)
+    batches = iter(train_batches(dev, n_steps))
+    state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
+    counts = {}
+    for sub in EP_EXACT + EP_COMPRESSED:
+        for label, mode, dec in (("routed", "gate_drop", False), ("Gate-Drop", "gate_drop", True),
+                                 ("Gate-Expert-Drop", "gate_expert_drop", True)):
+            run_cfg = ep_cfg(full, "cuda", "bfloat16", sub, mode)
+            step = make_train_step(run_cfg, tc, ctx)
+            reset_launch_counts()
+            COUNTER.reset()
+            state, m = step(state, next(batches), dec)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            want = expected_train_launches(cfg, "cuda", label == "Gate-Expert-Drop")
+            if got != want or COUNTER.total_calls() or float(m["comm_a2a_calls"]):
+                raise AssertionError(f"ep {sub} {label}: launches {got} != {want}, or "
+                                     f"{COUNTER.total_calls()} collectives")
+            check_streamed(f"ep {sub} {label} step", got, streamed_counts())
+            if not math.isfinite(float(m["loss"])):
+                raise AssertionError(f"ep {sub} {label}: non-finite loss")
+            counts[f"{sub}/{label}"] = got
+        log(f"ep bf16 {sub}: launches per routed, Gate-Drop and Gate-Expert-Drop step equal "
+            f"phase 6's cuda counts {counts[sub + '/routed']}, "
+            f"{counts[sub + '/Gate-Expert-Drop']}; no collective")
+    fused = ep_cfg(full, "cuda_fused", "bfloat16")
+    if not fused_runs_pipeline(fused.moe, ctx):
+        raise AssertionError("ep: cuda_fused under the group must run the pipeline")
+    reset_launch_counts()
+    state, m = make_train_step(fused, tc, ctx)(state, next(batches), False)
+    torch.cuda.synchronize()
+    got = launch_counts()
+    want = expected_train_launches(cfg, "cuda")
+    log(f"ep bf16 cuda_fused under the group: launches on a routed step {got}")
+    if got != want or got["fused_moe"]:
+        raise AssertionError(f"ep: cuda_fused under the group launched {got}, not {want}")
+    counts["cuda_fused/routed"] = got
+
+    # the grouped step against the ungrouped one, in turns (u, g, g, u)
+    steps = {"ungrouped": make_train_step(cfg, tc), "grouped": make_train_step(cfg, tc, ctx)}
+    for name in ("ungrouped", "grouped"):      # one warm step each
+        state, m = steps[name](state, next(batches), False)
+    ms = {"ungrouped": [], "grouped": []}
+    for _ in range(EP_TIMED_ROUNDS):
+        for name in ("ungrouped", "grouped", "grouped", "ungrouped"):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps[name](state, batch, False)
+            float(m["loss"])                     # waits for the step
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    timing = {name: sorted(v)[len(v) // 2] for name, v in ms.items()}
+    log(f"ep bf16 routed step in turns ({2 * EP_TIMED_ROUNDS} each), ms median [min, max]: "
+        f"ungrouped {timing['ungrouped']:.2f} {spread(ms['ungrouped'])}, grouped "
+        f"{timing['grouped']:.2f} {spread(ms['grouped'])}")
+    del state, steps, batches, m
+    torch.cuda.empty_cache()
+    return {"bitwise_bf16": bitwise, "launches": counts, "step_ms": timing, "step_ms_all": ms}
+
+
+def ep_roundtrip(full, dev, ctx):
+    """Device time of the compressed wire per MoE layer at ep = 1 (the
+    dispatch and the combine wires, each a quantize -> dequantize), at
+    the bf16 training site's (E, C, d) buffer, in a CUDA graph."""
+    from repro_torch.comm import make_transport
+    from repro_torch.core import router as R
+    E, d = full.moe.n_experts, full.d_model
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    cap = min(R.capacity(tokens, E, full.moe.top_k, full.moe.capacity_factor), tokens)
+    buf = torch.randn(E, cap, d, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(5)).to(torch.bfloat16)
+    out = {}
+    with torch.no_grad():
+        for sub in EP_COMPRESSED:
+            moe = ep_cfg(full, "cuda", "bfloat16", sub).moe
+            tr = make_transport(moe.comm, ctx.comm_env(moe.comm))
+            y = tr.combine(tr.dispatch(buf))
+            err = float((y.float() - buf.float()).abs().max())
+            t = device_ms(lambda: tr.combine(tr.dispatch(buf)))
+            # the least a round trip must move: read the buffer, write it back
+            nbytes = 2 * 2 * buf.numel() * buf.element_size()
+            out[sub] = {"ms_per_layer": t, "shape": [E, cap, d], "max_abs_err": err,
+                        "bytes_per_layer": nbytes,
+                        "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+            log(f"ep compressed wire {sub} at (E, C, d) = ({E}, {cap}, {d}) bf16: "
+                f"{t:.4f} ms per layer (the dispatch and the combine wire, each a "
+                f"quantize -> dequantize; bytes bound {out[sub]['bound_ms']:.4f} ms), "
+                f"max abs error {err:.3e}")
+    return out
+
+
+def ep_eval(full, dev, ctx):
+    """greedy_bleu at full width through Trainer(eval_every=1) under the
+    group (bf16, the cuda backend): BLEU, the eval's wall time, and the
+    scored tokens gated equal to generate's for the same batch."""
+    from repro_torch.data import MTTaskConfig, MultilingualMT
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import greedy_bleu
+    from repro_torch.serve import GenerateConfig, generate
+    from repro_torch.training import Trainer
+    cfg = ep_cfg(full, "cuda", "bfloat16")
+    task = MultilingualMT(MTTaskConfig(vocab=cfg.vocab, n_langs=TRAIN_LANGS, max_len=TRAIN_SEQ))
+    evals = []
+
+    def eval_fn(state, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bleu, tokens = greedy_bleu(state["params"], cfg, task, ctx=ctx, device=dev,
+                                   return_tokens=True)
+        wall = time.perf_counter() - t0
+        b = task.sample_batch(10_000, 32)
+        res = generate(state["params"],
+                       {"enc_tokens": torch.from_numpy(b["enc_tokens"]).to(dev),
+                        "tokens": torch.from_numpy(b["tokens"][:, :1]).to(dev)},
+                       cfg, GenerateConfig(max_new=36), ctx=ctx)
+        same = torch.equal(tokens, res.tokens)
+        evals.append({"step": step, "bleu": bleu, "eval_s": wall, "tokens_equal": same,
+                      "decode_steps": res.steps})
+        if not same or not 0.0 <= bleu <= 100.0:
+            raise AssertionError(f"ep eval at step {step}: tokens equal {same}, bleu {bleu}")
+        return {"bleu": bleu, "eval_s": wall}
+
+    trainer = Trainer(cfg, train_tc(2), task.train_batches(TRAIN_BATCH), device=dev, ctx=ctx,
+                      chunk=2, eval_every=1, eval_fn=eval_fn, log_every=1, log=None)
+    reset_launch_counts()
+    _, history = trainer.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    del trainer
+    torch.cuda.empty_cache()
+    for e in evals:
+        log(f"ep eval (Trainer eval_every=1, greedy_bleu n=32 max_new=36 at full width, "
+            f"bf16, under the group) after step {e['step']}: BLEU {e['bleu']:.6g}, eval wall "
+            f"{e['eval_s']:.2f} s ({e['decode_steps']} decode steps), scored tokens equal "
+            f"generate's: {e['tokens_equal']}")
+    log(f"ep eval: launches over the 2-step run and its evals {counts}; records "
+        f"{[{k: r[k] for k in ('step', 'loss', 'bleu')} for r in history]}")
+    if not all(counts[k] for k in ("dispatch", "combine", "grouped_matmul")):
+        raise AssertionError(f"ep eval: the kernels were not launched: {counts}")
+    return {"evals": evals, "launches": counts}
+
+
+def ep_phase(full, dev):
+    """Phase ep: the expert-parallel code path at ep = 1 under a one-rank
+    NCCL group (launch/mesh.py::make_group), on phase 6's seeded
+    full-width zcode-m3-base: f32 and bf16 training on five wires, the
+    compressed wire's time per layer, the BLEU eval through the Trainer."""
+    from repro_torch.launch.mesh import close_group, make_group
+    OUT.mkdir(parents=True, exist_ok=True)
+    rdv = OUT / "ep_rendezvous"
+    rdv.unlink(missing_ok=True)
+    ctx = make_group(1, dev, init_method=f"file://{rdv}", rank=0, world_size=1)
+    try:
+        if not (ctx.active and ctx.ep == 1):
+            raise AssertionError("ep: the one-rank group is not active")
+        t0 = time.perf_counter()
+        out = {"f32": ep_f32(full, dev, ctx)}
+        out["bf16"] = ep_bf16(full, dev, ctx)
+        out["compressed_wire"] = ep_roundtrip(full, dev, ctx)
+        out["eval"] = ep_eval(full, dev, ctx)
+        log(f"ep phase: {time.perf_counter() - t0:.1f} s")
+    finally:
+        close_group()
+        rdv.unlink(missing_ok=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the serving schedulers and B6
 # ---------------------------------------------------------------------------
 
@@ -2270,7 +2587,7 @@ def serve_phases(full, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("full_cache",),
+    ap.add_argument("--only", choices=("full_cache", "ep"),
                     help="run phases 1, 2 and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2299,6 +2616,9 @@ def main() -> int:
     full = get_config("zcode-m3-base")
     if args.only == "full_cache":
         return full_cache_only(full, dev)
+    if args.only == "ep":
+        print(json.dumps({"ep": ep_phase(full, dev)}), flush=True)
+        return 0
     ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5, 7 and 8. serving
@@ -2320,6 +2640,9 @@ def main() -> int:
     log(f"training phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"train": {b: {k: v for k, v in t.items()}
                                 for b, t in t_slice.items()}}), flush=True)
+
+    # ep. the expert-parallel path under a one-rank group
+    print(json.dumps({"ep": ep_phase(full, dev)}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
                            fc)

@@ -55,3 +55,22 @@ def to_numpy(params: Any) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
         if dt:
             dtypes[key] = dt
     return flat, dtypes
+
+
+def shard_experts(params: Any, rank: int, ep: int) -> Any:
+    """The tree rank ``rank`` of an ep-rank group holds: every expert leaf
+    (``core.moe.is_expert_leaf``) sliced to its block of E/ep experts
+    along the expert axis (-3, after any stacking axes), every other leaf
+    as it is. Every rank slicing the same full init starts an ep-rank run
+    from the model an ep = 1 run starts from."""
+    from repro_torch.core.moe import is_expert_leaf
+    out = {}
+    for key, t in flatten_with_paths(params).items():
+        if is_expert_leaf(key):
+            e = t.shape[-3]
+            if e % ep:
+                raise ValueError(f"{key}: {e} experts do not split over ep={ep}")
+            n = e // ep
+            t = t.narrow(t.dim() - 3, rank * n, n).contiguous()
+        out[key] = t
+    return unflatten_paths(out)

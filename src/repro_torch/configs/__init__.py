@@ -2,9 +2,10 @@
 this port serves; the reference's other families join with their slices."""
 from __future__ import annotations
 
-from repro_torch.configs.base import (EncDecConfig, GatingDropoutConfig,
+from repro_torch.configs.base import (COMM_SUBSTRATES, CommConfig,
+                                      EncDecConfig, GatingDropoutConfig,
                                       ModelConfig, MoEConfig, PagedKVConfig,
-                                      TrainConfig, reduced)
+                                      Topology, TrainConfig, reduced)
 from repro_torch.configs.zcode_m3 import CONFIG as _ZCODE_BASE
 from repro_torch.configs.zcode_m3 import CONFIG_BIG as _ZCODE_BIG
 
@@ -19,6 +20,6 @@ def get_config(arch_id: str) -> ModelConfig:
     return _REGISTRY[arch_id]
 
 
-__all__ = ["ARCHS", "EncDecConfig", "GatingDropoutConfig", "ModelConfig",
-           "MoEConfig", "PagedKVConfig", "TrainConfig", "get_config",
-           "reduced"]
+__all__ = ["ARCHS", "COMM_SUBSTRATES", "CommConfig", "EncDecConfig",
+           "GatingDropoutConfig", "ModelConfig", "MoEConfig", "PagedKVConfig",
+           "Topology", "TrainConfig", "get_config", "reduced"]

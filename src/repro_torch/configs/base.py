@@ -1,10 +1,10 @@
 """Config dataclasses of the port (the subset of ``repro.configs.base`` the
-encoder-decoder MoE needs, ``PagedKVConfig`` and ``TrainConfig``).
+encoder-decoder MoE needs, the communication substrate, ``PagedKVConfig``
+and ``TrainConfig``).
 
 Plain frozen dataclasses, field for field the reference's defaults, so a
 config built here describes the same model as the reference's. The
-reference's communication substrate (``CommConfig``), parallel layouts and
-the MLA/SSM/VLM/hybrid families arrive with their slices.
+reference's MLA/SSM/VLM/hybrid families are not ported.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-MOE_BACKENDS = ("auto", "oracle", "cuda", "cuda_fused")
+MOE_BACKENDS = ("auto", "oracle", "sharded", "cuda", "cuda_fused")
 
 
 @dataclass(frozen=True)
@@ -44,6 +44,98 @@ class GatingDropoutConfig:
         return self.mode != "off" and self.rate > 0.0
 
 
+# ---------------------------------------------------------------------------
+# communication substrate (comm/substrate.py)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Topology:
+    """Two-tier interconnect descriptor: the hierarchical substrate's
+    ep_inner / ep_outer tiers mapped onto link classes, so the cost model
+    can price a two-tier group. ``intra_gbps`` is the intra-tier
+    (NVLink-class) per-device bandwidth in GB/s, ``inter_gbps`` the
+    inter-tier (network-class) one. Flat substrates span every tier, so
+    all their wire is priced at ``inter_gbps``."""
+    intra_gbps: float = 400.0
+    inter_gbps: float = 50.0
+
+    def __post_init__(self):
+        if not (self.intra_gbps > 0 and self.inter_gbps > 0):
+            raise ValueError(f"bandwidths {self.intra_gbps}, {self.inter_gbps}")
+
+    @property
+    def intra_bps(self) -> float:
+        return self.intra_gbps * 1e9
+
+    @property
+    def inter_bps(self) -> float:
+        return self.inter_gbps * 1e9
+
+
+COMM_SUBSTRATES = (
+    "dense", "hierarchical", "compressed", "hierarchical_compressed",
+    "overlapped", "overlapped_hierarchical", "overlapped_compressed",
+    "overlapped_hierarchical_compressed")
+
+
+@dataclass(frozen=True)
+class CommConfig:
+    """Collective-communication substrate of the MoE dispatch and combine
+    all-to-alls (the ``comm/substrate.py`` registry).
+
+    substrate:
+      "dense"                   -- one all-to-all over the whole ep group.
+      "hierarchical"            -- two hops over ep = ep_inner x ep_outer:
+                                   intra-tier, then inter-tier; the same
+                                   permutation as dense, bitwise.
+      "compressed"              -- dense topology, payload quantized to
+                                   ``quant`` with one f32 scale per row;
+                                   the backward wire is compressed too
+                                   (straight-through rounding).
+      "hierarchical_compressed" -- both.
+      "overlapped[...]"         -- any of the above, split into
+                                   ``n_chunks`` pieces along the capacity
+                                   axis, the next piece's dispatch issued
+                                   before the current piece's expert FFN;
+                                   bitwise its base substrate.
+    quant: wire dtype of compressed substrates: "int8" | "fp8" (e4m3).
+    ep_inner: intra-tier group size of hierarchical substrates (divides
+      ep); 0 = the largest divisor <= sqrt(ep).
+    n_chunks: requested micro-chunks of overlapped substrates (the count
+      run is the largest divisor of the capacity <= n_chunks).
+    topology: bandwidths the cost model prices the wire with (estimates
+      only; never changes numerics).
+    """
+    substrate: str = "dense"
+    quant: str = "int8"
+    ep_inner: int = 0
+    n_chunks: int = 4
+    topology: Topology = field(default_factory=Topology)
+
+    def __post_init__(self):
+        if self.substrate not in COMM_SUBSTRATES:
+            raise ValueError(f"comm substrate {self.substrate!r}; "
+                             f"known: {COMM_SUBSTRATES}")
+        if self.quant not in ("int8", "fp8"):
+            raise ValueError(f"comm quant {self.quant!r}")
+        if self.ep_inner < 0:
+            raise ValueError(f"ep_inner {self.ep_inner}")
+        if self.n_chunks < 1:
+            raise ValueError(f"n_chunks {self.n_chunks}")
+
+    @property
+    def overlapped(self) -> bool:
+        return self.substrate.startswith("overlapped")
+
+    @property
+    def hierarchical(self) -> bool:
+        return "hierarchical" in self.substrate
+
+    @property
+    def compressed(self) -> bool:
+        return self.substrate.endswith("compressed")
+
+
 @dataclass(frozen=True)
 class MoEConfig:
     n_experts: int = 8
@@ -58,8 +150,11 @@ class MoEConfig:
     router_z_coef: float = 0.0
     moe_layer_period: int = 1
     first_dense_layers: int = 0
-    # execution backend (core/backend.py): auto | oracle | cuda | cuda_fused
+    # execution backend (core/backend.py):
+    #   auto | oracle | sharded | cuda | cuda_fused
     backend: str = "auto"
+    # substrate of the dispatch and combine all-to-alls (comm/substrate.py)
+    comm: CommConfig = field(default_factory=CommConfig)
     gating_dropout: GatingDropoutConfig = field(
         default_factory=GatingDropoutConfig)
 

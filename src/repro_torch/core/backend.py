@@ -1,22 +1,36 @@
-"""MoE execution-backend registry (port of ``repro/core/backend.py`` at one
-device).
+"""MoE execution-backend registry (port of ``repro/core/backend.py``).
 
   oracle     -- plain torch (``core/moe.py::moe_oracle``, one virtual
                 shard); the ground truth.
+  sharded    -- ``moe_sharded``: the plain per-shard maths on one rank of
+                the context's group, the dispatch and combine being the
+                substrate's real all-to-alls. Without a context it runs
+                as a group of one (no collective).
   cuda       -- the kernel pipeline, counterpart of the reference's
-                ``pallas`` backend: routing tables built once per layer,
-                then the dispatch gather -> grouped-matmul expert FFN ->
-                weighted combine gather.
+                ``pallas`` backend: ``moe_sharded`` with routing tables
+                built once per layer, then the dispatch gather (B2) ->
+                wire -> grouped-matmul expert FFN (B1) on (E/ep, ep*cap,
+                d) -> wire -> weighted combine gather (B3); the Gate-Drop
+                local branch runs B2/B1/B3 with no wire. Without a
+                context it runs as a group of one, where a wire has no
+                hop and is the transport's ``roundtrip`` (quantize ->
+                dequantize on a compressed substrate, else nothing), so a
+                compressed substrate changes the routed numerics as on
+                every other backend. (The reference's ``pallas`` at ep=1
+                also quantizes around its local branch's FFN; its oracle
+                and ``sharded`` do not, nor does any backend here.)
   cuda_fused -- the one-launch fused kernel (B4), counterpart of the
-                reference's ``pallas_fused``: routing tables, then gather
-                + expert FFN + weighted scatter in one kernel. The
-                reference falls back to ``pallas`` under an active mesh or
-                a compressed comm substrate (``backend.py:204``); the port
-                has neither yet, so no config can ask for that fallback
-                and ``cuda_fused`` never turns into the pipeline.
-  auto       -- (default) oracle.
+                reference's ``pallas_fused``: ``moe_sharded`` on a group
+                of one with routing tables, then gather + expert FFN +
+                weighted scatter in one kernel. Under an
+                active context (the wire needs the (E, C, d) buffer) or a
+                compressed substrate (its quantization applies to that
+                buffer) it runs the ``cuda`` pipeline instead, as the
+                reference falls back to ``pallas``; ep = 1 dense and
+                hierarchical wires move nothing, so B4 skips them.
+  auto       -- (default) sharded under an active context, else oracle.
 
-On CPU tensors the kernels' wrappers run their plain versions, so both
+On CPU tensors the kernels' wrappers run their plain versions, so the
 kernel backends are testable without a card. Every backend shares the
 router, the Gating Dropout branch selection and the aux dicts, so routing
 is identical by construction; outputs differ only by kernel arithmetic.
@@ -29,8 +43,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import moe as M
-from repro_torch.core import router as R
-from repro_torch.kernels import ops as K
 
 BackendFn = Callable[..., Tuple[torch.Tensor, Dict]]
 
@@ -56,100 +68,61 @@ def get_backend(name: str) -> BackendFn:
                        f"{', '.join(available_backends())}") from None
 
 
-def resolve_backend(moe: MoEConfig) -> str:
-    return "oracle" if moe.backend == "auto" else moe.backend
+def resolve_backend(moe: MoEConfig, ctx: Optional[M.ParallelContext] = None
+                    ) -> str:
+    """'auto' -> 'sharded' under an active context, else 'oracle'."""
+    if moe.backend == "auto":
+        return "sharded" if (ctx is not None and ctx.active) else "oracle"
+    return moe.backend
+
+
+def _active(ctx: Optional[M.ParallelContext]) -> bool:
+    return ctx is not None and ctx.active
 
 
 @register_backend("oracle")
-def oracle_backend(params, x: torch.Tensor, cfg: ModelConfig,
+def oracle_backend(params, x: torch.Tensor, cfg: ModelConfig, *, ctx=None,
                    **kw) -> Tuple[torch.Tensor, Dict]:
     """Plain-torch ground truth (single virtual shard)."""
     return M.moe_oracle(params, x, cfg, ep=1, **kw)
 
 
-def _kernel_backend(pipeline: Callable, params, x: torch.Tensor,
-                    cfg: ModelConfig, *, generator, decision, is_training,
-                    token_ids, token_valid) -> Tuple[torch.Tensor, Dict]:
-    """Route -> routing_tables (once per layer) -> ``pipeline(xf, info,
-    tables, experts, E, cap)``, with the routed, Gate-Drop local and
-    expert-drop branches shared by both kernel backends. Matches the
-    oracle at ep=1."""
-    moe = cfg.moe
-    shape = x.shape
-    xf = x.reshape(-1, shape[-1])
-    T = xf.shape[0]
-    E = moe.n_experts
-    tok = None if token_ids is None else token_ids.reshape(-1)
-    tv = M._token_valid_tk(None if token_valid is None
-                           else token_valid.reshape(-1), moe.top_k)
-    wr = params["router"]["w"]
-    experts = params["experts"]
-    cf = moe.capacity_factor if is_training else moe.eval_capacity_factor
-    cap = min(R.capacity(T, E, moe.top_k, cf), T)
-
-    def run(info: R.DispatchInfo) -> torch.Tensor:
-        tables = K.routing_tables(info, E, cap)
-        return pipeline(xf, info, tables, experts, E, cap)
-
-    def routed():
-        rr = R.route(wr, xf, moe, generator=generator,
-                     is_training=is_training, token_ids=tok)
-        info = R.dispatch_info(rr, E, cap, valid=tv)
-        return run(info), M._routed_aux(rr, info, moe)
-
-    def local():
-        # one device: the "local group" is all E experts (the reference's
-        # _local_shard with my_shard=0, e_loc=E), kernel-executed
-        rr = R.route(wr, xf, moe, generator=generator,
-                     is_training=is_training, token_ids=tok,
-                     expert_lo=0, n_local=E)
-        rr, valid = M._local_adjust(rr, moe, 0, E)
-        if tv is not None:
-            valid = valid & tv
-        info = R.dispatch_info(rr, E, cap, valid=valid)
-        return run(info), M._local_aux(rr, info, moe, T)
-
-    def expert_drop():
-        return torch.zeros_like(xf), M._zero_aux(E, x.device)
-
-    y, aux = M._select_branch(moe, decision, routed, local, expert_drop)
-    return y.reshape(shape), aux
+@register_backend("sharded")
+def sharded_backend(params, x: torch.Tensor, cfg: ModelConfig, *, ctx=None,
+                    **kw) -> Tuple[torch.Tensor, Dict]:
+    """Plain per-shard maths with the substrate's real all-to-alls on
+    ``ctx``'s group (a group of one without it)."""
+    return M.moe_sharded(params, x, cfg, ctx if _active(ctx)
+                         else M.ParallelContext(), **kw)
 
 
 @register_backend("cuda")
 def cuda_backend(params, x: torch.Tensor, cfg: ModelConfig, *,
-                 generator: Optional[torch.Generator] = None,
-                 decision: Optional[bool] = None, is_training: bool = True,
-                 token_ids: Optional[torch.Tensor] = None,
-                 token_valid: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, Dict]:
+                 ctx: Optional[M.ParallelContext] = None,
+                 **kw) -> Tuple[torch.Tensor, Dict]:
     """Kernel pipeline: dispatch -> grouped-matmul FFN -> combine, the two
-    gathers sharing one set of routing tables."""
-    def pipeline(xf, info, tables, experts, E, cap):
-        buf = K.moe_dispatch_op(xf, info, E, cap, tables=tables)
-        w_in = experts["w_in"]
-        out = K.expert_ffn_op(buf.to(w_in.dtype), w_in, experts.get("w_gate"),
-                              experts["w_out"], cfg.act)
-        return K.moe_combine_op(out.to(xf.dtype), info, tables=tables)
+    gathers sharing one set of routing tables; ``moe_sharded`` with the
+    kernels, on ``ctx``'s group (a group of one without it)."""
+    return M.moe_sharded(params, x, cfg, ctx if _active(ctx) else M.ParallelContext(),
+                         kernels="cuda", **kw)
 
-    return _kernel_backend(pipeline, params, x, cfg, generator=generator,
-                           decision=decision, is_training=is_training,
-                           token_ids=token_ids, token_valid=token_valid)
+
+def fused_runs_pipeline(moe: MoEConfig,
+                        ctx: Optional[M.ParallelContext] = None) -> bool:
+    """Whether ``cuda_fused`` runs the ``cuda`` pipeline instead of B4: under
+    an active context or a compressed substrate."""
+    return _active(ctx) or moe.comm.compressed
 
 
 @register_backend("cuda_fused")
 def cuda_fused_backend(params, x: torch.Tensor, cfg: ModelConfig, *,
-                       generator: Optional[torch.Generator] = None,
-                       decision: Optional[bool] = None, is_training: bool = True,
-                       token_ids: Optional[torch.Tensor] = None,
-                       token_valid: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, Dict]:
-    """One-launch fused kernel per MoE layer: same router, branches and
-    aux as ``cuda``; the (E, C, d) buffer and its round trips are gone."""
-    def pipeline(xf, info, tables, experts, E, cap):
-        return K.fused_moe_op(xf, info, experts["w_in"], experts.get("w_gate"),
-                              experts["w_out"], E, cap, cfg.act, tables=tables)
-
-    return _kernel_backend(pipeline, params, x, cfg, generator=generator,
-                           decision=decision, is_training=is_training,
-                           token_ids=token_ids, token_valid=token_valid)
+                       ctx: Optional[M.ParallelContext] = None,
+                       **kw) -> Tuple[torch.Tensor, Dict]:
+    """One-launch fused kernel per MoE layer: route -> routing_tables ->
+    B4, with the same router, Gating Dropout branches and aux as the
+    other backends; the (E, C, d) buffer and its round trips are gone.
+    Runs the ``cuda`` pipeline where ``fused_runs_pipeline`` says so."""
+    if fused_runs_pipeline(cfg.moe, ctx):
+        return cuda_backend(params, x, cfg, ctx=ctx, **kw)
+    return M.moe_sharded(params, x, cfg, M.ParallelContext(), kernels="cuda_fused",
+                         **kw)

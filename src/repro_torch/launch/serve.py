@@ -40,9 +40,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import PagedKVConfig, get_config, reduced
+from repro_torch.configs import (COMM_SUBSTRATES, PagedKVConfig, get_config,
+                                 reduced)
 from repro_torch.models import init_model
 from repro_torch.obs import MetricsRegistry, monotonic
+from repro_torch.obs.registry import Histogram
 from repro_torch.serve import (ContinuousScheduler, GenerateConfig,
                                PagedScheduler, Request, generate,
                                paged_kv_bytes)
@@ -139,6 +141,46 @@ def synth_trace(cfg, seed: int, n: int, rate: float, buckets, max_new: int):
     return reqs
 
 
+def _pcts(xs) -> dict:
+    h = Histogram("_pcts")
+    for x in xs:
+        h.observe(x)
+    return h.percentiles((50, 90, 99))
+
+
+def trace_comm_section(cfg, gen, sched, ep: int) -> dict:
+    """Price every device call of a trace (the scheduler's ``tick_log``)
+    with the substrate bytes model (comm/cost.py): the wire bytes per tick
+    a deployment at expert-parallel width ``ep`` would move, as totals
+    and percentiles. Decode ticks under ``--local-routing`` move nothing
+    (the Gate-Drop local path has no all-to-all)."""
+    from repro_torch.comm import layer_cost
+    from repro_torch.training.steps import n_moe_layers
+    nl = n_moe_layers(cfg)
+    per_tick, exposed_tick = [], []
+    for kind, toks in sched.tick_log:
+        if kind == "decode" and gen.local_routing:
+            per_tick.append(0.0)
+            exposed_tick.append(0.0)
+            continue
+        c = layer_cost(cfg, tokens_per_shard=max(toks // ep, 1), ep=ep,
+                       is_training=False)
+        per_tick.append(c["wire_bytes"] * nl)
+        exposed_tick.append(c["exposed_wire_bytes"] * nl)
+    return {
+        "substrate": cfg.moe.comm.substrate,
+        "quant": cfg.moe.comm.quant,
+        "n_chunks": cfg.moe.comm.n_chunks,
+        "ep_model": ep,
+        "n_ticks": len(per_tick),
+        "wire_bytes_total": float(sum(per_tick)),
+        # the wire an overlapped substrate cannot hide behind the expert
+        # FFN of the same tick (= the total for the others)
+        "exposed_bytes_total": float(sum(exposed_tick)),
+        "wire_bytes_per_tick": _pcts(per_tick) if per_tick else {},
+    }
+
+
 def trace_cache_section(sched: PagedScheduler) -> dict:
     """Page-arena occupancy of a --paged trace: what the arena held
     against what it pins."""
@@ -205,6 +247,8 @@ def run_trace(args, cfg, params, gen, device) -> dict:
     }
     if args.paged:
         rec["cache"] = trace_cache_section(sched)
+    if cfg.moe is not None:
+        rec["comm"] = trace_comm_section(cfg, gen, sched, args.comm_ep)
     return rec
 
 
@@ -228,6 +272,15 @@ def main(argv=None):
                     choices=[None, "auto", "oracle", "cuda", "cuda_fused"],
                     help="MoE execution backend (cuda = the kernel pipeline, "
                          "cuda_fused = the one-launch fused kernel)")
+    ap.add_argument("--comm", default=None, choices=[None, *COMM_SUBSTRATES],
+                    help="communication substrate of the expert dispatch")
+    ap.add_argument("--comm-quant", default=None, choices=[None, "int8", "fp8"],
+                    help="wire dtype of the compressed substrates")
+    ap.add_argument("--comm-chunks", type=int, default=None,
+                    help="overlapped substrates: capacity micro-chunks")
+    ap.add_argument("--comm-ep", type=int, default=1,
+                    help="expert-parallel width the --trace comm accounting "
+                         "prices the wire at (default 1 = this process)")
     ap.add_argument("--flash-decode", action="store_true",
                     help="decode attention through the flash-decode kernel")
     ap.add_argument("--local-routing", action="store_true",
@@ -260,9 +313,15 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if cfg.moe is not None and args.backend:
+    if cfg.moe is not None:
+        comm = cfg.moe.comm
+        comm = dataclasses.replace(
+            comm, substrate=args.comm or comm.substrate,
+            quant=args.comm_quant or comm.quant,
+            n_chunks=(args.comm_chunks if args.comm_chunks is not None
+                      else comm.n_chunks))
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, backend=args.backend))
+            cfg.moe, backend=args.backend or cfg.moe.backend, comm=comm))
     params = init_model(generator(device, args.seed, 0), cfg)
     batch = synth_batch(cfg, generator(device, args.seed, 1), args.batch,
                         args.prompt_len)
@@ -290,6 +349,12 @@ def main(argv=None):
                   f"({k['peak_kv_bytes'] / 2**20:.2f} MiB KV), prefix hit rate "
                   f"{k['prefix_hit_rate']:.2f}, {k['cow_copies']} COW, "
                   f"{k['preemptions']} preemptions")
+        if "comm" in rec:
+            c = rec["comm"]
+            print(f"comm[{c['substrate']}@ep={c['ep_model']}]: "
+                  f"{c['wire_bytes_total'] / 2**20:.3f} MiB on the wire over "
+                  f"{c['n_ticks']} ticks ({c['exposed_bytes_total'] / 2**20:.3f} "
+                  "MiB exposed)")
         if args.json_out:
             with open(args.json_out, "w") as f:
                 json.dump(rec, f, indent=1)

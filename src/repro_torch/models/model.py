@@ -55,7 +55,7 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 def _encode(params: Params, batch: Dict, cfg: ModelConfig, *, generator,
-            decision, is_training):
+            decision, is_training, ctx=None):
     if cfg.encdec.frontend != "tokens":
         raise NotImplementedError("only the token frontend is ported")
     tok = batch["enc_tokens"]
@@ -64,7 +64,7 @@ def _encode(params: Params, batch: Dict, cfg: ModelConfig, *, generator,
     x, _, aux = T.apply_stack(params["encoder"], T.layer_plan(cfg, encoder=True),
                               x, cfg, mode="train", generator=generator,
                               decision=decision, is_training=is_training,
-                              token_ids=tok)
+                              token_ids=tok, ctx=ctx)
     return L.norm_apply(params["enc_final_norm"], x, cfg), aux
 
 
@@ -82,10 +82,13 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def model_apply(params: Params, batch: Dict, cfg: ModelConfig, *,
-                generator: Optional[torch.Generator] = None, decision=None,
-                is_training: bool = True,
+                ctx=None, generator: Optional[torch.Generator] = None,
+                decision=None, is_training: bool = True,
                 return_hidden: bool = False) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence forward, logits for every position.
+    """Full-sequence forward, logits for every position. ``ctx`` (a
+    ``core.moe.ParallelContext``) runs the MoE layers expert-parallel
+    over its group: ``batch`` holds this rank's rows and ``params`` its
+    experts.
 
     ``return_hidden=True`` returns the final-norm hidden states instead of
     logits: the training loss applies the head itself, chunked, so the
@@ -93,11 +96,12 @@ def model_apply(params: Params, batch: Dict, cfg: ModelConfig, *,
     tokens = batch["tokens"]
     x = L.embed_apply(params["embed"], tokens).to(cfg.torch_dtype)
     cross_src, enc_aux = _encode(params, batch, cfg, generator=generator,
-                                 decision=decision, is_training=is_training)
+                                 decision=decision, is_training=is_training,
+                                 ctx=ctx)
     x, _, aux = T.apply_stack(params["decoder"], T.layer_plan(cfg), x, cfg,
                               mode="train", generator=generator,
                               decision=decision, is_training=is_training,
-                              cross_src=cross_src, token_ids=tokens)
+                              cross_src=cross_src, token_ids=tokens, ctx=ctx)
     x = L.norm_apply(params["final_norm"], x, cfg)
     aux = {k: aux[k] + enc_aux[k] for k in aux}
     if return_hidden:
@@ -119,7 +123,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 def prefill(params: Params, batch: Dict, cfg: ModelConfig, *,
             max_seq: Optional[int] = None,
             generator: Optional[torch.Generator] = None,
-            last_index: Optional[torch.Tensor] = None
+            last_index: Optional[torch.Tensor] = None, ctx=None
             ) -> Tuple[torch.Tensor, List[Params]]:
     """Prompt forward that returns the logits of the last prompt position
     (or of ``last_index[b]`` per row) and the decode cache: self-attention
@@ -129,12 +133,13 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig, *,
     max_seq = max_seq or cfg.max_seq
     x = L.embed_apply(params["embed"], tokens).to(cfg.torch_dtype)
     cross_src, _ = _encode(params, batch, cfg, generator=generator,
-                           decision=False, is_training=False)
+                           decision=False, is_training=False, ctx=ctx)
     x, caches, _ = T.apply_stack(params["decoder"], T.layer_plan(cfg), x, cfg,
                                  mode="prefill", generator=generator,
                                  decision=False, is_training=False,
                                  cross_src=cross_src, token_ids=tokens,
-                                 max_seq=max_seq, cache_dtype=cfg.torch_dtype)
+                                 max_seq=max_seq, cache_dtype=cfg.torch_dtype,
+                                 ctx=ctx)
     x = L.norm_apply(params["final_norm"], x, cfg)
     if last_index is not None:
         x_last = x[torch.arange(b, device=x.device), last_index.long()][:, None]
@@ -149,7 +154,7 @@ def decode_step(params: Params, caches: List[Params], token: torch.Tensor,
                 local_routing: bool = False,
                 token_valid: Optional[torch.Tensor] = None,
                 flash_decode: bool = False,
-                block_tables: Optional[torch.Tensor] = None
+                block_tables: Optional[torch.Tensor] = None, ctx=None
                 ) -> Tuple[torch.Tensor, List[Params]]:
     """token: (B, 1); index: absolute position of this token — an int, or a
     (B,) tensor where every row sits at its own position. Gating Dropout is
@@ -170,6 +175,6 @@ def decode_step(params: Params, caches: List[Params], token: torch.Tensor,
                                  is_training=False, token_ids=token,
                                  token_valid=token_valid,
                                  flash_decode=flash_decode,
-                                 block_tables=block_tables)
+                                 block_tables=block_tables, ctx=ctx)
     x = L.norm_apply(params["final_norm"], x, cfg)
     return _logits(params, x, cfg), caches

@@ -162,9 +162,10 @@ def _fill_kv_cache(k: torch.Tensor, v: torch.Tensor, smax: int,
 # ---------------------------------------------------------------------------
 
 def _moe_or_ffn(p: Params, spec: LayerSpec, h: torch.Tensor, cfg: ModelConfig,
-                generator, decision, is_training, token_ids, token_valid=None):
+                generator, decision, is_training, token_ids, token_valid=None,
+                ctx=None):
     if spec.moe:
-        y, aux = moe_apply(p["moe"], h, cfg, generator=generator,
+        y, aux = moe_apply(p["moe"], h, cfg, ctx=ctx, generator=generator,
                            decision=decision, is_training=is_training,
                            token_ids=token_ids, token_valid=token_valid)
         if "shared" in p:
@@ -181,11 +182,12 @@ def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
                  index, generator, decision, is_training: bool,
                  cross_src: Optional[torch.Tensor], token_ids,
                  token_valid=None, flash_decode: bool = False,
-                 block_tables=None, max_seq: int = 0, cache_dtype=None
-                 ) -> Tuple[torch.Tensor, Optional[Params], Dict]:
+                 block_tables=None, max_seq: int = 0, cache_dtype=None,
+                 ctx=None) -> Tuple[torch.Tensor, Optional[Params], Dict]:
     """One transformer layer. Returns (x, new_cache, aux). ``block_tables``
     (decode only) addresses the self-attention cache as a page arena; the
-    cross-attention K/V stay slot-addressed."""
+    cross-attention K/V stay slot-addressed. ``ctx`` is the
+    expert-parallel context of the MoE layers."""
     new_cache: Params = {}
     l = x.shape[1]
     # ---- self-attention ----
@@ -220,7 +222,7 @@ def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
     # ---- FFN / MoE ----
     h = L.norm_apply(p["ln2"], x, cfg)
     y, aux = _moe_or_ffn(p, spec, h, cfg, generator, decision, is_training,
-                         token_ids, token_valid)
+                         token_ids, token_valid, ctx)
     x = x + y
     return x, (new_cache if mode in ("prefill", "decode") else None), aux
 
@@ -271,7 +273,7 @@ def apply_stack(params: List[Params], segs: List[Segment], x: torch.Tensor,
                 generator=None, decision=None, is_training=True,
                 cross_src=None, token_ids=None, token_valid=None,
                 flash_decode=False, block_tables=None, max_seq: int = 0,
-                cache_dtype=None):
+                cache_dtype=None, ctx=None):
     """Run all segments. Returns (x, caches, aux_sum).
 
     prefill builds new caches (stacked over each segment's repeats);
@@ -297,7 +299,7 @@ def apply_stack(params: List[Params], segs: List[Segment], x: torch.Tensor,
                     cross_src=cross_src, token_ids=token_ids,
                     token_valid=token_valid, flash_decode=flash_decode,
                     block_tables=block_tables, max_seq=max_seq,
-                    cache_dtype=cache_dtype)
+                    cache_dtype=cache_dtype, ctx=ctx)
                 layer += 1
                 if remat:
                     x, nc, aux = checkpoint(fn, lp, x, use_reentrant=False,

@@ -11,6 +11,11 @@ reference runs on the device, with no device-to-host sync. Unlike the
 reference, which returns new trees, ``adam_update`` updates parameters and
 moments IN PLACE: a second copy of parameters and moments would need 30 GB
 more for zcode-m3-base.
+
+Under an expert-parallel group the global-norm clip counts each
+replicated leaf once and sums the squares of the expert shards over the
+group, so every rank clips by the norm of the whole model and the
+replicated weights stay equal across ranks.
 """
 from __future__ import annotations
 
@@ -53,22 +58,32 @@ def adam_init(params: Params, tc: TrainConfig) -> OptState:
             "step": 0}
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32, on the device."""
-    norms = [torch.linalg.vector_norm(leaf.float())
-             for leaf in flatten_with_paths(tree).values()]
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tree: Params, ctx=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32, on the device.
+    Under a group of more than one rank (``ctx``), the expert leaves' sum
+    of squares is summed over the group; replicated leaves count once."""
+    flat = flatten_with_paths(tree)
+    if ctx is None or ctx.ep == 1:
+        norms = [torch.linalg.vector_norm(leaf.float()) for leaf in flat.values()]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    from repro_torch.core.moe import is_expert_leaf
+    sq = torch.zeros(2, dtype=torch.float32, device=next(iter(flat.values())).device)
+    for key, leaf in flat.items():
+        sq[int(is_expert_leaf(key))] += torch.linalg.vector_norm(leaf.float()) ** 2
+    shards = ctx.all_reduce(sq[1:].clone())
+    return torch.sqrt(sq[0] + shards[0])
 
 
 @torch.no_grad()
 def adam_update(grads: Params, opt: OptState, params: Params,
-                tc: TrainConfig) -> Tuple[Params, OptState, Dict]:
+                tc: TrainConfig, ctx=None) -> Tuple[Params, OptState, Dict]:
     """One Adam step; returns (params, opt, {"lr", "grad_norm"}) with
     ``params`` and ``opt``'s moments updated in place. ``lr`` is a host
-    float, ``grad_norm`` a device scalar."""
+    float, ``grad_norm`` a device scalar (the whole model's norm under an
+    expert-parallel ``ctx``)."""
     step = opt["step"] + 1
     lr = schedule(step, tc)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, ctx)
     scale = None
     if tc.grad_clip > 0:
         scale = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)

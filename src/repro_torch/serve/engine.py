@@ -183,14 +183,25 @@ def prefill_into_slots(params, batch: Dict[str, Any], lengths: torch.Tensor,
 
 def decode_pool_step(params, pool, tok: torch.Tensor, pos: torch.Tensor,
                      alive: torch.Tensor, cfg: ModelConfig, *,
-                     local_routing: bool = False, flash_decode: bool = False):
+                     local_routing: bool = False, flash_decode: bool = False,
+                     ctx=None):
     """One batched ``decode_step`` over all pool slots at per-slot
     positions; dead slots step too but take no expert capacity. Returns
     (logits (S, V), pool)."""
     lg, pool = decode_step(params, pool, tok[:, None], pos, cfg,
                            local_routing=local_routing, token_valid=alive,
-                           flash_decode=flash_decode)
+                           flash_decode=flash_decode, ctx=ctx)
     return lg[:, 0], pool
+
+
+def _all_done(done: torch.Tensor, ctx) -> bool:
+    """The loop's exit test: every row done, over the whole group under
+    an expert-parallel ``ctx`` (a rank that left the loop alone would
+    leave the others waiting in their next all-to-all)."""
+    if ctx is None or ctx.ep == 1:
+        return bool(done.all())
+    left = ctx.all_reduce((~done).sum().reshape(1))
+    return int(left[0]) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +320,7 @@ def _check_cache_budget(max_seq: int, prompt_len: int, max_new: int):
 
 
 def _generate_sample(params, batch, seed: int, cfg: ModelConfig,
-                     gen: GenerateConfig) -> GenerateResult:
+                     gen: GenerateConfig, ctx=None) -> GenerateResult:
     b, prompt_len = batch["tokens"].shape
     dev = batch["tokens"].device
     max_seq = gen.max_seq or (prompt_len + gen.max_new)
@@ -317,7 +328,7 @@ def _generate_sample(params, batch, seed: int, cfg: ModelConfig,
     row_seeds = np.arange(b)
     lengths = torch.full((b,), prompt_len, dtype=torch.long, device=dev)
     logits, fresh = prefill(params, batch, cfg, max_seq=max_seq,
-                            last_index=lengths - 1)
+                            last_index=lengths - 1, ctx=ctx)
     axes = _cache_batch_axes(cfg)
     pool = _scatter_slots(_alloc_pool_like(fresh, axes, b), fresh, axes,
                           torch.arange(b, device=dev))
@@ -332,11 +343,11 @@ def _generate_sample(params, batch, seed: int, cfg: ModelConfig,
     length = torch.ones(b, dtype=torch.long, device=dev)
     i = 1
     while i < gen.max_new:
-        if gen.eos_id >= 0 and bool(done.all()):
+        if gen.eos_id >= 0 and _all_done(done, ctx):
             break
         lg, pool = decode_pool_step(params, pool, cur, pos, ~done, cfg,
                                     local_routing=gen.local_routing,
-                                    flash_decode=gen.flash_decode)
+                                    flash_decode=gen.flash_decode, ctx=ctx)
         nxt, lp = _select_rows(gen, lg.float(), seed, row_seeds, np.full(b, i))
         cur, done, length, score = _advance(gen, nxt, lp, done, length, score)
         buf[:, i] = cur
@@ -350,7 +361,7 @@ def _generate_sample(params, batch, seed: int, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def _generate_beam(params, batch, cfg: ModelConfig,
-                   gen: GenerateConfig) -> GenerateResult:
+                   gen: GenerateConfig, ctx=None) -> GenerateResult:
     """Deterministic beam search: each prompt tiled to W rows, prefilled at
     B*W; at each step the W*V continuations of a prompt's beams compete in
     one top-W, and every cache leaf is re-gathered by parent beam. A
@@ -363,7 +374,7 @@ def _generate_beam(params, batch, cfg: ModelConfig,
     max_seq = gen.max_seq or (prompt_len + gen.max_new)
     _check_cache_budget(max_seq, prompt_len, gen.max_new)
     tiled = {k: v.repeat_interleave(w, dim=0) for k, v in batch.items()}
-    logits0, caches = prefill(params, tiled, cfg, max_seq=max_seq)
+    logits0, caches = prefill(params, tiled, cfg, max_seq=max_seq, ctx=ctx)
     logp0 = torch.log_softmax(logits0[:, 0].float(), dim=-1)
     vocab = logp0.shape[-1]
     # the W rows of a prompt are identical after prefill: the beams start
@@ -380,12 +391,12 @@ def _generate_beam(params, batch, cfg: ModelConfig,
     base = (torch.arange(b, device=dev) * w)[:, None]
     i = 1
     while i < gen.max_new:
-        if gen.eos_id >= 0 and bool(done.all()):
+        if gen.eos_id >= 0 and _all_done(done, ctx):
             break
         lg, caches = decode_step(params, caches, tok.reshape(b * w, 1),
                                  prompt_len + i - 1, cfg,
                                  local_routing=gen.local_routing,
-                                 flash_decode=gen.flash_decode)
+                                 flash_decode=gen.flash_decode, ctx=ctx)
         logp = torch.log_softmax(lg[:, 0].float(), dim=-1).reshape(b, w, vocab)
         logp = torch.where(done[..., None], frozen, logp)
         total = (scores[..., None] + logp).reshape(b, w * vocab)
@@ -420,15 +431,16 @@ def _check_local_routing(cfg: ModelConfig, gen: GenerateConfig):
 @torch.no_grad()
 def generate(params, batch: Dict[str, Any], cfg: ModelConfig,
              gen: GenerateConfig = GenerateConfig(),
-             seed: int = 0) -> GenerateResult:
+             seed: int = 0, ctx=None) -> GenerateResult:
     """Generate ``gen.max_new`` tokens for the prompts ``batch["tokens"]``
     (B, P) plus the family's conditioning inputs (``enc_tokens``), on the
     device the parameters and batch live on: beam search when
     ``gen.beam_width > 1``, else greedy or sampled. ``seed`` keys sampling
     (row b draws from the stream of (seed, b)). Runs without autograd, so
     parameters that require grad (a model in training) serve as they
-    are."""
+    are. Under an expert-parallel ``ctx`` every rank generates for its own
+    rows with its experts, and the EOS exit waits for the whole group."""
     _check_local_routing(cfg, gen)
     if gen.beam_width > 1:
-        return _generate_beam(params, batch, cfg, gen)
-    return _generate_sample(params, batch, seed, cfg, gen)
+        return _generate_beam(params, batch, cfg, gen, ctx)
+    return _generate_sample(params, batch, seed, cfg, gen, ctx)

@@ -161,6 +161,10 @@ class ContinuousScheduler:
         # one registry backs every serving metric of this scheduler
         self.metrics = registry if registry is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else get_tracer()
+        # (kind, tokens) per device call, in order: what --trace prices
+        # with the comm bytes model (launch/serve.py::trace_comm_section)
+        self._ticks = self.metrics.series(
+            "serve/tick_log", "device calls: label=kind, value=tokens")
         # live-slot count per decode tick
         self._alive_series = self.metrics.series(
             "serve/alive_log", "live slots per decode tick")
@@ -172,6 +176,10 @@ class ContinuousScheduler:
         # clock state so the tick API (submit + step) works without run()
         self._t0 = monotonic()
         self._skip = 0.0
+
+    @property
+    def tick_log(self) -> List[Tuple[str, int]]:
+        return self._ticks.items
 
     @property
     def alive_log(self) -> List[int]:
@@ -342,6 +350,7 @@ class ContinuousScheduler:
                                        first_token_at=t_first)
             self.stats["admitted"] += 1
         self.stats["prefill_calls"] += 1
+        self._ticks.append(W * bucket, label="prefill")
         self.stats["max_concurrent"] = max(
             self.stats["max_concurrent"],
             int(self._active[:self.n_slots].sum()))
@@ -405,6 +414,7 @@ class ContinuousScheduler:
             self._done[s] = self._token_done(int(nxt[s]), int(self._ngen[s]),
                                              int(self._budget[s]))
         self.stats["decode_steps"] += 1
+        self._ticks.append(self.n_slots + 1, label="decode")
 
     # -- driving loop -------------------------------------------------------
 

@@ -15,9 +15,17 @@ is a JAX compile-unit device with no counterpart here. What carries over:
   * checkpoint and resume at the ABSOLUTE step: after a restore, the data
     stream and the consensus bits continue where the run left off;
   * history records carry loss, acc, lr and tok/s, where tok/s counts the
-    decoder ``tokens`` AND the encoder ``enc_tokens``.
+    decoder ``tokens`` AND the encoder ``enc_tokens``, and the ``comm_*``
+    wire counters of the step's forward;
+  * evaluation (``eval_fn``, BLEU in the CLI) every ``eval_every`` steps
+    and at the last: the schedule cuts chunks so that every eval step ends
+    one, and the eval sees the params after that step. A record's clock
+    is read before its eval runs, so later records' clocks include the
+    eval's time (the reference's convention).
 
-BLEU evaluation (``eval_every``) and the span tracer come with later slices.
+Under an expert-parallel ``ctx`` every rank runs the same loop on the same
+global batches (each step takes its rows), from the same full init with
+its block of experts (``bridge.shard_experts``).
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import shard_experts
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.gating_dropout import drop_decisions_host
@@ -75,31 +84,46 @@ class Trainer:
     logging and resume.
 
     ``batch_fn``: step -> dict of numpy arrays (called on the prefetch
-    thread; pure host work). ``chunk``: steps per metrics fetch. ``log``:
+    thread, or inline without ``prefetch``; pure host work). ``chunk``:
+    steps per metrics fetch. ``eval_fn``: (state, step) -> dict merged
+    into that step's record, at the steps ``_eval_steps`` names. ``log``:
     callable for per-record lines (default: print as JSON); None disables
-    printing (history is still returned).
+    printing (history is still returned). ``ctx``: the expert-parallel
+    context; ``params`` are then this rank's (default: the full seeded
+    init, sharded).
     """
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
                  batch_fn: Callable[[int], Dict[str, np.ndarray]], *,
                  device: torch.device, params: Any = None, chunk: int = 8,
-                 ckpt_dir: Optional[str] = None, log_every: int = 20,
+                 ctx=None, ckpt_dir: Optional[str] = None,
+                 eval_every: int = 0,
+                 eval_fn: Optional[Callable[[Any, int], Dict]] = None,
+                 log_every: int = 20, prefetch: bool = True,
                  log: Optional[Callable[[str], None]] = print):
-        self.cfg, self.tc = cfg, tc
+        if ckpt_dir and ctx is not None and ctx.ep > 1:
+            raise NotImplementedError(
+                "checkpoints of an expert-parallel run (gathered save and "
+                "restore) are not ported; see ROADMAP.md")
+        self.cfg, self.tc, self.ctx = cfg, tc, ctx
         self.batch_fn = batch_fn
         self.device = torch.device(device)
         self.chunk = max(int(chunk), 1)
         gd = cfg.moe.gating_dropout if cfg.moe is not None else None
         self.gd = gd if (gd is not None and gd.enabled) else None
         self.ckpt_dir = ckpt_dir
+        self.eval_every, self.eval_fn = eval_every, eval_fn
         self.log_every, self.log = log_every, log
+        self.prefetch = prefetch
         if params is None:
             params = init_model(
                 torch.Generator(device=self.device).manual_seed(tc.seed), cfg)
+            if ctx is not None and ctx.ep > 1:
+                params = shard_experts(params, ctx.rank, ctx.ep)
         self.state = init_train_state(params, tc)
         self.start_step = 0
         self.history: List[Dict] = []
-        self.step_fn = make_train_step(cfg, tc)
+        self.step_fn = make_train_step(cfg, tc, ctx)
 
     def restore(self) -> int:
         """Restore params, optimizer state and step from ``ckpt_dir``; the
@@ -110,17 +134,25 @@ class Trainer:
         self.start_step = int(meta["step"])
         return self.start_step
 
+    def _eval_steps(self) -> set:
+        if not self.eval_every or self.eval_fn is None:
+            return set()
+        return ({i for i in range(self.tc.steps) if i % self.eval_every == 0}
+                | {self.tc.steps - 1})
+
     def schedule(self) -> List[Tuple[int, int]]:
         """Chunk spans [s, e) covering [start_step, steps), at most
-        ``chunk`` long."""
+        ``chunk`` long, cut so that every eval step is a chunk's last."""
+        ends = sorted({i + 1 for i in self._eval_steps()} | {self.tc.steps})
         spans, s = [], self.start_step
-        while s < self.tc.steps:
-            spans.append((s, min(s + self.chunk, self.tc.steps)))
-            s = spans[-1][1]
+        for e in ends:
+            while s < e:
+                spans.append((s, min(s + self.chunk, e)))
+                s = spans[-1][1]
         return spans
 
     def _record_steps(self) -> set:
-        rec = {self.tc.steps - 1}
+        rec = {self.tc.steps - 1} | self._eval_steps()
         if self.log_every:
             rec |= {i for i in range(self.tc.steps) if i % self.log_every == 0}
         return rec
@@ -147,8 +179,9 @@ class Trainer:
 
     def run(self) -> Tuple[Any, List[Dict]]:
         spans = self.schedule()
-        it = Prefetcher(lambda span: stack_batches(self.batch_fn, *span), spans)
-        rec_steps = self._record_steps()
+        fetch = lambda span: stack_batches(self.batch_fn, *span)  # noqa: E731
+        it = Prefetcher(fetch, spans) if self.prefetch else map(fetch, spans)
+        rec_steps, eval_steps = self._record_steps(), self._eval_steps()
         tokens_done, t0 = 0, time.perf_counter()
         try:
             for span, stacked in zip(spans, it):
@@ -167,14 +200,19 @@ class Trainer:
                            "lr": float(ms["lr"][j]),
                            "tok_s": tokens_done / max(el, 1e-9),
                            "time_s": el}
-                    for k in ("balance", "router_entropy", "gate_dropped"):
+                    for k in ("balance", "comm_wire_bytes", "comm_a2a_calls",
+                              "comm_exposed_bytes", "comm_hidden_bytes",
+                              "router_entropy", "gate_dropped"):
                         if k in ms:
                             rec[k] = float(ms[k][j])
+                    if i in eval_steps:    # the schedule makes i == e - 1
+                        rec.update(self.eval_fn(self.state, i))
                     self.history.append(rec)
                     if self.log is not None:
                         self.log(json.dumps(rec))
         finally:
-            it.close()
+            if isinstance(it, Prefetcher):
+                it.close()
         if self.ckpt_dir:
             save_checkpoint(self.ckpt_dir, self.tc.steps, self.state,
                             {"arch": self.cfg.arch_id})

@@ -157,7 +157,7 @@ def _layer(top_k=1, mode="gate_drop", local_combine="prob", seed=0):
 
 
 def _check_aux(got, want):
-    assert set(want) - set(got) == {k for k in want if k.startswith("comm_")}
+    assert set(got) == set(want)
     for key in got:
         _close(got[key], want[key], atol=1e-4)
 
@@ -200,11 +200,12 @@ def test_cuda_backend_matches_pallas_backend(decision, masked):
 
 
 def test_backend_registry():
-    assert port_backend.available_backends() == ("cuda", "cuda_fused", "oracle")
+    assert port_backend.available_backends() == ("cuda", "cuda_fused", "oracle",
+                                                 "sharded")
     assert port_backend.resolve_backend(MoEConfig()) == "oracle"
     with pytest.raises(KeyError):
         port_backend.get_backend("pallas")
     with pytest.raises(ValueError):
-        MoEConfig(backend="sharded")
+        MoEConfig(backend="pallas")
     with pytest.raises(TypeError):     # the drop decision is a host bool
         port_moe._select_branch(MoEConfig(), torch.tensor(True), None, None, None)

@@ -62,7 +62,7 @@ from repro_torch.training import (Trainer, chunked_xent, init_train_state,  # no
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 N_STEPS = 3
-# the reference's comm counters are not ported yet (ROADMAP A.4)
+# the transports' wire counters: zero at one device, as the reference's
 COMM_KEYS = {"comm_a2a_calls", "comm_bytes", "comm_wire_bytes",
              "comm_exposed_bytes", "comm_hidden_bytes"}
 
@@ -283,8 +283,8 @@ def test_train_steps_match_reference(port_backend, jax_backend, microbatches, ja
         # decision=None: the step draws its own bit, which must be the reference's
         state, tm = step(state, {k: torch.from_numpy(v) for k, v in batches(i).items()})
         jm = jms[i]
-        assert set(tm) == set(jm) - COMM_KEYS
-        for k in ("dropped_frac", "gate_dropped", "acc", "expert_load"):
+        assert set(tm) == set(jm)
+        for k in ("dropped_frac", "gate_dropped", "acc", "expert_load", *COMM_KEYS):
             np.testing.assert_array_equal(_np(tm[k]), np.asarray(jm[k], np.float32), err_msg=k)
         assert tm["lr"] == pytest.approx(float(jm["lr"]), rel=1e-6)
         for k in ("loss", "xent", "balance", "router_z", "router_entropy"):
