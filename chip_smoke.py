@@ -74,6 +74,25 @@ Phases (any failure exits non-zero):
                  full width through Trainer(eval_every=1), BLEU and the
                  eval's wall time, its scored tokens gated equal to
                  generate's;
+  obs. observability -- after phase ep, on the seeded full-width
+                 zcode-m3-base (bf16 activations): phase 7's trace through
+                 the slot pool, the arena and the 20-page arena with the
+                 span tracer and the metrics registry on and every tick
+                 under the host-sync guard (analysis/hostsync.py, with the
+                 card's sync debug mode): the exported Chrome trace's span
+                 counts equal the schedulers' stats, each steady decode
+                 tick shows its one sanctioned fetch and no other sync,
+                 and torch.profiler's launch counts over a few ticks
+                 (analysis/launches.py) equal the wrappers'; the
+                 static-batching baseline (static_batch_serve) and the
+                 continuous scheduler in turns (wall time, tokens/s; a
+                 number, not a claim); a replay with the tracer on and
+                 off in turns and a span's ns per call; then the Trainer
+                 (4 Gate-Drop 0.3 steps on cuda, tracer and frame on):
+                 its span vocabulary, load_imbalance in every record, and
+                 one more chunk in a profiler window under the guard: its
+                 one fetch and no other sync, the profiler's launches equal
+                 the wrappers' and expected_train_launches;
   8. full cache -- B5 and B6 at zcode-m3-base's full 1,024-position cache
                  (every row at position 1,023; B6 through a permuted page
                  arena): against the plain version, B6 bitwise against B5,
@@ -89,7 +108,7 @@ Phases (any failure exits non-zero):
 runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
 to compare two trees' B5 and B6 at these sites in one call; ``--only ep``
-runs phases 1, 2 and ep alone.
+and ``--only obs`` run phases 1, 2 and that phase alone.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -1928,6 +1947,301 @@ def ep_phase(full, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase obs: the observability layer over the main path
+# ---------------------------------------------------------------------------
+
+OBS_STEPS, OBS_CHUNK = 4, 2     # Trainer steps (two chunks), then one guarded chunk
+OBS_BATCH = 8                   # static batching's batch size
+OBS_WINDOW = 3                  # scheduler ticks in a profiler window
+SPAN_CALLS = 200_000            # calls behind a span's ns per call
+# pulls a steady tick or chunk may show beside its fetch: origin substring
+# -> the reason (a PyTorch op with no sync-free form); none so far
+SYNC_ALLOW: dict = {}
+
+
+def obs_syncs(events):
+    """(fetches, the card's syncs inside them, unsanctioned pulls) of one
+    guarded tick or chunk, the allow list's entries set apart."""
+    from repro_torch.analysis.hostsync import syncs
+    fetches, bad = syncs(events)
+    card = sum(e.method == "cuda_sync" and e.sanctioned for e in events)
+    return fetches, card, [e for e in bad if not any(k in e.origin for k in SYNC_ALLOW)]
+
+
+def sync_control():
+    """The guard's positive control: ``nonzero`` reads its output's size
+    back inside the op, which no Python hook sees; the card's sync debug
+    mode must report it, attributed to this file."""
+    from repro_torch.analysis.hostsync import guard_host_transfers, syncs
+    x = torch.arange(8, device="cuda")
+    events = []
+    with guard_host_transfers(events=events):
+        torch.nonzero(x > 3)
+    _, bad = syncs(events)
+    log(f"obs sync control: nonzero under the guard -> {bad}")
+    if [e.method for e in bad] != ["cuda_sync"] or "chip_smoke.py" not in bad[0].origin:
+        raise AssertionError(f"obs: the sync debug mode did not report nonzero: {events}")
+
+
+def profiled_counts(label, win_path):
+    """Launches per wrapper read from a profiler window's trace, held
+    against the wrappers' counters over the same window."""
+    from repro_torch.analysis.launches import kernel_counts, port_counts
+    from repro_torch.kernels import launch_counts
+    prof, wrap = port_counts(kernel_counts(win_path)), launch_counts()
+    log(f"obs {label}: torch.profiler launches {prof}; the wrappers' counters {wrap}")
+    if prof != wrap:
+        raise AssertionError(f"obs {label}: profiler launches {prof} != wrappers' {wrap}")
+    return prof
+
+
+def obs_trainer(full, dev):
+    """(a) The Trainer, tracer on, frame on: OBS_STEPS Gate-Drop 0.3 bf16
+    steps on ``cuda`` in chunks of OBS_CHUNK, then one more chunk under the
+    host-sync guard (and the sync debug mode) in a profiler window."""
+    from repro_torch.analysis.hostsync import guard_host_transfers
+    from repro_torch.data import MTTaskConfig, MultilingualMT, stack_batches
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.obs import Tracer
+    from repro_torch.training import Trainer
+    cfg = train_cfg(full, "cuda", "bfloat16")
+    task = MultilingualMT(MTTaskConfig(vocab=cfg.vocab, n_langs=TRAIN_LANGS, max_len=TRAIN_SEQ))
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, train_tc(OBS_STEPS), task.train_batches(TRAIN_BATCH), device=dev,
+                      chunk=OBS_CHUNK, log_every=1, log=None, tracer=tracer)
+    _, history = trainer.run()
+    doc = json.loads(json.dumps(tracer.export(str(OUT / "obs_train_trace.json"))))
+    names = {ev["name"] for ev in doc["traceEvents"] if ev["ph"] != "M"}
+    threads = {ev["args"]["name"] for ev in doc["traceEvents"] if ev["name"] == "thread_name"}
+    want = {"train_chunk", "chunk.execute", "chunk.fetch", "prefetch.produce", "prefetch.wait"}
+    if names != want or "prefetcher" not in threads:
+        raise AssertionError(f"obs trainer: spans {names} on threads {threads}")
+    if len(history) != OBS_STEPS or any(
+            not {"router_entropy", "load_imbalance", "gate_dropped"} <= set(r)
+            or not math.isfinite(r["loss"]) for r in history):
+        raise AssertionError(f"obs trainer: records {history}")
+    span = (OBS_STEPS, OBS_STEPS + OBS_CHUNK)
+    stacked = stack_batches(trainer.batch_fn, *span)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    events = []
+    with tracer.profile_window(str(OUT / "obs_train_profile")) as win:
+        with guard_host_transfers(events=events):
+            trainer._run_chunk(span, stacked)
+    fetches, card, bad = obs_syncs(events)
+    counts = profiled_counts(f"training chunk of {OBS_CHUNK} steps", win.path)
+    per_step = expected_train_launches(cfg, "cuda")
+    if counts != {k: v * OBS_CHUNK for k, v in per_step.items()}:
+        raise AssertionError(f"obs trainer: chunk launches {counts}, per step {per_step}")
+    log(f"obs trainer: {OBS_STEPS} steps in {history[-1]['time_s']:.2f} s; records carry "
+        f"load_imbalance {[round(r['load_imbalance'], 3) for r in history]}, gate_dropped "
+        f"{[r['gate_dropped'] for r in history]}; spans {sorted(names)}; the guarded chunk: "
+        f"{fetches} sanctioned fetch holding {card} card sync, {len(events)} events, "
+        f"unsanctioned {bad}")
+    if fetches != 1 or card != 1 or bad:
+        raise AssertionError(f"obs trainer: a steady chunk must show its one fetch and no "
+                             f"other sync: {fetches} fetches, {bad}")
+    out = dict(setup_and_run_s=time.perf_counter() - t0, chunk_fetches=fetches,
+               chunk_card_syncs=card, chunk_unsanctioned=len(bad), chunk_events=len(events), chunk_launches=counts,
+               load_imbalance=[r["load_imbalance"] for r in history])
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def guard_each_tick(sched):
+    """Run every tick of ``sched`` under the host-sync guard (record mode);
+    returns the list the ticks fill with (steady, fetches, the card's
+    syncs inside them, unsanctioned pulls). A steady tick decodes and
+    neither admits, preempts nor swaps in."""
+    from repro_torch.analysis.hostsync import guard_host_transfers
+    ticks, step = [], sched.step
+
+    def guarded(now):
+        before = dict(sched.stats)
+        events = []
+        with guard_host_transfers(events=events):
+            out = step(now)
+        moved = any(sched.stats.get(k, 0) != before.get(k, 0)
+                    for k in ("prefill_calls", "preemptions", "swap_ins"))
+        steady = not moved and sched.stats["decode_steps"] == before["decode_steps"] + 1
+        ticks.append((steady, *obs_syncs(events)))
+        return out
+
+    sched.step = guarded
+    return ticks
+
+
+def span_counts(doc):
+    """Event counts by name of an exported trace, and the COW pairs its
+    flushes carried."""
+    evs = [ev for ev in doc["traceEvents"] if ev["ph"] != "M"]
+    n = {}
+    for ev in evs:
+        n[ev["name"]] = n.get(ev["name"], 0) + 1
+    return n, sum(ev["args"]["pairs"] for ev in evs if ev["name"] == "sched.cow_flush")
+
+
+def obs_schedulers(params, cfg, gen, reqs):
+    """(b) Phase 7's trace through the slot pool, the arena and the
+    20-page arena with the tracer and the registry on, each tick guarded:
+    the exported trace's counts against the scheduler's stats, the
+    registry's exports, syncs per tick; then OBS_WINDOW ticks of each in a
+    profiler window (launches against the wrappers')."""
+    from repro_torch.launch.serve import write_metrics
+    from repro_torch.obs import Tracer
+    out = {}
+    for tag, paged, n_pages in (("slot_pool", False, 0), ("arena", True, 0),
+                                (f"arena_{PAGES_SMALL}", True, PAGES_SMALL)):
+        tracer = Tracer()
+        sched = new_scheduler(params, cfg, gen, paged, n_pages, tracer)
+        ticks = guard_each_tick(sched)
+        toks, sched, counts, wall = run_scheduler(params, cfg, gen, reqs, sched=sched)
+        st, reg = sched.stats, sched.metrics
+        reg.gauge("serve/wall_s").set(wall)
+        reg.gauge("serve/tok_s").set(sum(len(t) for t in toks.values()) / wall)
+        reg.gauge("serve/req_s").set(len(toks) / wall)
+        for k, v in st.items():
+            reg.gauge(f"serve/stats/{k}").set(float(v))
+        write_metrics(reg, str(OUT / f"obs_{tag}.prom"))
+        write_metrics(reg, str(OUT / f"obs_{tag}.json"))
+        snap = json.loads((OUT / f"obs_{tag}.json").read_text())
+        tracer.export(str(OUT / f"obs_{tag}_trace.json"))
+        n, pairs = span_counts(json.loads((OUT / f"obs_{tag}_trace.json").read_text()))
+        checks = {"sched.decode": st["decode_steps"], "sched.admit": None}
+        if paged:
+            checks.update({"prefix_cache.hit": st["prefix_hits"],
+                           "sched.preempt.swap_out": st["preemptions"],
+                           "sched.swap_in": st["swap_ins"]})
+            hits_misses = n.get("prefix_cache.hit", 0) + n.get("prefix_cache.miss", 0)
+            if hits_misses != st["prefix_lookups"] or pairs != st["cow_copies"]:
+                raise AssertionError(f"obs {tag}: {n}, COW pairs {pairs} against {st}")
+        else:
+            checks["sched.prefill"] = st["prefill_calls"]
+        bad = {k: (n.get(k, 0), v) for k, v in checks.items()
+               if v is not None and n.get(k, 0) != v}
+        if bad or snap["serve/stats/finished"]["value"] != TRACE_N or not n.get("sched.admit"):
+            raise AssertionError(f"obs {tag}: span counts against stats (got, want) {bad}; {n}")
+        steady = [t for t in ticks if t[0]]
+        other = [t for t in ticks if not t[0]]
+        wrong = [t for t in steady if t[1] != 1 or t[2] != 1 or t[3]]
+        log(f"obs {tag}: {TRACE_N} requests in {wall:.2f} s; span counts {n} equal the stats "
+            f"{st} (COW pairs {pairs}); registry {len(snap)} metrics exported; {len(steady)} "
+            f"steady ticks with 1 sanctioned fetch (1 card sync) and no other sync each; "
+            f"{len(other)} other ticks (admission / preemption / swap-in) with fetches "
+            f"{sorted({t[1] for t in other})}, card syncs {sorted({t[2] for t in other})} "
+            f"and unsanctioned {[t[3] for t in other if t[3]]}")
+        if wrong or not steady:
+            raise AssertionError(f"obs {tag}: steady ticks with other syncs {wrong[:3]}")
+        out[tag] = dict(wall_s=wall, spans=n, steady_ticks=len(steady),
+                        other_ticks=len(other), other_fetches=sorted({t[1] for t in other}),
+                        other_card_syncs=sorted({t[2] for t in other}),
+                        unsanctioned_other=sum(len(t[3]) for t in other), stats=dict(st))
+    for tag, paged in (("slot_pool", False), ("arena", True)):
+        out[tag]["window_launches"] = tick_window(params, cfg, gen, reqs, paged, tag)
+    return out
+
+
+def tick_window(params, cfg, gen, reqs, paged, tag):
+    """OBS_WINDOW ticks of a fresh scheduler, after its first admissions,
+    in a profiler window: the launches against the wrappers' counters."""
+    import dataclasses as dc
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.obs import Tracer
+    tracer = Tracer()
+    sched = new_scheduler(params, cfg, gen, paged, 0, tracer)
+    for r in reqs:
+        sched.submit(dc.replace(r))
+    for _ in range(3):
+        sched.step(sched._now())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with tracer.profile_window(str(OUT / f"obs_{tag}_profile")) as win:
+        for _ in range(OBS_WINDOW):
+            sched.step(sched._now())
+    return profiled_counts(f"{tag}, {OBS_WINDOW} ticks", win.path)
+
+
+def obs_static(params, cfg, gen, reqs):
+    """(c) Table 8's comparison point: ``static_batch_serve`` (FIFO
+    same-length batches of OBS_BATCH through ``generate``) and the
+    ContinuousScheduler on the same trace, in turns (static, continuous,
+    continuous, static). A number, not a claim."""
+    from repro_torch.serve import static_batch_serve
+    rows = {"static": [], "continuous": []}
+    for kind in ("static", "continuous", "continuous", "static"):
+        if kind == "static":
+            torch.cuda.synchronize()
+            toks, wall = static_batch_serve(params, cfg, gen, reqs, batch_size=OBS_BATCH,
+                                            max_seq=SCHED_BUCKETS[-1] + gen.max_new)
+        else:
+            toks, _, _, wall = run_scheduler(params, cfg, gen, reqs)
+        n_tok = sum(len(t) for t in toks.values())
+        rows[kind].append(dict(wall_s=wall, tok_s=n_tok / wall, tokens=toks))
+    equal = sum(bool((rows["static"][0]["tokens"][r.rid] == rows["continuous"][0]["tokens"]
+                      [r.rid]).all()) for r in reqs)
+    out = {k: dict(wall_s=[r["wall_s"] for r in v], tok_s=[r["tok_s"] for r in v])
+           for k, v in rows.items()}
+    lengths = sorted({len(r.tokens) for r in reqs})
+    log(f"obs static batching (batch {OBS_BATCH}; {len(lengths)} distinct prompt lengths) vs "
+        f"the continuous scheduler, in turns: wall s static {out['static']['wall_s']} "
+        f"continuous {out['continuous']['wall_s']}; tokens/s static {out['static']['tok_s']} "
+        f"continuous {out['continuous']['tok_s']}; {equal} of {TRACE_N} requests get the "
+        "scheduler's tokens (capacity depends on the batch's makeup: reported, not gated)")
+    out["equal_requests"] = equal
+    return out
+
+
+def obs_tracer_cost(params, cfg, gen, reqs):
+    """(d) A slot-pool replay with the tracer on and off, in turns (on,
+    off, off, on), and a span's cost in ns per call, off and on."""
+    from repro_torch.obs import Tracer
+    walls = {True: [], False: []}
+    for on in (True, False, False, True):
+        _, _, _, wall = run_scheduler(params, cfg, gen, reqs, tracer=Tracer(enabled=on))
+        walls[on].append(wall)
+    ns = {}
+    for on in (False, True):
+        tr = Tracer(enabled=on)
+        t0 = time.perf_counter()
+        for _ in range(SPAN_CALLS):
+            with tr.span("sched.decode", alive=8):
+                pass
+        ns[on] = (time.perf_counter() - t0) / SPAN_CALLS * 1e9
+    log(f"obs tracer cost: slot-pool replay wall s with the tracer on {walls[True]}, off "
+        f"{walls[False]} (in turns); a span {ns[False]:.1f} ns per call off, {ns[True]:.1f} "
+        "ns on")
+    return dict(replay_on_s=walls[True], replay_off_s=walls[False], span_off_ns=ns[False],
+                span_on_ns=ns[True])
+
+
+def obs_phase(full, dev):
+    """Phase obs: the tracer, the registry, the host-sync guard and the
+    profiler's launch counts over the main path at full width, then the
+    static-batching baseline and the tracer's cost."""
+    from repro_torch.launch.serve import generator
+    from repro_torch.models import init_model
+    from repro_torch.serve import GenerateConfig
+    OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    sync_control()
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(full.moe, backend="cuda"))
+    params = init_model(generator(dev, SEED, 0), cfg)
+    reqs = sched_trace(cfg.vocab)
+    gen = GenerateConfig(max_new=TRACE_BUDGET, eos_id=-1, flash_decode=True)
+    out = {"schedulers": obs_schedulers(params, cfg, gen, reqs)}
+    out["static_vs_continuous"] = obs_static(params, cfg, gen, reqs)
+    out["tracer_cost"] = obs_tracer_cost(params, cfg, gen, reqs)
+    del params
+    torch.cuda.empty_cache()
+    out["trainer"] = obs_trainer(full, dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"obs phase: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the serving schedulers and B6
 # ---------------------------------------------------------------------------
 
@@ -1960,23 +2274,28 @@ def sched_trace(vocab: int):
     return reqs
 
 
-def run_scheduler(params, cfg, gen, reqs, paged=None, n_pages=0, tracer=None):
-    """Serve ``reqs`` through a fresh scheduler (the slot pool, or the page
-    arena when ``paged``), with the launch counts reset just before and
-    read just after. Returns ({rid: tokens}, scheduler, launch counts,
-    wall seconds)."""
-    import dataclasses as dc
+def new_scheduler(params, cfg, gen, paged=None, n_pages=0, tracer=None):
+    """A fresh scheduler of phase 7's shape: the slot pool, or the page
+    arena when ``paged`` (``n_pages`` pages, 0 for the default 48)."""
     from repro_torch.configs import PagedKVConfig
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.obs import MetricsRegistry
     from repro_torch.serve import ContinuousScheduler, PagedScheduler
     kw = dict(n_slots=SCHED_SLOTS, prefill_buckets=SCHED_BUCKETS, admit_width=SCHED_ADMIT,
               registry=MetricsRegistry(), tracer=tracer)
     if paged:
-        sched = PagedScheduler(params, cfg, gen, paged=PagedKVConfig(
+        return PagedScheduler(params, cfg, gen, paged=PagedKVConfig(
             page_size=PAGE_SIZE, n_slots_equiv=SCHED_SLOTS, n_pages=n_pages), **kw)
-    else:
-        sched = ContinuousScheduler(params, cfg, gen, **kw)
+    return ContinuousScheduler(params, cfg, gen, **kw)
+
+
+def run_scheduler(params, cfg, gen, reqs, paged=None, n_pages=0, tracer=None, sched=None):
+    """Serve ``reqs`` through ``sched`` or a fresh ``new_scheduler``, with
+    the launch counts reset just before and read just after. Returns
+    ({rid: tokens}, scheduler, launch counts, wall seconds)."""
+    import dataclasses as dc
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    if sched is None:
+        sched = new_scheduler(params, cfg, gen, paged, n_pages, tracer)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2250,7 +2569,7 @@ def sched_timing(params, cfg, reqs, dev):
                 ttft_p50_ms=ttft[50] * 1e3, ttft_p90_ms=ttft[90] * 1e3,
                 tpot_p50_ms=lat[50] * 1e3, tpot_p90_ms=lat[90] * 1e3,
                 decode_tick_ms=statistics.median(tracer.durations("sched.decode")) * 1e3,
-                prefill_ms=statistics.median(tracer.durations("sched.prefill")) * 1e3))
+                admit_ms=statistics.median(tracer.durations("sched.admit")) * 1e3))
             last[paged] = sched
     peak = torch.cuda.max_memory_allocated()
     for paged in (False, True):
@@ -2587,7 +2906,7 @@ def serve_phases(full, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("full_cache", "ep"),
+    ap.add_argument("--only", choices=("full_cache", "ep", "obs"),
                     help="run phases 1, 2 and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2619,6 +2938,9 @@ def main() -> int:
     if args.only == "ep":
         print(json.dumps({"ep": ep_phase(full, dev)}), flush=True)
         return 0
+    if args.only == "obs":
+        print(json.dumps({"obs": obs_phase(full, dev)}), flush=True)
+        return 0
     ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5, 7 and 8. serving
@@ -2643,6 +2965,8 @@ def main() -> int:
 
     # ep. the expert-parallel path under a one-rank group
     print(json.dumps({"ep": ep_phase(full, dev)}), flush=True)
+    # obs. the observability layer over the trainer and both schedulers
+    print(json.dumps({"obs": obs_phase(full, dev)}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
                            fc)

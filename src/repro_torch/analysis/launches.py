@@ -1,0 +1,75 @@
+"""Kernel launch counts from a ``torch.profiler`` trace (the counterpart
+of the reference's launch-count pass, ``repro/analysis/passes.py`` over
+``analysis/jaxprs.py::pallas_launches``).
+
+The reference counts ``pallas_call`` sites in a jaxpr; the port counts
+what the card ran: the kernel events of a ``torch.profiler`` window (its
+Chrome trace, ``cat == "kernel"``), by name, and maps the port's kernels
+(``kernels/csrc/*.cu``) to the wrappers of B1-B6. Each wrapper call on the
+main path is ONE launch of its kernel, so over a window these counts equal
+the wrappers' ``launch_counts()``:
+
+  B1 ``grouped_matmul`` / ``_dx`` / ``_dw``: one ``gmm_stream_fwd`` /
+      ``gmm_stream_dx`` / ``gmm_stream_dw`` (streaming) or
+      ``grouped_matmul_kernel<T, TM, A_T, B_T>`` (tiled; the forward
+      <.., false, false>, dx <.., false, true>, dW <.., true, false>). Its
+      output comes from ``torch.empty``: no fill (an empty product's
+      ``zero_`` is the only other launch, off the main path).
+  B2 ``dispatch``: one ``dispatch_rows_kernel``.
+  B3 ``combine``: one ``combine_rows_kernel`` (a programmatic dependent
+      launch, still one launch).
+  B4 ``fused_moe``: one ``fused_moe_stream`` or ``fused_moe_kernel``,
+      beside PyTorch's own launches in the wrapper (the zero fill of the
+      output, slot weights and counts; the slot-weight scatter; the cast).
+  B5 ``flash_decode`` / B6 ``flash_decode_paged``: one
+      ``flash_decode_kernel<TQ, TKV, R, false|true>``; a split cache's
+      merge runs inside the same launch, its arrival counters reset by the
+      merging block, so there is no memset and no second kernel.
+
+``repro_launch_floor``'s and ``repro_copy_early_trigger``'s kernels are
+timing and test aids and map to no wrapper.
+"""
+from __future__ import annotations
+
+import json
+import re
+from collections import Counter
+from typing import Any, Dict, Union
+
+__all__ = ["KERNELS", "kernel_counts", "port_counts"]
+
+# wrapper -> pattern over the demangled kernel name
+KERNELS = {
+    "grouped_matmul": r"gmm_stream_fwd<|grouped_matmul_kernel<[^>]*, false, false>",
+    "grouped_matmul_dx": r"gmm_stream_dx<|grouped_matmul_kernel<[^>]*, false, true>",
+    "grouped_matmul_dw": r"gmm_stream_dw<|grouped_matmul_kernel<[^>]*, true, false>",
+    "dispatch": r"dispatch_rows_kernel<",
+    "combine": r"combine_rows_kernel<",
+    "fused_moe": r"fused_moe_stream<|fused_moe_kernel<",
+    "flash_decode": r"flash_decode_kernel<[^>]*, false>",
+    "flash_decode_paged": r"flash_decode_kernel<[^>]*, true>",
+}
+_COMPILED = {name: re.compile(p) for name, p in KERNELS.items()}
+
+
+def kernel_counts(trace: Union[str, Dict[str, Any]]) -> Dict[str, int]:
+    """Device kernel launches by name in a ``torch.profiler`` Chrome trace
+    (its path, or the loaded document)."""
+    if isinstance(trace, str):
+        with open(trace) as f:
+            trace = json.load(f)
+    return dict(Counter(ev["name"] for ev in trace["traceEvents"]
+                        if ev.get("ph") == "X" and ev.get("cat") == "kernel"))
+
+
+def port_counts(kernels: Dict[str, int]) -> Dict[str, int]:
+    """Launches of the port's kernels per wrapper (every wrapper of
+    ``kernels.wrappers()``, 0 where none ran), from ``kernel_counts``."""
+    out = {name: 0 for name in KERNELS}
+    for kname, n in kernels.items():
+        hits = [name for name, rx in _COMPILED.items() if rx.search(kname)]
+        if len(hits) > 1:
+            raise ValueError(f"kernel {kname!r} matches {hits}")
+        if hits:
+            out[hits[0]] += n
+    return out

@@ -1,5 +1,4 @@
-"""Background-thread data pipeline (port of ``repro/data/prefetch.py``,
-without the reference's span tracer).
+"""Background-thread data pipeline (port of ``repro/data/prefetch.py``).
 
 The Trainer consumes training data as CHUNKS: the per-step batches of K
 consecutive steps stacked on a new leading axis. Chunk synthesis is pure
@@ -8,15 +7,19 @@ overlaps device compute: the ``Prefetcher`` maps a producer function over
 a work list on a daemon thread into a depth-bounded queue (depth 2 =
 double buffering: chunk c+1 is synthesized while the device runs chunk
 c). The producer runs numpy only; device transfer happens on the consumer
-side.
+side. With a tracer, the worker records a ``prefetch.produce`` span per
+item on its own thread and the consumer a ``prefetch.wait`` span per
+``next``.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Callable, Dict, Iterable, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.obs.trace import Tracer, get_tracer
 
 Batch = Dict[str, np.ndarray]
 
@@ -39,13 +42,14 @@ class Prefetcher:
     """
 
     def __init__(self, fn: Callable[[Any], Any], items: Iterable[Any],
-                 depth: int = 2):
+                 depth: int = 2, tracer: Optional[Tracer] = None):
         self._q: "queue.Queue[Tuple[str, Any]]" = queue.Queue(
             maxsize=max(int(depth), 1))
         self._stop = threading.Event()
         self._fn = fn
         self._items = items
         self._done = False
+        self._tracer = tracer if tracer is not None else get_tracer()
         self._thread = threading.Thread(
             target=self._work, name="prefetcher", daemon=True)
         self._thread.start()
@@ -63,7 +67,9 @@ class Prefetcher:
             for item in self._items:
                 if self._stop.is_set():
                     return
-                self._put(("ok", self._fn(item)))
+                with self._tracer.span("prefetch.produce", item=str(item)):
+                    out = self._fn(item)
+                self._put(("ok", out))
             self._put(("end", None))
         except BaseException as e:  # noqa: BLE001 — surfaced to consumer
             self._put(("err", e))
@@ -74,7 +80,8 @@ class Prefetcher:
     def __next__(self) -> Any:
         if self._done:
             raise StopIteration
-        kind, val = self._q.get()
+        with self._tracer.span("prefetch.wait"):
+            kind, val = self._q.get()
         if kind == "ok":
             return val
         self._done = True

@@ -28,6 +28,15 @@ scheduler's counters and, paged, the page arena's:
 
 Runs on the GPU unless ``--device cpu`` is given, and fails without one.
 Parameters, prompts and sampling draw from distinct streams of ``--seed``.
+
+``--trace-out PATH`` turns on the span tracer and writes its Chrome trace
+(open it at https://ui.perfetto.dev): the reported replay's scheduler
+spans (``sched.*``, ``prefix_cache.*``) or, one-shot, ``generate.first``
+and ``generate.steady``. ``--metrics-out PATH`` writes the metrics
+registry (``.prom``/``.txt``: Prometheus text, else JSON): the scheduler's
+histograms and series with ``serve/wall_s``, ``serve/tok_s``,
+``serve/req_s`` and ``serve/stats/*``, or, one-shot, ``serve/first_s``,
+``serve/wall_s`` and ``serve/tok_s``.
 """
 from __future__ import annotations
 
@@ -35,7 +44,6 @@ import argparse
 import dataclasses
 import json
 import statistics
-import time
 
 import numpy as np
 import torch
@@ -43,7 +51,8 @@ import torch
 from repro_torch.configs import (COMM_SUBSTRATES, PagedKVConfig, get_config,
                                  reduced)
 from repro_torch.models import init_model
-from repro_torch.obs import MetricsRegistry, monotonic
+from repro_torch.obs import (MetricsRegistry, Tracer, get_tracer, monotonic,
+                             set_tracer)
 from repro_torch.obs.registry import Histogram
 from repro_torch.serve import (ContinuousScheduler, GenerateConfig,
                                PagedScheduler, Request, generate,
@@ -98,14 +107,14 @@ def time_generate(params, batch, cfg, gen: GenerateConfig, *, seed: int = 0):
     rounds = {"prefill_ms": [], "total_ms": [], "decode_ms_per_step": [],
               "tok_s": []}
     for _ in range(TIMED_ROUNDS):
-        t0 = time.perf_counter()
+        t0 = monotonic()
         generate(params, batch, cfg, first, seed=seed)
         _sync(device)
-        t_pre = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        t_pre = monotonic() - t0
+        t0 = monotonic()
         res = generate(params, batch, cfg, gen, seed=seed)
         _sync(device)
-        t_all = time.perf_counter() - t0
+        t_all = monotonic() - t0
         rounds["prefill_ms"].append(t_pre * 1e3)
         rounds["total_ms"].append(t_all * 1e3)
         rounds["decode_ms_per_step"].append(
@@ -204,14 +213,24 @@ def trace_cache_section(sched: PagedScheduler) -> dict:
     }
 
 
+def write_metrics(reg: MetricsRegistry, path: str) -> None:
+    """``.prom``/``.txt``: Prometheus text exposition, else JSON."""
+    if path.endswith((".prom", ".txt")):
+        reg.to_prometheus(path)
+    else:
+        reg.to_json(path)
+
+
 def run_trace(args, cfg, params, gen, device) -> dict:
     """Serve ``--trace`` requests through a scheduler, twice: the first
     replay builds the kernels and warms the allocator, the second, on a
-    fresh scheduler, is reported. One JSON record."""
+    fresh scheduler, is reported (and alone kept on the tracer). One JSON
+    record; the registry gains the run's gauges."""
     buckets = tuple(int(b) for b in args.buckets.split(","))
     reqs = synth_trace(cfg, 3 * args.seed + 1, args.trace, args.rate, buckets,
                        gen.max_new)
     for _ in range(2):
+        get_tracer().clear()
         reg = MetricsRegistry()
         kw = dict(n_slots=args.slots, prefill_buckets=buckets,
                   admit_width=args.admit_width, seed=3 * args.seed + 2,
@@ -249,6 +268,15 @@ def run_trace(args, cfg, params, gen, device) -> dict:
         rec["cache"] = trace_cache_section(sched)
     if cfg.moe is not None:
         rec["comm"] = trace_comm_section(cfg, gen, sched, args.comm_ep)
+    # throughput and the scheduler's counters beside its histograms: one
+    # --metrics-out file carries the whole serving picture
+    reg.gauge("serve/wall_s").set(wall)
+    reg.gauge("serve/tok_s").set(rec["tok_s"])
+    reg.gauge("serve/req_s").set(rec["req_s"])
+    for k, v in sched.stats.items():
+        reg.gauge(f"serve/stats/{k}").set(float(v))
+    if args.metrics_out:
+        write_metrics(reg, args.metrics_out)
     return rec
 
 
@@ -307,7 +335,14 @@ def main(argv=None):
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable shared-prefix page caching (--paged)")
     ap.add_argument("--json-out", default=None, help="write metrics JSON here")
+    ap.add_argument("--trace-out", default=None,
+                    help="turn on the span tracer and write a Chrome-trace "
+                         "(Perfetto) JSON of the run here")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the metrics registry here (.prom/.txt = "
+                         "Prometheus text, else JSON)")
     args = ap.parse_args(argv)
+    tracer = set_tracer(Tracer(enabled=bool(args.trace_out)))
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -358,13 +393,17 @@ def main(argv=None):
         if args.json_out:
             with open(args.json_out, "w") as f:
                 json.dump(rec, f, indent=1)
+        if args.trace_out:
+            tracer.export(args.trace_out)
         return
 
-    t0 = time.perf_counter()
-    generate(params, batch, cfg, gen, seed=sample_seed)
-    _sync(device)
-    t_first = time.perf_counter() - t0
-    med, rounds, res = time_generate(params, batch, cfg, gen, seed=sample_seed)
+    t0 = monotonic()
+    with tracer.span("generate.first"):
+        generate(params, batch, cfg, gen, seed=sample_seed)
+        _sync(device)
+    t_first = monotonic() - t0
+    with tracer.span("generate.steady", rounds=TIMED_ROUNDS):
+        med, rounds, res = time_generate(params, batch, cfg, gen, seed=sample_seed)
     n_tok = int(res.lengths.sum())
     print(f"arch={cfg.arch_id} device={device} batch={args.batch} "
           f"prompt={args.prompt_len} new={args.max_new} beam={args.beam}")
@@ -383,6 +422,14 @@ def main(argv=None):
                "median": med, "rounds": rounds, "tokens": res.tokens.tolist()}
         with open(args.json_out, "w") as f:
             json.dump(rec, f, indent=1)
+    if args.trace_out:
+        tracer.export(args.trace_out)
+    if args.metrics_out:
+        reg = MetricsRegistry()
+        reg.gauge("serve/first_s").set(t_first)
+        reg.gauge("serve/wall_s").set(med["total_ms"] / 1e3)
+        reg.gauge("serve/tok_s").set(med["tok_s"])
+        write_metrics(reg, args.metrics_out)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,20 @@ being the ``--comm`` substrate's:
       --gd-rate 0.3 --eval-every 4 --log-every 1
 
 ``--device cpu`` takes gloo, ``cuda`` NCCL with one card per rank. Rank 0
-prints the records and writes ``--json-out``.
+prints the records and writes ``--json-out``, ``--trace-out`` and
+``--metrics-out``.
+
+Observability: ``--trace-out PATH`` turns on the span tracer (the
+Trainer's ``train_chunk`` / ``chunk.execute`` / ``chunk.fetch`` /
+``eval`` and the prefetcher's ``prefetch.*`` on its own thread) and writes
+its Chrome trace (open it at https://ui.perfetto.dev); ``--metrics-out
+PATH`` writes ``train/loss`` and ``train/tok_s`` histograms and the
+``train/final_loss``, ``train/wall_s`` and ``train/router/*``
+(``obs.frame.router_health``) gauges (``.prom``/``.txt``: Prometheus
+text, else JSON); ``--profile LOGDIR`` wraps the run in a
+``torch.profiler`` window (CPU and CUDA activities) whose Chrome trace
+lands under LOGDIR, the tracer's spans named on its timeline;
+``--no-metrics-frame`` drops the router-health metrics from the steps.
 """
 from __future__ import annotations
 
@@ -38,8 +51,9 @@ from repro_torch.configs.base import COMM_SUBSTRATES, MOE_BACKENDS, TrainConfig
 from repro_torch.data import (LMTaskConfig, MTTaskConfig, MultilingualMT,
                               SyntheticLM)
 from repro_torch.launch.mesh import close_group, make_group, parse_mesh
-from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.serve import resolve_device, write_metrics
 from repro_torch.metrics import corpus_bleu, strip_special
+from repro_torch.obs import MetricsRegistry, Tracer, router_health, set_tracer
 from repro_torch.serve import GenerateConfig, generate
 from repro_torch.training import Trainer
 
@@ -91,6 +105,25 @@ def greedy_bleu(params, cfg, task, *, n=32, max_new=36, seed=10_000,
     refs = [strip_special(r) for r in b["labels"]]
     bleu = corpus_bleu(hyps, refs)
     return (bleu, tokens) if return_tokens else bleu
+
+
+def train_metrics(history) -> MetricsRegistry:
+    """The run's registry: per-record loss and tokens/s histograms, the
+    final loss and wall time, and the router health of the records."""
+    reg = MetricsRegistry()
+    loss_h = reg.histogram("train/loss", "recorded per-step loss")
+    tok_h = reg.histogram("train/tok_s", "tokens/s at record points")
+    for rec in history:
+        loss_h.observe(rec["loss"])
+        tok_h.observe(rec["tok_s"])
+    if history:
+        reg.gauge("train/final_loss").set(history[-1]["loss"])
+        reg.gauge("train/wall_s").set(history[-1]["time_s"])
+    rh = router_health(history)
+    if rh["records"]:
+        for k, v in rh.items():
+            reg.gauge(f"train/router/{k}").set(float(v))
+    return reg
 
 
 def main(argv=None):
@@ -148,6 +181,19 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--no-metrics-frame", action="store_true",
+                    help="drop the router-health MetricsFrame outputs of the "
+                         "steps (telemetry only: the loss and the update are "
+                         "the same either way)")
+    ap.add_argument("--trace-out", default=None,
+                    help="turn on the span tracer and write a Chrome-trace "
+                         "(Perfetto) JSON of the run here")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write a metrics-registry summary of the run "
+                         "(.prom/.txt = Prometheus text, else JSON)")
+    ap.add_argument("--profile", default=None, metavar="LOGDIR",
+                    help="wrap the run in a torch.profiler window whose "
+                         "Chrome trace is written under LOGDIR")
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
@@ -179,10 +225,12 @@ def main(argv=None):
 
     ctx = make_group(ep, device) if ep else None
     lead = ctx is None or ctx.rank == 0
+    tracer = set_tracer(Tracer(enabled=bool(args.trace_out or args.profile)))
     try:
         tc = TrainConfig(lr=args.lr, warmup_steps=args.warmup, steps=args.steps,
                          seed=args.seed, schedule=args.schedule,
-                         microbatches=args.microbatches)
+                         microbatches=args.microbatches,
+                         metrics_frame=not args.no_metrics_frame)
         task, batch_fn = build_batch_fn(cfg, args)
         eval_fn = None
         if args.eval_every and args.task == "mt":
@@ -197,7 +245,8 @@ def main(argv=None):
                           log=print if lead else None)
         if args.resume:
             print(f"resumed {args.ckpt_dir} @ step {trainer.restore()}")
-        _, history = trainer.run()
+        with tracer.profile_window(args.profile if lead else None):
+            _, history = trainer.run()
         if args.ckpt_dir:
             print(f"checkpoint -> {args.ckpt_dir}")
         if args.json_out and lead:
@@ -209,6 +258,10 @@ def main(argv=None):
                            "ep": ctx.ep if ctx is not None else 1,
                            "history": history,
                            "gd": dataclasses.asdict(gd) if gd else None}, f)
+        if args.trace_out and lead:
+            tracer.export(args.trace_out)
+        if args.metrics_out and lead:
+            write_metrics(train_metrics(history), args.metrics_out)
     finally:
         if ctx is not None:
             close_group()

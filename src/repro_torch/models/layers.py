@@ -7,6 +7,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -68,7 +69,7 @@ def sinusoidal_pos(seq: int, d: int, dtype=torch.float32,
     even d."""
     pos = torch.arange(seq, device=device, dtype=torch.float32)[:, None]
     # the exponent's scale rounded to f32 first, as the reference's f32 math
-    scale = float(-torch.tensor(math.log(10000.0), dtype=torch.float32) / d)
+    scale = float(-np.float32(math.log(10000.0)) / np.float32(d))
     div = torch.exp(torch.arange(0, d, 2, device=device, dtype=torch.float32)
                     * scale)
     pe = torch.zeros((seq, d), dtype=torch.float32, device=device)

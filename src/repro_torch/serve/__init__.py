@@ -8,11 +8,13 @@ from repro_torch.serve.paged import (PageAllocator, PagedLayout,
                                      paged_pool_like, prefill_into_pages)
 from repro_torch.serve.scheduler import (ContinuousScheduler, PagedScheduler,
                                          Request, RequestResult,
-                                         needs_exact_prefill)
+                                         needs_exact_prefill,
+                                         static_batch_serve)
 
 __all__ = ["GenerateConfig", "GenerateResult", "generate", "init_slot_pool",
            "slot_pool_like", "prefill_into_slots", "decode_pool_step",
            "ContinuousScheduler", "PagedScheduler", "PagedLayout",
            "PageAllocator", "PagePoolExhausted", "PrefixCache",
            "paged_pool_like", "prefill_into_pages", "decode_paged_step",
-           "paged_kv_bytes", "Request", "RequestResult", "needs_exact_prefill"]
+           "paged_kv_bytes", "Request", "RequestResult", "needs_exact_prefill",
+           "static_batch_serve"]

@@ -370,7 +370,7 @@ def gather_slot_state(pool, cfg: ModelConfig, table_row: torch.Tensor,
     rows. Both are copies (advanced indexing, ``index_select``), so the
     host may hand the pages out again at once."""
     bat, seq = _cache_page_axes(cfg)
-    row = torch.tensor([slot], device=table_row.device)
+    row = torch.full((1,), slot, device=table_row.device)   # a fill: no copy
 
     def g(leaf, ab, as_):
         if as_ >= 0:
@@ -384,10 +384,15 @@ def restore_slot_state(pool, cfg: ModelConfig, saved, table_row: torch.Tensor,
                        slot: int):
     """Swap-in writes, in place: the inverse of ``gather_slot_state``
     against a FRESH page allocation ``table_row``. Values round-trip
-    bitwise, so a preempted request's outputs do not change."""
+    bitwise, so a preempted request's outputs do not change. ``saved``
+    holds host arrays or tensors (``hostsync.fetch`` of the gather); to a
+    card they go through pinned memory, so the copy waits for nothing."""
     bat, seq = _cache_page_axes(cfg)
 
     def r(leaf, sv, ab, as_):
+        sv = torch.as_tensor(sv)
+        if leaf.device.type == "cuda":
+            sv = sv.pin_memory().to(leaf.device, non_blocking=True)
         sv = sv.to(device=leaf.device, dtype=leaf.dtype)
         if as_ >= 0:
             leaf.movedim(1, 0)[table_row] = sv.movedim(1, 0)

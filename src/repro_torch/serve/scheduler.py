@@ -20,8 +20,20 @@ schedulers serve a request queue on the engine's slot primitives:
 
 Each tick moves its host state (tokens, positions, alive mask, block
 tables) to the device in one pinned non-blocking copy, and fetches the
-tick's tokens and log-probs in one device-to-host read: the tick's one
-host sync. A preemption's swap-out adds one more, as in the reference.
+tick's tokens and log-probs in one device-to-host read
+(``analysis.hostsync.fetch``): the tick's one host sync. A preemption's
+swap-out adds one more, as in the reference.
+
+Spans and instants on the tracer (the reference's vocabulary and
+arguments, host scalars only): ``sched.admit`` (queued),
+``sched.prefill`` (bucket, group; the slot pool's admission groups),
+``sched.decode`` (alive), ``prefix_cache.hit`` (rid, shared_pages) and
+``prefix_cache.miss`` (rid), ``sched.swap_in`` (rid, pages),
+``sched.preempt.swap_out`` (rid, slot) and ``sched.cow_flush`` (pairs,
+width).
+
+``static_batch_serve`` is the static-batching baseline: same-length
+batches through the one-shot engine.
 
 Output parity: with greedy decoding and non-binding eval expert capacity
 (``eval_capacity_factor >= n_experts``), every request's tokens equal a
@@ -38,20 +50,22 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.hostsync import fetch
 from repro_torch.configs.base import ModelConfig, PagedKVConfig
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.trace import Tracer, get_tracer, monotonic
 from repro_torch.serve.engine import (GenerateConfig, _check_local_routing,
                                       _select_rows, decode_pool_step,
-                                      prefill_into_slots, slot_pool_like,
-                                      to_device, to_device_packed)
+                                      generate, prefill_into_slots,
+                                      slot_pool_like, to_device,
+                                      to_device_packed)
 from repro_torch.serve.paged import (PageAllocator, PagedLayout,
                                      PagePoolExhausted, PrefixCache,
                                      _cache_page_axes, ceil_div, copy_pages,
                                      decode_paged_step, gather_slot_state,
                                      paged_kv_bytes, paged_pool_like,
                                      prefill_into_pages, restore_slot_state)
-from repro_torch.tree import flatten_with_paths, tree_map
+from repro_torch.tree import flatten_with_paths
 
 
 @dataclasses.dataclass
@@ -251,6 +265,13 @@ class ContinuousScheduler:
         return True
 
     def _admit(self, now: float):
+        if not (self._free and self._queue
+                and self._queue[0].arrival <= now):
+            return
+        with self.tracer.span("sched.admit", queued=len(self._queue)):
+            self._admit_loop(now)
+
+    def _admit_loop(self, now: float):
         while self._free and self._queue \
                 and self._queue[0].arrival <= now:
             # the head of the queue sets the bucket; same-bucket peers in
@@ -325,7 +346,7 @@ class ContinuousScheduler:
         """Select each admitted row's first token; one host read."""
         tok0, lp0 = _select_rows(self.gen, logits.float(), self.seed, seeds,
                                  np.zeros(len(seeds), np.int64))
-        out = torch.stack([tok0.double(), lp0.double()]).cpu().numpy()
+        out = fetch(torch.stack([tok0.double(), lp0.double()]))
         return out[0].astype(np.int64), out[1]
 
     def _finish_admission(self, group: List[Request], bucket: int, W: int,
@@ -356,7 +377,7 @@ class ContinuousScheduler:
             int(self._active[:self.n_slots].sum()))
 
     def _prefill_group(self, group: List[Request], bucket: int, now: float):
-        with self.tracer.span("sched.prefill"):
+        with self.tracer.span("sched.prefill", bucket=bucket, group=len(group)):
             W, lengths, slots, seeds, host = self._stage_group(group, bucket)
             dev = to_device_packed(dict(host, lengths=lengths, slots=slots),
                                    self.device)
@@ -391,7 +412,8 @@ class ContinuousScheduler:
         alive = self._active & ~self._done
         if not alive[:self.n_slots].any():
             return
-        with self.tracer.span("sched.decode"):
+        with self.tracer.span("sched.decode",
+                              alive=int(alive[:self.n_slots].sum())):
             self._decode_tick_body(alive)
 
     def _decode_tick_body(self, alive):
@@ -400,7 +422,7 @@ class ContinuousScheduler:
         # (their rows decode dead, outputs ignored)
         alive = self._active & ~self._done
         self._alive_series.append(int(alive[:self.n_slots].sum()))
-        out = torch.stack([nxt.double(), lp.double()]).cpu().numpy()  # the sync
+        out = fetch(torch.stack([nxt.double(), lp.double()]))   # the tick's one sync
         nxt, lp = out[0].astype(np.int64), out[1]
         for s in range(self.n_slots):
             if not alive[s]:
@@ -608,6 +630,10 @@ class PagedScheduler(ContinuousScheduler):
                 shared = list(hit)
                 self.stats["prefix_hits"] += 1
                 self._prefix.hits += 1
+                self.tracer.instant("prefix_cache.hit", rid=req.rid,
+                                    shared_pages=len(shared))
+            else:
+                self.tracer.instant("prefix_cache.miss", rid=req.rid)
         n_fresh = need - len(shared)
         if self._free_capacity() < n_fresh + self.paged.reserve_pages:
             return False                # backpressure
@@ -624,11 +650,7 @@ class PagedScheduler(ContinuousScheduler):
                                n_slots=self.n_slots + 1, layout=self.layout)
 
     def _prefill_group(self, group: List[Request], bucket: int, now: float):
-        with self.tracer.span("sched.prefill"):
-            self._prefill_group_paged(group, bucket, now)
-
-    def _prefill_group_paged(self, group: List[Request], bucket: int,
-                             now: float):
+        # no span of its own, as the reference's: sched.admit covers it
         W, lengths, slots, seeds, host = self._stage_group(group, bucket)
         nb, scratch = self.layout.n_blocks, self.layout.scratch
         wt = np.full((W, nb), scratch, np.int64)
@@ -663,7 +685,8 @@ class PagedScheduler(ContinuousScheduler):
         need = self.layout.pages_for(st.pos)
         if self._free_capacity() < need + self.paged.reserve_pages:
             return False
-        self._swap_in(req, st, need)
+        with self.tracer.span("sched.swap_in", rid=req.rid, pages=need):
+            self._swap_in(req, st, need)
         return True
 
     def _swap_in(self, req: Request, st: _SwapState, need: int):
@@ -715,7 +738,9 @@ class PagedScheduler(ContinuousScheduler):
             self._meta[self._slot_rid[s]]["admitted_at"], s))
 
     def _preempt(self, s: int):
-        self._swap_out(s, self._slot_rid[s])
+        rid = self._slot_rid[s]
+        with self.tracer.span("sched.preempt.swap_out", rid=rid, slot=s):
+            self._swap_out(s, rid)
 
     def _swap_out(self, s: int, rid: int):
         # the victim's own write block may have been copied earlier in this
@@ -724,7 +749,7 @@ class PagedScheduler(ContinuousScheduler):
         self._flush_cow()
         # the tick's exceptional second host sync: the swap-out lands in
         # host memory before its pages are handed out again
-        saved = tree_map(lambda t: t.cpu(), gather_slot_state(
+        saved = fetch(gather_slot_state(
             self.pool, self.cfg, to_device(self._tables[s], self.device), s))
         self._swapped[rid] = _SwapState(
             tok=int(self._tok[s]), pos=int(self._pos[s]),
@@ -765,11 +790,12 @@ class PagedScheduler(ContinuousScheduler):
         w = 1
         while w < len(src):
             w *= 2
-        src = src + [scratch] * (w - len(src))
-        dst = dst + [scratch] * (w - len(dst))
-        dev = to_device_packed({"src": np.asarray(src), "dst": np.asarray(dst)},
-                               self.device)
-        self.pool = copy_pages(self.pool, self.cfg, dev["src"], dev["dst"])
+        with self.tracer.span("sched.cow_flush", pairs=len(src), width=w):
+            src = src + [scratch] * (w - len(src))
+            dst = dst + [scratch] * (w - len(dst))
+            dev = to_device_packed({"src": np.asarray(src), "dst": np.asarray(dst)},
+                                   self.device)
+            self.pool = copy_pages(self.pool, self.cfg, dev["src"], dev["dst"])
 
     def _ensure_writable(self, alive):
         """Pre-decode pass: every live slot's write block must point at a
@@ -824,3 +850,42 @@ class PagedScheduler(ContinuousScheduler):
         for s in retiring:
             self._release_slot_pages(s)
         return out
+
+
+# ---------------------------------------------------------------------------
+# static-batching baseline (table 8's comparison point)
+# ---------------------------------------------------------------------------
+
+def static_batch_serve(params, cfg: ModelConfig, gen: GenerateConfig,
+                       requests: Sequence[Request], *, batch_size: int,
+                       seed: int = 0, max_seq: Optional[int] = None
+                       ) -> Tuple[Dict[int, np.ndarray], float]:
+    """Serving without a scheduler: requests grouped FIFO (by arrival,
+    then rid) into same-length batches of at most ``batch_size``, each run
+    through the one-shot ``generate`` (extras stacked) until its slowest
+    member finishes; each output is cut to its request's budget (greedy
+    decoding is prefix-stable, so the cut equals a shorter run). ``seed``
+    keys sampling as ``generate``'s. Returns ({rid: tokens}, wall seconds
+    on ``monotonic()``)."""
+    groups: Dict[int, List[Request]] = {}
+    order: List[List[Request]] = []
+    for r in sorted(requests, key=lambda r: (r.arrival, r.rid)):
+        g = groups.get(len(r.tokens))
+        if g is None or len(g) >= batch_size:
+            g = groups[len(r.tokens)] = []
+            order.append(g)
+        g.append(r)
+    g2 = dataclasses.replace(gen, max_seq=max_seq or gen.max_seq)
+    device = _params_device(params)
+    out: Dict[int, np.ndarray] = {}
+    t0 = monotonic()
+    for g in order:
+        batch = {"tokens": to_device(np.stack([r.tokens for r in g]), device)}
+        for k in g[0].extras:
+            batch[k] = to_device(np.stack([r.extras[k] for r in g]), device)
+        res = generate(params, batch, cfg, g2, seed=seed)
+        toks, lens = fetch((res.tokens, res.lengths))
+        for i, r in enumerate(g):
+            n = min(int(lens[i]), r.max_new or gen.max_new)
+            out[r.rid] = toks[i, :n]
+    return out, monotonic() - t0

@@ -9,14 +9,21 @@ is a JAX compile-unit device with no counterpart here. What carries over:
   * each chunk is split into maximal runs of equal host-drawn consensus
     bits (``same_decision_runs``, the reference's host_cond strategy);
   * every step's metrics stay on the device and are fetched once per
-    chunk (one device-to-host sync per chunk: batches are copied in from
-    pinned memory without a sync, and the learning rate and the drop bit
-    live on the host);
+    chunk (``analysis.hostsync.fetch``, the chunk's one device-to-host
+    sync: batches are copied in from pinned memory without a sync, and the
+    learning rate and the drop bit live on the host);
   * checkpoint and resume at the ABSOLUTE step: after a restore, the data
     stream and the consensus bits continue where the run left off;
   * history records carry loss, acc, lr and tok/s, where tok/s counts the
-    decoder ``tokens`` AND the encoder ``enc_tokens``, and the ``comm_*``
-    wire counters of the step's forward;
+    decoder ``tokens`` AND the encoder ``enc_tokens``, the ``comm_*``
+    wire counters of the step's forward and, with the MetricsFrame on,
+    ``router_entropy``, ``load_imbalance`` (of ``expert_load``,
+    ``obs.frame.load_imbalance``) and ``gate_dropped``;
+  * spans on the tracer (default the process's): ``train_chunk`` per
+    chunk, ``chunk.execute`` per same-decision run (under a
+    ``torch.profiler`` annotation ``train_chunk``), ``chunk.fetch``
+    around the fetch, ``eval`` per evaluation, and the Prefetcher's
+    ``prefetch.produce`` / ``prefetch.wait``;
   * evaluation (``eval_fn``, BLEU in the CLI) every ``eval_every`` steps
     and at the last: the schedule cuts chunks so that every eval step ends
     one, and the eval sees the params after that step. A record's clock
@@ -30,18 +37,20 @@ its block of experts (``bridge.shard_experts``).
 from __future__ import annotations
 
 import json
-import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.hostsync import fetch
 from repro_torch.bridge import shard_experts
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.gating_dropout import drop_decisions_host
 from repro_torch.data.prefetch import Prefetcher, stack_batches
 from repro_torch.models import init_model
+from repro_torch.obs.frame import load_imbalance
+from repro_torch.obs.trace import Tracer, get_tracer, monotonic
 from repro_torch.training.steps import init_train_state, make_train_step
 
 # tokens a step consumes: decoder tokens AND (for enc-dec tasks) encoder
@@ -90,7 +99,8 @@ class Trainer:
     callable for per-record lines (default: print as JSON); None disables
     printing (history is still returned). ``ctx``: the expert-parallel
     context; ``params`` are then this rank's (default: the full seeded
-    init, sharded).
+    init, sharded). ``tracer``: where the spans go (default the process's
+    tracer, disabled unless a launcher set one).
     """
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
@@ -100,7 +110,8 @@ class Trainer:
                  eval_every: int = 0,
                  eval_fn: Optional[Callable[[Any, int], Dict]] = None,
                  log_every: int = 20, prefetch: bool = True,
-                 log: Optional[Callable[[str], None]] = print):
+                 log: Optional[Callable[[str], None]] = print,
+                 tracer: Optional[Tracer] = None):
         if ckpt_dir and ctx is not None and ctx.ep > 1:
             raise NotImplementedError(
                 "checkpoints of an expert-parallel run (gathered save and "
@@ -124,6 +135,7 @@ class Trainer:
         self.start_step = 0
         self.history: List[Dict] = []
         self.step_fn = make_train_step(cfg, tc, ctx)
+        self.tracer = tracer if tracer is not None else get_tracer()
 
     def restore(self) -> int:
         """Restore params, optimizer state and step from ``ckpt_dir``; the
@@ -160,36 +172,58 @@ class Trainer:
     def _run_chunk(self, span: Tuple[int, int], stacked: Dict[str, np.ndarray]
                    ) -> Dict[str, np.ndarray]:
         """Run one chunk's steps; returns their metrics stacked over the
-        span, fetched from the device at once."""
+        span, fetched from the device at once (the chunk's one sync)."""
         s, e = span
+        tr = self.tracer
         per_step = []
         for rs, re, dec in same_decision_runs(self.gd, self.tc.seed, s, e):
-            for i in range(rs, re):
-                batch = to_device({k: v[i - s] for k, v in stacked.items()},
-                                  self.device)
-                self.state, m = self.step_fn(self.state, batch, dec)
-                per_step.append(m)
-        fetched = {k: torch.stack([torch.as_tensor(m[k]) for m in per_step]).cpu()
-                   for k in per_step[0] if torch.is_tensor(per_step[0][k])}
-        out = {k: v.numpy() for k, v in fetched.items()}
-        for k in per_step[0]:
+            with tr.span("chunk.execute", start=rs, stop=re, decision=bool(dec)), \
+                    tr.annotation("train_chunk"):
+                for i in range(rs, re):
+                    batch = to_device({k: v[i - s] for k, v in stacked.items()},
+                                      self.device)
+                    self.state, m = self.step_fn(self.state, batch, dec)
+                    per_step.append(m)
+        keys = per_step[0]
+        dev = {k: torch.stack([m[k] for m in per_step])
+               for k in keys if torch.is_tensor(keys[k])}
+        groups: Dict[torch.device, List[str]] = {}
+        for k, t in dev.items():
+            groups.setdefault(t.device, []).append(k)
+        with tr.span("chunk.fetch", start=s, stop=e):
+            # one copy per device the metrics live on (under a group some
+            # are host tensors): each device's metrics as f64 (exact for
+            # f32 and ints) in one buffer
+            flat = fetch([torch.cat([dev[k].reshape(-1).double() for k in ks])
+                          for ks in groups.values()])
+        out = {}
+        for ks, buf in zip(groups.values(), flat):
+            at = 0
+            for k in ks:
+                n = dev[k].numel()
+                out[k] = buf[at:at + n].reshape(dev[k].shape)
+                at += n
+        for k in keys:
             if k not in out:
                 out[k] = np.asarray([m[k] for m in per_step])
         return out
 
     def run(self) -> Tuple[Any, List[Dict]]:
         spans = self.schedule()
-        fetch = lambda span: stack_batches(self.batch_fn, *span)  # noqa: E731
-        it = Prefetcher(fetch, spans) if self.prefetch else map(fetch, spans)
+        batches = lambda span: stack_batches(self.batch_fn, *span)  # noqa: E731
+        it = (Prefetcher(batches, spans, tracer=self.tracer) if self.prefetch
+              else map(batches, spans))
         rec_steps, eval_steps = self._record_steps(), self._eval_steps()
-        tokens_done, t0 = 0, time.perf_counter()
+        tokens_done, t0 = 0, monotonic()
         try:
             for span, stacked in zip(spans, it):
                 s, e = span
                 tok_per_step = sum(int(stacked[k][0].size)
                                    for k in TOKEN_KEYS if k in stacked)
-                ms = self._run_chunk(span, stacked)
-                el = time.perf_counter() - t0
+                with self.tracer.span("train_chunk", start=s, stop=e,
+                                      tokens=(e - s) * tok_per_step):
+                    ms = self._run_chunk(span, stacked)
+                el = monotonic() - t0
                 tokens_done += (e - s) * tok_per_step
                 for i in range(s, e):
                     if i not in rec_steps:
@@ -201,12 +235,19 @@ class Trainer:
                            "tok_s": tokens_done / max(el, 1e-9),
                            "time_s": el}
                     for k in ("balance", "comm_wire_bytes", "comm_a2a_calls",
-                              "comm_exposed_bytes", "comm_hidden_bytes",
-                              "router_entropy", "gate_dropped"):
+                              "comm_exposed_bytes", "comm_hidden_bytes"):
                         if k in ms:
                             rec[k] = float(ms[k][j])
+                    if "router_entropy" in ms:
+                        # the MetricsFrame's router health, on the host
+                        # since the chunk's fetch
+                        rec["router_entropy"] = float(ms["router_entropy"][j])
+                        rec["load_imbalance"] = float(load_imbalance(
+                            ms["expert_load"][j]))
+                        rec["gate_dropped"] = float(ms["gate_dropped"][j])
                     if i in eval_steps:    # the schedule makes i == e - 1
-                        rec.update(self.eval_fn(self.state, i))
+                        with self.tracer.span("eval", step=i):
+                            rec.update(self.eval_fn(self.state, i))
                     self.history.append(rec)
                     if self.log is not None:
                         self.log(json.dumps(rec))

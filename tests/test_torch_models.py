@@ -239,9 +239,11 @@ def test_port_imports_no_jax_and_no_reference():
         "        'repro_torch.serve.scheduler', 'repro_torch.obs.registry',\n"
         "        'repro_torch.obs.trace', 'repro_torch.kernels.flash_decode',\n"
         "        'repro_torch.comm', 'repro_torch.comm.cost', 'repro_torch.comm.substrate',\n"
-        "        'repro_torch.metrics', 'repro_torch.metrics.bleu', 'repro_torch.launch.mesh'}\n"
+        "        'repro_torch.metrics', 'repro_torch.metrics.bleu', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.obs.frame', 'repro_torch.analysis.hostsync',\n"
+        "        'repro_torch.analysis.launches'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
-        "assert len(mods) >= 49, mods\n"
+        "assert len(mods) >= 53, mods\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -5,9 +5,11 @@ d_ff 128, vocab 97, non-binding eval capacity = n_experts, f32).
 Greedy per-request tokens of the port's ``ContinuousScheduler``,
 ``PagedScheduler`` and ``PagedScheduler`` with B6 (its plain version on
 the CPU) equal the reference ``PagedScheduler``'s, and the paged
-scheduler's counters equal the reference's, on four traces: EOS off, EOS
+scheduler's counters and its tracer's sequence of spans and instants
+(names and arguments) equal the reference's, on four traces: EOS off, EOS
 on, a shared-prefix trace (prefix hits) and an exhausted arena
 (preemption and swap-in); with the ``oracle`` and ``cuda`` MoE backends.
+The static-batching baseline gives the reference's tokens.
 The reference's runs (Pallas-free, oracle backend) are shared through a
 module fixture. Sampling: a request's samples do not depend on its row or
 batch, and equal the reference's (JAX's threefry keys and Gumbel noise).
@@ -27,16 +29,20 @@ from repro.configs import PagedKVConfig as JaxPagedKVConfig  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import reduced as jax_reduced  # noqa: E402
 from repro.models import init_model as jax_init_model  # noqa: E402
+from repro.obs import Tracer as JaxTracer  # noqa: E402
 from repro.serve import ContinuousScheduler as JaxContinuousScheduler  # noqa: E402
 from repro.serve import GenerateConfig as JaxGenerateConfig  # noqa: E402
 from repro.serve import PagedScheduler as JaxPagedScheduler  # noqa: E402
 from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve import generate as jax_generate  # noqa: E402
+from repro.serve.scheduler import static_batch_serve as jax_static_batch_serve  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import PagedKVConfig, get_config, reduced  # noqa: E402
 from repro_torch.launch import serve as cli  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.serve import (ContinuousScheduler, GenerateConfig,  # noqa: E402
-                               PagedScheduler, Request, generate)
+                               PagedScheduler, Request, generate,
+                               static_batch_serve)
 from repro_torch.serve.engine import _select_rows  # noqa: E402
 
 REDUCED = dict(d_model=64, n_layers=2, d_ff=128, vocab=97)
@@ -98,18 +104,27 @@ def _reqs(cls, spec, **kw):
             for i, t, s, m in spec]
 
 
+def _events(tracer):
+    """A tracer's (phase, name, arguments) sequence, clock readings left
+    out."""
+    return [(ph, name, args) for ph, name, _, _, _, args in tracer.events]
+
+
 @pytest.fixture(scope="module")
 def refs(model):
-    """The reference PagedScheduler's tokens and counters per case, and
-    the EOS case built from the base case's output."""
+    """The reference PagedScheduler's tokens, counters and tracer events
+    per case, and the EOS case built from the base case's output."""
     jcfg, jp, _ = model
     out = {}
 
     def run(gen_kw, paged_kw, spec):
+        tracer = JaxTracer()
         sched = JaxPagedScheduler(jp, jcfg, JaxGenerateConfig(**gen_kw),
-                                  paged=JaxPagedKVConfig(**paged_kw), **SCHED)
+                                  paged=JaxPagedKVConfig(**paged_kw), tracer=tracer,
+                                  **SCHED)
         res = sched.run(_reqs(JaxRequest, spec))
-        return {r.rid: np.asarray(r.tokens) for r in res}, dict(sched.stats)
+        return ({r.rid: np.asarray(r.tokens) for r in res}, dict(sched.stats),
+                _events(tracer))
 
     for name, (gen_kw, paged_kw, req_kw) in CASES.items():
         out[name] = run(gen_kw, paged_kw, _requests(**req_kw))
@@ -134,14 +149,22 @@ def _port(cls, model, backend, gen_kw, paged_kw, spec, **extra):
 @pytest.mark.parametrize("case", ["base", "eos", "prefix", "exhausted"])
 def test_schedulers_match_reference_paged_scheduler(refs, model, case, backend):
     ref_out, cases = refs
-    want, want_stats = ref_out[case]
+    want, want_stats, want_events = ref_out[case]
     gen_kw, paged_kw, req_kw = cases[case]
     spec = _requests(**req_kw)
     slot, ss = _port(ContinuousScheduler, model, backend, gen_kw, paged_kw, spec)
     for flash in (False, True):
         g = dict(gen_kw, flash_decode=flash)
-        paged, ps = _port(PagedScheduler, model, backend, g, paged_kw, spec)
+        paged, ps = _port(PagedScheduler, model, backend, g, paged_kw, spec,
+                          tracer=Tracer())
         assert ps.stats == want_stats, (flash, ps.stats, want_stats)
+        assert _events(ps.tracer) == want_events, flash
+    names = {name for _, name, _ in want_events}
+    assert {"sched.admit", "sched.decode", "prefix_cache.miss", "sched.cow_flush"} <= names
+    if case == "exhausted":
+        assert {"sched.preempt.swap_out", "sched.swap_in"} <= names
+    if case == "prefix":
+        assert "prefix_cache.hit" in names
         for rid, toks in want.items():
             np.testing.assert_array_equal(paged[rid], toks, err_msg=f"{flash} {rid}")
         ps._pages.check()
@@ -166,7 +189,7 @@ def test_scheduler_tokens_equal_oneshot_generate(refs, model):
     """Every request's scheduled tokens equal a one-shot B=1 ``generate``
     at the pool's cache length (bridged weights, kernel backend)."""
     ref_out, cases = refs
-    want, _ = ref_out["base"]
+    want = ref_out["base"][0]
     gen_kw, _, req_kw = cases["base"]
     _, _, tp = model
     for rid, toks, src, budget in _requests(**req_kw):
@@ -176,6 +199,24 @@ def test_scheduler_tokens_equal_oneshot_generate(refs, model):
                             "enc_tokens": torch.from_numpy(src[None]).long()},
                        _tcfg("cuda"), g)
         np.testing.assert_array_equal(res.tokens[0].numpy(), want[rid])
+
+
+def test_static_batch_serve_matches_reference(model):
+    """The static-batching baseline: FIFO same-length batches of at most
+    2 (lengths 6, 6, 9, 9, 6: batches {0, 1}, {2, 3}, {4}) through the
+    one-shot engine, each output cut to its budget, equal the reference's
+    on the same requests and weights."""
+    jcfg, jp, tp = model
+    spec = _requests(5, lens=(6, 6, 9, 9, 6), budgets=(4, 7, 5))
+    kw = dict(max_new=7, eos_id=-1)
+    want, _ = jax_static_batch_serve(jp, jcfg, JaxGenerateConfig(**kw),
+                                     _reqs(JaxRequest, spec), batch_size=2)
+    got, wall = static_batch_serve(tp, _tcfg("oracle"), GenerateConfig(**kw),
+                                   _reqs(Request, spec), batch_size=2)
+    assert sorted(got) == sorted(want) == list(range(5)) and wall > 0
+    for rid, _, _, budget in spec:
+        assert len(got[rid]) == budget
+        np.testing.assert_array_equal(got[rid], want[rid], err_msg=str(rid))
 
 
 def _same_prompt_spec():

@@ -42,6 +42,7 @@ from repro.data import MTTaskConfig as JaxMTC  # noqa: E402
 from repro.data import MultilingualMT as JaxMT  # noqa: E402
 from repro.data import SyntheticLM as JaxLM  # noqa: E402
 from repro.models import init_model as jax_init_model  # noqa: E402
+from repro.obs.frame import load_imbalance as jax_load_imbalance  # noqa: E402
 from repro.optim import adam as JA  # noqa: E402
 from repro.training import init_train_state as jax_init_state  # noqa: E402
 from repro.training import make_train_step as jax_make_step  # noqa: E402
@@ -297,6 +298,26 @@ def test_train_steps_match_reference(port_backend, jax_backend, microbatches, ja
         np.testing.assert_allclose(_np(tparams[key]), want, atol=2e-4, err_msg=key)
     for key, t in flatten_with_paths(state["opt"]["m"]).items():
         np.testing.assert_allclose(_np(t), jopt["m/" + key], atol=1e-6, err_msg=key)
+
+
+def test_trainer_records_carry_the_reference_load_imbalance(jax_runs):
+    """The Trainer's records over the 3 reference-matched steps (one
+    chunk, bridged weights) carry the MetricsFrame's router health; their
+    ``load_imbalance`` is the reference's ``load_imbalance`` of its steps'
+    ``expert_load``, within the steps' 2e-4."""
+    init, jms, _, _ = jax_runs("pallas", 1)
+    _, tcfg = _train_cfgs("cuda", "pallas")
+    tc = TrainConfig(lr=1e-3, warmup_steps=2, seed=0, steps=N_STEPS)
+    trainer = Trainer(tcfg, tc, _mt_batches(tcfg), device=torch.device("cpu"),
+                      params=bridge.to_torch(init, "cpu"), chunk=N_STEPS,
+                      log_every=1, prefetch=False, log=None)
+    _, history = trainer.run()
+    assert [r["step"] for r in history] == list(range(N_STEPS))
+    for rec, jm in zip(history, jms):
+        want = float(jax_load_imbalance(np.asarray(jm["expert_load"])))
+        assert rec["load_imbalance"] == pytest.approx(want, abs=2e-4)
+        assert rec["gate_dropped"] == float(jm["gate_dropped"])
+        assert rec["router_entropy"] == pytest.approx(float(jm["router_entropy"]), abs=2e-5)
 
 
 def test_gate_expert_drop_step_skips_the_experts():
