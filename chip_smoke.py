@@ -238,10 +238,11 @@ def host_ms(fn, calls: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
-def in_turns(*fns):
+def in_turns(*fns, depth=()):
     """Device ms of each of ``fns`` timed in turns (a, b, .., b, a), each
-    the mean of its two readings."""
-    ms = [device_ms(f) for f in (*fns, *fns[::-1])]
+    the mean of its two readings; ``depth``, if given, is device_ms's
+    (reps, replays)."""
+    ms = [device_ms(f, *depth) for f in (*fns, *fns[::-1])]
     return tuple((ms[i] + ms[-1 - i]) / 2 for i in range(len(fns)))
 
 
@@ -373,8 +374,12 @@ class Capture:
 
     SERVE = ("dispatch", "combine", "grouped_matmul", "flash_decode")
 
-    def __init__(self, all_calls: bool = False, names=SERVE):
+    def __init__(self, all_calls: bool = False, names=SERVE, share_over: int = 0):
         self.all_calls = all_calls
+        # tensors of more than ``share_over`` bytes (0: none) are kept by
+        # reference, not cloned: phase dec's expert weights (4.2 GB each),
+        # which serving never writes
+        self.share_over = share_over
         from repro_torch.kernels import (flash_decode, grouped_ffn, moe_dispatch,
                                          moe_megakernel)
         mods = {"dispatch": moe_dispatch, "combine": moe_dispatch,
@@ -396,7 +401,9 @@ class Capture:
                 if self.all_calls or key not in _seen:
                     _seen.add(key)
                     self.calls[_name].append((tuple(
-                        a.detach().clone() if torch.is_tensor(a) else a
+                        (a.detach() if self.share_over and
+                         a.numel() * a.element_size() > self.share_over
+                         else a.detach().clone()) if torch.is_tensor(a) else a
                         for a in args), dict(kw)))
                 return _orig(*args, **kw)
 
@@ -610,7 +617,8 @@ def library_of(name, args):
         k4, v4 = k.transpose(1, 2), v.transpose(1, 2)
         pos = torch.arange(s, device=k.device)[None, :]
         mask = (pos <= torch.as_tensor(idx).reshape(-1, 1))[:, None, None, :]
-        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+        gqa = {"enable_gqa": True} if q.shape[1] != k.shape[2] else {}
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, **gqa)
     if name == "flash_decode_paged":       # two calls: no one call reads pages
         q, k, v, bt, idx = args
         b, nb, ps = q.shape[0], bt.shape[1], k.shape[1]
@@ -618,11 +626,12 @@ def library_of(name, args):
         q4 = q.to(k.dtype)[:, :, None, :]
         pos = torch.arange(nb * ps, device=k.device)[None, :]
         mask = (pos <= idx.long()[:, None])[:, None, None, :]
+        gqa = {"enable_gqa": True} if q.shape[1] != k.shape[2] else {}
 
         def library():
             gk = k.index_select(0, flat).reshape(b, nb * ps, *k.shape[2:]).transpose(1, 2)
             gv = v.index_select(0, flat).reshape(b, nb * ps, *v.shape[2:]).transpose(1, 2)
-            return F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask)
+            return F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask, **gqa)
 
         return library
     raise KeyError(name)
@@ -673,36 +682,44 @@ def kernel_phase(calls, dev):
         if len(calls[name]) > 1:
             sites.insert(0, ("prefill", calls[name][0][0]))
         for site, args in sites:
-            if name == "combine":
-                timing[(name, site)] = combine_site(site, args)
-                continue
-            nbytes, flops, wdt = work(name, args)
-            b_ms, b_by = bound(nbytes, flops, wdt)
-            k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
-            p_ms = device_ms(lambda: plain_of(name)(*args))
-            shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
-            note = ""
-            if name == "grouped_matmul":
-                note = (f" (torch.bmm, timed in turns with the kernel; {b1_variant(name, args)} "
-                        f"variant, {b_ms / k_ms * 100:.1f}% of the bound)")
-            elif name == "dispatch":
-                note = (f" (index_select, timed in turns with the kernel: kernel / library "
-                        f"{k_ms / l_ms:.3f})")
-            elif name == "flash_decode":
-                note = f" (SDPA, timed in turns with the kernel; n_split {n_split_of(args)})"
-            log(f"time {name}@{site} [{shape}]: kernel {k_ms:.6f} ms, bound "
-                f"{b_ms:.6f} ms ({b_by}), plain {p_ms:.6f} ms, library "
-                f"{l_ms:.6f} ms" + note)
-            timing[(name, site)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                        bound_by=b_by, library_ms=l_ms,
-                                        shape=shape)
-            if name == "flash_decode":
-                timing[(name, site)]["n_split"] = n_split_of(args)
+            timing[(name, site)] = (combine_site(site, args) if name == "combine"
+                                    else time_site(name, site, args))
     timing[("flash_decode", "floor")] = b5_floor(calls["flash_decode"][-1][0])
     decode = calls["combine"][-1][0]
     timing[("combine", "pair")] = pdl_pair("decode", calls["grouped_matmul"][-1][0], decode)
     timing[("launch_floor", "decode")] = launch_floor(-(-decode[1].shape[0] // 4))
     return out, timing
+
+
+LIBRARY_NAMES = {"grouped_matmul": "torch.bmm", "dispatch": "index_select",
+                 "flash_decode": "SDPA"}
+
+
+def time_site(name, site, args, label="", depth=()):
+    """B1's forward, B2 or B5 at one site: timed in turns with its library
+    call, the plain version alone, and the bound from these inputs
+    (``depth`` as in ``in_turns``)."""
+    nbytes, flops, wdt = work(name, args)
+    b_ms, b_by = bound(nbytes, flops, wdt)
+    k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args),
+                          depth=depth)
+    p_ms = device_ms(lambda: plain_of(name)(*args), *depth)
+    shape = " x ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
+    t = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+             shape=shape)
+    note = ""
+    if name == "grouped_matmul":
+        t["variant"] = b1_variant(name, args)
+        note = f"; {t['variant']} variant"
+    elif name == "dispatch":
+        note = f"; kernel / library {k_ms / l_ms:.3f}"
+    elif name == "flash_decode":
+        t["n_split"] = n_split_of(args)
+        note = f"; n_split {t['n_split']}"
+    log(f"time {label}{name}@{site} [{shape}]: kernel {k_ms:.6f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}; {b_ms / k_ms * 100:.1f}% of it), plain {p_ms:.6f} ms, library "
+        f"{l_ms:.6f} ms ({LIBRARY_NAMES[name]}, timed in turns with the kernel{note})")
+    return t
 
 
 def combine_no_pdl(buf, ts, w, keep):
@@ -904,6 +921,7 @@ def decode_graph(label, params, batch, cfg, decode_ms, dev):
     with CallCount() as calls:
         decode_pool_step(params, pool, tok, pos, alive, cfg, flash_decode=True)
     log(f"{label}: {calls.n} PyTorch calls from Python per eager decode step")
+    return graph_ms
 
 
 def fused_slice_phase(params, batch, cfg, gen, dev, cuda_tokens):
@@ -1000,9 +1018,10 @@ def near_tie_gaps(params, batch, cfg, a, b, dev):
     return gaps
 
 
-def e2e_phase(params, batch, cfg, gen, dev):
+def e2e_phase(params, batch, cfg, gen, dev, label="e2e"):
     """Kernel path (cuda MoE backend, flash decode) against the plain path
-    (oracle MoE, plain decode attention) in f32 activations. Gates the
+    (oracle MoE, plain decode attention) in f32 activations (a dense
+    model: flash decode against plain decode attention). Gates the
     prefill logits and N_FORCED decode steps' logits, both paths fed the
     same random tokens (random weights collapse greedy decoding onto few
     tokens, so greedy outputs alone would drive decode with one input).
@@ -1013,14 +1032,14 @@ def e2e_phase(params, batch, cfg, gen, dev):
     from repro_torch.serve.engine import decode_pool_step
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    plain32 = dataclasses.replace(cfg32, moe=dataclasses.replace(cfg32.moe,
-                                                                 backend="oracle"))
+    plain32 = cfg32 if cfg32.moe is None else dataclasses.replace(
+        cfg32, moe=dataclasses.replace(cfg32.moe, backend="oracle"))
     lk, ck = prefill(params, batch, cfg32, max_seq=PROMPT + MAX_NEW)
     lp, cp = prefill(params, batch, plain32, max_seq=PROMPT + MAX_NEW)
     if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
         raise AssertionError("non-finite f32 prefill logits")
     d_pre = float((lk - lp).abs().max())
-    log(f"e2e f32: prefill logits {tuple(lk.shape)} (max |logit| "
+    log(f"{label} f32: prefill logits {tuple(lk.shape)} (max |logit| "
         f"{float(lp.abs().max()):.3f}) kernel vs plain path max abs diff "
         f"{d_pre:.3e} (tol {E2E_LOGIT_ATOL})")
     if d_pre > E2E_LOGIT_ATOL:
@@ -1040,7 +1059,7 @@ def e2e_phase(params, batch, cfg, gen, dev):
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError(f"non-finite f32 decode logits at step {i}")
         d_dec = max(d_dec, float((a - b).abs().max()))
-    log(f"e2e f32: {N_FORCED} teacher-forced decode steps (random tokens), logits "
+    log(f"{label} f32: {N_FORCED} teacher-forced decode steps (random tokens), logits "
         f"kernel vs plain path max abs diff {d_dec:.3e} (tol {E2E_LOGIT_ATOL})")
     if d_dec > E2E_LOGIT_ATOL:
         raise AssertionError(f"decode logits differ by {d_dec}")
@@ -1051,10 +1070,11 @@ def e2e_phase(params, batch, cfg, gen, dev):
                       seed=SEED)
         agree = float((rk.tokens == rp.tokens).float().mean())
         per_row = sum(len(set(r)) for r in rk.tokens.tolist()) / BATCH
-        log(f"e2e f32: {mode} tokens agree on {agree * 100:.1f}% of "
+        log(f"{label} f32: {mode} tokens agree on {agree * 100:.1f}% of "
             f"{rk.tokens.numel()} (reported, not gated: near-tie expert flips may "
             f"split the runs); {len(set(rk.tokens.flatten().tolist()))} distinct "
             f"tokens, {per_row:.1f} per row of {MAX_NEW}")
+    return d_pre, d_dec
 
 
 def sensitivity(params, batch, cfg, dev):
@@ -1304,10 +1324,11 @@ def b4_pipeline(args, kw):
     return pipeline
 
 
-def b4_site(site, args, kw):
+def b4_site(site, args, kw, depth=()):
     """B4 at one site: against its plain version and the cuda pipeline, the
     same bits on a second run at top-1, then timed in turns with the
-    pipeline (kernel, pipeline, pipeline, kernel). Returns its timing."""
+    pipeline (kernel, pipeline, pipeline, kernel; ``depth`` as in
+    ``in_turns``). Returns its timing."""
     from repro_torch.kernels import moe_megakernel
     out, took = run_kernel("fused_moe", args, kw)
     torch.cuda.synchronize()
@@ -1320,8 +1341,9 @@ def b4_site(site, args, kw):
     x, w_in, _, _, topk_w, keep, st, _, ts = args
     live = int(moe_megakernel.live_experts(topk_w, keep, ts, w_in.shape[0], st.shape[0]).sum())
     b_ms, b_by = bound(*work("fused_moe", args))
-    k_ms, pipe_ms = in_turns(lambda: kernel_of("fused_moe")(*args, **kw), pipeline)
-    p_ms = device_ms(lambda: plain_of("fused_moe")(*args, **kw))
+    k_ms, pipe_ms = in_turns(lambda: kernel_of("fused_moe")(*args, **kw), pipeline,
+                             depth=depth)
+    p_ms = device_ms(lambda: plain_of("fused_moe")(*args, **kw), *depth)
     # serving sites: the host's dispatch cost per call, beside the device's
     host = {name: host_ms(fn) for name, fn in (
         ("kernel", lambda: kernel_of("fused_moe")(*args, **kw)), ("pipeline", pipeline))
@@ -2245,9 +2267,10 @@ def obs_phase(full, dev):
 # phase 7: the serving schedulers and B6
 # ---------------------------------------------------------------------------
 
-def sched_trace(vocab: int):
+def sched_trace(vocab: int, sources: bool = True):
     """TRACE_N requests queued at t = 0, drawn from seed SEED + 7: budgets
-    uniform over [2, TRACE_BUDGET], SRC_TOKENS source tokens each. Odd
+    uniform over [2, TRACE_BUDGET], SRC_TOKENS source tokens each (drawn
+    and left out with ``sources=False``: the decoder-only archs). Odd
     requests: prompts uniform over [2, TRACE_PROMPT] tokens. Even requests
     (half) share one TRACE_PREFIX-token prompt prefix (two full pages at
     PAGE_SIZE 16) and one source sentence, with a tail uniform over [1,
@@ -2269,7 +2292,7 @@ def sched_trace(vocab: int):
             toks = rs.randint(3, vocab, int(rs.randint(2, TRACE_PROMPT + 1)))
             src = rs.randint(3, vocab, SRC_TOKENS)
         reqs.append(Request(rid=i, tokens=toks.astype(np.int64),
-                            extras={"enc_tokens": src.astype(np.int64)},
+                            extras={"enc_tokens": src.astype(np.int64)} if sources else {},
                             max_new=budget, arrival=0.0))
     return reqs
 
@@ -2362,7 +2385,7 @@ def oneshot_check(params, cfg, gen, reqs, want, max_seq, dev):
     n_equal, gaps = 0, []
     for r in reqs:
         batch = {"tokens": torch.as_tensor(r.tokens[None], device=dev),
-                 "enc_tokens": torch.as_tensor(r.extras["enc_tokens"][None], device=dev)}
+                 **{k: torch.as_tensor(v[None], device=dev) for k, v in r.extras.items()}}
         one = generate(params, batch, cfg, dc.replace(gen, max_new=r.max_new,
                                                        max_seq=max_seq))
         got = one.tokens[0].cpu().numpy()
@@ -2791,7 +2814,389 @@ def deep_decode_graph(params, batch, cfg, dev):
 # main
 # ---------------------------------------------------------------------------
 
-def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve, fc):
+# ---------------------------------------------------------------------------
+# phase dec: the decoder-only family with full attention
+# ---------------------------------------------------------------------------
+
+DBRX_LAYERS = 2          # dbrx-132b's depth cut: at 40 layers (131.6 B) it fits no H100
+DEC_LM_STEPS = 3         # reduced dbrx --task lm steps; seed 0's drop bits are 0, 0, 1
+DEC_LM_BATCH, DEC_LM_SEQ = 16, 64
+HEAVY_DEPTH = (2, 5)     # device_ms depth at dbrx's prefill sites (tens of ms a call)
+SHARE_OVER = 1 << 30     # captured tensors kept by reference past 1 GiB (expert weights)
+
+
+def dec_cfg(arch: str, backend=None, dtype=None):
+    """The arch at full width (dbrx-132b at DBRX_LAYERS layers), its MoE
+    on ``backend``, activations in ``dtype`` (default the config's)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "dbrx-132b":
+        cfg = dataclasses.replace(cfg, n_layers=DBRX_LAYERS)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if backend and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, backend=backend))
+    return cfg
+
+
+def dec_model(cfg, dev):
+    """Seeded weights on the card and the 8 x 32-token prompt batch."""
+    from repro_torch.launch.serve import generator, synth_batch
+    from repro_torch.models import init_model
+    t0 = time.perf_counter()
+    params = init_model(generator(dev, SEED, 0), cfg)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"dec model: {cfg.arch_id} at {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}: {n / 1e9:.3f} B params "
+        f"(analytic {cfg.n_params() / 1e9:.3f} B), {n * 4 / 1e9:.1f} GB in f32, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params, synth_batch(cfg, generator(dev, SEED, 1), BATCH, PROMPT)
+
+
+def dec_generate(label, params, batch, cfg, gen, expect):
+    """One counted ``generate`` after a warm-up: the launch counts equal
+    ``expect(steps)`` (every other wrapper 0), the tokens are in range.
+    Returns (counts, streaming counts, result)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import generate
+    generate(params, batch, cfg, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = generate(params, batch, cfg, gen)
+    torch.cuda.synchronize()
+    counts, streamed = launch_counts(), streamed_counts()
+    want = {**{k: 0 for k in counts}, **expect(res.steps)}
+    log(f"dec {label}: launches {counts}, expected {want}; streaming {streamed}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != want:
+        raise AssertionError(f"dec {label}: launches {counts} != {want}")
+    toks = res.tokens
+    if toks.shape != (BATCH, MAX_NEW) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"dec {label}: bad tokens {tuple(toks.shape)}")
+    log(f"dec {label}: first row {toks[0].tolist()} ({len(set(toks.flatten().tolist()))} "
+        "distinct tokens in the batch)")
+    return counts, streamed, res
+
+
+def dec_timed(label, params, batch, cfg, gen):
+    """The serving CLI's timed rounds (median and spread)."""
+    from repro_torch.launch.serve import TIMED_ROUNDS, spread, time_generate
+    med, rounds, _ = time_generate(params, batch, cfg, gen)
+    log(f"dec {label}: median of {TIMED_ROUNDS} rounds [min, max] (8 x 32 prompt tokens, "
+        f"{MAX_NEW - 1} decode steps): prefill {med['prefill_ms']:.2f} ms "
+        f"{spread(rounds['prefill_ms'])}, decode {med['decode_ms_per_step']:.2f} ms/step "
+        f"{spread(rounds['decode_ms_per_step'])}, total {med['total_ms']:.2f} ms "
+        f"{spread(rounds['total_ms'])}, {med['tok_s']:.0f} tokens/s {spread(rounds['tok_s'])}")
+    return dict(median=med, rounds=rounds)
+
+
+def dec_site(label, name, site, args, depth=()):
+    """A kernel at one captured site: against its plain version (B2
+    bitwise), then ``time_site``."""
+    out, _ = run_kernel(name, args)
+    torch.cuda.synchronize()
+    err = check(f"{label} {name}@{site}", out, plain_of(name)(*args), exact=name == "dispatch")
+    return dict(time_site(name, site, args, f"{label} ", depth), max_abs_err=err)
+
+
+def dec_schedulers(params, cfg, dev):
+    """yi-6b's trace through the slot pool (B5) and the page arena (B6)
+    once each, f32 activations: per-request tokens equal; launches per run
+    one B5 or B6 per layer per decode tick; B6 at its captured first
+    decode tick against its plain version, bitwise B5 on the gathered
+    cache, and timed. Returns (B6 timing, launches, max abs err, stats)."""
+    from repro_torch.serve import GenerateConfig
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = GenerateConfig(max_new=TRACE_BUDGET, eos_id=-1, flash_decode=True)
+    reqs = sched_trace(cfg.vocab, sources=False)
+    slot, ss, c_slot, w_slot = run_scheduler(params, cfg32, gen, reqs)
+    with Capture(names=("flash_decode_paged",)) as cap:
+        paged, ps, c_paged, w_paged = run_scheduler(params, cfg32, gen, reqs, paged=True)
+    for label, st, c, key in (("slot pool", ss.stats, c_slot, "flash_decode"),
+                              ("paged", ps.stats, c_paged, "flash_decode_paged")):
+        want = {k: 0 for k in c}
+        want[key] = cfg.n_layers * st["decode_steps"]
+        log(f"dec yi-6b {label} f32: {st}; launches {c}, expected {want}")
+        if c != want or st["finished"] != TRACE_N:
+            raise AssertionError(f"dec yi-6b {label}: launches {c} != {want} or {st}")
+    bad = [r.rid for r in reqs if not (paged[r.rid] == slot[r.rid]).all()]
+    if bad:
+        raise AssertionError(f"dec yi-6b: paged and slot-pool tokens differ for {bad}")
+    if ps.stats["prefix_hits"] == 0:
+        raise AssertionError(f"dec yi-6b: no prefix hit on a shared-prefix trace {ps.stats}")
+    log(f"dec yi-6b f32: the {TRACE_N} requests' tokens equal across the slot pool (B5, "
+        f"{w_slot:.2f} s) and the page arena (B6, {w_paged:.2f} s); prefix hits "
+        f"{ps.stats['prefix_hits']} on the prompt alone")
+    args = cap.calls["flash_decode_paged"][0][0]
+    del cap
+    err = b6_checks([args], dev)
+    return b6_timing(args), c_paged["flash_decode_paged"], err, dict(ps.stats)
+
+
+def dec_yi(dev):
+    """yi-6b at full width and depth: counted and timed generate through
+    B5, B5 at the decode site, the f32 gate, the schedulers."""
+    from repro_torch.serve import GenerateConfig, generate
+    cfg = dec_cfg("yi-6b")
+    params, batch = dec_model(cfg, dev)
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+    counts, _, _ = dec_generate("yi-6b", params, batch, cfg, gen,
+                                lambda steps: {"flash_decode": cfg.n_layers * steps})
+    timed = dec_timed("yi-6b", params, batch, cfg, gen)
+    with Capture(names=("flash_decode",)) as cap:
+        generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
+    torch.cuda.synchronize()
+    sites = {"decode": dec_site("yi-6b", "flash_decode", "decode",
+                                cap.calls["flash_decode"][-1][0])}
+    del cap
+    graph = decode_graph("dec yi-6b", params, batch, cfg, timed["median"]["decode_ms_per_step"],
+                         dev)
+    gemm = dense_gemm("yi-6b", params)
+    e2e = e2e_phase(params, batch, cfg, gen, dev, label="dec yi-6b e2e")
+    b6, b6_launches, b6_err, stats = dec_schedulers(params, cfg, dev)
+    del params, batch
+    torch.cuda.empty_cache()
+    return dict(launches=counts["flash_decode"], sites=sites, serve=timed,
+                e2e_logit_diff=dict(prefill=e2e[0], decode=e2e[1]),
+                decode_graph_ms=graph, ffn_gemm=gemm,
+                paged=dict(site=b6, launches=b6_launches, max_abs_err=b6_err, stats=stats))
+
+
+def dense_gemm(label, params):
+    """One decode-step GEMM of the first dense FFN, (8, d) x (d, d_ff) in
+    f32 as the model runs it (activations cast to the f32 weights, no
+    TF32), against the bytes of its weight: where a dense decode step's
+    device time goes."""
+    w = params["decoder"][0]["p0"]["ffn"]["w_in"][0]
+    x = torch.randn(BATCH, w.shape[0], device=w.device)
+    ms = device_ms(lambda: x @ w)
+    b_ms, b_by = bound(w.numel() * 4 + x.numel() * 4 + BATCH * w.shape[1] * 4,
+                       2.0 * BATCH * w.numel(), "float32")
+    log(f"time {label} FFN GEMM at decode [(8, {w.shape[0]}) x {tuple(w.shape)} f32, cuBLAS]: "
+        f"{ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}; {b_ms / ms * 100:.1f}% of it)")
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, shape=f"(8, {w.shape[0]}) x {tuple(w.shape)}")
+
+
+def dbrx_expect(backend: str, cfg):
+    """Launches of one dbrx ``generate`` of ``steps`` decode steps: each
+    MoE layer once at prefill and once per step (B2, three B1 (gated) and
+    B3 on ``cuda``; B4 on ``cuda_fused``), B5 per layer per step."""
+    n_moe = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
+
+    def expect(steps):
+        calls = n_moe * (1 + steps)
+        out = {"flash_decode": cfg.n_layers * steps}
+        if backend == "cuda":
+            out.update(dispatch=calls, combine=calls, grouped_matmul=3 * calls)
+        else:
+            out.update(fused_moe=calls)
+        return out
+    return expect, n_moe
+
+
+def dec_dbrx(dev):
+    """dbrx-132b at full width, DBRX_LAYERS layers: counted and timed
+    generates through cuda and cuda_fused with B5 (B1 and B4 streaming at
+    decode, tiled at prefill), every kernel at its captured prefill and
+    decode sites, the f32 gates (kernel vs plain logits; the tokens of the
+    two backends equal up to near-ties)."""
+    from repro_torch.serve import GenerateConfig, generate
+    cfg = dec_cfg("dbrx-132b", "cuda")
+    fused = dec_cfg("dbrx-132b", "cuda_fused")
+    params, batch = dec_model(cfg, dev)
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+    out = {"layers": cfg.n_layers, "serve": {}, "sites": {}, "launches": {}}
+    for backend, c in (("cuda", cfg), ("cuda_fused", fused)):
+        expect, n_moe = dbrx_expect(backend, c)
+        counts, streamed, res = dec_generate(f"dbrx-132b {backend}", params, batch, c, gen,
+                                             expect)
+        steps = res.steps
+        name = "grouped_matmul" if backend == "cuda" else "fused_moe"
+        per_call = 3 if backend == "cuda" else 1
+        # decode calls take the streaming kernel (C = 4), prefill calls the tiled one (C = 128)
+        want_streamed = per_call * n_moe * steps
+        if streamed[name] != want_streamed:
+            raise AssertionError(f"dbrx {backend}: {streamed[name]} of {counts[name]} {name} "
+                                 f"streaming, expected {want_streamed} (the prefill's "
+                                 f"{per_call * n_moe} tiled)")
+        out["launches"][backend] = {k: v for k, v in counts.items() if v}
+        out["launches"][backend]["streaming"] = streamed[name]
+    runs = {"cuda": [], "cuda_fused": []}
+    for backend in ("cuda", "cuda_fused", "cuda_fused", "cuda"):
+        runs[backend].append(dec_timed(f"dbrx-132b {backend} (in turns)", params, batch,
+                                       fused if backend == "cuda_fused" else cfg, gen))
+    out["serve"] = runs
+    out["decode_graph_ms"] = {
+        name: decode_graph(f"dec dbrx-132b {name}", params, batch, c,
+                           sum(r["median"]["decode_ms_per_step"] for r in runs[name]) / 2, dev)
+        for name, c in (("cuda", cfg), ("cuda_fused", fused))}
+
+    # every kernel at its prefill and decode sites
+    with Capture(names=("dispatch", "combine", "grouped_matmul", "flash_decode"),
+                 share_over=SHARE_OVER) as cap:
+        generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
+    torch.cuda.synchronize()
+    calls = cap.calls
+    del cap
+    for name in ("dispatch", "grouped_matmul", "combine", "flash_decode"):
+        sites = [("decode", calls[name][-1][0])]
+        if name != "flash_decode":
+            sites.insert(0, ("prefill", calls[name][0][0]))
+        for site, args in sites:
+            if name == "grouped_matmul":
+                want = "tiled" if site == "prefill" else "streaming"
+                if b1_variant(name, args) != want:
+                    raise AssertionError(f"dbrx B1@{site}: {b1_variant(name, args)}, not {want}")
+            if name == "combine":
+                t = combine_site(f"dbrx {site}", args)
+            else:
+                t = dec_site("dbrx-132b", name, site, args,
+                             HEAVY_DEPTH if site == "prefill" else ())
+            out["sites"][(name, site)] = t
+    del calls
+    with Capture(names=("fused_moe",), share_over=SHARE_OVER) as cap:
+        generate(params, batch, fused, dataclasses.replace(gen, max_new=2))
+    torch.cuda.synchronize()
+    calls = cap.calls["fused_moe"]
+    del cap
+    for site, i, want in (("prefill", 0, "tiled"), ("decode", -1, "streaming")):
+        t = b4_site(f"dbrx {site}", *calls[i], depth=HEAVY_DEPTH if site == "prefill" else ())
+        if t["variant"] != want:
+            raise AssertionError(f"dbrx B4@{site}: {t['variant']}, not {want}")
+        out["sites"][("fused_moe", site)] = t
+    del calls
+    torch.cuda.empty_cache()
+
+    # f32: the kernel path against the plain path, and the two backends' tokens
+    e2e = e2e_phase(params, batch, cfg, gen, dev, label="dec dbrx-132b e2e")
+    out["e2e_logit_diff"] = dict(prefill=e2e[0], decode=e2e[1])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    a = generate(params, batch, cfg32, gen).tokens
+    b = generate(params, batch, dataclasses.replace(fused, dtype="float32"), gen).tokens
+    gaps = near_tie_gaps(params, batch, cfg32, a, b, dev)
+    log(f"dec dbrx-132b f32: cuda_fused tokens equal the cuda backend's on "
+        f"{float((a == b).float().mean()) * 100:.1f}% of {a.numel()} (B4 adds a token's "
+        f"top-4 rows with atomics); divergences (row, first token, top-two logit gap): {gaps}")
+    if any(gap >= NEAR_TIE for _, _, gap in gaps):
+        raise AssertionError(f"dbrx cuda_fused vs cuda: a divergence is not a near-tie: {gaps}")
+    out["fused_vs_cuda_gaps"] = gaps
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dec_train(dev):
+    """Reduced dbrx-132b, --task lm: DEC_LM_STEPS Gate-Drop 0.3 steps (f32)
+    on the plain oracle path, cuda_fused and cuda from one seed, gated as
+    phase 6 gates them; the kernel backends' launches per step."""
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.core.gating_dropout import drop_decisions_host
+    from repro_torch.data import LMTaskConfig, SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generator
+    from repro_torch.models import init_model
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.loop import to_device
+    from repro_torch.tree import flatten_with_paths
+
+    base = reduced(get_config("dbrx-132b"))
+    task = SyntheticLM(LMTaskConfig(vocab=base.vocab, seq_len=DEC_LM_SEQ))
+    batches = [to_device(task.sample_batch(i, DEC_LM_BATCH), dev) for i in range(DEC_LM_STEPS)]
+    tc = TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, seed=SEED, steps=DEC_LM_STEPS)
+    bits = drop_decisions_host(base.moe.gating_dropout, SEED, 0, DEC_LM_STEPS)
+    if bits.all() or not bits.any():
+        raise AssertionError(f"dec lm: the steps must include a routed and a dropped step {bits}")
+    param_tol = adam_drift_bound(tc, DEC_LM_STEPS)
+    ref, out = None, {"bits": bits.astype(int).tolist()}
+    for backend in ("oracle", "cuda_fused", "cuda"):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, backend=backend))
+        state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
+        step = make_train_step(cfg, tc)
+        rows, launches = [], []
+        for i in range(DEC_LM_STEPS):
+            reset_launch_counts()
+            state, m = step(state, batches[i])
+            torch.cuda.synchronize()
+            launches.append({k: v for k, v in launch_counts().items() if v})
+            rows.append({k: float(m[k]) for k in ("loss", "grad_norm", "balance",
+                                                  "gate_dropped")})
+        params = {k: v.detach() for k, v in flatten_with_paths(state["params"]).items()}
+        log(f"dec lm {backend} f32 (reduced dbrx-132b, {DEC_LM_BATCH} x {DEC_LM_SEQ} tokens): "
+            + "; ".join(f"loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f} dropped "
+                        f"{int(r['gate_dropped'])}" for r in rows) + f"; launches per step "
+            f"{launches}")
+        if not all(math.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"dec lm {backend}: non-finite metrics")
+        if backend == "cuda_fused" and not all(la.get("fused_moe") for la in launches):
+            raise AssertionError(f"dec lm cuda_fused: a step without B4 {launches}")
+        if backend == "cuda" and not all(la.get("grouped_matmul") and la.get("dispatch")
+                                         and la.get("grouped_matmul_dw") for la in launches):
+            raise AssertionError(f"dec lm cuda: a step without the pipeline {launches}")
+        out[backend] = dict(rows=rows, launches=launches)
+        if ref is None:
+            ref = (rows, params)
+            continue
+        worst = max(abs(r[k] - q[k]) / max(abs(q[k]), 1e-6)
+                    for r, q in zip(rows, ref[0]) for k in ("loss", "grad_norm", "balance"))
+        pmax = max(float((params[k] - ref[1][k]).abs().max()) for k in params)
+        log(f"dec lm {backend} vs plain: max relative diff {worst:.3e} (tol "
+            f"{TRAIN_METRIC_RTOL}), parameters max abs diff {pmax:.3e} (tol {param_tol:.3e})")
+        if worst > TRAIN_METRIC_RTOL or pmax > param_tol or \
+                [r["gate_dropped"] for r in rows] != [q["gate_dropped"] for q in ref[0]]:
+            raise AssertionError(f"dec lm {backend}: differs from the plain path")
+        out[backend].update(max_rel_diff=worst, param_max_abs_diff=pmax)
+    return out
+
+
+def dec_phase(dev, b4_info):
+    """Phase dec: yi-6b (full width and depth), then dbrx-132b (full
+    width, DBRX_LAYERS layers), then reduced dbrx-132b's --task lm steps;
+    each model's tensors freed before the next. ``b4_info`` is
+    ``b4_report``'s; its tiled variants at 16-row tiles go in the record."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    yi = dec_yi(dev)
+    log(f"dec yi-6b: {time.perf_counter() - t0:.1f} s; device memory now allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t1 = time.perf_counter()
+    dbrx = dec_dbrx(dev)
+    log(f"dec dbrx-132b: {time.perf_counter() - t1:.1f} s")
+    lm = dec_train(dev)
+    log(f"dec phase: {time.perf_counter() - t0:.1f} s")
+    return {"yi-6b": yi, "dbrx-132b": dbrx, "lm": lm,
+            "b4_tiled": {k: v[16] for k, v in b4_info.items() if k.startswith("tiled")}}
+
+
+def dec_json(dec):
+    """Phase dec's results with its site keys as strings."""
+    out = json.loads(json.dumps({k: v for k, v in dec.items() if k != "dbrx-132b"}))
+    dbrx = dict(dec["dbrx-132b"])
+    dbrx["sites"] = {f"{n}@{s}": t for (n, s), t in dbrx["sites"].items()}
+    out["dbrx-132b"] = dbrx
+    return out
+
+
+def dec_rows(dec):
+    """Per kernel, its phase-dec sites for the kernel table."""
+    yi, dbrx = dec["yi-6b"], dec["dbrx-132b"]
+    rows = {name: {} for name in REPLACES}
+    rows["flash_decode"]["yi-6b decode"] = dict(yi["sites"]["decode"],
+                                                launches=yi["launches"])
+    rows["flash_decode_paged"]["yi-6b paged decode"] = dict(
+        yi["paged"]["site"], launches=yi["paged"]["launches"],
+        max_abs_err=yi["paged"]["max_abs_err"])
+    for (name, site), t in dbrx["sites"].items():
+        backend = "cuda_fused" if name == "fused_moe" else "cuda"
+        rows[name][f"dbrx-132b {site}"] = dict(
+            {k: v for k, v in t.items() if k != "host_ms"},
+            launches=dbrx["launches"][backend][name])
+    return {k: v for k, v in rows.items() if v}
+
+
+def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve, fc,
+                 dec_sites=None):
     """One entry per kernel for the JSON line: serving kernels at their
     decode site with their launches per ``generate``, training kernels at
     the training site with their launches per step (B4 on ``cuda_fused``,
@@ -2805,7 +3210,9 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
     decode and at the training site and the launch floor); B4 carries its balanced site and, with its launches
     per ``cuda_fused`` generate, its serving sites; B5 and B6 their
     full-cache sites (phase 8), B5 its launch floor and the decode step at
-    depth 1,023 as one CUDA graph."""
+    depth 1,023 as one CUDA graph; each kernel its phase-dec sites
+    (``dec_sites``: yi-6b's decode, dbrx-132b's prefill and decode, with
+    the launches of that phase's generate or scheduler run)."""
     kernels = []
     for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
                  "combine", "fused_moe", "flash_decode"):
@@ -2859,6 +3266,9 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
                     "site": "paged decode", "shape": t["shape"], "n_split": t["n_split"],
                     "full_cache_site": fc["flash_decode_paged"],
                     "train_launches": {b: c["flash_decode_paged"] for b, c in t_counts.items()}})
+    for entry in kernels:
+        if dec_sites and entry["name"] in dec_sites:
+            entry["dec_sites"] = dec_sites[entry["name"]]
     return kernels
 
 
@@ -2906,7 +3316,7 @@ def serve_phases(full, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("full_cache", "ep", "obs"),
+    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec"),
                     help="run phases 1, 2 and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2941,7 +3351,11 @@ def main() -> int:
     if args.only == "obs":
         print(json.dumps({"obs": obs_phase(full, dev)}), flush=True)
         return 0
-    ptxas_report(lib.parent / "nvcc.log")
+    if args.only == "dec":
+        dec = dec_phase(dev, b4_report())
+        print(json.dumps({"dec": dec_json(dec), "dec_sites": dec_rows(dec)}), flush=True)
+        return 0
+    b4_info = ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5, 7 and 8. serving
     t0 = time.perf_counter()
@@ -2967,9 +3381,12 @@ def main() -> int:
     print(json.dumps({"ep": ep_phase(full, dev)}), flush=True)
     # obs. the observability layer over the trainer and both schedulers
     print(json.dumps({"obs": obs_phase(full, dev)}), flush=True)
+    # dec. the decoder-only family: yi-6b, dbrx-132b (2 layers), --task lm
+    dec = dec_phase(dev, b4_info)
+    print(json.dumps({"dec": dec_json(dec)}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
-                           fc)
+                           fc, dec_rows(dec))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -2993,10 +3410,11 @@ def full_cache_only(full, dev) -> int:
 
 def ptxas_report(path: Path):
     """Each kernel's registers and spills from the build's ptxas report,
-    and what the card reports for B1's, B5's, B6's and B4's variants."""
+    and what the card reports for B1's, B5's, B6's and B4's variants.
+    Returns ``b4_report``'s."""
     import re
     import shutil
-    from repro_torch.kernels import flash_decode, grouped_ffn, moe_megakernel
+    from repro_torch.kernels import flash_decode, grouped_ffn
     entry = "?"
     for line in path.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -3025,14 +3443,25 @@ def ptxas_report(path: Path):
                             f"{i['smem_bytes']} B shared, {i['spill_bytes']} B spilled, "
                             f"{i['blocks_per_sm']} blocks/SM"
                             for (hd, rep), i in infos.items()))
-    for kind in ("stream", "tiled"):
+    return b4_report()
+
+
+def b4_report():
+    """What the card reports for B4's variants, logged; returns them by
+    "kind dtype", then by C."""
+    from repro_torch.kernels import moe_megakernel
+    out = {}
+    for kind, what in (("stream", "ungated; 128 experts"), ("tiled", "ungated; d <= 512"),
+                       ("tiled_wide", "gated; past d = 1,024")):
         for dt in (torch.float32, torch.bfloat16):
             infos = {c: moe_megakernel.variant_info(kind, dt, c) for c in (1, 4, 8, 16)}
+            out[f"{kind} {_dt(torch.empty(0, dtype=dt))}"] = infos
             log(f"B4 {kind} {_dt(torch.empty(0, dtype=dt))} (C rounded up to 1/4/8/16; "
-                "ungated; 128 experts): "
+                f"{what}): "
                 + "; ".join(f"C={c}: {i['registers']} registers, {i['smem_bytes']} B shared, "
                             f"{i['spill_bytes']} B spilled, {i['blocks_per_sm']} blocks/SM"
                             for c, i in infos.items()))
+    return out
 
 
 def _leaves(tree):

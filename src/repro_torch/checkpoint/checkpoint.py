@@ -9,6 +9,15 @@ as uint16 bit patterns listed under ``dtypes`` in the meta. A checkpoint
 written by either package restores into the other's train state. Integer
 leaves (the host step counters) are stored as 0-d int32 arrays, as the
 reference stores its device step counters.
+
+Under an expert-parallel group of more than one rank (``ctx``, a
+``core.moe.ParallelContext``) a save gathers every expert leaf (its
+parameters and Adam moments) over the group's ranks along the expert axis,
+so the file holds the full arrays the reference's checkpoint holds; rank 0
+writes it and every rank waits until it is written. A restore under a
+group slices each full expert array to the rank's block
+(``bridge.shard_experts``). A checkpoint carries no mesh: one saved at
+any group size restores at any other that divides the expert count.
 """
 from __future__ import annotations
 
@@ -18,9 +27,29 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.bridge import tensor_to_numpy
+from repro_torch.bridge import shard_experts, tensor_to_numpy
 from repro_torch.tree import flatten_with_paths, unflatten_paths
+
+
+def _grouped(ctx) -> bool:
+    return ctx is not None and ctx.ep > 1
+
+
+def gather_experts(tree: Any, ctx) -> Any:
+    """``tree`` with every expert leaf gathered over ``ctx``'s ranks along
+    the expert axis (-3): the full arrays, on every rank."""
+    from repro_torch.core.moe import is_expert_leaf
+    out = {}
+    for key, leaf in flatten_with_paths(tree).items():
+        if torch.is_tensor(leaf) and is_expert_leaf(key):
+            part = leaf.detach().contiguous()
+            parts = [torch.empty_like(part) for _ in range(ctx.ep)]
+            dist.all_gather(parts, part, group=ctx.group)
+            leaf = torch.cat(parts, dim=part.dim() - 3)
+        out[key] = leaf
+    return unflatten_paths(out)
 
 
 def _flatten(tree: Any) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
@@ -36,8 +65,23 @@ def _flatten(tree: Any) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
-                    extra_meta: Optional[Dict] = None) -> str:
+                    extra_meta: Optional[Dict] = None, ctx=None) -> str:
+    """Writes ``tree`` as ``<ckpt_dir>/step_<step>``; under a group of more
+    than one rank, its expert leaves gathered, by rank 0 alone, every rank
+    returning once the files are written."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _grouped(ctx):
+        tree = gather_experts(tree, ctx)
+        if ctx.rank == 0:
+            _write(ckpt_dir, d, step, tree, extra_meta)
+        dist.barrier(group=ctx.group)
+        return d
+    _write(ckpt_dir, d, step, tree, extra_meta)
+    return d
+
+
+def _write(ckpt_dir: str, d: str, step: int, tree: Any,
+           extra_meta: Optional[Dict]) -> None:
     os.makedirs(d, exist_ok=True)
     flat, dtypes = _flatten(tree)
     np.savez(os.path.join(d, "arrays.npz"), **flat)
@@ -48,7 +92,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
         json.dump(meta, f)
     with open(os.path.join(ckpt_dir, "latest"), "w") as f:
         f.write(f"step_{step:08d}")
-    return d
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -60,10 +103,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, template: Any,
-                       step: Optional[int] = None) -> Tuple[Any, Dict]:
+                       step: Optional[int] = None, ctx=None) -> Tuple[Any, Dict]:
     """Restore into ``template``'s structure: each tensor leaf comes back
     with the template leaf's shape, dtype, device and ``requires_grad``;
-    each int leaf as an int."""
+    each int leaf as an int. Under a group of more than one rank the full
+    expert arrays are sliced to this rank's block first."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -72,19 +116,28 @@ def restore_checkpoint(ckpt_dir: str, template: Any,
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
     bf16 = {k for k, v in meta.get("dtypes", {}).items() if v == "bfloat16"}
-    out = {}
+    tmpl = flatten_with_paths(template)
+    arrays = {}
     with np.load(os.path.join(d, "arrays.npz")) as data:
-        for key, leaf in flatten_with_paths(template).items():
+        for key, leaf in tmpl.items():
             arr = data[key]
             if isinstance(leaf, int):
-                out[key] = int(arr)
+                arrays[key] = int(arr)
                 continue
-            if arr.shape != tuple(leaf.shape):
-                raise ValueError(f"{key}: checkpoint {arr.shape} vs "
-                                 f"{tuple(leaf.shape)}")
             t = torch.from_numpy(np.ascontiguousarray(arr))
-            if key in bf16:
-                t = t.view(torch.int16).view(torch.bfloat16)
-            out[key] = t.to(device=leaf.device, dtype=leaf.dtype) \
-                .requires_grad_(leaf.requires_grad)
+            arrays[key] = t.view(torch.int16).view(torch.bfloat16) if key in bf16 else t
+    if _grouped(ctx):
+        arrays = flatten_with_paths(shard_experts(unflatten_paths(arrays), ctx.rank,
+                                                  ctx.ep))
+    out = {}
+    for key, leaf in tmpl.items():
+        t = arrays[key]
+        if isinstance(leaf, int):
+            out[key] = t
+            continue
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"{key}: checkpoint {tuple(t.shape)} vs "
+                             f"{tuple(leaf.shape)}")
+        out[key] = t.to(device=leaf.device, dtype=leaf.dtype) \
+            .requires_grad_(leaf.requires_grad)
     return unflatten_paths(out), meta

@@ -1,10 +1,13 @@
 """Config dataclasses of the port (the subset of ``repro.configs.base`` the
-encoder-decoder MoE needs, the communication substrate, ``PagedKVConfig``
-and ``TrainConfig``).
+encoder-decoder MoE and the decoder-only families with full attention
+need, the communication substrate, ``PagedKVConfig`` and
+``TrainConfig``).
 
 Plain frozen dataclasses, field for field the reference's defaults, so a
 config built here describes the same model as the reference's. The
-reference's MLA/SSM/VLM/hybrid families are not ported.
+reference's MLA/SSM/VLM/hybrid families are not ported, nor its
+multi-device layout fields (``fsdp``, ``seq_parallel``, ``ep_on_model``;
+ROADMAP.md A.5).
 """
 from __future__ import annotations
 
@@ -183,7 +186,7 @@ class EncDecConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str = "tiny"
-    family: str = "encdec"              # the only family ported so far
+    family: str = "dense"               # dense | moe | encdec (the ported ones)
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -193,6 +196,7 @@ class ModelConfig:
     head_dim: int = 0                   # 0 -> d_model // n_heads
     rope_theta: float = 10_000.0
     max_seq: int = 8192
+    sliding_window: int = 0             # 0 = full attention (windows: A.4b)
     norm: str = "rmsnorm"               # rmsnorm | layernorm
     act: str = "silu"                   # silu | gelu (tanh approximation)
     gated_mlp: bool = True
@@ -237,6 +241,18 @@ class ModelConfig:
                          for i in range(self.encdec.n_encoder_layers))
             total += self.n_layers * 4 * d * d          # decoder cross-attention
         return total
+
+    def n_active_params(self) -> int:
+        """Parameters a token runs through (its top-k experts and the
+        shared ones in place of every expert), as the reference counts
+        them: the encoder's MoE layers keep every expert."""
+        if self.moe is None:
+            return self.n_params()
+        mult = 3 if self.gated_mlp else 2
+        per_expert = mult * self.d_model * self.moe.d_ff(self.d_ff)
+        idle = (self.moe.n_experts - self.moe.top_k - self.moe.n_shared_experts)
+        n_moe = sum(1 for i in range(self.n_layers) if self.moe.is_moe_layer(i))
+        return self.n_params() - n_moe * idle * per_expert
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

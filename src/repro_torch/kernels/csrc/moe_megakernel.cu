@@ -61,12 +61,22 @@
 //     and its items in fences, and missed both of its targets (PERF.md,
 //     Findings).
 // * The tiled kernel (fused_moe_kernel), for every other shape (C > 16,
-//   ragged rows, misaligned views): one block owns one (expert, tile of up
-//   to BR = 8 or 16 slot rows), gathers its rows into shared memory, loops
-//   over f in blocks of 512 columns inside the block (h into shared memory,
-//   the output rows in registers), and scatters with f32 atomicAdd. A tile
-//   none of whose slots carries weight returns at once. It moves 4-byte
-//   words with no asynchronous copies: one SM per expert tile.
+//   ragged rows, misaligned views), at any d: one block owns one (expert,
+//   tile of up to BR = 8 or 16 slot rows, range of f), loops over its f in
+//   blocks of 512 columns (h into shared memory) and scatters with f32
+//   atomicAdd. A tile none of whose slots carries weight returns at once.
+//   It moves 4-byte words with no asynchronous copies.
+//   - Shared memory holds at most kKD = 1,024 gathered columns of the
+//     tile's rows: past that (dbrx's d = 6,144 would need 426 KB at BR =
+//     16, against Hopper's 227 KB per block) h's product runs over d in
+//     chunks of kKD, each gathered again from x (which L2 holds) for every
+//     block of f.
+//   - The output columns are walked in blocks of NC x 512. Where d fits
+//     one block (d <= 1,024) the output rows stay in registers over the
+//     whole f range and every slot adds once, as before d was chunked; past
+//     it each (block of f, block of d) is scattered as it is done, and the
+//     f range is split over grid.z to fill the card (the adds of one output
+//     element then meet in either order).
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -91,64 +101,112 @@ __device__ __forceinline__ float activate(float v, int act) {
 
 constexpr int kThreads = 512;
 constexpr int kBF = kThreads;     // f columns per block of the f loop
+constexpr int kKD = 1024;         // gathered columns of d held in shared memory
 
-// BR slot rows per block; NC output columns of d per thread (d <= NC * kThreads)
+// BR slot rows per block; NC output columns of d per thread and block of d
+// (NC x kThreads). grid: (C tiles, E, splits of f of f_span columns each)
 template <typename T, int BR, int NC, bool GATED>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_moe_kernel(const T* __restrict__ x, const T* __restrict__ w_in,
                  const T* __restrict__ w_gate, const T* __restrict__ w_out,
                  const int32_t* __restrict__ slot_token, const float* __restrict__ wslot,
-                 float* __restrict__ out, int n_tokens, int C, int D, int F, int act) {
+                 float* __restrict__ out, int n_tokens, int C, int D, int F, int act,
+                 int f_span) {
   extern __shared__ float smem[];
-  float* xs = smem;              // [BR][D]  gathered rows, f32
-  float* hs = smem + BR * D;     // [BR][kBF] activations of one f block
+  const int kd = D < kKD ? D : kKD;
+  float* xs = smem;              // [BR][kd]  gathered rows (one chunk of d), f32
+  float* hs = smem + BR * kd;    // [BR][kBF] activations of one f block
 
   const int e = blockIdx.y;
   const int c0 = blockIdx.x * BR;
   const int tid = threadIdx.x;
+  const int f_lo = blockIdx.z * f_span;
+  const int f_hi = min(F, f_lo + f_span);
   const size_t wofs = static_cast<size_t>(e) * D * F;
   const T* wi = w_in + wofs;
   const T* wg = GATED ? w_gate + wofs : nullptr;
   const T* wo = w_out + wofs;
 
   // a tile none of whose slots carries weight adds nothing
-  if (!__syncthreads_or(tid < BR && c0 + tid < C && wslot[e * C + c0 + tid] != 0.f)) return;
+  if (f_lo >= F ||
+      !__syncthreads_or(tid < BR && c0 + tid < C && wslot[e * C + c0 + tid] != 0.f))
+    return;
 
-  // 1. gather
-  for (int r = 0; r < BR; ++r) {
-    const int c = c0 + r;
-    if (c < C) {
-      const int t = clamp_index(slot_token[e * C + c], n_tokens);
-      const T* src = x + static_cast<size_t>(t) * D;
-      for (int i = tid; i < D; i += kThreads) xs[r * D + i] = to_f32(src[i]);
-    } else {
-      for (int i = tid; i < D; i += kThreads) xs[r * D + i] = 0.f;
+  // columns [k0, k0 + kn) of the tile's rows into xs
+  auto gather = [&](int k0, int kn) {
+    for (int r = 0; r < BR; ++r) {
+      const int c = c0 + r;
+      if (c < C) {
+        const int t = clamp_index(slot_token[e * C + c], n_tokens);
+        const T* src = x + static_cast<size_t>(t) * D + k0;
+        for (int i = tid; i < kn; i += kThreads) xs[r * kd + i] = to_f32(src[i]);
+      } else {
+        for (int i = tid; i < kn; i += kThreads) xs[r * kd + i] = 0.f;
+      }
     }
-  }
+  };
 
   float acc[NC][BR];
+  auto zero_acc = [&]() {
 #pragma unroll
-  for (int j = 0; j < NC; ++j)
+    for (int j = 0; j < NC; ++j)
 #pragma unroll
-    for (int r = 0; r < BR; ++r) acc[j][r] = 0.f;
+      for (int r = 0; r < BR; ++r) acc[j][r] = 0.f;
+  };
+  // out[token] += wslot x acc, columns d0 + tid + j * kThreads
+  auto scatter = [&](int d0) {
+#pragma unroll
+    for (int r = 0; r < BR; ++r) {
+      const int c = c0 + r;
+      if (c >= C) continue;
+      const int s = e * C + c;
+      const float wt = wslot[s];
+      if (wt == 0.f) continue;
+      float* orow = out + static_cast<size_t>(clamp_index(slot_token[s], n_tokens)) * D;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int dcol = d0 + tid + j * kThreads;
+        if (dcol < D) atomicAdd(orow + dcol, wt * acc[j][r]);
+      }
+    }
+  };
+
+  // past kKD columns the rows are staged over d, and the output rows, which
+  // then span several blocks of NC x kThreads columns, are added per block
+  // of f; else they stay in registers over all of f
+  const bool wide = D > kKD;
+  const int n_dblk = (D + NC * kThreads - 1) / (NC * kThreads);
+  if (!wide) gather(0, D);
+  zero_acc();
   __syncthreads();
 
-  for (int f0 = 0; f0 < F; f0 += kBF) {
-    // 2a. h = act(rows @ w_in[:, f0 + tid]) (gated: act(rows @ w_gate) * (rows @ w_in))
+  for (int f0 = f_lo; f0 < f_hi; f0 += kBF) {
+    // 1. h = act(rows @ w_in[:, f0 + tid]) (gated: act(rows @ w_gate) * (rows @ w_in)),
+    //    over d in chunks of kKD
     const int col = f0 + tid;
     float hv[BR], gv[BR];
 #pragma unroll
     for (int r = 0; r < BR; ++r) hv[r] = gv[r] = 0.f;
-    if (col < F) {
+    for (int k0 = 0; k0 < D; k0 += kKD) {
+      const int kn = min(kKD, D - k0);
+      if (wide) {
+        __syncthreads();           // every thread is done with the last chunk
+        gather(k0, kn);
+        __syncthreads();
+      }
+      if (col < f_hi) {
+        const T* wik = wi + static_cast<size_t>(k0) * F + col;
+        const T* wgk = GATED ? wg + static_cast<size_t>(k0) * F + col : nullptr;
 #pragma unroll 8
-      for (int k = 0; k < D; ++k) {
-        const float a = to_f32(wi[static_cast<size_t>(k) * F + col]);
-        const float g = GATED ? to_f32(wg[static_cast<size_t>(k) * F + col]) : 0.f;
+        for (int k = 0; k < kn; ++k) {
+          const float a = to_f32(wik[static_cast<size_t>(k) * F]);
+          const float g = GATED ? to_f32(wgk[static_cast<size_t>(k) * F]) : 0.f;
 #pragma unroll
-        for (int r = 0; r < BR; ++r) {
-          const float xv = xs[r * D + k];
-          hv[r] += xv * a;
-          if (GATED) gv[r] += xv * g;
+          for (int r = 0; r < BR; ++r) {
+            const float xv = xs[r * kd + k];
+            hv[r] += xv * a;
+            if (GATED) gv[r] += xv * g;
+          }
         }
       }
     }
@@ -157,42 +215,60 @@ fused_moe_kernel(const T* __restrict__ x, const T* __restrict__ w_in,
       hs[r * kBF + tid] = GATED ? activate(gv[r], act) * hv[r] : activate(hv[r], act);
     __syncthreads();
 
-    // 2b. acc += h @ w_out[f0 : f0 + nf, :]
-    const int nf = min(kBF, F - f0);
+    // 2. acc += h @ w_out[f0 : f0 + nf, d block], each block of d in turn
+    const int nf = min(kBF, f_hi - f0);
+    for (int db = 0; db < n_dblk; ++db) {
+      const int d0 = db * NC * kThreads;
 #pragma unroll 8
-    for (int kk = 0; kk < nf; ++kk) {
-      const T* wrow = wo + static_cast<size_t>(f0 + kk) * D;
-      float w[NC];
+      for (int kk = 0; kk < nf; ++kk) {
+        const T* wrow = wo + static_cast<size_t>(f0 + kk) * D + d0;
+        float w[NC];
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int dcol = tid + j * kThreads;
-        w[j] = dcol < D ? to_f32(wrow[dcol]) : 0.f;
+        for (int j = 0; j < NC; ++j) {
+          const int dcol = tid + j * kThreads;
+          w[j] = d0 + dcol < D ? to_f32(wrow[dcol]) : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < BR; ++r) {
+          const float h = hs[r * kBF + kk];
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[j][r] += h * w[j];
+        }
       }
-#pragma unroll
-      for (int r = 0; r < BR; ++r) {
-        const float h = hs[r * kBF + kk];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[j][r] += h * w[j];
+      if (wide) {
+        scatter(d0);
+        zero_acc();
       }
     }
-    __syncthreads();   // hs is rewritten by the next f block
+    __syncthreads();   // hs (and xs) are rewritten by the next f block
   }
 
   // 3. weighted scatter into the token rows
-#pragma unroll
-  for (int r = 0; r < BR; ++r) {
-    const int c = c0 + r;
-    if (c >= C) continue;
-    const int s = e * C + c;
-    const float wt = wslot[s];
-    if (wt == 0.f) continue;
-    float* orow = out + static_cast<size_t>(clamp_index(slot_token[s], n_tokens)) * D;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int dcol = tid + j * kThreads;
-      if (dcol < D) atomicAdd(orow + dcol, wt * acc[j][r]);
-    }
+  if (!wide) scatter(0);
+}
+
+// the tiled kernel's dynamic shared memory at width D
+template <int BR>
+int tiled_smem(int D) {
+  return BR * ((D < kKD ? D : kKD) + kBF) * static_cast<int>(sizeof(float));
+}
+
+// columns of f per split of the f range: one split up to d = kKD (every
+// slot adds once), else enough splits for two blocks per SM
+template <int BR>
+int tiled_f_span(int E, int C, int D, int F) {
+  const int fblocks = ceil_div(F, kBF);
+  if (D <= kKD) return fblocks * kBF;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  const int tiles = ceil_div(C, BR) * E;
+  int splits = ceil_div(2 * sms, tiles);
+  splits = splits < 1 ? 1 : (splits > fblocks ? fblocks : splits);
+  return ceil_div(fblocks, splits) * kBF;
 }
 
 template <typename T, int BR, int NC, bool GATED>
@@ -200,16 +276,17 @@ cudaError_t launch(const void* x, const void* w_in, const void* w_gate, const vo
                    const int32_t* slot_token, const float* wslot, float* out, int n_tokens,
                    int E, int C, int D, int F, int act, cudaStream_t stream) {
   auto kernel = fused_moe_kernel<T, BR, NC, GATED>;
-  const size_t smem = static_cast<size_t>(BR) * (D + kBF) * sizeof(float);
+  const size_t smem = tiled_smem<BR>(D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(ceil_div(C, BR), E);
+  const int f_span = tiled_f_span<BR>(E, C, D, F);
+  const dim3 grid(ceil_div(C, BR), E, ceil_div(F, f_span));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_in), static_cast<const T*>(w_gate),
-      static_cast<const T*>(w_out), slot_token, wslot, out, n_tokens, C, D, F, act);
+      static_cast<const T*>(w_out), slot_token, wslot, out, n_tokens, C, D, F, act, f_span);
   return cudaGetLastError();
 }
 
@@ -223,6 +300,8 @@ cudaError_t by_gated(bool gated, const void* x, const void* w_in, const void* w_
                                           stream);
 }
 
+// d <= 512: one column per thread; wider: two per thread, in blocks of
+// 1,024 columns past that
 template <typename T>
 cudaError_t by_shape(bool gated, const void* x, const void* w_in, const void* w_gate,
                      const void* w_out, const int32_t* st, const float* ws, float* out, int n,
@@ -703,10 +782,16 @@ int variant_info(int kind, int* info) {
     return fill_info(reinterpret_cast<const void*>(fused_moe_stream<T, CT, false>),
                      stream_smem<T, CT, false>(128), kSThreads, info);
   }
+  constexpr int BR = CT <= 8 ? 8 : 16;
   if (kind == 1) {
-    constexpr int BR = CT <= 8 ? 8 : 16;
-    const int smem = BR * (512 + kBF) * static_cast<int>(sizeof(float));
+    const int smem = tiled_smem<BR>(512);
     const auto kernel = fused_moe_kernel<T, BR, 1, false>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return fill_info(reinterpret_cast<const void*>(kernel), smem, kThreads, info);
+  }
+  if (kind == 2) {
+    const int smem = tiled_smem<BR>(kKD + 1);
+    const auto kernel = fused_moe_kernel<T, BR, 2, true>;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     return fill_info(reinterpret_cast<const void*>(kernel), smem, kThreads, info);
   }
@@ -726,14 +811,12 @@ int variant_info_rows(int kind, int C, int* info) {
 // out (T, D) f32, zeroed by the caller, accumulates the weighted expert
 // outputs; x (T, D), w_in / w_gate (E, D, F), w_out (E, F, D) in one dtype;
 // slot_token (E * C,) int32; wslot (E * C,) f32. w_gate may be null
-// (ungated). act: 0 gelu (tanh), 1 silu. D <= 1024. Tiled kernel, any
-// shape.
+// (ungated). act: 0 gelu (tanh), 1 silu. Tiled kernel, any shape.
 extern "C" int repro_fused_moe(const void* x, const void* w_in, const void* w_gate,
                                const void* w_out, const void* slot_token, const void* wslot,
                                void* out, int n_tokens, int E, int C, int D, int F, int act,
                                int dtype, void* stream) {
-  if (D > 2 * kThreads || (act != kGelu && act != kSilu))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (act != kGelu && act != kSilu) return static_cast<int>(cudaErrorInvalidValue);
   const bool gated = w_gate != nullptr;
   const auto* st = static_cast<const int32_t*>(slot_token);
   const auto* ws = static_cast<const float*>(wslot);
@@ -781,7 +864,8 @@ extern "C" int repro_fused_moe_stream(const void* x, const void* w_in, const voi
 // {registers per thread, shared memory per block (static + dynamic) in
 // bytes, local (spill) bytes per thread, resident blocks per SM}. kind: 0
 // streaming (C rounded up to 1, 4, 8, 16), 1 tiled (its BR = 8 or 16 tile
-// at D <= 512).
+// at D <= 512), 2 tiled and gated past D = 1,024 (two columns per thread,
+// d in chunks).
 extern "C" int repro_fused_moe_variant_info(int kind, int dtype, int C, int* info) {
   if (dtype == kReproF32) return variant_info_rows<float>(kind, C, info);
   if (dtype == kReproBF16) return variant_info_rows<__nv_bfloat16>(kind, C, info);

@@ -22,9 +22,11 @@ adds nothing and is not read (8.4 MB per expert of zcode-m3-base in f32).
   tensor copies (one producer warp, as B1's streaming forward). Top-1
   calls give the same bits on every run and replay under a CUDA graph (the
   per-expert counts are zeroed with the output, in the same fill).
-* ``"tiled"`` (anything else: C > 16, ragged rows, misaligned views): one
-  block per (expert, tile of slot rows), weights through 4-byte loads;
-  tiles with no weighted slot return at once.
+* ``"tiled"`` (anything else: C > 16, ragged rows, misaligned views), at
+  any d: one block per (expert, tile of slot rows, range of f), weights
+  through 4-byte loads; tiles with no weighted slot return at once. Past d
+  = 1,024 the gathered rows are staged over d in chunks of 1,024 columns
+  and the output is added in blocks of 1,024 columns per block of f.
 
 Weights arrive folded, as in the reference's ``_fused_jit``: ``wcomb =
 topk_w * keep`` (capacity drops, Gate-Drop local validity and serving's
@@ -60,7 +62,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = (torch.float32, torch.bfloat16)
 _ACTS = {"gelu": 0, "silu": 1}
-MAX_D = 1024          # model widths the tiled kernel holds (columns per thread x threads)
 STREAM_MAX_C = 16
 
 plain = fused_moe_f32_ref
@@ -129,8 +130,6 @@ def _kernel(x, w_in, w_gate, w_out, wcomb, slot_token, token_slot,
         counts = zeros[t * d + s:].view(torch.int32)
         code = fn(*head, h.data_ptr(), counts.data_ptr(), t, e, c, d, f, *tail)
     else:
-        if d > MAX_D:
-            raise ValueError(f"fused_moe: the tiled kernel takes d <= {MAX_D}, got {d}")
         name = "repro_fused_moe"
         fn = build.function(name, [_P] * 7 + [_I] * 7 + [_P])
         code = fn(*head, t, e, c, d, f, *tail)
@@ -232,11 +231,14 @@ def variant_info(kind: str, dtype: torch.dtype, c: int) -> dict:
     """What the card reports for one compiled (ungated) kernel: registers
     per thread, shared memory per block (bytes), spill bytes per thread and
     resident blocks per SM. ``kind``: ``"stream"`` (at C rounded up to 1,
-    4, 8 or 16; shared memory for 128 experts) or ``"tiled"`` (its 8- or
-    16-row tile at d <= 512). Builds the library; needs a card."""
+    4, 8 or 16; shared memory for 128 experts), ``"tiled"`` (its 8- or
+    16-row tile at d <= 512) or ``"tiled_wide"`` (gated, past d = 1,024:
+    two columns per thread, the rows staged over d). Builds the library;
+    needs a card."""
     info = (ctypes.c_int * 4)()
     fn = build.function("repro_fused_moe_variant_info", [_I, _I, _I, _P])
-    build.check(fn(("stream", "tiled").index(kind), build.DTYPE_CODES[dtype], c,
+    build.check(fn(("stream", "tiled", "tiled_wide").index(kind),
+                   build.DTYPE_CODES[dtype], c,
                    ctypes.cast(info, _P)), "repro_fused_moe_variant_info")
     return dict(zip(("registers", "smem_bytes", "spill_bytes",
                      "blocks_per_sm"), info))

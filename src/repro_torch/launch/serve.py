@@ -26,6 +26,12 @@ scheduler's counters and, paged, the page arena's:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zcode-m3-base \
       --trace 32 --slots 8 --paged --backend cuda --flash-decode --eos -1
 
+Decoder-only archs (yi-6b, codeqwen1.5-7b, dbrx-132b) take prompts alone;
+``--layers N`` cuts the depth of one too large for the card:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
+      --layers 2 --backend cuda_fused --flash-decode --eos -1
+
 Runs on the GPU unless ``--device cpu`` is given, and fails without one.
 Parameters, prompts and sampling draw from distinct streams of ``--seed``.
 
@@ -71,6 +77,19 @@ def resolve_device(name: str) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
     return torch.device("cuda")
+
+
+def arch_config(args):
+    """``--arch``'s config, ``--reduced`` to smoke-test size, its depth cut
+    to ``--layers`` where given."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.n_layers:
+            raise ValueError(f"--layers {args.layers}: 1 to {cfg.n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
 
 
 def generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
@@ -284,6 +303,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="zcode-m3-base")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (a model too large for "
+                         "the card at full depth, e.g. dbrx-132b)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=32)
@@ -345,9 +367,7 @@ def main(argv=None):
     tracer = set_tracer(Tracer(enabled=bool(args.trace_out)))
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+    cfg = arch_config(args)
     if cfg.moe is not None:
         comm = cfg.moe.comm
         comm = dataclasses.replace(
@@ -368,7 +388,8 @@ def main(argv=None):
 
     if args.trace > 0:
         rec = run_trace(args, cfg, params, gen, device)
-        print(f"arch={rec['arch']} device={device} {rec['mode']}: served "
+        print(f"arch={rec['arch']} n_layers={cfg.n_layers} device={device} "
+              f"{rec['mode']}: served "
               f"{rec['n_requests']} requests, {rec['n_tokens']} tokens in "
               f"{rec['wall_s']:.2f} s ({rec['tok_s']:.0f} tok/s)")
         print("TTFT p50/p90/p99: "
@@ -405,7 +426,7 @@ def main(argv=None):
     with tracer.span("generate.steady", rounds=TIMED_ROUNDS):
         med, rounds, res = time_generate(params, batch, cfg, gen, seed=sample_seed)
     n_tok = int(res.lengths.sum())
-    print(f"arch={cfg.arch_id} device={device} batch={args.batch} "
+    print(f"arch={cfg.arch_id} n_layers={cfg.n_layers} device={device} batch={args.batch} "
           f"prompt={args.prompt_len} new={args.max_new} beam={args.beam}")
     print(f"first (build + warm-up): {t_first:.2f} s; median of {TIMED_ROUNDS}: "
           f"prefill {med['prefill_ms']:.2f} ms {spread(rounds['prefill_ms'])}, "

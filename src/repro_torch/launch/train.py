@@ -6,11 +6,13 @@
 
 Runs on the GPU unless ``--device cpu`` is given, and fails without one.
 Parameters are drawn from ``--seed``; the batches are the reference's
-synthetic multilingual MT task, bit for bit; every step takes the
-Gating Dropout consensus bit of (seed, step). ``--eval-every N`` scores
+synthetic multilingual MT task (``--task mt``) or, for the decoder-only
+archs, its synthetic LM task (``--task lm``), bit for bit; every step
+takes the Gating Dropout consensus bit of (seed, step). ``--eval-every N`` scores
 greedy-decoded corpus BLEU (``greedy_bleu``) every N steps and at the
-last. ``--ckpt-dir`` saves the train state at the end in the reference's
-layout, and ``--resume`` continues from it at the absolute step.
+last (``--task mt``). ``--ckpt-dir`` saves the train state at the end in
+the reference's layout, and ``--resume`` continues from it at the
+absolute step.
 
 Expert parallelism: one process per rank, as ``torchrun`` starts them;
 ``--mesh N`` runs the MoE layers over the N ranks (each holds E/N experts
@@ -23,7 +25,10 @@ being the ``--comm`` substrate's:
 
 ``--device cpu`` takes gloo, ``cuda`` NCCL with one card per rank. Rank 0
 prints the records and writes ``--json-out``, ``--trace-out`` and
-``--metrics-out``.
+``--metrics-out``. ``--ckpt-dir`` under ``--mesh N`` gathers the expert
+shards into one checkpoint of the reference's layout, which rank 0
+writes, and ``--resume`` slices it per rank: a run may resume at another
+mesh than the one that saved it.
 
 Observability: ``--trace-out PATH`` turns on the span tracer (the
 Trainer's ``train_chunk`` / ``chunk.execute`` / ``chunk.fetch`` /
@@ -198,9 +203,6 @@ def main(argv=None):
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
     ep = parse_mesh(args.mesh) if args.mesh else 0
-    if ep > 1 and args.ckpt_dir:
-        ap.error("--ckpt-dir with --mesh N > 1: the gathered checkpoint of an "
-                 "expert-parallel run is not ported (ROADMAP.md)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

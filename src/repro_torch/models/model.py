@@ -1,5 +1,6 @@
-"""Top-level model: embeddings + encoder + decoder stack + head (port of
-``repro/models/model.py`` for the encoder-decoder family).
+"""Top-level model: embeddings + (the encoder-decoder's encoder) + decoder
+stack + head (port of ``repro/models/model.py`` for the encoder-decoder
+family and the decoder-only families with full attention).
 
 Public API:
   init_model(gen, cfg)                          -> params
@@ -10,8 +11,13 @@ Public API:
   init_cache(cfg, batch, max_seq, dtype)        -> caches
 
 ``batch`` keys: "tokens" (B, L) always; "enc_tokens" (B, S_enc) for the
-text encoder-decoder (the paper's MT models). Parameters live on the
-device of the generator that drew them.
+text encoder-decoder (the paper's MT models), nothing else for the
+decoder-only families. Parameters live on the device of the generator
+that drew them.
+
+Prefill attention is the plain quadratic one at every length; the
+reference takes its blocked flash attention past 2,048 keys (the same
+function, in O(L) memory), which comes with A.4b.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
     reference's distributions (its bits differ: JAX keys are not torch
     generators)."""
     dtype = cfg.torch_param_dtype
-    n_total = cfg.n_layers + cfg.encdec.n_encoder_layers
+    n_total = cfg.n_layers + (cfg.encdec.n_encoder_layers if cfg.encdec else 0)
     p: Params = {
         "embed": L.init_embed(gen, cfg.vocab, cfg.d_model, dtype),
         "decoder": T.init_stack(gen, T.layer_plan(cfg), cfg, dtype, n_total),
@@ -44,9 +50,10 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = L.normal(gen, (cfg.d_model, cfg.vocab),
                                 cfg.d_model ** -0.5, dtype)
-    p["encoder"] = T.init_stack(gen, T.layer_plan(cfg, encoder=True), cfg,
-                                dtype, n_total)
-    p["enc_final_norm"] = L.init_norm(gen, cfg, cfg.d_model, dtype)
+    if cfg.encdec is not None:
+        p["encoder"] = T.init_stack(gen, T.layer_plan(cfg, encoder=True), cfg,
+                                    dtype, n_total)
+        p["enc_final_norm"] = L.init_norm(gen, cfg, cfg.d_model, dtype)
     return p
 
 
@@ -66,6 +73,16 @@ def _encode(params: Params, batch: Dict, cfg: ModelConfig, *, generator,
                               decision=decision, is_training=is_training,
                               token_ids=tok, ctx=ctx)
     return L.norm_apply(params["enc_final_norm"], x, cfg), aux
+
+
+def _cross_source(params: Params, batch: Dict, cfg: ModelConfig, *,
+                  generator, decision, is_training, ctx=None):
+    """(cross_src, aux) of the families that cross-attend; (None, None)
+    for the decoder-only ones."""
+    if cfg.encdec is None:
+        return None, None
+    return _encode(params, batch, cfg, generator=generator, decision=decision,
+                   is_training=is_training, ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -95,15 +112,16 @@ def model_apply(params: Params, batch: Dict, cfg: ModelConfig, *,
     (B, L, V) f32 logits need not exist at once."""
     tokens = batch["tokens"]
     x = L.embed_apply(params["embed"], tokens).to(cfg.torch_dtype)
-    cross_src, enc_aux = _encode(params, batch, cfg, generator=generator,
-                                 decision=decision, is_training=is_training,
-                                 ctx=ctx)
+    cross_src, enc_aux = _cross_source(params, batch, cfg, generator=generator,
+                                       decision=decision,
+                                       is_training=is_training, ctx=ctx)
     x, _, aux = T.apply_stack(params["decoder"], T.layer_plan(cfg), x, cfg,
                               mode="train", generator=generator,
                               decision=decision, is_training=is_training,
                               cross_src=cross_src, token_ids=tokens, ctx=ctx)
     x = L.norm_apply(params["final_norm"], x, cfg)
-    aux = {k: aux[k] + enc_aux[k] for k in aux}
+    if enc_aux is not None:
+        aux = {k: aux[k] + enc_aux[k] for k in aux}
     if return_hidden:
         return x, aux
     return _logits(params, x, cfg), aux
@@ -113,11 +131,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None, n_cross: Optional[int] = None) -> List[Params]:
     """Zero decode cache; ``device="meta"`` gives shapes without memory.
     ``n_cross`` is the source length of the cross-attention K/V (default
-    the config's ``encoder_seq``)."""
+    the config's ``encoder_seq``; the decoder-only families have none)."""
     dtype = dtype or cfg.torch_dtype
+    if cfg.encdec is not None:
+        n_cross = n_cross or cfg.encdec.encoder_seq
     return T.init_stack_cache(T.layer_plan(cfg), cfg, batch, max_seq,
-                              n_cross or cfg.encdec.encoder_seq, dtype,
-                              device)
+                              n_cross or 0, dtype, device)
 
 
 def prefill(params: Params, batch: Dict, cfg: ModelConfig, *,
@@ -127,13 +146,14 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig, *,
             ) -> Tuple[torch.Tensor, List[Params]]:
     """Prompt forward that returns the logits of the last prompt position
     (or of ``last_index[b]`` per row) and the decode cache: self-attention
-    K/V padded to ``max_seq`` positions, cross K/V at the source length."""
+    K/V padded to ``max_seq`` positions, cross K/V (encoder-decoder) at the
+    source length."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
     max_seq = max_seq or cfg.max_seq
     x = L.embed_apply(params["embed"], tokens).to(cfg.torch_dtype)
-    cross_src, _ = _encode(params, batch, cfg, generator=generator,
-                           decision=False, is_training=False, ctx=ctx)
+    cross_src, _ = _cross_source(params, batch, cfg, generator=generator,
+                                 decision=False, is_training=False, ctx=ctx)
     x, caches, _ = T.apply_stack(params["decoder"], T.layer_plan(cfg), x, cfg,
                                  mode="prefill", generator=generator,
                                  decision=False, is_training=False,

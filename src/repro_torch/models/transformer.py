@@ -1,5 +1,5 @@
-"""Transformer assembly for the encoder-decoder MoE (port of
-``repro/models/transformer.py``).
+"""Transformer assembly for the encoder-decoder MoE and the decoder-only
+families with full attention (port of ``repro/models/transformer.py``).
 
 Layers are organised into SEGMENTS — contiguous repeats of a (possibly
 multi-layer) pattern of LayerSpecs — whose parameters are stacked along a
@@ -78,15 +78,32 @@ def _compress(specs: List[LayerSpec]) -> List[Segment]:
     return segs
 
 
+# the reference's families and layer kinds this port does not run yet, by
+# the ROADMAP.md item that brings them
+_NOT_PORTED = {"ssm": "A.4d (SSM)", "hybrid": "A.4e (hybrid)",
+               "vlm": "A.4f (non-token frontends)"}
+
+
 def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
-    if cfg.family != "encdec":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    """The reference's plan for the ported families: the encoder-decoder
+    (its encoder, or a decoder with cross-attention), and ``dense`` /
+    ``moe`` (GQA self-attention with RoPE, no cross-attention, an MoE
+    layer where ``MoEConfig.is_moe_layer``)."""
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  f"(ROADMAP.md {_NOT_PORTED[cfg.family]})")
+    if cfg.family not in ("encdec", "dense", "moe"):
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window attention is not ported yet "
+                                  "(ROADMAP.md A.4b)")
     moe_at = (lambda i: cfg.moe is not None and cfg.moe.is_moe_layer(i))
     if encoder:
         return _compress([LayerSpec(causal=cfg.encdec.encoder_causal,
                                     moe=moe_at(i))
                           for i in range(cfg.encdec.n_encoder_layers)])
-    return _compress([LayerSpec(cross=True, moe=moe_at(i))
+    cross = cfg.family == "encdec"
+    return _compress([LayerSpec(cross=cross, moe=moe_at(i))
                       for i in range(cfg.n_layers)])
 
 

@@ -142,10 +142,17 @@ def init_slot_pool(cfg: ModelConfig, n_slots: int, max_seq: int, *, device,
 def slot_pool_like(batch: Dict[str, Any], cfg: ModelConfig, *, max_seq: int,
                    n_slots: int):
     """Slot pool shaped like the caches ``prefill`` produces for ``batch``
-    (the cross-K/V length follows ``batch["enc_tokens"]``), on the batch's
-    device. Shapes come from the meta device: nothing is computed."""
+    (the cross-K/V length follows ``batch["enc_tokens"]``; a decoder-only
+    batch has no cross leaves), on the batch's device. Shapes come from
+    the meta device: nothing is computed."""
     return init_slot_pool(cfg, n_slots, max_seq, device=batch["tokens"].device,
-                          n_cross=batch["enc_tokens"].shape[1])
+                          n_cross=cross_len(batch))
+
+
+def cross_len(batch: Dict[str, Any]) -> Optional[int]:
+    """The source length of ``batch``'s cross-attention K/V, or None where
+    the family has no source."""
+    return batch["enc_tokens"].shape[1] if "enc_tokens" in batch else None
 
 
 def _scatter_slots(pool, fresh, axes, slots: torch.Tensor):
@@ -433,7 +440,8 @@ def generate(params, batch: Dict[str, Any], cfg: ModelConfig,
              gen: GenerateConfig = GenerateConfig(),
              seed: int = 0, ctx=None) -> GenerateResult:
     """Generate ``gen.max_new`` tokens for the prompts ``batch["tokens"]``
-    (B, P) plus the family's conditioning inputs (``enc_tokens``), on the
+    (B, P) plus the family's conditioning inputs (``enc_tokens`` of the
+    encoder-decoder; none for the decoder-only families), on the
     device the parameters and batch live on: beam search when
     ``gen.beam_width > 1``, else greedy or sampled. ``seed`` keys sampling
     (row b draws from the stream of (seed, b)). Runs without autograd, so

@@ -46,7 +46,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import decode_step, init_cache, prefill
-from repro_torch.serve.engine import _cache_batch_axes
+from repro_torch.serve.engine import _cache_batch_axes, cross_len
 from repro_torch.tree import flatten_with_paths, tree_map
 
 
@@ -249,12 +249,12 @@ class PrefixCache:
 def paged_pool_like(batch: Dict[str, Any], cfg: ModelConfig, *, max_seq: int,
                     n_slots: int, layout: PagedLayout):
     """Paged decode pool shaped like the caches ``prefill`` produces for
-    ``batch`` (the cross-K/V length follows ``batch["enc_tokens"]``), on
-    the batch's device. Pageable leaves become page arenas ``(...,
-    n_pages + 1, page_size, ...)``; the others keep the slot-pool layout
-    over ``n_slots`` rows (callers include the scratch slot)."""
-    fresh = init_cache(cfg, 1, max_seq, device="meta",
-                       n_cross=batch["enc_tokens"].shape[1])
+    ``batch`` (the cross-K/V length follows ``batch["enc_tokens"]``; a
+    decoder-only batch has no cross leaves), on the batch's device.
+    Pageable leaves become page arenas ``(..., n_pages + 1, page_size,
+    ...)``; the others keep the slot-pool layout over ``n_slots`` rows
+    (callers include the scratch slot)."""
+    fresh = init_cache(cfg, 1, max_seq, device="meta", n_cross=cross_len(batch))
     bat, seq = _cache_page_axes(cfg)
     device = batch["tokens"].device
 

@@ -108,7 +108,8 @@ def needs_exact_prefill(cfg: ModelConfig, max_bucket: int) -> bool:
     """True when right-padded bucket prefill cannot reproduce exact-length
     prefill: SSM state integrates pads, and a sliding-window ring evicts
     real tokens once the padded length exceeds the window. The ported
-    family (encoder-decoder with full attention caches) has neither."""
+    families (the encoder-decoder and the decoder-only ones, all with full
+    attention caches) have neither (A.4b ports the reference's test)."""
     del cfg, max_bucket
     return False
 
@@ -583,7 +584,9 @@ class PagedScheduler(ContinuousScheduler):
         """The request's conditioning inputs as part of its prefix keys: in
         the encoder-decoder every decoder layer after the first reads the
         source through cross-attention, so equal target prefixes give
-        equal pages only under equal sources."""
+        equal pages only under equal sources. A decoder-only request has
+        none: ``()``, and its pages are keyed on the prompt alone, the
+        reference's key."""
         return tuple((k, v.dtype.str, v.shape, v.tobytes())
                      for k, v in sorted((k, np.asarray(v))
                                         for k, v in req.extras.items()))

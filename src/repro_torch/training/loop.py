@@ -13,7 +13,10 @@ is a JAX compile-unit device with no counterpart here. What carries over:
     sync: batches are copied in from pinned memory without a sync, and the
     learning rate and the drop bit live on the host);
   * checkpoint and resume at the ABSOLUTE step: after a restore, the data
-    stream and the consensus bits continue where the run left off;
+    stream and the consensus bits continue where the run left off; under
+    an expert-parallel group the checkpoint holds the gathered experts
+    (``checkpoint.save_checkpoint``), so a run may resume at another
+    group size;
   * history records carry loss, acc, lr and tok/s, where tok/s counts the
     decoder ``tokens`` AND the encoder ``enc_tokens``, the ``comm_*``
     wire counters of the step's forward and, with the MetricsFrame on,
@@ -112,10 +115,6 @@ class Trainer:
                  log_every: int = 20, prefetch: bool = True,
                  log: Optional[Callable[[str], None]] = print,
                  tracer: Optional[Tracer] = None):
-        if ckpt_dir and ctx is not None and ctx.ep > 1:
-            raise NotImplementedError(
-                "checkpoints of an expert-parallel run (gathered save and "
-                "restore) are not ported; see ROADMAP.md")
         self.cfg, self.tc, self.ctx = cfg, tc, ctx
         self.batch_fn = batch_fn
         self.device = torch.device(device)
@@ -142,7 +141,8 @@ class Trainer:
         run continues at that absolute step."""
         if not self.ckpt_dir or latest_step(self.ckpt_dir) is None:
             raise FileNotFoundError(f"restore: no checkpoint in {self.ckpt_dir}")
-        self.state, meta = restore_checkpoint(self.ckpt_dir, self.state)
+        self.state, meta = restore_checkpoint(self.ckpt_dir, self.state,
+                                              ctx=self.ctx)
         self.start_step = int(meta["step"])
         return self.start_step
 
@@ -256,5 +256,5 @@ class Trainer:
                 it.close()
         if self.ckpt_dir:
             save_checkpoint(self.ckpt_dir, self.tc.steps, self.state,
-                            {"arch": self.cfg.arch_id})
+                            {"arch": self.cfg.arch_id}, ctx=self.ctx)
         return self.state, self.history

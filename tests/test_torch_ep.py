@@ -17,7 +17,15 @@ CLI's --mesh) on a 2-rank gloo group, against the JAX package on the CPU:
     reference's ``generate`` / ``greedy_bleu`` on the mesh: tokens and
     BLEU equal;
   * a group of one rank: grouped steps bitwise the ungrouped ones, no
-    collective, and ``cuda_fused`` running the pipeline, never B4.
+    collective, and ``cuda_fused`` running the pipeline, never B4;
+  * gathered checkpoints: the 2-rank Gate-Drop run's checkpoint has the
+    reference's keys, shapes and dtypes and its values (the reference's
+    sharded run, saved by its own ``save_checkpoint``) within the bounds
+    above (moments within 1e-6); a run whose steps are the same function
+    at any group size (``torch_ep_worker.ckpt_cfg``) saves at mesh 2 what
+    it saves at mesh 1, within the same bounds, and each checkpoint
+    restores at mesh 1 and at mesh 2 and steps on to the state an
+    unbroken mesh-1 run reaches.
 
 The ranks run as processes of their own (``torch_ep_worker.py``); the
 reference's sharded step runs in a subprocess with two simulated devices,
@@ -126,6 +134,8 @@ for i in range({STEPS}):
     state, m = step(state, b, bool(bits[i]))
     metrics.append({{k: np.asarray(v).tolist() for k, v in jax.device_get(m).items()}})
 np.savez(out + "/jax_final.npz", **flat(jax.device_get(state["params"])))
+from repro.checkpoint import save_checkpoint
+save_checkpoint(out + "/jax_ckpt", {STEPS}, jax.device_get(state), {{"arch": cfg.arch_id}})
 
 gcfg = reduced(get_config('zcode-m3-base'))
 gp = jax.tree.map(lambda a: a * 3.0 if a.ndim >= 2 else a, init_model(jax.random.PRNGKey(7), gcfg))
@@ -175,10 +185,13 @@ def run(tmp_path_factory):
                XLA_FLAGS="--xla_force_host_platform_device_count=2")
     ref = subprocess.Popen([sys.executable, "-c", JAX_REFERENCE, str(d)], env=env,
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    W.ckpt_trainer(str(d), "ckpt_m1", STEPS).run()       # the mesh-1 checkpoint
     ranks = W.Ranks(WORLD, d, {
         "layer": CASES,
-        "train": {"steps": STEPS, "backends": ["sharded", "cuda"]},
-        "generate": {"backend": "sharded", "n": GEN_N, "max_new": GEN_NEW}},
+        "train": {"steps": STEPS, "backends": ["sharded", "cuda"], "ckpt": "ckpt_gd",
+                  "ckpt_backend": "sharded"},
+        "generate": {"backend": "sharded", "n": GEN_N, "max_new": GEN_NEW},
+        "ckpt": {"steps": STEPS, "save": "ckpt_m2", "resume": ["ckpt_m1", "ckpt_m2"]}},
         timeout=200)
     try:
         want = {c["name"]: jax_layer(jp, arrays, c, WORLD) for c in CASES}
@@ -268,7 +281,7 @@ def test_train_cli_mesh_under_torchrun(tmp_path):
          "--mesh", "2", "--reduced", "--steps", "3", "--batch", "4", "--seq", "16",
          "--langs", "4", "--gd-mode", "gate_drop", "--gd-rate", "0.3",
          "--eval-every", "2", "--log-every", "1", "--comm", "hierarchical_compressed",
-         "--no-prefetch", "--json-out", str(out)],
+         "--no-prefetch", "--json-out", str(out), "--ckpt-dir", str(tmp_path / "ckpt")],
         capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-4000:]
     recs = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
@@ -278,14 +291,20 @@ def test_train_cli_mesh_under_torchrun(tmp_path):
     hist = json.load(open(out))
     assert hist["ep"] == 2 and hist["comm"] == "hierarchical_compressed"
     assert _untimed(hist["history"]) == _untimed(recs)
+    # the gathered checkpoint: all 4 experts of every expert leaf
+    arrays = np.load(tmp_path / "ckpt" / "step_00000003" / "arrays.npz")
+    assert arrays["params/decoder/0/p0/moe/experts/w_in"].shape[-3] == 4
+    assert arrays["opt/v/encoder/0/p0/moe/experts/w_out"].shape[-3] == 4
 
 
 def test_train_cli_rejects_what_is_not_ported(tmp_path):
+    """A model axis (A.5) is not ported; ``--ckpt-dir`` under ``--mesh 2``
+    is (``test_train_cli_mesh_under_torchrun``), and the CLI still refuses
+    ``--resume`` without a directory."""
     with pytest.raises(NotImplementedError, match="A.5"):
         cli.main(["--device", "cpu", "--reduced", "--mesh", "2,2"])
     with pytest.raises(SystemExit):
-        cli.main(["--device", "cpu", "--reduced", "--mesh", "2",
-                  "--ckpt-dir", str(tmp_path)])
+        cli.main(["--device", "cpu", "--reduced", "--mesh", "2", "--resume"])
 
 
 def _one_rank_cfg(backend, substrate="dense", mode="gate_drop"):
@@ -336,3 +355,78 @@ def test_one_rank_group_is_the_ungrouped_step(tmp_path, monkeypatch):
             _train(_one_rank_cfg("cuda_fused"), None, steps=1)
     finally:
         close_group()
+
+
+# ---------------------------------------------------------------------------
+# gathered checkpoints under --mesh 2
+# ---------------------------------------------------------------------------
+
+def _ckpt(d, name, step=STEPS):
+    path = os.path.join(d, name, f"step_{step:08d}")
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    return dict(np.load(os.path.join(path, "arrays.npz"))), meta
+
+
+def _same_checkpoint(got, want):
+    """Keys, shapes, dtypes and meta equal; parameters within 2e-4,
+    moments within 1e-6, counters exact."""
+    (ga, gm), (wa, wm) = got, want
+    assert sorted(ga) == sorted(wa)
+    assert (gm["step"], gm["n_arrays"], gm["dtypes"], gm["arch"]) == \
+        (wm["step"], wm["n_arrays"], wm["dtypes"], wm["arch"])
+    for key, want_arr in wa.items():
+        assert ga[key].shape == want_arr.shape and ga[key].dtype == want_arr.dtype, key
+        atol = 2e-4 if key.startswith("params/") else 1e-6
+        if key.startswith("params/") or key.startswith("opt/m/") or key.startswith("opt/v/"):
+            np.testing.assert_allclose(ga[key], want_arr, atol=atol, rtol=0, err_msg=key)
+        else:
+            np.testing.assert_array_equal(ga[key], want_arr, err_msg=key)
+
+
+def test_gathered_checkpoint_has_the_reference_layout(run):
+    """The 2-rank Gate-Drop run (sharded backend) saved by rank 0 against
+    the reference's sharded run saved by its own ``save_checkpoint``."""
+    *_, d = run
+    got, want = _ckpt(d, "ckpt_gd"), _ckpt(d, "jax_ckpt")
+    assert got[0]["params/decoder/0/p0/moe/experts/w_in"].shape[-3] == 4
+    _same_checkpoint(got, want)
+
+
+def test_gathered_checkpoint_equals_the_mesh1_checkpoint(run):
+    *_, d = run
+    _same_checkpoint(_ckpt(d, "ckpt_m2"), _ckpt(d, "ckpt_m1"))
+
+
+@pytest.fixture(scope="module")
+def unbroken(run, tmp_path_factory):
+    """The parameters of 4 steps of ``ckpt_cfg`` at mesh 1 in one run."""
+    init = W.bridge.to_torch(dict(np.load(run[-1] / "init.npz")), "cpu")
+    d = tmp_path_factory.mktemp("unbroken")
+    state, _ = W.ckpt_trainer(str(d), "ckpt", STEPS + 1, params=init).run()
+    return flatten_with_paths(state["params"])
+
+
+@pytest.mark.parametrize("saved", ["ckpt_m1", "ckpt_m2"])
+@pytest.mark.parametrize("restored", [1, 2])
+def test_checkpoint_restores_across_meshes(saved, restored, run, unbroken, tmp_path):
+    """A checkpoint saved at mesh 1 or mesh 2, restored at mesh 1 or mesh
+    2, steps on to the state of an unbroken 4-step mesh-1 run."""
+    _, _, results, d = run
+    want = unbroken
+    if restored == 1:
+        trainer = W.ckpt_trainer(str(d), W.resume_copy(str(d), saved, f"{saved}_{tmp_path.name}"),
+                                 STEPS + 1)
+        assert trainer.restore() == STEPS
+        got = {k: v.detach().numpy() for k, v in
+               flatten_with_paths(trainer.run()[0]["params"]).items()}
+    else:
+        assert all(rec[f"ckpt/{saved}/restored_step"] == STEPS for _, rec in results)
+        got = {}
+        for key in want:
+            parts = [out[f"ckpt/{saved}/{key}"] for out, _ in results]
+            got[key] = (np.concatenate(parts, axis=parts[0].ndim - 3)
+                        if "experts" in key.split("/") else parts[0])
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key], w.detach().numpy(), atol=2e-4, rtol=0,
+                                   err_msg=key)

@@ -786,6 +786,44 @@ def test_cuda_flash_decode_matches_plain(qdt, kvdt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", [(32, 4), (48, 8)])
+def test_cuda_flash_decode_gqa_geometries_match_plain(h, kv, qdt):
+    """B5 and B6 at the decoder-only archs' decode geometry, head dim 128
+    with 8 query heads per kv head (yi-6b: 32 / 4, both of the kernel's
+    limits at once) and 6 (dbrx-132b: 48 / 8, on the 8-row instance with
+    two rows masked), bf16 caches: against the plain versions at 64
+    positions (one split) and 1,024 (several, rows at split edges), B6
+    through a permuted arena of 16-position pages bitwise equal to B5."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    ps = 16
+    for b, s in ((8, 64), (4, 1024)):
+        q = torch.randn(b, h, 128, generator=g, device=dev).to(qdt)
+        k = torch.randn(b, s, kv, 128, generator=g, device=dev).bfloat16()
+        v = torch.randn(b, s, kv, 128, generator=g, device=dev).bfloat16()
+        n_split, per = flash_decode.plan_of(q, k)
+        if s == 1024:
+            assert n_split > 1
+            idx = torch.tensor([0, per - 1, per, s - 1], device=dev, dtype=torch.int32)
+        else:
+            idx = torch.randint(0, s, (b,), generator=g, device=dev, dtype=torch.int32)
+        out = flash_decode.flash_decode(q, k, v, idx)
+        _gpu_close(out, ref.flash_decode_ref(q, k, v, idx))
+        nb = s // ps
+        perm = torch.randperm(b * nb, generator=g, device=dev)
+        tables = perm.reshape(b, nb).to(torch.int32)
+        ka = torch.empty((b * nb + 1, ps, kv, 128), dtype=k.dtype, device=dev)
+        va = torch.empty_like(ka)
+        ka[perm] = k.reshape(b * nb, ps, kv, 128)
+        va[perm] = v.reshape(b * nb, ps, kv, 128)
+        ka[-1], va[-1] = 1e4, -1e4                      # the scratch page
+        paged = flash_decode.flash_decode_paged(q, ka, va, tables, idx)
+        _gpu_close(paged, ref.flash_decode_paged_ref(q, ka, va, tables, idx))
+        assert torch.equal(paged, out)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_decode_split_launches_on_two_streams():
     """Launches that split, issued in turns on two streams with no sync
     between them (two server threads, each with its stream), are ordered by

@@ -341,6 +341,37 @@ def test_cuda_fused_moe_matches_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("d", [1536, 6144])
+def test_cuda_fused_moe_tiled_any_width(d, k, dtype):
+    """B4's tiled kernel past d = 1,024 (the gathered rows staged over d
+    in chunks, the output added per block of f and of d): dbrx-132b's
+    width 6,144 and 1,536 (a ragged last chunk of d), gated silu, small E
+    and f, C = 40 (three 16-row tiles, the last ragged), against the plain
+    version. The weights take the model's init scale (std d^-0.5 in,
+    f^-0.5 out; ``make_case``'s 0.1 would put pre-activations at std 7.8
+    at this width), so the outputs are O(1) as the f32 tolerance of sums
+    in another order assumes."""
+    dev = _card()
+    t, r = _gpu_case(dev, 4, k, 40, 48, d, 1100, True, dtype)
+    for name, fan_in in (("w_in", d), ("w_gate", d), ("w_out", 1100)):
+        t[name] = (t[name].float() * (10.0 * fan_in ** -0.5)).to(dtype)
+    args = (t["x"], t["w_in"], t["w_gate"], t["w_out"], r["topk_w"], r["keep"],
+            r["slot_token"], r["slot_valid"], r["token_slot"])
+    got, took = _took(args, "silu")
+    assert took == "tiled"
+    wcomb = (r["topk_w"] * r["keep"]).float()
+    want = ref.fused_moe_f32_ref(t["x"], t["w_in"], t["w_gate"], t["w_out"], wcomb,
+                                 r["slot_token"], r["slot_valid"],
+                                 r["token_slot"].clamp(0, 4 * 40 - 1), "silu")
+    torch.cuda.synchronize()
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1.6e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert float(want.abs().max()) > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("balanced", [False, True])
 def test_cuda_fused_moe_streaming_skips_unrouted_and_replays(balanced):
     """The streaming kernel at full width (E = 128, d = 512, f = 2048, C =

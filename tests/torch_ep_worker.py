@@ -128,12 +128,72 @@ def run_train(spec, ctx, out, rec):
         params = bridge.shard_experts(bridge.to_torch(init, "cpu"), ctx.rank, ctx.ep)
         batches = MultilingualMT(MTTaskConfig(vocab=cfg.vocab, n_langs=4,
                                               max_len=16)).train_batches(4)
+        ckpt = os.path.join(d, spec["ckpt"]) if backend == spec.get("ckpt_backend") else None
         trainer = Trainer(cfg, tc, batches, device="cpu", params=params, ctx=ctx,
-                          chunk=2, log_every=1, log=None, prefetch=False)
+                          chunk=2, log_every=1, log=None, prefetch=False, ckpt_dir=ckpt)
         state, history = trainer.run()
         rec[f"train/{backend}"] = history
         for k, v in flatten_with_paths(state["params"]).items():
             out[f"train/{backend}/{k}"] = v.detach().numpy()
+
+
+def ckpt_cfg():
+    """Reduced zcode-m3-base whose steps are the same function at any group
+    size: no Gating Dropout (its local group is the rank's experts), no
+    jitter, no capacity drops (capacity factor = expert count) and no
+    balance term (a group mean of per-rank terms)."""
+    cfg = reduced(get_config("zcode-m3-base"))
+    e = float(cfg.moe.n_experts)
+    gd = dataclasses.replace(cfg.moe.gating_dropout, mode="off", rate=0.0)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, jitter_eps=0.0, balance_coef=0.0, capacity_factor=e,
+        eval_capacity_factor=e, backend="sharded", gating_dropout=gd))
+
+
+def ckpt_trainer(d, ckpt, steps, params=None, ctx=None):
+    """A Trainer of ``ckpt_cfg`` on the MT batches, saving to ``d/ckpt``
+    at its last step; from the full init in ``d/init.npz`` (sharded under
+    ``ctx``) unless ``params`` are given."""
+    from repro_torch.data import MTTaskConfig, MultilingualMT
+    from repro_torch.training import Trainer
+    cfg = ckpt_cfg()
+    if params is None:
+        params = bridge.to_torch(dict(np.load(os.path.join(d, "init.npz"))), "cpu")
+        if ctx is not None:
+            params = bridge.shard_experts(params, ctx.rank, ctx.ep)
+    tc = TrainConfig(lr=1e-3, warmup_steps=2, seed=0, steps=steps)
+    batches = MultilingualMT(MTTaskConfig(vocab=cfg.vocab, n_langs=4,
+                                          max_len=16)).train_batches(4)
+    return Trainer(cfg, tc, batches, device="cpu", params=params, ctx=ctx, chunk=2,
+                   log_every=1, log=None, prefetch=False,
+                   ckpt_dir=os.path.join(d, ckpt))
+
+
+def resume_copy(d, src, dst):
+    """``d/dst``, a copy of checkpoint directory ``d/src`` that a resumed
+    run saves into (the source keeps its latest step)."""
+    import shutil
+    shutil.copytree(os.path.join(d, src), os.path.join(d, dst))
+    return dst
+
+
+def run_ckpt(spec, ctx, out, rec):
+    """Gathered checkpoints: ``spec["steps"]`` steps saved at this group
+    size into ``spec["save"]``, then each checkpoint of ``spec["resume"]``
+    restored at this group size and taken one step further; the final
+    expert leaves of each resumed run are this rank's block."""
+    d = spec["dir"]
+    ckpt_trainer(d, spec["save"], spec["steps"], ctx=ctx).run()
+    for src in spec["resume"]:
+        dst = f"resume_{src}_ep{ctx.ep}"
+        if ctx.rank == 0:
+            resume_copy(d, src, dst)
+        dist.barrier(group=ctx.group)
+        trainer = ckpt_trainer(d, dst, spec["steps"] + 1, ctx=ctx)
+        rec[f"ckpt/{src}/restored_step"] = trainer.restore()
+        state, _ = trainer.run()
+        for k, v in flatten_with_paths(state["params"]).items():
+            out[f"ckpt/{src}/{k}"] = v.detach().numpy()
 
 
 def run_generate(spec, ctx, out, rec):
@@ -179,6 +239,8 @@ def main():
             run_train(dict(spec["train"], dir=d), ctx, out, rec)
         if spec.get("generate"):
             run_generate(dict(spec["generate"], dir=d), ctx, out, rec)
+        if spec.get("ckpt"):
+            run_ckpt(dict(spec["ckpt"], dir=d), ctx, out, rec)
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
