@@ -103,12 +103,33 @@ Phases (any failure exits non-zero):
                  1,023 as one CUDA graph (run inside the serving phases,
                  on their weights).
 
+  swa. sliding windows and long prompts -- after phase dec, each model
+                 freed before the next (seeded weights, f32 parameters, bf16
+                 activations unless f32 is named): starcoder2-3b at full
+                 width and depth generates for 2 x 4,608-token prompts (past
+                 its 4,096-token window and 2 x 1,024 keys: the rings evict
+                 at prefill, which takes the blocked flash attention) with
+                 no kernel launch, timed, its decode step as a CUDA graph;
+                 f32: prefill logits against the quadratic path with the
+                 window's mask, 8 teacher-forced ring decode steps against
+                 model_apply; the slot-pool scheduler with buckets to 8,192
+                 (exact-length prefill) on prompts of 64-4,800 tokens, its
+                 tokens against one-shot generate, and the paged scheduler's
+                 refusal; h2o-danube-3-4b (4 layers) through the same
+                 gates; yi-6b at a 3,616-position cache (992 B5 per
+                 generate, B5 and B6 at that depth against plain and
+                 library, slot pool and arena tokens equal); dbrx-132b (2
+                 layers) at a 2,304-token prompt: B1-B4 at the prefill's
+                 inputs against plain and library, both backends' f32
+                 logits against the plain path;
+
   python3 chip_smoke.py --only full_cache
 
 runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
-to compare two trees' B5 and B6 at these sites in one call; ``--only ep``
-and ``--only obs`` run phases 1, 2 and that phase alone.
+to compare two trees' B5 and B6 at these sites in one call; ``--only ep``,
+``--only obs``, ``--only dec`` and ``--only swa`` run phases 1, 2 and that
+phase alone.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -841,13 +862,13 @@ def b5_floor(args):
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 
-def _pool(cfg, fresh, dev):
+def _pool(cfg, fresh, dev, rows=BATCH):
     """The engine's slot pool holding the per-request caches ``fresh``."""
     from repro_torch.serve.engine import (_alloc_pool_like, _cache_batch_axes,
                                           _scatter_slots)
     axes = _cache_batch_axes(cfg)
-    return _scatter_slots(_alloc_pool_like(fresh, axes, BATCH), fresh, axes,
-                          torch.arange(BATCH, device=dev))
+    return _scatter_slots(_alloc_pool_like(fresh, axes, rows), fresh, axes,
+                          torch.arange(rows, device=dev))
 
 
 def slice_phase(params, batch, cfg, gen, dev):
@@ -907,11 +928,13 @@ def decode_graph(label, params, batch, cfg, decode_ms, dev):
     calls from Python in one eager step."""
     from repro_torch.models import prefill
     from repro_torch.serve.engine import decode_pool_step
-    lg, fresh = prefill(params, batch, cfg, max_seq=PROMPT + MAX_NEW)
-    pool = _pool(cfg, fresh, dev)
+    rows, plen = batch["tokens"].shape
+    lg, fresh = prefill(params, batch, cfg, max_seq=plen + MAX_NEW)
+    pool = _pool(cfg, fresh, dev, rows)
+    del fresh
     tok = lg[:, 0].argmax(-1)
-    pos = torch.full((BATCH,), PROMPT, device=dev)
-    alive = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    pos = torch.full((rows,), plen, device=dev)
+    alive = torch.ones(rows, dtype=torch.bool, device=dev)
     graph_ms = device_ms(lambda: decode_pool_step(params, pool, tok, pos, alive, cfg,
                                                   flash_decode=True),
                          reps=1, replays=20)
@@ -2839,8 +2862,9 @@ def dec_cfg(arch: str, backend=None, dtype=None):
     return cfg
 
 
-def dec_model(cfg, dev):
-    """Seeded weights on the card and the 8 x 32-token prompt batch."""
+def dec_model(cfg, dev, rows=BATCH, prompt=PROMPT):
+    """Seeded weights on the card and a batch of ``rows`` x ``prompt``
+    tokens (default 8 x 32)."""
     from repro_torch.launch.serve import generator, synth_batch
     from repro_torch.models import init_model
     t0 = time.perf_counter()
@@ -2851,7 +2875,7 @@ def dec_model(cfg, dev):
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}: {n / 1e9:.3f} B params "
         f"(analytic {cfg.n_params() / 1e9:.3f} B), {n * 4 / 1e9:.1f} GB in f32, init "
         f"{time.perf_counter() - t0:.1f} s")
-    return params, synth_batch(cfg, generator(dev, SEED, 1), BATCH, PROMPT)
+    return params, synth_batch(cfg, generator(dev, SEED, 1), rows, prompt)
 
 
 def dec_generate(label, params, batch, cfg, gen, expect):
@@ -2873,7 +2897,8 @@ def dec_generate(label, params, batch, cfg, gen, expect):
     if counts != want:
         raise AssertionError(f"dec {label}: launches {counts} != {want}")
     toks = res.tokens
-    if toks.shape != (BATCH, MAX_NEW) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+    if toks.shape != (batch["tokens"].shape[0], gen.max_new) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
         raise AssertionError(f"dec {label}: bad tokens {tuple(toks.shape)}")
     log(f"dec {label}: first row {toks[0].tolist()} ({len(set(toks.flatten().tolist()))} "
         "distinct tokens in the batch)")
@@ -2884,8 +2909,9 @@ def dec_timed(label, params, batch, cfg, gen):
     """The serving CLI's timed rounds (median and spread)."""
     from repro_torch.launch.serve import TIMED_ROUNDS, spread, time_generate
     med, rounds, _ = time_generate(params, batch, cfg, gen)
-    log(f"dec {label}: median of {TIMED_ROUNDS} rounds [min, max] (8 x 32 prompt tokens, "
-        f"{MAX_NEW - 1} decode steps): prefill {med['prefill_ms']:.2f} ms "
+    rows, plen = batch["tokens"].shape
+    log(f"dec {label}: median of {TIMED_ROUNDS} rounds [min, max] ({rows} x {plen} prompt "
+        f"tokens, {gen.max_new - 1} decode steps): prefill {med['prefill_ms']:.2f} ms "
         f"{spread(rounds['prefill_ms'])}, decode {med['decode_ms_per_step']:.2f} ms/step "
         f"{spread(rounds['decode_ms_per_step'])}, total {med['total_ms']:.2f} ms "
         f"{spread(rounds['total_ms'])}, {med['tok_s']:.0f} tokens/s {spread(rounds['tok_s'])}")
@@ -3195,8 +3221,442 @@ def dec_rows(dec):
     return {k: v for k, v in rows.items() if v}
 
 
+# ---------------------------------------------------------------------------
+# phase swa: sliding-window attention and long prompts
+# ---------------------------------------------------------------------------
+
+SWA_ROWS, SWA_PROMPT = 2, 4608    # past the 4,096-token window and 2 x 1,024 keys
+DANUBE_LAYERS = 4                 # h2o-danube-3-4b's depth cut (24 layers, 15.8 GB, fit;
+                                  # the cut keeps the phase short)
+SWA_EXACT_LENS = (64, 1500, 4200, 4800)     # phase swa (b): one admission group each
+SWA_EXACT_BUCKETS = (64, 1024, 8192)        # the largest past the window: exact prefill
+SWA_EXACT_NEW = 8
+YI_LONG_PROMPT = 3584             # yi-6b: a 3,616-position cache within max_seq 4,096
+YI_PAGED_NEW = 16
+DBRX_LONG_PROMPT = 2304           # dbrx-132b: past 2 x 1,024 keys, C = 1,152 at top-4
+SWA_HEAVY_DEPTH = (1, 3)          # device_ms depth at dbrx's long prefill (~0.1-0.3 s a call)
+SWA_BANDED_LEN = 12288            # 3 x starcoder2's window: past the banded_swa switch (2 x window)
+
+
+@contextlib.contextmanager
+def quadratic_attention():
+    """Prefill and training attention through the quadratic path at every
+    length, the window's mask included: the blocked path's yardstick."""
+    from repro_torch.models import attention as A
+    real = A.flash_attention
+
+    def quadratic(q, k, v, *, causal, window=0, q_offset=0, chunk=1024):
+        return A.full_attention(q, k, v, causal=causal, window=window,
+                                qpos=q_offset + torch.arange(q.shape[1], device=q.device))
+
+    A.flash_attention = quadratic
+    try:
+        yield
+    finally:
+        A.flash_attention = real
+
+
+@torch.no_grad()
+def blocked_gate(label, params, batch, cfg, max_seq):
+    """f32 prefill logits through the blocked flash attention against the
+    quadratic path with the window's mask. Returns (max abs diff, the
+    blocked prefill's caches)."""
+    from repro_torch.models import prefill
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lb, caches = prefill(params, batch, cfg32, max_seq=max_seq)
+    with quadratic_attention():
+        lq, _ = prefill(params, batch, cfg32, max_seq=max_seq)
+    if not (torch.isfinite(lb).all() and torch.isfinite(lq).all()):
+        raise AssertionError(f"{label}: non-finite f32 prefill logits")
+    d = float((lb - lq).abs().max())
+    log(f"{label} f32: prefill logits {tuple(lb.shape)} (max |logit| {float(lq.abs().max()):.3f}), "
+        f"blocked flash vs quadratic attention max abs diff {d:.3e} (tol {E2E_LOGIT_ATOL})")
+    if d > E2E_LOGIT_ATOL:
+        raise AssertionError(f"{label}: blocked prefill logits differ by {d}")
+    return d, caches
+
+
+@torch.no_grad()
+def ring_gate(label, params, batch, cfg, dev):
+    """f32: the blocked prefill against the quadratic one, then N_FORCED
+    teacher-forced decode steps through the ring caches (a slot pool,
+    per-row positions) against ``model_apply``'s logits at the same
+    positions over the prompt and the forced tokens."""
+    from repro_torch.models import model_apply
+    from repro_torch.models.model import head_matrix
+    from repro_torch.serve.engine import decode_pool_step
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rows, plen = batch["tokens"].shape
+    d_pre, caches = blocked_gate(label, params, batch, cfg, plen + N_FORCED)
+    pool = _pool(cfg32, caches, dev, rows)
+    del caches
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    forced = torch.randint(3, cfg.vocab, (rows, N_FORCED), generator=g, device=dev)
+    alive = torch.ones(rows, dtype=torch.bool, device=dev)
+    got = []
+    for i in range(N_FORCED):
+        pos = torch.full((rows,), plen + i, device=dev)
+        lg, pool = decode_pool_step(params, pool, forced[:, i], pos, alive, cfg32,
+                                    flash_decode=True)
+        got.append(lg)
+    del pool
+    hid, _ = model_apply(params, {"tokens": torch.cat([batch["tokens"], forced], 1)}, cfg32,
+                         is_training=False, return_hidden=True)
+    want = torch.matmul(hid[:, plen:].to(cfg.torch_param_dtype),
+                        head_matrix(params, cfg)).float()
+    got = torch.stack(got, 1)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite f32 ring decode logits")
+    d_dec = float((got - want).abs().max())
+    log(f"{label} f32: {N_FORCED} teacher-forced decode steps through the rings (positions "
+        f"{plen}-{plen + N_FORCED - 1}, window {cfg.sliding_window}) against model_apply over "
+        f"{plen + N_FORCED} tokens: logits max abs diff {d_dec:.3e} (tol {E2E_LOGIT_ATOL})")
+    if d_dec > E2E_LOGIT_ATOL:
+        raise AssertionError(f"{label}: ring decode logits differ by {d_dec}")
+    return dict(prefill=d_pre, decode=d_dec)
+
+
+def ring_read(cfg, rows, dev):
+    """One layer's plain ring read at a decode step (the port's and the
+    reference's: the ring's K/V expanded to the query heads in f32, then
+    quadratic attention under the ``pos`` mask) with every slot live,
+    timed in turns with SDPA on the same ring and mask, beside the bytes
+    of the ring's K/V read once."""
+    from repro_torch.models import attention as A
+    w, kv, hd, h = cfg.sliding_window, cfg.n_kv_heads, cfg.head_dim_, cfg.n_heads
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    q = torch.randn((rows, 1, h, hd), generator=g, device=dev)
+    ck, cv = (torch.randn((rows, w, kv, hd), generator=g, device=dev).to(cfg.torch_dtype)
+              for _ in range(2))
+    valid = torch.ones((rows, w), dtype=torch.bool, device=dev)
+    q4 = q.to(ck.dtype).transpose(1, 2)
+    k4, v4 = ck.transpose(1, 2), cv.transpose(1, 2)
+    mask = valid[:, None, None, :]
+    plain_ms, sdpa_ms = in_turns(
+        lambda: A.full_attention(q, ck, cv, causal=False, kv_valid=valid),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True))
+    b_ms, b_by = bound(2 * ck.numel() * ck.element_size(), 4.0 * rows * w * h * hd, "float32")
+    log(f"time ring read [q {tuple(q.shape)} f32, ring {tuple(ck.shape)} {_dt(ck)}], one layer: "
+        f"plain {plain_ms:.6f} ms, SDPA {sdpa_ms:.6f} ms (in turns), bound {b_ms:.6f} ms "
+        f"({b_by}); x {cfg.n_layers} layers: plain {plain_ms * cfg.n_layers:.2f} ms per step")
+    return dict(ms=plain_ms, sdpa_ms=sdpa_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def banded_vs_blocked(cfg, dev):
+    """One layer's causal windowed attention at SWA_BANDED_LEN tokens (f32,
+    one row, the arch's heads), past the ``banded_swa`` switch at 2 x
+    window: the default blocked flash attention (key blocks outside a
+    chunk's window skipped) against ``banded_flash_attention`` (the
+    ``banded_swa`` branch's chunks), held against each other and timed in
+    turns, beside the bound of the window's work."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.flash import banded_flash_attention
+    w, n, h, kv, hd = (cfg.sliding_window, SWA_BANDED_LEN, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim_)
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    q = torch.randn((1, n, h, hd), generator=g, device=dev)
+    k, v = (torch.randn((1, n, kv, hd), generator=g, device=dev) for _ in range(2))
+    blocked = lambda: A.flash_attention(q, k, v, causal=True, window=w)  # noqa: E731
+    banded = lambda: banded_flash_attention(q, k, v, w, q_chunk=1024, kv_chunk=512)  # noqa: E731
+    with torch.no_grad():
+        err = check(f"banded vs blocked flash attention@{n} tokens", banded(), blocked())
+        blocked_ms, banded_ms = in_turns(blocked, banded, depth=SWA_HEAVY_DEPTH)
+    seen = sum(min(i + 1, w) for i in range(n))           # (query, key) pairs in the window
+    b_ms, b_by = bound(4 * (q.numel() + 2 * k.numel() + q.numel()), 4.0 * seen * h * hd,
+                       "float32")
+    log(f"time windowed attention [q {tuple(q.shape)}, k/v {tuple(k.shape)} f32, window {w}]: "
+        f"blocked {blocked_ms:.3f} ms, banded {banded_ms:.3f} ms (in turns), bound "
+        f"{b_ms:.3f} ms ({b_by}); max abs diff {err:.3e}")
+    return dict(tokens=n, blocked_ms=blocked_ms, banded_ms=banded_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err)
+
+
+def swa_exact(params, cfg, dev):
+    """Phase swa (b): the slot-pool scheduler on starcoder2-3b with buckets
+    up to 8,192 (exact-length prefill), prompts of SWA_EXACT_LENS, f32:
+    every admission group holds one prompt length, unpadded; no kernel
+    launches; each request's tokens equal its one-shot ``generate``
+    bitwise (no near-tie allowance); the paged scheduler refuses the
+    arch."""
+    import numpy as np
+    from repro_torch.configs import PagedKVConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (ContinuousScheduler, GenerateConfig, PagedScheduler,
+                                   Request)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = GenerateConfig(max_new=SWA_EXACT_NEW, eos_id=-1, flash_decode=True)
+    rs = np.random.RandomState(SEED + 5)
+    reqs = [Request(rid=i, tokens=rs.randint(3, cfg.vocab, n).astype(np.int64),
+                    max_new=SWA_EXACT_NEW) for i, n in enumerate(SWA_EXACT_LENS)]
+    sched = ContinuousScheduler(params, cfg32, gen, n_slots=len(reqs),
+                                prefill_buckets=SWA_EXACT_BUCKETS)
+    if not sched.exact_prefill:
+        raise AssertionError("swa exact: the scheduler did not take exact-length prefill")
+    groups = []
+    real = sched._prefill_group
+    sched._prefill_group = lambda group, bucket, now: groups.append(
+        (bucket, [len(r.tokens) for r in group])) or real(group, bucket, now)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sched.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {r.rid: r.tokens for r in res}
+    log(f"swa exact: {sched.stats}; admission groups (bucket, prompt lengths) {groups}; "
+        f"launches {counts}; {wall:.2f} s")
+    if any(counts.values()) or sched.stats["finished"] != len(reqs):
+        raise AssertionError(f"swa exact: launches {counts} or stats {sched.stats}")
+    if sorted(b for b, _ in groups) != sorted(SWA_EXACT_LENS) or \
+            any(lens != [b] * len(lens) for b, lens in groups):
+        raise AssertionError(f"swa exact: groups not of one exact length {groups}")
+    n_equal, gaps = oneshot_check(params, cfg32, gen, reqs, want, sched.max_seq, dev)
+    log(f"swa exact f32: {n_equal} of {len(reqs)} requests' tokens equal their one-shot "
+        f"generate; divergences (rid, first token, top-two gap) {gaps}")
+    if n_equal != len(reqs):
+        raise AssertionError(f"swa exact: tokens differ from one-shot generate: {gaps}")
+    try:
+        PagedScheduler(params, cfg32, gen, paged=PagedKVConfig(page_size=PAGE_SIZE),
+                       n_slots=2, prefill_buckets=SWA_EXACT_BUCKETS)
+    except ValueError as e:
+        if "nothing to page" not in str(e):
+            raise
+        log(f"swa exact: PagedScheduler refuses the arch: {e}")
+    else:
+        raise AssertionError("swa exact: PagedScheduler accepted an all-window arch")
+    return dict(stats=dict(sched.stats), groups=groups, wall_s=wall, n_equal=n_equal,
+                gaps=gaps)
+
+
+def swa_windowed(arch, dev, layers=None, timed=True, exact=False):
+    """Phase swa (a)-(c): ``arch`` at full width (``layers`` deep, default
+    all), SWA_ROWS x SWA_PROMPT tokens, 32 new, flash decode on: a counted
+    ``generate`` launching no kernel; its timed rounds and the decode
+    step as a CUDA graph; the f32 gates; with ``exact``, phase (b)."""
+    from repro_torch.serve import GenerateConfig
+    t0 = time.perf_counter()
+    cfg = dec_cfg(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    params, batch = dec_model(cfg, dev, SWA_ROWS, SWA_PROMPT)
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+    counts, _, _ = dec_generate(arch, params, batch, cfg, gen, lambda steps: {})
+    out = {"layers": cfg.n_layers, "launches": counts}
+    if timed:
+        out["serve"] = dec_timed(arch, params, batch, cfg, gen)
+        out["decode_graph_ms"] = decode_graph(f"swa {arch}", params, batch, cfg,
+                                              out["serve"]["median"]["decode_ms_per_step"],
+                                              dev)
+        out["ring_read"] = ring_read(cfg, SWA_ROWS, dev)
+        out["banded"] = banded_vs_blocked(cfg, dev)
+    out["logit_diff"] = ring_gate(f"swa {arch}", params, batch, cfg, dev)
+    if exact:
+        out["exact"] = swa_exact(params, cfg, dev)
+    del params, batch
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"swa {arch}: {out['wall_s']:.1f} s")
+    return out
+
+
+def b5_depths(args):
+    """B5 at a captured decode query over the first L positions of its
+    cache, every row at position L - 1, for L up to the whole cache: the
+    split plan's n_split, device ms and the byte bound per depth (does
+    the merge's cost grow with n_split?)."""
+    q, k, v, idx = args
+    out = []
+    for n in (256, 1024, 2048, k.shape[1]):
+        a = (q, k[:, :n].contiguous(), v[:, :n].contiguous(), torch.full_like(idx, n - 1))
+        err = check(f"flash_decode@{n} positions", kernel_of("flash_decode")(*a),
+                    plain_of("flash_decode")(*a))
+        ms = device_ms(lambda: kernel_of("flash_decode")(*a))
+        b_ms, _ = bound(*work("flash_decode", a))
+        out.append(dict(positions=n, n_split=n_split_of(a), ms=ms, bound_ms=b_ms,
+                        max_abs_err=err))
+        log(f"time flash_decode at {n} positions [{tuple(q.shape)} x {tuple(a[1].shape)}, "
+            f"n_split {out[-1]['n_split']}]: {ms:.6f} ms, bound {b_ms:.6f} ms (bytes; "
+            f"{b_ms / ms * 100:.1f}% of it), {(ms - b_ms) * 1e3:.2f} us above it")
+    return out
+
+
+def swa_yi(dev):
+    """Phase swa (d): yi-6b at full width and depth, SWA_ROWS x
+    YI_LONG_PROMPT tokens (a cache of 3,616 positions): the blocked f32
+    prefill against the quadratic one; B5's launches per generate, B5 at
+    the captured long-cache decode inputs (its n_split) in turns with
+    SDPA; the slot pool and the page arena on the same requests (f32,
+    pages of 16): equal tokens, B6 against its plain version, bitwise B5,
+    timed in turns with index_select + SDPA."""
+    import numpy as np
+    from repro_torch.configs import PagedKVConfig
+    from repro_torch.serve import (ContinuousScheduler, GenerateConfig, PagedScheduler,
+                                   Request, generate)
+    t0 = time.perf_counter()
+    cfg = dec_cfg("yi-6b")
+    params, batch = dec_model(cfg, dev, SWA_ROWS, YI_LONG_PROMPT)
+    max_seq = YI_LONG_PROMPT + MAX_NEW
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+    counts, _, _ = dec_generate("yi-6b long", params, batch, cfg, gen,
+                                lambda steps: {"flash_decode": cfg.n_layers * steps})
+    if counts["flash_decode"] != cfg.n_layers * (MAX_NEW - 1):
+        raise AssertionError(f"swa yi-6b: {counts['flash_decode']} B5 launches")
+    d_pre, caches = blocked_gate("swa yi-6b", params, batch, cfg, max_seq)
+    del caches
+    with Capture(names=("flash_decode",)) as cap:
+        generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
+    torch.cuda.synchronize()
+    b5_args = cap.calls["flash_decode"][-1][0]
+    del cap
+    site = dec_site("yi-6b long", "flash_decode", "long decode", b5_args)
+    depths = b5_depths(b5_args)
+    del b5_args
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    pgen = GenerateConfig(max_new=YI_PAGED_NEW, eos_id=-1, flash_decode=True)
+    prompts = batch["tokens"].cpu().numpy()
+    reqs = lambda: [Request(rid=i, tokens=prompts[i], max_new=YI_PAGED_NEW)  # noqa: E731
+                    for i in range(SWA_ROWS)]
+    kw = dict(n_slots=SWA_ROWS, prefill_buckets=(YI_LONG_PROMPT,), max_seq=max_seq)
+    slot, ss, c_slot, w_slot = run_scheduler(
+        params, cfg32, pgen, reqs(), sched=ContinuousScheduler(params, cfg32, pgen, **kw))
+    with Capture(names=("flash_decode_paged",)) as cap:
+        paged, ps, c_paged, w_paged = run_scheduler(
+            params, cfg32, pgen, reqs(), sched=PagedScheduler(
+                params, cfg32, pgen, paged=PagedKVConfig(page_size=PAGE_SIZE,
+                                                         n_slots_equiv=SWA_ROWS), **kw))
+    for label, st, c, key in (("slot pool", ss.stats, c_slot, "flash_decode"),
+                              ("paged", ps.stats, c_paged, "flash_decode_paged")):
+        want = {k: 0 for k in c}
+        want[key] = cfg.n_layers * st["decode_steps"]
+        log(f"swa yi-6b {label} f32 ({SWA_ROWS} x {YI_LONG_PROMPT} tokens, {YI_PAGED_NEW} "
+            f"new): {st}; launches {c}, expected {want}")
+        if c != want or st["finished"] != SWA_ROWS:
+            raise AssertionError(f"swa yi-6b {label}: launches {c} != {want} or {st}")
+    bad = [i for i in range(SWA_ROWS) if not np.array_equal(paged[i], slot[i])]
+    if bad:
+        raise AssertionError(f"swa yi-6b: paged and slot-pool tokens differ for {bad}")
+    log(f"swa yi-6b f32: tokens equal across the slot pool (B5, {w_slot:.2f} s) and the "
+        f"page arena (B6, {w_paged:.2f} s)")
+    args = cap.calls["flash_decode_paged"][-1][0]
+    del cap
+    err = b6_checks([args], dev)
+    b6 = dict(b6_timing(args), max_abs_err=err, launches=c_paged["flash_decode_paged"],
+              stats=dict(ps.stats))
+    del params, batch
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"swa yi-6b: {wall:.1f} s")
+    return dict(launches=counts["flash_decode"], prefill_logit_diff=d_pre,
+                b5=dict(site, launches=counts["flash_decode"]), b5_depths=depths, b6=b6,
+                wall_s=wall)
+
+
+def swa_dbrx(dev):
+    """Phase swa (e): dbrx-132b at full width, DBRX_LAYERS layers, one
+    request of DBRX_LONG_PROMPT tokens (the blocked prefill): counted
+    ``generate`` calls on cuda and cuda_fused (prefill tiled, the decode
+    step streaming); B2, B1 (tiled), B3 and B4 (tiled) at the captured
+    prefill inputs against their plain versions, timed beside their bound,
+    plain version and library call or the cuda pipeline; the f32 prefill
+    logits of both backends against the plain path."""
+    from repro_torch.models import prefill
+    from repro_torch.serve import GenerateConfig, generate
+    t0 = time.perf_counter()
+    cfg = dec_cfg("dbrx-132b", "cuda")
+    fused = dec_cfg("dbrx-132b", "cuda_fused")
+    params, batch = dec_model(cfg, dev, 1, DBRX_LONG_PROMPT)
+    gen = GenerateConfig(max_new=2, eos_id=-1, flash_decode=True)
+    out = {"layers": cfg.n_layers, "launches": {}, "sites": {}}
+    for backend, c in (("cuda", cfg), ("cuda_fused", fused)):
+        expect, n_moe = dbrx_expect(backend, c)
+        counts, streamed, res = dec_generate(f"dbrx-132b long {backend}", params, batch, c, gen,
+                                             expect)
+        name = "grouped_matmul" if backend == "cuda" else "fused_moe"
+        per_call = 3 if backend == "cuda" else 1
+        if streamed[name] != per_call * n_moe * res.steps:
+            raise AssertionError(f"swa dbrx {backend}: {streamed[name]} of {counts[name]} "
+                                 f"{name} streaming; the prefill's must be tiled")
+        out["launches"][backend] = {k: v for k, v in counts.items() if v}
+    with Capture(names=("dispatch", "combine", "grouped_matmul"),
+                 share_over=SHARE_OVER) as cap:
+        prefill(params, batch, cfg, max_seq=DBRX_LONG_PROMPT + 2)
+    torch.cuda.synchronize()
+    calls = cap.calls
+    del cap
+    for name in ("dispatch", "grouped_matmul", "combine"):
+        args = calls[name][0][0]
+        if name == "grouped_matmul" and b1_variant(name, args) != "tiled":
+            raise AssertionError(f"swa dbrx B1@long prefill: {b1_variant(name, args)}")
+        t = (combine_site("dbrx long prefill", args) if name == "combine" else
+             dec_site("dbrx-132b", name, "long prefill", args, SWA_HEAVY_DEPTH))
+        out["sites"][name] = t
+    del calls
+    with Capture(names=("fused_moe",), share_over=SHARE_OVER) as cap:
+        prefill(params, batch, fused, max_seq=DBRX_LONG_PROMPT + 2)
+    torch.cuda.synchronize()
+    args, kw = cap.calls["fused_moe"][0]
+    del cap
+    t = b4_site("dbrx long prefill", args, kw, depth=SWA_HEAVY_DEPTH)
+    if t["variant"] != "tiled":
+        raise AssertionError(f"swa dbrx B4@long prefill: {t['variant']}")
+    out["sites"]["fused_moe"] = t
+    del args, kw
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        c32 = lambda c, b: dataclasses.replace(  # noqa: E731
+            c, dtype="float32", moe=dataclasses.replace(c.moe, backend=b))
+        lp, _ = prefill(params, batch, c32(cfg, "oracle"), max_seq=DBRX_LONG_PROMPT + 2)
+        diffs = {}
+        for backend, c in (("cuda", cfg), ("cuda_fused", fused)):
+            lk, _ = prefill(params, batch, c32(c, backend), max_seq=DBRX_LONG_PROMPT + 2)
+            if not torch.isfinite(lk).all():
+                raise AssertionError(f"swa dbrx {backend}: non-finite f32 prefill logits")
+            diffs[backend] = float((lk - lp).abs().max())
+    log(f"swa dbrx-132b f32: prefill logits ({DBRX_LONG_PROMPT} tokens, blocked attention) "
+        f"kernel vs plain path max abs diff {diffs} (tol {E2E_LOGIT_ATOL})")
+    if max(diffs.values()) > E2E_LOGIT_ATOL:
+        raise AssertionError(f"swa dbrx: prefill logits differ by {diffs}")
+    out["logit_diff"] = diffs
+    del params, batch
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"swa dbrx-132b: {out['wall_s']:.1f} s")
+    return out
+
+
+def swa_phase(dev):
+    """Phase swa: starcoder2-3b (full width and depth; with (b) the
+    exact-length scheduler), h2o-danube-3-4b (DANUBE_LAYERS layers),
+    yi-6b's long cache, dbrx-132b's long prefill; each model freed before
+    the next."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"starcoder2-3b": swa_windowed("starcoder2-3b", dev, exact=True),
+           "h2o-danube-3-4b": swa_windowed("h2o-danube-3-4b", dev, DANUBE_LAYERS, timed=False),
+           "yi-6b": swa_yi(dev), "dbrx-132b": swa_dbrx(dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"swa phase: {out['wall_s']:.1f} s")
+    return out
+
+
+def swa_rows(swa):
+    """Per kernel, its phase-swa sites for the kernel table."""
+    yi, dbrx = swa["yi-6b"], swa["dbrx-132b"]
+    rows = {"flash_decode": {"yi-6b long decode": yi["b5"]},
+            "flash_decode_paged": {"yi-6b long paged decode": {
+                k: v for k, v in yi["b6"].items() if k != "stats"}}}
+    for name, t in dbrx["sites"].items():
+        backend = "cuda_fused" if name == "fused_moe" else "cuda"
+        rows[name] = {"dbrx-132b long prefill": dict(
+            {k: v for k, v in t.items() if k != "host_ms"},
+            launches=dbrx["launches"][backend][name])}
+    return rows
+
+
 def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve, fc,
-                 dec_sites=None):
+                 dec_sites=None, swa_sites=None):
     """One entry per kernel for the JSON line: serving kernels at their
     decode site with their launches per ``generate``, training kernels at
     the training site with their launches per step (B4 on ``cuda_fused``,
@@ -3212,7 +3672,9 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
     full-cache sites (phase 8), B5 its launch floor and the decode step at
     depth 1,023 as one CUDA graph; each kernel its phase-dec sites
     (``dec_sites``: yi-6b's decode, dbrx-132b's prefill and decode, with
-    the launches of that phase's generate or scheduler run)."""
+    the launches of that phase's generate or scheduler run) and its
+    phase-swa sites (``swa_sites``: B5 and B6 at yi-6b's long cache, B1-B4
+    at dbrx-132b's long prefill)."""
     kernels = []
     for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
                  "combine", "fused_moe", "flash_decode"):
@@ -3269,6 +3731,8 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
     for entry in kernels:
         if dec_sites and entry["name"] in dec_sites:
             entry["dec_sites"] = dec_sites[entry["name"]]
+        if swa_sites and entry["name"] in swa_sites:
+            entry["swa_sites"] = swa_sites[entry["name"]]
     return kernels
 
 
@@ -3316,7 +3780,7 @@ def serve_phases(full, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec"),
+    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec", "swa"),
                     help="run phases 1, 2 and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3355,6 +3819,10 @@ def main() -> int:
         dec = dec_phase(dev, b4_report())
         print(json.dumps({"dec": dec_json(dec), "dec_sites": dec_rows(dec)}), flush=True)
         return 0
+    if args.only == "swa":
+        swa = swa_phase(dev)
+        print(json.dumps({"swa": swa, "swa_sites": swa_rows(swa)}), flush=True)
+        return 0
     b4_info = ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5, 7 and 8. serving
@@ -3384,9 +3852,12 @@ def main() -> int:
     # dec. the decoder-only family: yi-6b, dbrx-132b (2 layers), --task lm
     dec = dec_phase(dev, b4_info)
     print(json.dumps({"dec": dec_json(dec)}), flush=True)
+    # swa. sliding-window archs, exact-length prefill, the long-prompt sites
+    swa = swa_phase(dev)
+    print(json.dumps({"swa": swa}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
-                           fc, dec_rows(dec))
+                           fc, dec_rows(dec), swa_rows(swa))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -1,7 +1,7 @@
 """Config dataclasses of the port (the subset of ``repro.configs.base`` the
-encoder-decoder MoE and the decoder-only families with full attention
-need, the communication substrate, ``PagedKVConfig`` and
-``TrainConfig``).
+encoder-decoder MoE and the decoder-only families, with full or
+sliding-window attention, need, the communication substrate,
+``PagedKVConfig`` and ``TrainConfig``).
 
 Plain frozen dataclasses, field for field the reference's defaults, so a
 config built here describes the same model as the reference's. The
@@ -196,7 +196,7 @@ class ModelConfig:
     head_dim: int = 0                   # 0 -> d_model // n_heads
     rope_theta: float = 10_000.0
     max_seq: int = 8192
-    sliding_window: int = 0             # 0 = full attention (windows: A.4b)
+    sliding_window: int = 0             # 0 = full attention
     norm: str = "rmsnorm"               # rmsnorm | layernorm
     act: str = "silu"                   # silu | gelu (tanh approximation)
     gated_mlp: bool = True
@@ -206,6 +206,9 @@ class ModelConfig:
     dtype: str = "bfloat16"             # activation dtype
     param_dtype: str = "float32"
     remat: bool = True                  # recompute each layer in the backward
+    banded_swa: bool = False            # sliding-window attention with block
+                                        # skipping: O(L*W) instead of masked
+                                        # O(L^2)
     source: str = ""
 
     @property
@@ -274,6 +277,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     while n_heads % kw["n_kv_heads"] != 0:
         kw["n_kv_heads"] -= 1
     kw["head_dim"] = kw["d_model"] // n_heads
+    if cfg.sliding_window:
+        kw["sliding_window"] = 128
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(
             cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2),

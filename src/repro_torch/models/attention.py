@@ -1,15 +1,18 @@
-"""Attention: GQA with RoPE, full (quadratic) attention, decode against a
-full or paged KV cache, cross-attention (port of
-``repro/models/attention.py``).
+"""Attention: GQA with RoPE, full (quadratic) and blocked flash attention,
+sliding windows, decode against a full, paged or ring-buffer KV cache,
+cross-attention (port of ``repro/models/attention.py``).
 
 Shapes: q (B, Lq, H, hd); k, v (B, Lk, KV, hd) with H % KV == 0.
 
-Prefill attention stays plain torch: the reference's prefill attention is
-not a TPU kernel either (its blocked path in ``models/flash.py`` is plain
-JAX, taken only past 2048 keys, beyond these archs' ``max_seq``). The
-decode read goes through a flash-decode kernel when ``flash=True``: B5 on
-a contiguous cache, B6 on a paged one. Sliding-window ring caches come
-with the families that use them (zcode has no window).
+Prefill and training attention is plain torch, as in the reference, where
+it is no TPU kernel either: quadratic up to 2 * ``chunk`` keys, then the
+blocked flash attention of ``models/flash.py`` (O(L) memory). The decode
+read against a full cache goes through a flash-decode kernel when
+``flash=True``: B5 on a contiguous cache, B6 on a paged one. A
+sliding-window layer decodes against a ring buffer of ``window`` slots
+whose ``pos`` leaf holds each slot's absolute position; it keeps the plain
+read, as in the reference (its validity comes from ``pos``, not from a
+prefix).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_decode as FD
+from repro_torch.models import flash as FL
 from repro_torch.models.layers import apply_rope, normal
 
 Params = Dict[str, Any]
@@ -31,15 +35,18 @@ def _expand_kv(k: torch.Tensor, h: int) -> torch.Tensor:
     return k if kv == h else k.repeat_interleave(h // kv, dim=2)
 
 
-def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool) -> torch.Tensor:
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: int = 0) -> torch.Tensor:
     """(Lq, Lk) boolean validity mask from absolute positions."""
     m = (kpos[None, :] >= 0).expand(qpos.shape[0], kpos.shape[0])
     if causal:
         m = m & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        m = m & (kpos[None, :] > qpos[:, None] - window)
     return m
 
 
-def full_attention(q, k, v, *, causal: bool,
+def full_attention(q, k, v, *, causal: bool, window: int = 0,
                    qpos: Optional[torch.Tensor] = None,
                    kpos: Optional[torch.Tensor] = None,
                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -55,7 +62,7 @@ def full_attention(q, k, v, *, causal: bool,
     ke = _expand_kv(k, h).float()
     ve = _expand_kv(v, h).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke) * (hd ** -0.5)
-    m = _mask(qpos, kpos, causal)[None, None]              # (1, 1, Lq, Lk)
+    m = _mask(qpos, kpos, causal, window)[None, None]      # (1, 1, Lq, Lk)
     if kv_valid is not None:
         kv_valid = torch.as_tensor(kv_valid, device=dev)
         if kv_valid.dim() == 1:
@@ -66,6 +73,19 @@ def full_attention(q, k, v, *, causal: bool,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, ve)
     return out.to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset: int = 0, chunk: int = 1024) -> torch.Tensor:
+    """Memory-bounded attention: the quadratic path up to ``2 * chunk``
+    keys, the blocked flash attention past them, whose backward recomputes
+    the probability blocks (O(L) residuals instead of O(L^2))."""
+    lq, lk = q.shape[1], k.shape[1]
+    if lk <= 2 * chunk:
+        return full_attention(q, k, v, causal=causal, window=window,
+                              qpos=q_offset + torch.arange(lq, device=q.device))
+    return FL.flash_attention(q, k, v, causal, window, q_offset, 0,
+                              min(chunk, lq), chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -109,13 +129,34 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_ring_cache(cfg: ModelConfig, batch: int, window: int, dtype,
+                    device=None, lead: Tuple[int, ...] = ()) -> Params:
+    """Ring buffer of a sliding-window layer: ``window`` K/V slots and the
+    absolute position held in each (``pos``, int32, -1 = empty; no batch
+    axis: the rows of a one-shot batch share their positions)."""
+    shape = lead + (batch, window, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full(lead + (window,), -1, dtype=torch.int32,
+                              device=device)}
+
+
 def decode_self_attention(p: Params, x: torch.Tensor, cache: Params,
-                          cfg: ModelConfig, index, *, flash: bool = False,
+                          cfg: ModelConfig, index, *, window: int = 0,
+                          flash: bool = False,
                           block_tables: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, Params]:
-    """One-token decode against a full cache. x: (B, 1, d); ``index`` is
-    the absolute position of the new token: an int (every row at one
-    position) or a (B,) tensor (slot-pool decode, each row at its own).
+    """One-token decode. x: (B, 1, d); ``index`` is the absolute position
+    of the new token: an int (every row at one position) or a (B,) tensor
+    (slot-pool decode, each row at its own).
+
+    With ``window > 0`` and a ring cache of ``window`` slots, the new row
+    goes to slot ``index % window`` and its position into ``pos``; a slot
+    is read where ``index - window < pos <= index``. The per-row form
+    needs the slot pool's batched ``(B, window)`` ``pos`` leaf; its masks
+    equal the scalar form's in value, so the two give the same bits when
+    every row sits at one position. A ring layer ignores ``flash`` and
+    ``block_tables``.
 
     The new K/V row is written INTO ``cache`` in place (the reference
     returns an updated copy; writing in place spares a cache copy per
@@ -140,6 +181,9 @@ def decode_self_attention(p: Params, x: torch.Tensor, cache: Params,
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
+    if window > 0 and ck.shape[1] == window:
+        return attn_out(p, _ring_read(q, k, v, cache, index, window, per_row),
+                        x.dtype), cache
     if block_tables is not None:
         if not per_row:
             raise ValueError("paged decode requires per-row positions")
@@ -178,6 +222,33 @@ def decode_self_attention(p: Params, x: torch.Tensor, cache: Params,
                            qpos=torch.as_tensor(index, device=x.device).reshape(1),
                            kpos=kpos, kv_valid=kpos <= index)
     return attn_out(p, o, x.dtype), cache
+
+
+def _ring_read(q, k, v, cache: Params, index, window: int,
+               per_row: bool) -> torch.Tensor:
+    """Write the new K/V row and its position into the ring ``cache`` in
+    place, then attend over the slots inside the window."""
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    if per_row:
+        if cpos.dim() != 2:
+            raise ValueError("per-row decode needs a slot-pool ring cache "
+                             "(batched pos)")
+        rows = torch.arange(q.shape[0], device=q.device)
+        slot = index % window
+        ck[rows, slot] = k[:, 0].to(ck.dtype)
+        cv[rows, slot] = v[:, 0].to(cv.dtype)
+        cpos[rows, slot] = index.to(torch.int32)
+        idx = index[:, None]
+        valid = (cpos >= 0) & (cpos > idx - window) & (cpos <= idx)
+        return full_attention(q, ck, cv, causal=False, kv_valid=valid)
+    idx = torch.as_tensor(index, device=q.device).reshape(1)
+    slot = idx % window
+    ck[:, slot] = k.to(ck.dtype)
+    cv[:, slot] = v.to(cv.dtype)
+    cpos[slot] = idx.to(torch.int32)
+    valid = (cpos >= 0) & (cpos > idx - window) & (cpos <= idx)
+    return full_attention(q, ck, cv, causal=False, qpos=idx,
+                          kpos=cpos.clamp_min(0), kv_valid=valid)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Top-level model: embeddings + (the encoder-decoder's encoder) + decoder
 stack + head (port of ``repro/models/model.py`` for the encoder-decoder
-family and the decoder-only families with full attention).
+family and the decoder-only families with full or sliding-window
+attention).
 
 Public API:
   init_model(gen, cfg)                          -> params
@@ -15,9 +16,10 @@ text encoder-decoder (the paper's MT models), nothing else for the
 decoder-only families. Parameters live on the device of the generator
 that drew them.
 
-Prefill attention is the plain quadratic one at every length; the
-reference takes its blocked flash attention past 2,048 keys (the same
-function, in O(L) memory), which comes with A.4b.
+Prefill and training attention is quadratic up to 2,048 keys and the
+blocked flash attention of ``models/flash.py`` past them (O(L) memory), as
+in the reference. A sliding-window layer's cache is a ring of ``window``
+slots whatever ``max_seq`` is.
 """
 from __future__ import annotations
 

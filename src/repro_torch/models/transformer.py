@@ -1,5 +1,6 @@
 """Transformer assembly for the encoder-decoder MoE and the decoder-only
-families with full attention (port of ``repro/models/transformer.py``).
+families with full or sliding-window attention (port of
+``repro/models/transformer.py``).
 
 Layers are organised into SEGMENTS — contiguous repeats of a (possibly
 multi-layer) pattern of LayerSpecs — whose parameters are stacked along a
@@ -15,6 +16,13 @@ Modes:
              and so its kernel launches, run twice per training step.
   prefill -- full sequence + returns a decode cache.
   decode  -- one token against the cache (updated in place).
+
+Prefill and training attention is ``attention.flash_attention`` (blocked
+past 2,048 keys), or, under ``cfg.banded_swa``, the banded flash
+attention of a causal windowed layer longer than twice its window (the
+reference's branch at ``scan_layers=True``, its default; the port has no
+``scan_layers``). A windowed layer's decode cache is a ring buffer of
+``window`` slots.
 
 Router jitter in training draws from a generator of each layer's own,
 seeded from the step's generator and the layer's index (the reference
@@ -34,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import _zero_aux, init_moe_params, moe_apply
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models.flash import banded_flash_attention
 from repro_torch.tree import flatten_with_paths, tree_map, unflatten_paths
 
 Params = Dict[str, Any]
@@ -50,6 +59,7 @@ class LayerSpec:
     their families)."""
     cross: bool = False       # cross-attention sub-layer
     moe: bool = False
+    window: int = 0           # sliding window (0 = full)
     causal: bool = True
 
 
@@ -87,23 +97,22 @@ _NOT_PORTED = {"ssm": "A.4d (SSM)", "hybrid": "A.4e (hybrid)",
 def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
     """The reference's plan for the ported families: the encoder-decoder
     (its encoder, or a decoder with cross-attention), and ``dense`` /
-    ``moe`` (GQA self-attention with RoPE, no cross-attention, an MoE
-    layer where ``MoEConfig.is_moe_layer``)."""
+    ``moe`` (GQA self-attention with RoPE over ``cfg.sliding_window``, no
+    cross-attention, an MoE layer where ``MoEConfig.is_moe_layer``)."""
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP.md {_NOT_PORTED[cfg.family]})")
     if cfg.family not in ("encdec", "dense", "moe"):
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window attention is not ported yet "
-                                  "(ROADMAP.md A.4b)")
     moe_at = (lambda i: cfg.moe is not None and cfg.moe.is_moe_layer(i))
     if encoder:
         return _compress([LayerSpec(causal=cfg.encdec.encoder_causal,
                                     moe=moe_at(i))
                           for i in range(cfg.encdec.n_encoder_layers)])
-    cross = cfg.family == "encdec"
-    return _compress([LayerSpec(cross=cross, moe=moe_at(i))
+    if cfg.family == "encdec":
+        return _compress([LayerSpec(cross=True, moe=moe_at(i))
+                          for i in range(cfg.n_layers)])
+    return _compress([LayerSpec(moe=moe_at(i), window=cfg.sliding_window)
                       for i in range(cfg.n_layers)])
 
 
@@ -146,8 +155,12 @@ def init_stack(gen: torch.Generator, segs: List[Segment], cfg: ModelConfig,
 def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       max_seq: int, n_cross: int, dtype, device,
                       reps: int) -> Params:
-    c: Params = {"attn": A.init_kv_cache(cfg, batch, max_seq, dtype, device,
-                                         lead=(reps,))}
+    if spec.window > 0:
+        c: Params = {"attn": A.init_ring_cache(cfg, batch, spec.window, dtype,
+                                               device, lead=(reps,))}
+    else:
+        c = {"attn": A.init_kv_cache(cfg, batch, max_seq, dtype, device,
+                                     lead=(reps,))}
     if spec.cross:
         shape = (reps, batch, n_cross, cfg.n_heads, cfg.head_dim_)
         c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -163,10 +176,25 @@ def init_stack_cache(segs: List[Segment], cfg: ModelConfig, batch: int,
              for pi, spec in enumerate(seg.pattern)} for seg in segs]
 
 
-def _fill_kv_cache(k: torch.Tensor, v: torch.Tensor, smax: int,
-                   dtype) -> Params:
-    """Prefill K/V (B, l, KV, hd) zero-padded to the cache length."""
+def _fill_kv_cache(spec: LayerSpec, k: torch.Tensor, v: torch.Tensor,
+                   smax: int, dtype) -> Params:
+    """Prefill K/V (B, l, KV, hd) zero-padded to the cache length, or, for
+    a windowed layer, its ring: the last ``min(l, window)`` rows, each at
+    slot ``pos % window`` with its position in ``pos`` (-1 in the slots
+    left empty)."""
     b, l = k.shape[:2]
+    if spec.window > 0:
+        w = spec.window
+        ck = k.new_zeros((b, w) + k.shape[2:], dtype=dtype)
+        cv = v.new_zeros((b, w) + v.shape[2:], dtype=dtype)
+        cpos = torch.full((w,), -1, dtype=torch.int32, device=k.device)
+        start = max(l - w, 0)
+        pos = torch.arange(start, l, device=k.device)
+        slots = pos % w
+        ck[:, slots] = k[:, start:].to(dtype)
+        cv[:, slots] = v[:, start:].to(dtype)
+        cpos[slots] = pos.to(torch.int32)
+        return {"k": ck, "v": cv, "pos": cpos}
     ck = k.new_zeros((b, smax) + k.shape[2:], dtype=dtype)
     cv = v.new_zeros((b, smax) + v.shape[2:], dtype=dtype)
     ck[:, :l] = k
@@ -210,18 +238,28 @@ def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
     # ---- self-attention ----
     h = L.norm_apply(p["ln1"], x, cfg)
     if mode == "decode":
+        # windowed layers keep their slot-addressed ring cache; only
+        # full-cache layers read through the page table
         o, new_cache["attn"] = A.decode_self_attention(
-            p["attn"], h, cache["attn"], cfg, index, flash=flash_decode,
-            block_tables=block_tables)
+            p["attn"], h, cache["attn"], cfg, index, window=spec.window,
+            flash=flash_decode,
+            block_tables=None if spec.window > 0 else block_tables)
     else:
         q, k, v = A.attn_qkv(p["attn"], h)
         pos = torch.arange(l, device=x.device)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
-        o = A.attn_out(p["attn"], A.full_attention(q, k, v, causal=spec.causal),
-                       x.dtype)
+        if (cfg.banded_swa and spec.window > 0 and spec.causal
+                and l > 2 * spec.window):
+            qc = 1024 if l % 1024 == 0 or l > 4096 else 512
+            o = banded_flash_attention(q, k, v, spec.window, q_chunk=qc,
+                                       kv_chunk=512)
+        else:
+            o = A.flash_attention(q, k, v, causal=spec.causal,
+                                  window=spec.window)
+        o = A.attn_out(p["attn"], o, x.dtype)
         if mode == "prefill":
-            new_cache["attn"] = _fill_kv_cache(k, v, max_seq, cache_dtype)
+            new_cache["attn"] = _fill_kv_cache(spec, k, v, max_seq, cache_dtype)
     x = x + o
     # ---- cross attention ----
     if spec.cross:

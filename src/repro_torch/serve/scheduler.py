@@ -13,7 +13,10 @@ schedulers serve a request queue on the engine's slot primitives:
     smallest configured bucket and prefilled in groups whose width is
     padded to a power of two (at most ``admit_width``), dummy rows sent to
     a scratch slot or page. Expert capacity depends on the token count,
-    so these are the reference's batch shapes exactly;
+    so these are the reference's batch shapes exactly. Where a padded
+    prompt would overrun a sliding window's ring (``needs_exact_prefill``:
+    the largest bucket exceeds the window), prompts are prefilled at their
+    exact length instead, in groups of one length;
   * one batched decode step over ALL slots at per-slot positions; a slot
     retires the moment its request finishes (EOS or its token budget) and
     is re-prefilled with the next queued prompt while the others decode.
@@ -106,12 +109,10 @@ class RequestResult:
 
 def needs_exact_prefill(cfg: ModelConfig, max_bucket: int) -> bool:
     """True when right-padded bucket prefill cannot reproduce exact-length
-    prefill: SSM state integrates pads, and a sliding-window ring evicts
-    real tokens once the padded length exceeds the window. The ported
-    families (the encoder-decoder and the decoder-only ones, all with full
-    attention caches) have neither (A.4b ports the reference's test)."""
-    del cfg, max_bucket
-    return False
+    prefill: a sliding-window ring evicts real tokens once the padded
+    length exceeds the window. (The reference's other case, SSM state
+    that integrates pads, comes with the SSM family.)"""
+    return cfg.sliding_window > 0 and max_bucket > cfg.sliding_window
 
 
 def _params_device(params) -> torch.device:
@@ -143,8 +144,9 @@ class ContinuousScheduler:
         self.gen = gen
         self.n_slots = n_slots
         self.buckets = tuple(sorted(prefill_buckets))
-        if needs_exact_prefill(cfg, self.buckets[-1]):
-            raise NotImplementedError(f"{cfg.arch_id}: exact-length prefill")
+        # exact-length prefill: each admission group holds prompts of one
+        # length, prefilled unpadded (no bucket cap on the prompt)
+        self.exact_prefill = needs_exact_prefill(cfg, self.buckets[-1])
         self.admit_width = admit_width or min(4, n_slots)
         self.max_seq = max_seq or (self.buckets[-1] + gen.max_new)
         self.seed = seed
@@ -205,7 +207,7 @@ class ContinuousScheduler:
     def submit(self, req: Request):
         if req.tokens.ndim != 1:
             raise ValueError(f"request {req.rid}: tokens must be 1-D")
-        if len(req.tokens) > self.buckets[-1]:
+        if not self.exact_prefill and len(req.tokens) > self.buckets[-1]:
             raise ValueError(
                 f"prompt length {len(req.tokens)} exceeds the largest "
                 f"prefill bucket {self.buckets[-1]}; add a larger bucket "
@@ -215,6 +217,8 @@ class ContinuousScheduler:
             raise ValueError(
                 f"request max_new {budget} exceeds the scheduler's "
                 f"GenerateConfig.max_new {self.gen.max_new}")
+        # holds for bucketed admission by construction (bucket + max_new <=
+        # max_seq); exact prefill has no bucket cap
         if len(req.tokens) + budget > self.max_seq:
             raise ValueError(
                 f"prompt {len(req.tokens)} + budget {budget} exceeds the "
@@ -225,6 +229,8 @@ class ContinuousScheduler:
         self._meta[req.rid] = {"arrival": req.arrival}
 
     def _bucket(self, n: int) -> int:
+        if self.exact_prefill:
+            return n
         for b in self.buckets:
             if n <= b:
                 return b
@@ -529,8 +535,9 @@ class PagedScheduler(ContinuousScheduler):
                          registry=registry, tracer=tracer)
         _, seq_axes = _cache_page_axes(cfg)
         if not any(a >= 0 for a in flatten_with_paths(seq_axes).values()):
-            raise ValueError(f"{cfg.arch_id}: no cache leaf tracks max_seq — "
-                             "nothing to page; use ContinuousScheduler")
+            raise ValueError(f"{cfg.arch_id}: no cache leaf tracks max_seq (pure "
+                             "SSM/ring cache) — nothing to page; use "
+                             "ContinuousScheduler")
         self.paged = paged
         ps = paged.page_size
         n_blocks = ceil_div(self.max_seq, ps)

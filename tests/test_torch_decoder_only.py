@@ -153,8 +153,9 @@ def test_unported_layers_raise_naming_their_roadmap_item():
     for family, item in (("ssm", "A.4d"), ("hybrid", "A.4e"), ("vlm", "A.4f")):
         with pytest.raises(NotImplementedError, match=item):
             T.layer_plan(dataclasses.replace(cfg, family=family))
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        T.layer_plan(dataclasses.replace(cfg, sliding_window=64))
+    # sliding windows are ported: the plan carries the window
+    assert {p.window for s in T.layer_plan(dataclasses.replace(cfg, sliding_window=64))
+            for p in s.pattern} == {64}
 
 
 @pytest.mark.parametrize("model", ["yi", "dbrx"])
