@@ -122,14 +122,33 @@ Phases (any failure exits non-zero):
                  layers) at a 2,304-token prompt: B1-B4 at the prefill's
                  inputs against plain and library, both backends' f32
                  logits against the plain path;
+  mla. DeepSeek-V3 -- after phase swa, every earlier model freed:
+                 deepseek-v3-671b at full width (d 7,168, 128 MLA heads,
+                 vocab 129,280, 256 experts top-8 plus one shared) cut to 2
+                 layers (0 dense, 1 MoE; seeded weights, f32 parameters,
+                 bf16 activations unless f32 is named) generates for 8
+                 requests on cuda and cuda_fused with the B1-B4 launches
+                 per generate asserted (no flash decode: MLA's absorbed
+                 decode is plain), timed in turns, the decode step as one
+                 CUDA graph; B1-B4 at the decode step's and a 2 x
+                 1,024-token prefill's inputs (k = 8) against their plain
+                 versions and timed; the plain absorbed MLA decode of one
+                 layer timed beside its byte bound; f32: both backends'
+                 prefill logits and 8 teacher-forced decode steps against
+                 the plain path;
+                 the slot pool and the page arena on 8 requests, their
+                 tokens against one-shot generate; reduced
+                 deepseek-v3-671b's --task lm steps with its MTP head on
+                 oracle, cuda_fused and cuda, gated as phase dec's; the
+                 phase's wall time and peak device memory;
 
   python3 chip_smoke.py --only full_cache
 
 runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
 to compare two trees' B5 and B6 at these sites in one call; ``--only ep``,
-``--only obs``, ``--only dec`` and ``--only swa`` run phases 1, 2 and that
-phase alone.
+``--only obs``, ``--only dec``, ``--only swa`` and ``--only mla`` run
+phases 1, 2 and that phase alone.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -2842,8 +2861,8 @@ def deep_decode_graph(params, batch, cfg, dev):
 # ---------------------------------------------------------------------------
 
 DBRX_LAYERS = 2          # dbrx-132b's depth cut: at 40 layers (131.6 B) it fits no H100
-DEC_LM_STEPS = 3         # reduced dbrx --task lm steps; seed 0's drop bits are 0, 0, 1
-DEC_LM_BATCH, DEC_LM_SEQ = 16, 64
+LM_STEPS = 3             # reduced --task lm steps (phases dec, mla); seed 0's drop
+LM_BATCH, LM_SEQ = 16, 64  # bits are 0, 0, 1
 HEAVY_DEPTH = (2, 5)     # device_ms depth at dbrx's prefill sites (tens of ms a call)
 SHARE_OVER = 1 << 30     # captured tensors kept by reference past 1 GiB (expert weights)
 
@@ -2871,8 +2890,12 @@ def dec_model(cfg, dev, rows=BATCH, prompt=PROMPT):
     params = init_model(generator(dev, SEED, 0), cfg)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
+    heads = (f"{cfg.n_heads} MLA heads (ranks {cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}, "
+             f"head dims {cfg.mla.qk_nope_head_dim}/{cfg.mla.qk_rope_head_dim}/"
+             f"{cfg.mla.v_head_dim})" if cfg.mla is not None else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}")
     log(f"dec model: {cfg.arch_id} at {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}: {n / 1e9:.3f} B params "
+        f"{heads}: {n / 1e9:.3f} B params "
         f"(analytic {cfg.n_params() / 1e9:.3f} B), {n * 4 / 1e9:.1f} GB in f32, init "
         f"{time.perf_counter() - t0:.1f} s")
     return params, synth_batch(cfg, generator(dev, SEED, 1), rows, prompt)
@@ -3113,11 +3136,13 @@ def dec_dbrx(dev):
     return out
 
 
-def dec_train(dev):
-    """Reduced dbrx-132b, --task lm: DEC_LM_STEPS Gate-Drop 0.3 steps (f32)
-    on the plain oracle path, cuda_fused and cuda from one seed, gated as
-    phase 6 gates them; the kernel backends' launches per step."""
-    from repro_torch.configs import TrainConfig, get_config, reduced
+def lm_steps(label, base, n_steps, batch_rows, seq, keys, dev):
+    """``base`` (a reduced config), --task lm: ``n_steps`` Gate-Drop 0.3
+    steps (f32) on the plain oracle path, cuda_fused and cuda from one
+    seed, gated as phase 6 gates them: the metrics ``keys`` within
+    TRAIN_METRIC_RTOL of the plain path's, the parameters within
+    ``adam_drift_bound``; the kernel backends' launches per step."""
+    from repro_torch.configs import TrainConfig
     from repro_torch.core.gating_dropout import drop_decisions_host
     from repro_torch.data import LMTaskConfig, SyntheticLM
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3127,53 +3152,60 @@ def dec_train(dev):
     from repro_torch.training.loop import to_device
     from repro_torch.tree import flatten_with_paths
 
-    base = reduced(get_config("dbrx-132b"))
-    task = SyntheticLM(LMTaskConfig(vocab=base.vocab, seq_len=DEC_LM_SEQ))
-    batches = [to_device(task.sample_batch(i, DEC_LM_BATCH), dev) for i in range(DEC_LM_STEPS)]
-    tc = TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, seed=SEED, steps=DEC_LM_STEPS)
-    bits = drop_decisions_host(base.moe.gating_dropout, SEED, 0, DEC_LM_STEPS)
+    task = SyntheticLM(LMTaskConfig(vocab=base.vocab, seq_len=seq))
+    batches = [to_device(task.sample_batch(i, batch_rows), dev) for i in range(n_steps)]
+    tc = TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, seed=SEED, steps=n_steps)
+    bits = drop_decisions_host(base.moe.gating_dropout, SEED, 0, n_steps)
     if bits.all() or not bits.any():
-        raise AssertionError(f"dec lm: the steps must include a routed and a dropped step {bits}")
-    param_tol = adam_drift_bound(tc, DEC_LM_STEPS)
+        raise AssertionError(f"{label}: the steps must include a routed and a dropped step "
+                             f"{bits}")
+    param_tol = adam_drift_bound(tc, n_steps)
     ref, out = None, {"bits": bits.astype(int).tolist()}
     for backend in ("oracle", "cuda_fused", "cuda"):
         cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, backend=backend))
         state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
         step = make_train_step(cfg, tc)
         rows, launches = [], []
-        for i in range(DEC_LM_STEPS):
+        for i in range(n_steps):
             reset_launch_counts()
             state, m = step(state, batches[i])
             torch.cuda.synchronize()
             launches.append({k: v for k, v in launch_counts().items() if v})
-            rows.append({k: float(m[k]) for k in ("loss", "grad_norm", "balance",
-                                                  "gate_dropped")})
+            rows.append({k: float(m[k]) for k in keys + ("gate_dropped",)})
         params = {k: v.detach() for k, v in flatten_with_paths(state["params"]).items()}
-        log(f"dec lm {backend} f32 (reduced dbrx-132b, {DEC_LM_BATCH} x {DEC_LM_SEQ} tokens): "
-            + "; ".join(f"loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f} dropped "
-                        f"{int(r['gate_dropped'])}" for r in rows) + f"; launches per step "
-            f"{launches}")
+        log(f"{label} {backend} f32 ({base.arch_id} reduced, {batch_rows} x {seq} tokens): "
+            + "; ".join(", ".join(f"{k} {r[k]:.6f}" for k in keys)
+                        + f" dropped {int(r['gate_dropped'])}" for r in rows)
+            + f"; launches per step {launches}")
         if not all(math.isfinite(v) for r in rows for v in r.values()):
-            raise AssertionError(f"dec lm {backend}: non-finite metrics")
+            raise AssertionError(f"{label} {backend}: non-finite metrics")
         if backend == "cuda_fused" and not all(la.get("fused_moe") for la in launches):
-            raise AssertionError(f"dec lm cuda_fused: a step without B4 {launches}")
+            raise AssertionError(f"{label} cuda_fused: a step without B4 {launches}")
         if backend == "cuda" and not all(la.get("grouped_matmul") and la.get("dispatch")
                                          and la.get("grouped_matmul_dw") for la in launches):
-            raise AssertionError(f"dec lm cuda: a step without the pipeline {launches}")
+            raise AssertionError(f"{label} cuda: a step without the pipeline {launches}")
         out[backend] = dict(rows=rows, launches=launches)
         if ref is None:
             ref = (rows, params)
             continue
         worst = max(abs(r[k] - q[k]) / max(abs(q[k]), 1e-6)
-                    for r, q in zip(rows, ref[0]) for k in ("loss", "grad_norm", "balance"))
+                    for r, q in zip(rows, ref[0]) for k in keys)
         pmax = max(float((params[k] - ref[1][k]).abs().max()) for k in params)
-        log(f"dec lm {backend} vs plain: max relative diff {worst:.3e} (tol "
+        log(f"{label} {backend} vs plain: max relative diff {worst:.3e} (tol "
             f"{TRAIN_METRIC_RTOL}), parameters max abs diff {pmax:.3e} (tol {param_tol:.3e})")
         if worst > TRAIN_METRIC_RTOL or pmax > param_tol or \
                 [r["gate_dropped"] for r in rows] != [q["gate_dropped"] for q in ref[0]]:
-            raise AssertionError(f"dec lm {backend}: differs from the plain path")
+            raise AssertionError(f"{label} {backend}: differs from the plain path")
         out[backend].update(max_rel_diff=worst, param_max_abs_diff=pmax)
     return out
+
+
+def dec_train(dev):
+    """Reduced dbrx-132b, --task lm: LM_STEPS Gate-Drop 0.3 steps through
+    ``lm_steps``."""
+    from repro_torch.configs import get_config, reduced
+    return lm_steps("dec lm", reduced(get_config("dbrx-132b")), LM_STEPS, LM_BATCH, LM_SEQ,
+                    ("loss", "grad_norm", "balance"), dev)
 
 
 def dec_phase(dev, b4_info):
@@ -3655,8 +3687,293 @@ def swa_rows(swa):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase mla: DeepSeek-V3 (multi-head latent attention, 256 experts top-8)
+# ---------------------------------------------------------------------------
+
+DS_LAYERS = 2            # deepseek-v3-671b's depth cut: layer 0 dense, layer 1 MoE
+                         # (61 layers, 671 B parameters, fit no H100)
+DS_LONG_ROWS, DS_LONG_PROMPT = 2, 1024    # the long prefill: C = 128 at top-8, tiled
+DS_SCHED_N = 8                            # the scheduler trace's first requests
+
+
+def mla_cfg(backend=None, dtype=None):
+    """deepseek-v3-671b at full width and DS_LAYERS layers (the serving
+    CLI's ``--layers`` cut, which keeps the last layer MoE), its MoE on
+    ``backend``, activations in ``dtype`` (default the config's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cut_depth
+    cfg = cut_depth(get_config("deepseek-v3-671b"), DS_LAYERS)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if backend:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, backend=backend))
+    return cfg
+
+
+def mla_expect(backend: str, cfg, rows: int, prompt: int):
+    """(launches of one ``generate`` of ``steps`` decode steps, their
+    streaming count): each MoE layer once at prefill and once per step (B2,
+    three B1 and B3 on ``cuda``; B4 on ``cuda_fused``); no flash decode,
+    which MLA layers never reach. A call streams where its capacity is at
+    most 16 slots per expert."""
+    from repro_torch.core.router import capacity
+    n_moe = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
+    per_call = 3 if backend == "cuda" else 1
+    m = cfg.moe
+
+    def c_of(t):
+        return min(capacity(t, m.n_experts, m.top_k, m.eval_capacity_factor), t)
+
+    def expect(steps):
+        calls = n_moe * (1 + steps)
+        if backend == "cuda":
+            return {"dispatch": calls, "combine": calls, "grouped_matmul": 3 * calls}
+        return {"fused_moe": calls}
+
+    def streamed(steps):
+        return per_call * n_moe * (steps * (c_of(rows) <= 16)
+                                   + (c_of(rows * prompt) <= 16))
+    return expect, streamed
+
+
+def mla_sites(params, cfg, fused, batch, long_batch, gen):
+    """B1-B4 at the decode step's and the long prefill's captured inputs
+    (256 experts, top-8): each against its plain version, then timed
+    beside its bound, plain version and library call (B4 beside the cuda
+    pipeline), in turns. The decode site is a generate's last call (B1:
+    the down projection), the long prefill's its first (B1: the up
+    projection). Returns the sites' timings and the launches of one long
+    prefill per backend."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import prefill
+    from repro_torch.serve import generate
+
+    def captured(names, c):
+        with Capture(names=names, share_over=SHARE_OVER) as cap:
+            generate(params, batch, c, dataclasses.replace(gen, max_new=2))
+        reset_launch_counts()
+        with Capture(names=names, share_over=SHARE_OVER) as cap_long:
+            prefill(params, long_batch, c, max_seq=DS_LONG_PROMPT + 2)
+        torch.cuda.synchronize()
+        launches[c.moe.backend] = {k: v for k, v in launch_counts().items() if v}
+        return {n: (cap.calls[n][-1], cap_long.calls[n][0]) for n in names}
+
+    out, launches = {}, {}
+    calls = captured(("dispatch", "combine", "grouped_matmul"), cfg)
+    for name in ("dispatch", "grouped_matmul", "combine"):
+        for site, (args, _) in zip(("decode", "long prefill"), calls[name]):
+            if name == "grouped_matmul":
+                want = "tiled" if site == "long prefill" else "streaming"
+                if b1_variant(name, args) != want:
+                    raise AssertionError(f"mla B1@{site}: {b1_variant(name, args)}, not {want}")
+            if name == "combine":
+                if args[1].shape[1] != cfg.moe.top_k:
+                    raise AssertionError(f"mla B3@{site}: k {args[1].shape[1]}")
+                t = combine_site(f"deepseek {site}", args)
+            else:
+                t = dec_site("deepseek-v3-671b", name, site, args,
+                             HEAVY_DEPTH if name == "grouped_matmul" else ())
+            out[(name, site)] = t
+    del calls
+    calls = captured(("fused_moe",), fused)["fused_moe"]
+    for site, (args, kw), want in zip(("decode", "long prefill"), calls,
+                                      ("streaming", "tiled")):
+        t = b4_site(f"deepseek {site}", args, kw, depth=HEAVY_DEPTH)
+        if t["variant"] != want:
+            raise AssertionError(f"mla B4@{site}: {t['variant']}, not {want}")
+        out[("fused_moe", site)] = t
+    del calls
+    torch.cuda.empty_cache()
+    n_moe = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
+    want = {"cuda": {"dispatch": n_moe, "combine": n_moe, "grouped_matmul": 3 * n_moe},
+            "cuda_fused": {"fused_moe": n_moe}}
+    log(f"mla long prefill ({DS_LONG_ROWS} x {DS_LONG_PROMPT} tokens): launches {launches}, "
+        f"expected {want}")
+    if launches != want:
+        raise AssertionError(f"mla long prefill: launches {launches} != {want}")
+    return out, launches
+
+
+def mla_decode_site(params, batch, cfg, dev):
+    """The plain absorbed MLA decode of the MoE layer (``models/mla.py``;
+    jnp in the reference, so no kernel) at the decode step's shapes: 8
+    rows at position PROMPT of a prefilled PROMPT + MAX_NEW cache, timed
+    beside its bound (its five weights and the latents read once, the new
+    latent row and the output written once)."""
+    from repro_torch.models import mla as M
+    from repro_torch.models import prefill
+    _, fresh = prefill(params, batch, cfg, max_seq=PROMPT + MAX_NEW)
+    cache = {k: v[0] for k, v in _pool(cfg, fresh, dev)[1]["p0"]["attn"].items()}
+    del fresh
+    p = {k: v[0] for k, v in params["decoder"][1]["p0"]["attn"].items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    x = torch.randn((BATCH, 1, cfg.d_model), generator=g, device=dev).to(cfg.torch_dtype)
+    pos = torch.full((BATCH,), PROMPT, device=dev)
+    ms = device_ms(lambda: M.mla_decode(p, x, cache, cfg, pos))
+    m = cfg.mla
+    row = (m.kv_lora_rank + m.qk_rope_head_dim) * cache["c_kv"].element_size()
+    nbytes = (sum(t.numel() * t.element_size() for t in p.values())
+              + BATCH * (PROMPT + 1) * row + BATCH * row + 2 * x.numel() * x.element_size())
+    b_ms, b_by = bound(nbytes, 0.0, "float32")
+    with CallCount() as calls:
+        M.mla_decode(p, x, cache, cfg, pos)
+    log(f"time mla_decode@decode [plain absorbed MLA decode, one layer, {BATCH} rows at "
+        f"position {PROMPT}, latents {tuple(cache['c_kv'].shape)} + "
+        f"{tuple(cache['k_rope'].shape)} {_dt(cache['c_kv'])}]: {ms:.6f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}: {nbytes / 1e9:.3f} GB; {b_ms / ms * 100:.1f}% of it); "
+        f"{calls.n} PyTorch calls")
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, torch_calls=calls.n)
+
+
+def mla_schedulers(params, cfg, dev):
+    """The first DS_SCHED_N requests of phase 7's trace (prompts alone)
+    through the slot pool and the page arena, f32 activations at
+    non-binding capacity: per-request tokens equal across the two, and
+    against one-shot B=1 ``generate`` up to near-ties; launches per run
+    per MoE layer one pipeline per admission and per decode tick, no
+    flash decode. Returns the stats."""
+    from repro_torch.serve import GenerateConfig
+    cfg32 = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, eval_capacity_factor=float(cfg.moe.n_experts)))
+    gen = GenerateConfig(max_new=TRACE_BUDGET, eos_id=-1, flash_decode=True)
+    reqs = sched_trace(cfg.vocab, sources=False)[:DS_SCHED_N]
+    n_moe = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
+    slot, ss, c_slot, w_slot = run_scheduler(params, cfg32, gen, reqs)
+    paged, ps, c_paged, w_paged = run_scheduler(params, cfg32, gen, reqs, paged=True)
+    for label, st, c in (("slot pool", ss.stats, c_slot), ("paged", ps.stats, c_paged)):
+        calls = n_moe * (st["prefill_calls"] + st["decode_steps"])
+        want = {**{k: 0 for k in c}, "dispatch": calls, "combine": calls,
+                "grouped_matmul": 3 * calls}
+        log(f"mla {label} f32: {st}; launches {c}, expected {want}")
+        if c != want or st["finished"] != DS_SCHED_N:
+            raise AssertionError(f"mla {label}: launches {c} != {want} or {st}")
+    bad = [r.rid for r in reqs if not (paged[r.rid] == slot[r.rid]).all()]
+    if bad:
+        raise AssertionError(f"mla: paged and slot-pool tokens differ for {bad}")
+    if ps.stats["prefix_hits"] == 0:
+        raise AssertionError(f"mla: no prefix hit on a shared-prefix trace {ps.stats}")
+    n_equal, gaps = oneshot_check(params, cfg32, gen, reqs, slot, ss.max_seq, dev)
+    log(f"mla f32: the {DS_SCHED_N} requests' tokens equal across the slot pool "
+        f"({w_slot:.2f} s) and the page arena ({w_paged:.2f} s, prefix hits "
+        f"{ps.stats['prefix_hits']}); one-shot B=1 generate: {n_equal} of {DS_SCHED_N} "
+        f"equal; divergences (rid, first token, top-two logit gap): {gaps}")
+    if any(gap >= NEAR_TIE for _, _, gap in gaps):
+        raise AssertionError(f"mla: a divergence from one-shot is not a near-tie: {gaps}")
+    return dict(slot=dict(ss.stats), paged=dict(ps.stats), oneshot_equal=n_equal, gaps=gaps)
+
+
+def mla_serve(dev):
+    """deepseek-v3-671b at full width, DS_LAYERS layers: counted and timed
+    generates on cuda and cuda_fused (no flash decode on MLA layers), the
+    absorbed decode step as one CUDA graph, B1-B4 at their decode and long
+    prefill sites, the f32 gates of both backends against the plain path
+    (and their tokens equal up to near-ties), the two schedulers."""
+    from repro_torch.launch.serve import generator, synth_batch
+    from repro_torch.serve import GenerateConfig, generate
+    cfg = mla_cfg("cuda")
+    fused = mla_cfg("cuda_fused")
+    params, batch = dec_model(cfg, dev)
+    long_batch = synth_batch(cfg, generator(dev, SEED, 2), DS_LONG_ROWS, DS_LONG_PROMPT)
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+    out = {"layers": cfg.n_layers, "launches": {}, "peak_gib": {}}
+    for backend, c in (("cuda", cfg), ("cuda_fused", fused)):
+        expect, want_streamed = mla_expect(backend, c, BATCH, PROMPT)
+        counts, streamed, res = dec_generate(f"deepseek-v3-671b {backend}", params, batch, c,
+                                             gen, expect)
+        out["peak_gib"][backend] = torch.cuda.max_memory_allocated() / 2**30
+        name = "grouped_matmul" if backend == "cuda" else "fused_moe"
+        if streamed[name] != want_streamed(res.steps):
+            raise AssertionError(f"mla {backend}: {streamed[name]} of {counts[name]} {name} "
+                                 f"streaming, expected {want_streamed(res.steps)}")
+        out["launches"][backend] = {k: v for k, v in counts.items() if v}
+        out["launches"][backend]["streaming"] = streamed[name]
+    runs = {"cuda": [], "cuda_fused": []}
+    for backend in ("cuda", "cuda_fused", "cuda_fused", "cuda"):
+        runs[backend].append(dec_timed(f"deepseek-v3-671b {backend} (in turns)", params,
+                                       batch, fused if backend == "cuda_fused" else cfg, gen))
+    out["serve"] = runs
+    out["decode_graph_ms"] = {
+        name: decode_graph(f"mla deepseek-v3-671b {name}", params, batch, c,
+                           sum(r["median"]["decode_ms_per_step"] for r in runs[name]) / 2, dev)
+        for name, c in (("cuda", cfg), ("cuda_fused", fused))}
+    out["sites"], out["long_prefill_launches"] = mla_sites(params, cfg, fused, batch,
+                                                           long_batch, gen)
+    out["mla_decode"] = mla_decode_site(params, batch, cfg, dev)
+    # f32: both kernel backends against the plain path, and their tokens
+    out["e2e_logit_diff"] = {}
+    for name, c in (("cuda", cfg), ("cuda_fused", fused)):
+        e2e = e2e_phase(params, batch, c, gen, dev, label=f"mla deepseek-v3-671b {name} e2e")
+        out["e2e_logit_diff"][name] = dict(prefill=e2e[0], decode=e2e[1])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    a = generate(params, batch, cfg32, gen).tokens
+    b = generate(params, batch, dataclasses.replace(fused, dtype="float32"), gen).tokens
+    gaps = near_tie_gaps(params, batch, cfg32, a, b, dev)
+    log(f"mla deepseek-v3-671b f32: cuda_fused tokens equal the cuda backend's on "
+        f"{float((a == b).float().mean()) * 100:.1f}% of {a.numel()} (B4 adds a token's "
+        f"top-8 rows with atomics); divergences (row, first token, top-two logit gap): {gaps}")
+    if any(gap >= NEAR_TIE for _, _, gap in gaps):
+        raise AssertionError(f"mla cuda_fused vs cuda: a divergence is not a near-tie: {gaps}")
+    out["fused_vs_cuda_gaps"] = gaps
+    out["sched"] = mla_schedulers(params, cfg, dev)
+    # the peak since the counted cuda_fused generate reset it, the weights
+    # allocated throughout
+    out["peak_gib"]["phase"] = max(torch.cuda.max_memory_allocated() / 2**30,
+                                   *out["peak_gib"].values())
+    del params, batch, long_batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_train(dev):
+    """Reduced deepseek-v3-671b, --task lm with its MTP head: LM_STEPS
+    Gate-Drop 0.3 steps through ``lm_steps``, ``mtp_xent`` gated with the
+    loss, grad norm and balance."""
+    from repro_torch.configs import get_config, reduced
+    base = reduced(get_config("deepseek-v3-671b"))
+    if not base.mtp:
+        raise AssertionError("mla lm: reduced deepseek-v3-671b lost its MTP head")
+    return lm_steps("mla lm", base, LM_STEPS, LM_BATCH, LM_SEQ,
+                    ("loss", "grad_norm", "balance", "mtp_xent"), dev)
+
+
+def mla_phase(dev):
+    """Phase mla: deepseek-v3-671b at full width (DS_LAYERS layers), then
+    reduced deepseek-v3-671b's --task lm steps with MTP."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"deepseek-v3-671b": mla_serve(dev)}
+    log(f"mla deepseek-v3-671b: {time.perf_counter() - t0:.1f} s")
+    out["lm"] = mla_train(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"mla phase: {out['wall_s']:.1f} s; peak device memory "
+        f"{out['deepseek-v3-671b']['peak_gib']['phase']:.2f} GiB")
+    return out
+
+
+def mla_json(mla):
+    """Phase mla's results with its site keys as strings."""
+    ds = dict(mla["deepseek-v3-671b"])
+    ds["sites"] = {f"{n}@{s}": t for (n, s), t in ds["sites"].items()}
+    return dict(mla, **{"deepseek-v3-671b": ds})
+
+
+def mla_rows(mla):
+    """Per kernel, its phase-mla sites for the kernel table, with the
+    launches of one generate (decode) or one long prefill."""
+    ds = mla["deepseek-v3-671b"]
+    rows = {}
+    for (name, site), t in ds["sites"].items():
+        backend = "cuda_fused" if name == "fused_moe" else "cuda"
+        counts = ds["long_prefill_launches" if site == "long prefill" else "launches"]
+        rows.setdefault(name, {})[f"deepseek-v3-671b {site}"] = dict(
+            {k: v for k, v in t.items() if k != "host_ms"}, launches=counts[backend][name])
+    return rows
+
+
 def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve, fc,
-                 dec_sites=None, swa_sites=None):
+                 dec_sites=None, swa_sites=None, mla_sites=None):
     """One entry per kernel for the JSON line: serving kernels at their
     decode site with their launches per ``generate``, training kernels at
     the training site with their launches per step (B4 on ``cuda_fused``,
@@ -3674,7 +3991,9 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
     (``dec_sites``: yi-6b's decode, dbrx-132b's prefill and decode, with
     the launches of that phase's generate or scheduler run) and its
     phase-swa sites (``swa_sites``: B5 and B6 at yi-6b's long cache, B1-B4
-    at dbrx-132b's long prefill)."""
+    at dbrx-132b's long prefill) and its phase-mla sites (``mla_sites``:
+    B1-B4 at deepseek-v3-671b's decode and long prefill, with the launches
+    of that phase's generate)."""
     kernels = []
     for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
                  "combine", "fused_moe", "flash_decode"):
@@ -3733,6 +4052,8 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
             entry["dec_sites"] = dec_sites[entry["name"]]
         if swa_sites and entry["name"] in swa_sites:
             entry["swa_sites"] = swa_sites[entry["name"]]
+        if mla_sites and entry["name"] in mla_sites:
+            entry["mla_sites"] = mla_sites[entry["name"]]
     return kernels
 
 
@@ -3780,7 +4101,7 @@ def serve_phases(full, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec", "swa"),
+    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec", "swa", "mla"),
                     help="run phases 1, 2 and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3823,6 +4144,10 @@ def main() -> int:
         swa = swa_phase(dev)
         print(json.dumps({"swa": swa, "swa_sites": swa_rows(swa)}), flush=True)
         return 0
+    if args.only == "mla":
+        mla = mla_phase(dev)
+        print(json.dumps({"mla": mla_json(mla), "mla_sites": mla_rows(mla)}), flush=True)
+        return 0
     b4_info = ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5, 7 and 8. serving
@@ -3855,9 +4180,12 @@ def main() -> int:
     # swa. sliding-window archs, exact-length prefill, the long-prompt sites
     swa = swa_phase(dev)
     print(json.dumps({"swa": swa}), flush=True)
+    # mla. deepseek-v3-671b (2 layers): MLA, 256 experts top-8, MTP training
+    mla = mla_phase(dev)
+    print(json.dumps({"mla": mla_json(mla)}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
-                           fc, dec_rows(dec), swa_rows(swa))
+                           fc, dec_rows(dec), swa_rows(swa), mla_rows(mla))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

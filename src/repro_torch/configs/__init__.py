@@ -1,23 +1,27 @@
 """Config registry: ``get_config(arch_id)`` / ``ARCHS``. Holds the archs
 this port serves (the encoder-decoder zcode pair, the decoder-only archs
-with full attention and those with sliding-window attention); the
-reference's other families join with their slices."""
+with full attention, those with sliding-window attention and DeepSeek-V3
+with multi-head latent attention); the reference's other families join
+with their slices."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (COMM_SUBSTRATES, CommConfig,
                                       EncDecConfig, GatingDropoutConfig,
-                                      ModelConfig, MoEConfig, PagedKVConfig,
-                                      Topology, TrainConfig, reduced)
+                                      MLAConfig, ModelConfig, MoEConfig,
+                                      PagedKVConfig, Topology, TrainConfig,
+                                      reduced)
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as _CODEQWEN
 from repro_torch.configs.dbrx_132b import CONFIG as _DBRX
+from repro_torch.configs.deepseek_v3_671b import CONFIG as _DEEPSEEK
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as _DANUBE
 from repro_torch.configs.starcoder2_3b import CONFIG as _STARCODER2
 from repro_torch.configs.yi_6b import CONFIG as _YI
 from repro_torch.configs.zcode_m3 import CONFIG as _ZCODE_BASE
 from repro_torch.configs.zcode_m3 import CONFIG_BIG as _ZCODE_BIG
 
-_REGISTRY = {c.arch_id: c for c in (_DBRX, _YI, _CODEQWEN, _STARCODER2,
-                                    _DANUBE, _ZCODE_BASE, _ZCODE_BIG)}
+_REGISTRY = {c.arch_id: c for c in (_DBRX, _DEEPSEEK, _YI, _CODEQWEN,
+                                    _STARCODER2, _DANUBE, _ZCODE_BASE,
+                                    _ZCODE_BIG)}
 
 ARCHS = tuple(_REGISTRY)
 
@@ -29,5 +33,6 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "COMM_SUBSTRATES", "CommConfig", "EncDecConfig",
-           "GatingDropoutConfig", "ModelConfig", "MoEConfig", "PagedKVConfig",
-           "Topology", "TrainConfig", "get_config", "reduced"]
+           "GatingDropoutConfig", "MLAConfig", "ModelConfig", "MoEConfig",
+           "PagedKVConfig", "Topology", "TrainConfig", "get_config",
+           "reduced"]

@@ -1,13 +1,13 @@
 """Config dataclasses of the port (the subset of ``repro.configs.base`` the
 encoder-decoder MoE and the decoder-only families, with full or
-sliding-window attention, need, the communication substrate,
-``PagedKVConfig`` and ``TrainConfig``).
+sliding-window attention or multi-head latent attention (MLA), need, the
+communication substrate, ``PagedKVConfig`` and ``TrainConfig``).
 
 Plain frozen dataclasses, field for field the reference's defaults, so a
 config built here describes the same model as the reference's. The
-reference's MLA/SSM/VLM/hybrid families are not ported, nor its
-multi-device layout fields (``fsdp``, ``seq_parallel``, ``ep_on_model``;
-ROADMAP.md A.5).
+reference's SSM/VLM/hybrid families are not ported, nor its multi-device
+layout fields (``fsdp``, ``seq_parallel``, ``ep_on_model``; ROADMAP.md
+A.5).
 """
 from __future__ import annotations
 
@@ -176,6 +176,18 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 multi-head latent attention: queries through a rank
+    ``q_lora_rank`` bottleneck, keys and values from one shared latent of
+    ``kv_lora_rank`` plus a decoupled RoPE key of ``qk_rope_head_dim``."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class EncDecConfig:
     n_encoder_layers: int = 12
     encoder_seq: int = 1500
@@ -202,7 +214,9 @@ class ModelConfig:
     gated_mlp: bool = True
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     encdec: Optional[EncDecConfig] = None
+    mtp: bool = False                   # DeepSeek-V3 multi-token-prediction head
     dtype: str = "bfloat16"             # activation dtype
     param_dtype: str = "float32"
     remat: bool = True                  # recompute each layer in the backward
@@ -231,13 +245,25 @@ class ModelConfig:
             return n * mult * d * self.moe.d_ff(dff) + self.moe.n_experts * d
         return mult * d * dff
 
+    def _attn_params(self) -> int:
+        d, h = self.d_model, self.n_heads
+        if self.mla is not None:
+            m = self.mla
+            return (d * m.q_lora_rank
+                    + m.q_lora_rank * h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+                    + h * m.v_head_dim * d)
+        hd = self.head_dim_
+        return d * hd * (h + 2 * self.n_kv_heads) + h * hd * d
+
     def n_params(self) -> int:
         """Analytic parameter count (embeddings + blocks), as the
-        reference counts it (norm scales and biases are not counted)."""
+        reference counts it (norm scales and biases are not counted, nor
+        the MTP head)."""
         d = self.d_model
-        hd = self.head_dim_
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
-        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        attn = self._attn_params()
         total += sum(attn + self._ffn_params(i) for i in range(self.n_layers))
         if self.encdec is not None:
             total += sum(4 * d * d + self._ffn_params(i)
@@ -285,6 +311,11 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
             d_ff_expert=min(cfg.moe.d_ff(cfg.d_ff), 256),
             n_shared_experts=min(cfg.moe.n_shared_experts, 1),
             first_dense_layers=min(cfg.moe.first_dense_layers, 1))
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                              qk_nope_head_dim=32, qk_rope_head_dim=16,
+                              v_head_dim=32)
+        kw["head_dim"] = 0
     if cfg.encdec is not None:
         kw["encdec"] = dataclasses.replace(cfg.encdec, n_encoder_layers=2,
                                            encoder_seq=32)

@@ -26,11 +26,18 @@ scheduler's counters and, paged, the page arena's:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zcode-m3-base \
       --trace 32 --slots 8 --paged --backend cuda --flash-decode --eos -1
 
-Decoder-only archs (yi-6b, codeqwen1.5-7b, dbrx-132b) take prompts alone;
-``--layers N`` cuts the depth of one too large for the card:
+Decoder-only archs (yi-6b, codeqwen1.5-7b, dbrx-132b, deepseek-v3-671b)
+take prompts alone; ``--layers N`` cuts the depth of one too large for
+the card:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
       --layers 2 --backend cuda_fused --flash-decode --eos -1
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b --layers 2 --backend cuda_fused --eos -1
+
+deepseek-v3-671b's layers attend through multi-head latent attention,
+whose absorbed decode is plain PyTorch, as in the reference:
+``--flash-decode`` reaches no flash-decode kernel on them.
 
 Runs on the GPU unless ``--device cpu`` is given, and fails without one.
 Parameters, prompts and sampling draw from distinct streams of ``--seed``.
@@ -54,8 +61,8 @@ import statistics
 import numpy as np
 import torch
 
-from repro_torch.configs import (COMM_SUBSTRATES, PagedKVConfig, get_config,
-                                 reduced)
+from repro_torch.configs import (COMM_SUBSTRATES, ModelConfig, PagedKVConfig,
+                                 get_config, reduced)
 from repro_torch.models import init_model
 from repro_torch.obs import (MetricsRegistry, Tracer, get_tracer, monotonic,
                              set_tracer)
@@ -79,6 +86,19 @@ def resolve_device(name: str) -> torch.device:
     return torch.device("cuda")
 
 
+def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` at ``n_layers`` layers. A cut to no more layers than the
+    arch's leading dense ones (deepseek-v3-671b's 3) keeps the last layer
+    an MoE layer, so that the cut model still runs both kinds."""
+    if not 1 <= n_layers <= cfg.n_layers:
+        raise ValueError(f"--layers {n_layers}: 1 to {cfg.n_layers}")
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.moe is not None and cfg.moe.first_dense_layers >= n_layers:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=n_layers - 1))
+    return cfg
+
+
 def arch_config(args):
     """``--arch``'s config, ``--reduced`` to smoke-test size, its depth cut
     to ``--layers`` where given."""
@@ -86,9 +106,7 @@ def arch_config(args):
     if args.reduced:
         cfg = reduced(cfg)
     if args.layers is not None:
-        if not 1 <= args.layers <= cfg.n_layers:
-            raise ValueError(f"--layers {args.layers}: 1 to {cfg.n_layers}")
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = cut_depth(cfg, args.layers)
     return cfg
 
 
@@ -305,7 +323,9 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to N layers (a model too large for "
-                         "the card at full depth, e.g. dbrx-132b)")
+                         "the card at full depth, e.g. dbrx-132b); a cut to "
+                         "no more than the arch's leading dense layers keeps "
+                         "the last layer MoE")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=32)
@@ -332,7 +352,9 @@ def main(argv=None):
                     help="expert-parallel width the --trace comm accounting "
                          "prices the wire at (default 1 = this process)")
     ap.add_argument("--flash-decode", action="store_true",
-                    help="decode attention through the flash-decode kernel")
+                    help="decode attention through the flash-decode kernel "
+                         "(GQA layers; MLA layers keep their plain absorbed "
+                         "decode, as in the reference)")
     ap.add_argument("--local-routing", action="store_true",
                     help="Gate-Drop local routing at decode")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -1,6 +1,7 @@
 """Top-level model: embeddings + (the encoder-decoder's encoder) + decoder
-stack + head (port of ``repro/models/model.py`` for the encoder-decoder
-family and the decoder-only families with full or sliding-window
+stack + head, and DeepSeek-V3's multi-token-prediction (MTP) head (port
+of ``repro/models/model.py`` for the encoder-decoder family and the
+decoder-only families with full, sliding-window or multi-head latent
 attention).
 
 Public API:
@@ -19,7 +20,12 @@ that drew them.
 Prefill and training attention is quadratic up to 2,048 keys and the
 blocked flash attention of ``models/flash.py`` past them (O(L) memory), as
 in the reference. A sliding-window layer's cache is a ring of ``window``
-slots whatever ``max_seq`` is.
+slots whatever ``max_seq`` is; an MLA layer's cache is its compressed
+latents (``models/mla.py``).
+
+With ``cfg.mtp``, training forwards (``is_training=True``) also return
+``aux["mtp_hidden"]``: the MTP head's hidden states, from which the loss
+predicts the token two ahead (``training/steps.py``).
 """
 from __future__ import annotations
 
@@ -56,7 +62,23 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
         p["encoder"] = T.init_stack(gen, T.layer_plan(cfg, encoder=True), cfg,
                                     dtype, n_total)
         p["enc_final_norm"] = L.init_norm(gen, cfg, cfg.d_model, dtype)
+    if cfg.mtp:
+        d = cfg.d_model
+        p["mtp"] = {
+            "proj": L.normal(gen, (2 * d, d), (2 * d) ** -0.5, dtype),
+            "norm_h": L.init_norm(gen, cfg, d, dtype),
+            "norm_e": L.init_norm(gen, cfg, d, dtype),
+            "block": T._init_layer(gen, _mtp_spec(cfg), cfg, dtype, n_total,
+                                   None),
+            "norm_out": L.init_norm(gen, cfg, d, dtype),
+        }
     return p
+
+
+def _mtp_spec(cfg: ModelConfig) -> T.LayerSpec:
+    """The MTP head's block: one dense layer of the trunk's mixer."""
+    return T.LayerSpec(mixer="mla" if cfg.mla is not None else "gqa",
+                       moe=False)
 
 
 # ---------------------------------------------------------------------------
@@ -124,9 +146,31 @@ def model_apply(params: Params, batch: Dict, cfg: ModelConfig, *,
     x = L.norm_apply(params["final_norm"], x, cfg)
     if enc_aux is not None:
         aux = {k: aux[k] + enc_aux[k] for k in aux}
+    if cfg.mtp and is_training:
+        aux = dict(aux, mtp_hidden=_mtp_hidden(params, x, tokens, cfg,
+                                               generator, decision))
     if return_hidden:
         return x, aux
     return _logits(params, x, cfg), aux
+
+
+def _mtp_hidden(params: Params, h: torch.Tensor, tokens: torch.Tensor,
+                cfg: ModelConfig, generator, decision) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction at depth 1: the hidden states
+    that predict token t + 2 from the trunk's final-norm state at t and
+    the embedding of token t + 1 (``roll`` by -1, so the last column sees
+    token 0; the loss masks it). The head is applied in the loss."""
+    mtp = params["mtp"]
+    emb_next = L.embed_apply(params["embed"],
+                             torch.roll(tokens, -1, dims=1)).to(cfg.torch_dtype)
+    z = torch.cat([L.norm_apply(mtp["norm_h"], h, cfg),
+                   L.norm_apply(mtp["norm_e"], emb_next, cfg)], dim=-1)
+    z = (z.to(mtp["proj"].dtype) @ mtp["proj"]).to(cfg.torch_dtype)
+    z, _, _ = T._layer_apply(_mtp_spec(cfg), mtp["block"], z, cfg,
+                             mode="train", cache=None, index=None,
+                             generator=generator, decision=decision,
+                             is_training=True, cross_src=None, token_ids=None)
+    return L.norm_apply(mtp["norm_out"], z, cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,

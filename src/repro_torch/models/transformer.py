@@ -1,6 +1,6 @@
 """Transformer assembly for the encoder-decoder MoE and the decoder-only
-families with full or sliding-window attention (port of
-``repro/models/transformer.py``).
+families with full or sliding-window attention or multi-head latent
+attention (port of ``repro/models/transformer.py``).
 
 Layers are organised into SEGMENTS — contiguous repeats of a (possibly
 multi-layer) pattern of LayerSpecs — whose parameters are stacked along a
@@ -22,7 +22,9 @@ past 2,048 keys), or, under ``cfg.banded_swa``, the banded flash
 attention of a causal windowed layer longer than twice its window (the
 reference's branch at ``scan_layers=True``, its default; the port has no
 ``scan_layers``). A windowed layer's decode cache is a ring buffer of
-``window`` slots.
+``window`` slots. An MLA layer (``mixer="mla"``, every layer of a config
+with ``cfg.mla``) attends through ``models/mla.py`` and caches its
+compressed latents, padded to ``max_seq`` at prefill.
 
 Router jitter in training draws from a generator of each layer's own,
 seeded from the step's generator and the layer's index (the reference
@@ -42,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import _zero_aux, init_moe_params, moe_apply
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as M
 from repro_torch.models.flash import banded_flash_attention
 from repro_torch.tree import flatten_with_paths, tree_map, unflatten_paths
 
@@ -54,9 +57,10 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """One layer: GQA self-attention, optional cross-attention, then a
-    dense FFN or an MoE layer (the reference's other mixers come with
-    their families)."""
+    """One layer: GQA or MLA self-attention, optional cross-attention,
+    then a dense FFN or an MoE layer (the reference's other mixers come
+    with their families)."""
+    mixer: str = "gqa"        # gqa | mla
     cross: bool = False       # cross-attention sub-layer
     moe: bool = False
     window: int = 0           # sliding window (0 = full)
@@ -97,8 +101,9 @@ _NOT_PORTED = {"ssm": "A.4d (SSM)", "hybrid": "A.4e (hybrid)",
 def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
     """The reference's plan for the ported families: the encoder-decoder
     (its encoder, or a decoder with cross-attention), and ``dense`` /
-    ``moe`` (GQA self-attention with RoPE over ``cfg.sliding_window``, no
-    cross-attention, an MoE layer where ``MoEConfig.is_moe_layer``)."""
+    ``moe`` (GQA self-attention with RoPE over ``cfg.sliding_window``, or
+    MLA where ``cfg.mla`` is set; no cross-attention; an MoE layer where
+    ``MoEConfig.is_moe_layer``)."""
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP.md {_NOT_PORTED[cfg.family]})")
@@ -112,7 +117,9 @@ def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
     if cfg.family == "encdec":
         return _compress([LayerSpec(cross=True, moe=moe_at(i))
                           for i in range(cfg.n_layers)])
-    return _compress([LayerSpec(moe=moe_at(i), window=cfg.sliding_window)
+    mixer = "mla" if cfg.mla is not None else "gqa"
+    return _compress([LayerSpec(mixer=mixer, moe=moe_at(i),
+                                window=cfg.sliding_window)
                       for i in range(cfg.n_layers)])
 
 
@@ -121,11 +128,14 @@ def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
 # ---------------------------------------------------------------------------
 
 def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
-                dtype, n_total: int, reps: int) -> Params:
-    lead = (reps,)
+                dtype, n_total: int, reps: Optional[int]) -> Params:
+    """One layer's parameters, stacked over ``reps`` repeats (``None``:
+    unstacked, as the MTP head's block)."""
+    lead = () if reps is None else (reps,)
     out_scale = (2 * max(n_total, 1)) ** -0.5
+    init_attn = M.init_mla if spec.mixer == "mla" else A.init_attn
     p: Params = {"ln1": L.init_norm(gen, cfg, cfg.d_model, dtype, lead),
-                 "attn": A.init_attn(gen, cfg, dtype, out_scale, lead)}
+                 "attn": init_attn(gen, cfg, dtype, out_scale, lead)}
     if spec.cross:
         p["ln_cross"] = L.init_norm(gen, cfg, cfg.d_model, dtype, lead)
         p["cross"] = A.init_cross_attn(gen, cfg, dtype, out_scale, lead)
@@ -155,9 +165,12 @@ def init_stack(gen: torch.Generator, segs: List[Segment], cfg: ModelConfig,
 def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       max_seq: int, n_cross: int, dtype, device,
                       reps: int) -> Params:
-    if spec.window > 0:
-        c: Params = {"attn": A.init_ring_cache(cfg, batch, spec.window, dtype,
-                                               device, lead=(reps,))}
+    if spec.mixer == "mla":
+        c: Params = {"attn": M.init_mla_cache(cfg, batch, max_seq, dtype,
+                                              device, lead=(reps,))}
+    elif spec.window > 0:
+        c = {"attn": A.init_ring_cache(cfg, batch, spec.window, dtype,
+                                       device, lead=(reps,))}
     else:
         c = {"attn": A.init_kv_cache(cfg, batch, max_seq, dtype, device,
                                      lead=(reps,))}
@@ -174,6 +187,13 @@ def init_stack_cache(segs: List[Segment], cfg: ModelConfig, batch: int,
     return [{f"p{pi}": _init_layer_cache(spec, cfg, batch, max_seq, n_cross,
                                          dtype, device, seg.repeats)
              for pi, spec in enumerate(seg.pattern)} for seg in segs]
+
+
+def _pad_seq(x: torch.Tensor, smax: int, dtype) -> torch.Tensor:
+    """(B, l, ...) zero-padded along the sequence to ``smax``, in ``dtype``."""
+    out = x.new_zeros((x.shape[0], smax) + tuple(x.shape[2:]), dtype=dtype)
+    out[:, :x.shape[1]] = x
+    return out
 
 
 def _fill_kv_cache(spec: LayerSpec, k: torch.Tensor, v: torch.Tensor,
@@ -195,11 +215,7 @@ def _fill_kv_cache(spec: LayerSpec, k: torch.Tensor, v: torch.Tensor,
         cv[:, slots] = v[:, start:].to(dtype)
         cpos[slots] = pos.to(torch.int32)
         return {"k": ck, "v": cv, "pos": cpos}
-    ck = k.new_zeros((b, smax) + k.shape[2:], dtype=dtype)
-    cv = v.new_zeros((b, smax) + v.shape[2:], dtype=dtype)
-    ck[:, :l] = k
-    cv[:, :l] = v
-    return {"k": ck, "v": cv}
+    return {"k": _pad_seq(k, smax, dtype), "v": _pad_seq(v, smax, dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +253,19 @@ def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
     l = x.shape[1]
     # ---- self-attention ----
     h = L.norm_apply(p["ln1"], x, cfg)
-    if mode == "decode":
+    if spec.mixer == "mla":
+        if mode == "decode":
+            o, new_cache["attn"] = M.mla_decode(p["attn"], h, cache["attn"],
+                                                cfg, index,
+                                                block_tables=block_tables)
+        else:
+            o, (c_kv, k_rope) = M.mla_attention(p["attn"], h, cfg,
+                                                return_cache=True)
+            if mode == "prefill":
+                new_cache["attn"] = {"c_kv": _pad_seq(c_kv, max_seq, cache_dtype),
+                                     "k_rope": _pad_seq(k_rope, max_seq,
+                                                        cache_dtype)}
+    elif mode == "decode":
         # windowed layers keep their slot-addressed ring cache; only
         # full-cache layers read through the page table
         o, new_cache["attn"] = A.decode_self_attention(

@@ -18,7 +18,8 @@ is a JAX compile-unit device with no counterpart here. What carries over:
     (``checkpoint.save_checkpoint``), so a run may resume at another
     group size;
   * history records carry loss, acc, lr and tok/s, where tok/s counts the
-    decoder ``tokens`` AND the encoder ``enc_tokens``, the ``comm_*``
+    decoder ``tokens`` AND the encoder ``enc_tokens``, ``mtp_xent`` where
+    the model has an MTP head, the ``comm_*``
     wire counters of the step's forward and, with the MetricsFrame on,
     ``router_entropy``, ``load_imbalance`` (of ``expert_load``,
     ``obs.frame.load_imbalance``) and ``gate_dropped``;
@@ -234,8 +235,9 @@ class Trainer:
                            "lr": float(ms["lr"][j]),
                            "tok_s": tokens_done / max(el, 1e-9),
                            "time_s": el}
-                    for k in ("balance", "comm_wire_bytes", "comm_a2a_calls",
-                              "comm_exposed_bytes", "comm_hidden_bytes"):
+                    for k in ("balance", "mtp_xent", "comm_wire_bytes",
+                              "comm_a2a_calls", "comm_exposed_bytes",
+                              "comm_hidden_bytes"):
                         if k in ms:
                             rec[k] = float(ms[k][j])
                     if "router_entropy" in ms:

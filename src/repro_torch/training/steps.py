@@ -129,6 +129,9 @@ def total_loss(params, batch: Dict, cfg: ModelConfig, *,
     """(loss, metrics): chunked cross-entropy plus the MoE balance and
     router-z terms, each averaged over the MoE layers; ``comm_*`` are the
     transports' telemetry summed over the MoE layers of this forward.
+    With ``cfg.mtp`` in training, plus 0.3 x the MTP head's cross-entropy
+    against the labels rolled by -1 (metric ``mtp_xent``), masked where a
+    label or the next one is masked and at the last column.
 
     Under a group ``batch`` holds this rank's rows and ``loss`` is this
     rank's share of the global loss (its token sums over the group's
@@ -144,8 +147,8 @@ def total_loss(params, batch: Dict, cfg: ModelConfig, *,
         count = (mask.sum() if mask is not None
                  else hidden.new_tensor(float(hidden.shape[0] * hidden.shape[1])))
         denom = ctx.all_reduce(count.detach().float().reshape(1))[0].clamp_min(1.0)
-    loss, acc = chunked_xent(hidden, head_matrix(params, cfg), batch["labels"],
-                             mask, denom=denom)
+    head = head_matrix(params, cfg)
+    loss, acc = chunked_xent(hidden, head, batch["labels"], mask, denom=denom)
     xent = loss
     if denom is not None:
         xent, acc = ctx.all_reduce(torch.stack([loss.detach(), acc.detach()]))
@@ -164,6 +167,21 @@ def total_loss(params, batch: Dict, cfg: ModelConfig, *,
         if frame:
             metrics.update(expert_load=aux["load"] / nmoe,
                            router_entropy=aux["router_entropy"] / nmoe)
+    if cfg.mtp and is_training and "mtp_hidden" in aux:
+        labels2 = torch.roll(batch["labels"], -1, dims=1)
+        m2 = (mask.float() if mask is not None
+              else hidden.new_ones(labels2.shape, dtype=torch.float32))
+        m2 = m2 * torch.roll(m2, -1, dims=1)
+        m2[:, -1] = 0.0
+        denom2 = None
+        if _grouped(ctx):
+            denom2 = ctx.all_reduce(m2.sum().reshape(1))[0].clamp_min(1.0)
+        mtp_l, _ = chunked_xent(aux["mtp_hidden"], head, labels2, m2,
+                                denom=denom2)
+        loss = loss + 0.3 * mtp_l
+        mtp_x = mtp_l if denom2 is None else ctx.all_reduce(mtp_l.detach().reshape(1))[0]
+        total = total + 0.3 * mtp_x.detach()
+        metrics["mtp_xent"] = mtp_x
     metrics["loss"] = loss if denom is None else total
     return loss, metrics
 

@@ -27,6 +27,17 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.launch import serve as cli  # noqa: E402
 from repro_torch.serve import GenerateConfig, generate  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers on few
+    cores, and torch's thread pool would contend with theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REDUCED = dict(d_model=64, n_layers=2, d_ff=128, vocab=97)
 
 

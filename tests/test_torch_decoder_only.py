@@ -68,6 +68,17 @@ from repro_torch.serve import (ContinuousScheduler, GenerateConfig,  # noqa: E40
 from repro_torch.training import init_train_state, make_train_step  # noqa: E402
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers on few
+    cores, and torch's thread pool would contend with theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 2e-4
 DECODER_ONLY = ("yi-6b", "codeqwen1.5-7b", "dbrx-132b")
 # model: (arch, reduced() overrides forcing GQA, MoE overrides)

@@ -551,6 +551,26 @@ def test_cuda_combine_matches_plain(dtype):
                    ref.combine_ref(buf, ts, w, keep))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_combine_top8_at_deepseek_widths_matches_plain(dtype):
+    """deepseek-v3-671b's combine: k = 8 (two steps of 4 rows), d 7,168,
+    256 experts; the decode site (8 tokens, C = 1) and the long prefill's
+    (2,048 tokens, C = 128), each token's 8 slots on distinct experts,
+    some dropped."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(8)
+    e, k, d = 256, 8, 7168
+    for t, cap in ((8, 1), (2048, 128)):
+        buf = torch.randn(e * cap, d, generator=g, device=dev).to(dtype)
+        experts = torch.rand(t, e, generator=g, device=dev).argsort(dim=1)[:, :k]
+        ts = (experts * cap + torch.randint(0, cap, (t, k), generator=g, device=dev))
+        ts = ts.to(torch.int32)
+        w = torch.rand(t, k, generator=g, device=dev)
+        keep = torch.rand(t, k, generator=g, device=dev) < 0.9
+        _gpu_close(moe_dispatch.combine(buf, ts, w, keep), ref.combine_ref(buf, ts, w, keep))
+
+
 def _combine_no_pdl(buf, ts, w, keep):
     """B3's kernel without PDL: its C entry with pdl 0, which the wrapper
     never passes."""

@@ -342,6 +342,40 @@ def test_cuda_fused_moe_matches_plain(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_moe_at_deepseek_widths_matches_plain(dtype):
+    """deepseek-v3-671b's expert shapes: d 7,168, f 2,048, gated, sigmoid
+    top-8 (32 of its 256 experts: the weights of all 256 take 45 GB in
+    f32); 8 tokens at eval capacity 2.0 (C = 4, the streaming kernel, its
+    f32 atomics adding 8 rows per token) and 256 (C = 128, the tiled kernel
+    past d = 1,024); outputs against the plain version."""
+    dev = _card()
+    e, k, d, f = 32, 8, 7168, 2048
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = {n: (torch.randn(shape, generator=g, device=dev) * shape[1] ** -0.5).to(dtype)
+         for n, shape in (("w_in", (e, d, f)), ("w_gate", (e, d, f)), ("w_out", (e, f, d)))}
+    wr = torch.randn(d, e, generator=g, device=dev) * d ** -0.5
+    moe = MoEConfig(n_experts=e, top_k=k, router_type="sigmoid", jitter_eps=0.0)
+    for t, variant in ((8, "streaming"), (256, "tiled")):
+        x = torch.randn(t, d, generator=g, device=dev).to(dtype)
+        cap = R.capacity(t, e, k, 2.0)
+        info = R.dispatch_info(R.route(wr, x.float(), moe, is_training=False), e, cap)
+        tables = ops.routing_tables(info, e, cap)
+        args = (x, w["w_in"], w["w_gate"], w["w_out"], info.topk_w, info.keep,
+                tables.slot_token, tables.slot_valid, tables.token_slot)
+        got, took = _took(args, "silu")
+        assert took == variant, (t, dtype)
+        want = ref.fused_moe_f32_ref(x, w["w_in"], w["w_gate"], w["w_out"],
+                                     (info.topk_w * info.keep).float(), tables.slot_token,
+                                     tables.slot_valid,
+                                     tables.token_slot.clamp(0, e * cap - 1), "silu")
+        torch.cuda.synchronize()
+        atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1.6e-2)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        assert int(info.keep.sum()) > t * k // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [1, 4])
 @pytest.mark.parametrize("d", [1536, 6144])
 def test_cuda_fused_moe_tiled_any_width(d, k, dtype):

@@ -27,6 +27,17 @@ from repro_torch.core import moe as port_moe  # noqa: E402
 from repro_torch.core import router as R  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers on few
+    cores, and torch's thread pool would contend with theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-5
 
 

@@ -45,6 +45,17 @@ from repro_torch.serve import (ContinuousScheduler, GenerateConfig,  # noqa: E40
                                static_batch_serve)
 from repro_torch.serve.engine import _select_rows  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers on few
+    cores, and torch's thread pool would contend with theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REDUCED = dict(d_model=64, n_layers=2, d_ff=128, vocab=97)
 SCHED = dict(n_slots=3, prefill_buckets=(8, 16), max_seq=40)
 # case: (gen kwargs, paged kwargs, request builder kwargs)

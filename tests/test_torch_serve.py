@@ -28,6 +28,16 @@ from repro_torch.models import decode_step, prefill  # noqa: E402
 from repro_torch.serve import GenerateConfig, generate  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers on few
+    cores, and torch's thread pool would contend with theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flat(tree):
     return {"/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path):
             np.asarray(leaf)

@@ -62,6 +62,17 @@ from repro_torch.training import (Trainer, chunked_xent, init_train_state,  # no
                                   same_decision_runs)
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several workers on few
+    cores, and torch's thread pool would contend with theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_STEPS = 3
 # the transports' wire counters: zero at one device, as the reference's
 COMM_KEYS = {"comm_a2a_calls", "comm_bytes", "comm_wire_bytes",
