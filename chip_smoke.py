@@ -141,14 +141,37 @@ Phases (any failure exits non-zero):
                  deepseek-v3-671b's --task lm steps with its MTP head on
                  oracle, cuda_fused and cuda, gated as phase dec's; the
                  phase's wall time and peak device memory;
+  ssm. Mamba-2 and Hymba -- after phase mla, every earlier model freed
+                 (seeded weights, f32 parameters, bf16 activations unless f32
+                 is named): mamba2-1.3b at full width and depth (48 layers, d
+                 2,048, 64 SSD heads of 64, state 128, chunk 128) generates for
+                 8 requests with no kernel launch, timed, its decode step as
+                 one CUDA graph; a 2 x 4,096-token prefill timed with its peak
+                 memory; f32: prefill and 8 teacher-forced decode steps
+                 against model_apply; the slot pool (exact-length prefill) on
+                 prompts of mixed lengths against one-shot generate, and the
+                 arena's refusal; a forward and backward pass at 4 layers on
+                 2 x 1,024 tokens, the loss and every gradient finite.
+                 hymba-1.5b at full width and depth (32 layers, d 1,600, 25/5
+                 heads of 64 beside 50 SSD heads, 128 meta tokens, window
+                 1,024 but at layers 0, 15 and 31): the same generate with
+                 flash decode (3 B5 per step, its index past the meta
+                 tokens), B5 at its decode site; a 2 x 2,048-token prompt
+                 (2,176 positions) prefilled, timed, then f32 blocked against
+                 quadratic attention and teacher-forced decode against
+                 model_apply; the slot pool, the arena (the meta pages shared:
+                 prefix hits) and a 20-page arena that preempts, tokens against
+                 one-shot; B6 at the arena's decode site; reduced
+                 mamba2-1.3b's and hymba-1.5b's --task lm steps on the card
+                 against the CPU's;
 
   python3 chip_smoke.py --only full_cache
 
 runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
 to compare two trees' B5 and B6 at these sites in one call; ``--only ep``,
-``--only obs``, ``--only dec``, ``--only swa`` and ``--only mla`` run
-phases 1, 2 and that phase alone.
+``--only obs``, ``--only dec``, ``--only swa``, ``--only mla`` and
+``--only ssm`` run phases 1, 2 and that phase alone.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -2417,33 +2440,40 @@ def check_launches(label, cfg, sched, counts, paged: bool):
 
 
 def oneshot_check(params, cfg, gen, reqs, want, max_seq, dev):
-    """Each request's tokens against one-shot B=1 ``generate`` at the
-    pool's cache length. A divergence must be a near-tie: the top-two gap
-    of the one-shot logits at the first differing token, read by feeding
-    the common prefix, is under NEAR_TIE. Returns (#equal, gaps)."""
-    import dataclasses as dc
+    """Each request's tokens ``want`` ({rid: tokens}) against one-shot B=1
+    ``generate`` at the pool's cache length (``against_oneshot``).
+    Returns (#equal, gaps)."""
+    return against_oneshot(params, cfg, gen, reqs, {"": want}, max_seq, dev)[""]
+
+
+def against_oneshot(params, cfg, gen, reqs, runs, max_seq, dev):
+    """Each request's tokens of every run in ``runs`` ({label: {rid:
+    tokens}}) against one-shot B=1 ``generate`` at the pool's cache
+    length. A divergence must be a near-tie: the top-two gap of the
+    one-shot logits at the first differing token, read by feeding the
+    common prefix, is under NEAR_TIE. Returns {label: (#equal, gaps)}."""
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve import generate
-    n_equal, gaps = 0, []
+    out = {label: [0, []] for label in runs}
     for r in reqs:
         batch = {"tokens": torch.as_tensor(r.tokens[None], device=dev),
                  **{k: torch.as_tensor(v[None], device=dev) for k, v in r.extras.items()}}
-        one = generate(params, batch, cfg, dc.replace(gen, max_new=r.max_new,
-                                                       max_seq=max_seq))
-        got = one.tokens[0].cpu().numpy()
-        if (got == want[r.rid]).all():
-            n_equal += 1
-            continue
-        t = int((got != want[r.rid]).argmax())
-        with torch.no_grad():
-            lg, caches = prefill(params, batch, cfg, max_seq=max_seq)
-            for i in range(t):
-                lg, caches = decode_step(params, caches,
-                                         torch.as_tensor([[int(got[i])]], device=dev),
-                                         len(r.tokens) + i, cfg, flash_decode=True)
-        top = lg[0, -1].float().topk(2).values
-        gaps.append((r.rid, t, float(top[0] - top[1])))
-    return n_equal, gaps
+        one = generate(params, batch, cfg, dataclasses.replace(
+            gen, max_new=r.max_new, max_seq=max_seq)).tokens[0].cpu().numpy()
+        for label, toks in runs.items():
+            if (one == toks[r.rid]).all():
+                out[label][0] += 1
+                continue
+            t = int((one != toks[r.rid]).argmax())
+            with torch.no_grad():
+                lg, caches = prefill(params, batch, cfg, max_seq=max_seq)
+                for i in range(t):
+                    lg, caches = decode_step(params, caches,
+                                             torch.as_tensor([[int(one[i])]], device=dev),
+                                             len(r.tokens) + i, cfg, flash_decode=True)
+            top = lg[0, -1].float().topk(2).values
+            out[label][1].append((r.rid, t, float(top[0] - top[1])))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def paged_ragged_cases(dev):
@@ -2894,6 +2924,13 @@ def dec_model(cfg, dev, rows=BATCH, prompt=PROMPT):
              f"head dims {cfg.mla.qk_nope_head_dim}/{cfg.mla.qk_rope_head_dim}/"
              f"{cfg.mla.v_head_dim})" if cfg.mla is not None else
              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}")
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        ssd = (f"{s.n_heads(cfg.d_model)} SSD heads of {s.head_dim}, state {s.d_state}, "
+               f"chunk {s.chunk}")
+        heads = ssd if cfg.family == "ssm" else (
+            f"{heads} beside {ssd}, {cfg.n_meta} meta tokens, window {cfg.sliding_window} "
+            f"but at layers {cfg.hybrid.global_attn_layers}")
     log(f"dec model: {cfg.arch_id} at {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{heads}: {n / 1e9:.3f} B params "
         f"(analytic {cfg.n_params() / 1e9:.3f} B), {n * 4 / 1e9:.1f} GB in f32, init "
@@ -3292,7 +3329,7 @@ def quadratic_attention():
 def blocked_gate(label, params, batch, cfg, max_seq):
     """f32 prefill logits through the blocked flash attention against the
     quadratic path with the window's mask. Returns (max abs diff, the
-    blocked prefill's caches)."""
+    blocked prefill's caches, its logits)."""
     from repro_torch.models import prefill
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     lb, caches = prefill(params, batch, cfg32, max_seq=max_seq)
@@ -3305,21 +3342,27 @@ def blocked_gate(label, params, batch, cfg, max_seq):
         f"blocked flash vs quadratic attention max abs diff {d:.3e} (tol {E2E_LOGIT_ATOL})")
     if d > E2E_LOGIT_ATOL:
         raise AssertionError(f"{label}: blocked prefill logits differ by {d}")
-    return d, caches
+    return d, caches, lb
 
 
 @torch.no_grad()
 def ring_gate(label, params, batch, cfg, dev):
-    """f32: the blocked prefill against the quadratic one, then N_FORCED
-    teacher-forced decode steps through the ring caches (a slot pool,
-    per-row positions) against ``model_apply``'s logits at the same
-    positions over the prompt and the forced tokens."""
-    from repro_torch.models import model_apply
+    """f32: the blocked prefill against the quadratic one (an arch that
+    attends; mamba2-1.3b does not), then N_FORCED teacher-forced decode
+    steps through the decode caches (a slot pool, per-row positions: the
+    rings, an SSM's state) against ``model_apply``'s logits at the same
+    positions over the prompt and the forced tokens, and the prefill's
+    logits against ``model_apply``'s at the prompt's last position."""
+    from repro_torch.models import model_apply, prefill
     from repro_torch.models.model import head_matrix
     from repro_torch.serve.engine import decode_pool_step
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     rows, plen = batch["tokens"].shape
-    d_pre, caches = blocked_gate(label, params, batch, cfg, plen + N_FORCED)
+    if cfg.family == "ssm":
+        d_pre = None
+        lb, caches = prefill(params, batch, cfg32, max_seq=plen + N_FORCED)
+    else:
+        d_pre, caches, lb = blocked_gate(label, params, batch, cfg, plen + N_FORCED)
     pool = _pool(cfg32, caches, dev, rows)
     del caches
     g = torch.Generator(device=dev).manual_seed(SEED + 17)
@@ -3334,18 +3377,21 @@ def ring_gate(label, params, batch, cfg, dev):
     del pool
     hid, _ = model_apply(params, {"tokens": torch.cat([batch["tokens"], forced], 1)}, cfg32,
                          is_training=False, return_hidden=True)
-    want = torch.matmul(hid[:, plen:].to(cfg.torch_param_dtype),
+    want = torch.matmul(hid[:, plen - 1:].to(cfg.torch_param_dtype),
                         head_matrix(params, cfg)).float()
     got = torch.stack(got, 1)
     if not torch.isfinite(got).all():
-        raise AssertionError(f"{label}: non-finite f32 ring decode logits")
-    d_dec = float((got - want).abs().max())
-    log(f"{label} f32: {N_FORCED} teacher-forced decode steps through the rings (positions "
-        f"{plen}-{plen + N_FORCED - 1}, window {cfg.sliding_window}) against model_apply over "
-        f"{plen + N_FORCED} tokens: logits max abs diff {d_dec:.3e} (tol {E2E_LOGIT_ATOL})")
-    if d_dec > E2E_LOGIT_ATOL:
-        raise AssertionError(f"{label}: ring decode logits differ by {d_dec}")
-    return dict(prefill=d_pre, decode=d_dec)
+        raise AssertionError(f"{label}: non-finite f32 decode logits")
+    d_last = float((lb[:, 0] - want[:, 0]).abs().max())
+    d_dec = float((got - want[:, 1:]).abs().max())
+    log(f"{label} f32: prefill logits at position {plen - 1} against model_apply max abs diff "
+        f"{d_last:.3e}; {N_FORCED} teacher-forced decode steps (positions {plen}-"
+        f"{plen + N_FORCED - 1}, window {cfg.sliding_window}, meta tokens {cfg.n_meta}) "
+        f"against model_apply over {plen + N_FORCED} tokens: logits max abs diff {d_dec:.3e} "
+        f"(tol {E2E_LOGIT_ATOL})")
+    if max(d_last, d_dec) > E2E_LOGIT_ATOL:
+        raise AssertionError(f"{label}: prefill or decode logits differ by {d_last}, {d_dec}")
+    return dict(prefill=d_pre, prefill_vs_apply=d_last, decode=d_dec)
 
 
 def ring_read(cfg, rows, dev):
@@ -3534,7 +3580,7 @@ def swa_yi(dev):
                                 lambda steps: {"flash_decode": cfg.n_layers * steps})
     if counts["flash_decode"] != cfg.n_layers * (MAX_NEW - 1):
         raise AssertionError(f"swa yi-6b: {counts['flash_decode']} B5 launches")
-    d_pre, caches = blocked_gate("swa yi-6b", params, batch, cfg, max_seq)
+    d_pre, caches, _ = blocked_gate("swa yi-6b", params, batch, cfg, max_seq)
     del caches
     with Capture(names=("flash_decode",)) as cap:
         generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
@@ -3972,8 +4018,348 @@ def mla_rows(mla):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase ssm: Mamba-2 SSD (mamba2-1.3b) and the Hymba hybrid (hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+SSM_LONG_ROWS = 2
+MAMBA_LONG_PROMPT = 4096          # 32 chunks of 128
+HYMBA_LONG_PROMPT = 2048          # + 128 meta tokens: past the 1,024 window and 2 x 1,024 keys
+MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_ROWS, MAMBA_TRAIN_SEQ = 4, 2, 1024
+SSM_SCHED_N = 6                   # the scheduler trace's first requests (2-64 tokens)
+SSM_LONG_REPS = 3
+
+
+@torch.no_grad()
+def ssm_long_prefill(label, params, cfg, dev, prompt):
+    """One prefill of SSM_LONG_ROWS x ``prompt`` tokens in the model's dtype,
+    host-clock ms over SSM_LONG_REPS calls after a warm-up (each ending in
+    a sync), tokens/s, and the peak device memory above the weights."""
+    import statistics
+    from repro_torch.launch.serve import generator, spread, synth_batch
+    from repro_torch.models import prefill
+    batch = synth_batch(cfg, generator(dev, SEED, 2), SSM_LONG_ROWS, prompt)
+    lg, _ = prefill(params, batch, cfg, max_seq=prompt + 1)
+    if not torch.isfinite(lg).all():
+        raise AssertionError(f"{label}: non-finite long prefill logits")
+    del lg
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rounds = []
+    for _ in range(SSM_LONG_REPS):
+        t0 = time.perf_counter()
+        prefill(params, batch, cfg, max_seq=prompt + 1)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(rounds)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"{label}: prefill of {SSM_LONG_ROWS} x {prompt} tokens ({cfg.n_meta} meta tokens) "
+        f"{ms:.2f} ms {spread(rounds)} (median of {SSM_LONG_REPS}), "
+        f"{SSM_LONG_ROWS * prompt / ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB above the weights")
+    return dict(ms=ms, rounds=rounds, tok_s=SSM_LONG_ROWS * prompt / ms * 1e3, peak_gib=peak)
+
+
+def ssm_schedulers(label, params, cfg, dev):
+    """The first SSM_SCHED_N requests of phase 7's trace (prompts alone, of
+    mixed lengths) in f32 through the slot pool, whose exact-length
+    prefill admits groups of one length, and, where a cache pages
+    (hymba-1.5b), through the page arena and a PAGES_SMALL-page arena that
+    preempts: every run's tokens against one-shot ``generate`` (near-ties
+    allowed), the arena's prefix hits (the meta pages) and the small
+    arena's preemptions; launches per run: B5 (B6 on the arenas) on every
+    global layer per decode tick, nothing else. mamba2-1.3b: no launch, and
+    the arena refuses it. Returns the stats and, paged, B6 at the arena's
+    first decode tick against its plain version, bitwise B5, and timed."""
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.serve import GenerateConfig
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = GenerateConfig(max_new=TRACE_BUDGET, eos_id=-1, flash_decode=True)
+    reqs = sched_trace(cfg.vocab, sources=False)[:SSM_SCHED_N]
+    n_global = len(cfg.hybrid.global_attn_layers) if cfg.hybrid is not None else 0
+    groups = []
+    sched = new_scheduler(params, cfg32, gen)
+    real = sched._prefill_group
+    sched._prefill_group = lambda group, bucket, now: groups.append(
+        (bucket, [len(r.tokens) for r in group])) or real(group, bucket, now)
+    runs, out = {}, {"groups": groups}
+    runs["slot pool"], ss, c, w = run_scheduler(params, cfg32, gen, reqs, sched=sched)
+    if not sched.exact_prefill or any(lens != [b] * len(lens) for b, lens in groups):
+        raise AssertionError(f"{label}: admission groups not of one exact length {groups}")
+    todo = [("slot pool", ss, c, w, "flash_decode")]
+    if n_global:
+        with Capture(names=("flash_decode_paged",)) as cap:
+            runs["arena"], ps, c, w = run_scheduler(params, cfg32, gen, reqs, paged=True)
+        todo.append(("arena", ps, c, w, "flash_decode_paged"))
+        b6_args = cap.calls["flash_decode_paged"][0][0]
+        del cap
+        runs["small arena"], sm, c, w = run_scheduler(params, cfg32, gen, reqs, paged=True,
+                                                      n_pages=PAGES_SMALL)
+        todo.append(("small arena", sm, c, w, "flash_decode_paged"))
+        if ps.stats["prefix_hits"] == 0 or sm.stats["preemptions"] == 0:
+            raise AssertionError(f"{label}: arena {ps.stats}, small arena {sm.stats}")
+    else:
+        try:
+            new_scheduler(params, cfg32, gen, paged=True)
+        except ValueError as e:
+            if "nothing to page" not in str(e):
+                raise
+            log(f"ssm {label}: PagedScheduler refuses the arch: {e}")
+        else:
+            raise AssertionError(f"{label}: PagedScheduler accepted an arch with nothing to page")
+    for name, sch, counts, wall, key in todo:
+        want = {k: 0 for k in counts}
+        want[key] = n_global * sch.stats["decode_steps"]
+        log(f"ssm {label} {name} f32: {sch.stats}; launches {counts}, expected {want}; "
+            f"{wall:.2f} s")
+        if counts != want or sch.stats["finished"] != SSM_SCHED_N:
+            raise AssertionError(f"{label} {name}: launches {counts} != {want} or {sch.stats}")
+        out[name] = dict(sch.stats, wall_s=wall)
+    log(f"ssm {label}: slot-pool admission groups (length, prompt lengths) {groups}")
+    checked = against_oneshot(params, cfg32, gen, reqs, runs, ss.max_seq, dev)
+    for name, (n_equal, gaps) in checked.items():
+        log(f"ssm {label} f32: {name}: {n_equal} of {SSM_SCHED_N} requests' tokens equal "
+            f"one-shot B=1 generate; divergences (rid, first token, top-two logit gap) {gaps}")
+        if any(gap >= NEAR_TIE for _, _, gap in gaps):
+            raise AssertionError(f"{label} {name}: a divergence from one-shot is not a near-tie")
+        out[name].update(oneshot_equal=n_equal, gaps=gaps)
+    if n_global:
+        out_b6 = FD.flash_decode_paged(*b6_args)
+        torch.cuda.synchronize()
+        err = check(f"{label} flash_decode_paged@decode", out_b6,
+                    plain_of("flash_decode_paged")(*b6_args))
+        check(f"{label} flash_decode_paged vs B5", out_b6,
+              FD.flash_decode(b6_args[0], *gathered(b6_args), b6_args[4]), exact=True)
+        out["b6"] = dict(b6_timing(b6_args), max_abs_err=err,
+                         launches=out["arena"]["decode_steps"] * n_global)
+    return out
+
+
+def decode_profile(label, params, batch, cfg, dev, top=8):
+    """One eager decode step's device time by PyTorch op (torch.profiler
+    over 3 steps after a warm-up, per step): the device total and the ops
+    that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import prefill
+    from repro_torch.serve.engine import decode_pool_step
+    rows, plen = batch["tokens"].shape
+    lg, fresh = prefill(params, batch, cfg, max_seq=plen + MAX_NEW)
+    pool = _pool(cfg, fresh, dev, rows)
+    del fresh
+    tok = lg[:, 0].argmax(-1)
+    pos = torch.full((rows,), plen, device=dev)
+    alive = torch.ones(rows, dtype=torch.bool, device=dev)
+
+    def step():
+        decode_pool_step(params, pool, tok, pos, alive, cfg, flash_decode=True)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    # the ops' own device time (the kernels each launched); the kernels'
+    # events, which carry the same time again, are left out
+    ops = [(e.key, getattr(e, "self_device_time_total", 0.0) / 3e3, e.count // 3)
+           for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+    total = sum(o[1] for o in ops)
+    log(f"{label}: one eager decode step, device time by op (torch.profiler, per step): total "
+        f"{total:.3f} ms; " + ", ".join(f"{k} {ms:.3f} ms ({n} calls)" for k, ms, n in ops[:top]))
+    return dict(total_ms=total, top=[dict(op=k, ms=ms, calls=n) for k, ms, n in ops[:top]])
+
+
+def mamba_train(dev):
+    """mamba2-1.3b at full width, MAMBA_TRAIN_LAYERS layers: forward and
+    backward of the LM loss on MAMBA_TRAIN_ROWS x MAMBA_TRAIN_SEQ tokens
+    (bf16 activations, remat), a warm-up pass then a timed one: the loss
+    and every gradient finite (the masked exponent of the chunks' upper
+    triangle overflows f32 at chunk 128); wall time and peak memory."""
+    from repro_torch.data import LMTaskConfig, SyntheticLM
+    from repro_torch.launch.serve import cut_depth, generator
+    from repro_torch.models import init_model
+    from repro_torch.training.loop import to_device
+    from repro_torch.training.steps import total_loss
+    from repro_torch.tree import flatten_with_paths
+    cfg = cut_depth(dec_cfg("mamba2-1.3b"), MAMBA_TRAIN_LAYERS)
+    params = init_model(generator(dev, SEED, 0), cfg)
+    leaves = list(_leaves(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    task = SyntheticLM(LMTaskConfig(vocab=cfg.vocab, seq_len=MAMBA_TRAIN_SEQ))
+    batch = to_device(task.sample_batch(0, MAMBA_TRAIN_ROWS), dev)
+    for i in range(2):
+        for p in leaves:
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = total_loss(params, batch, cfg, generator=None, decision=False)
+        loss.backward()
+        loss = loss.detach()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the FFN-free layers' ln2 feeds nothing (as in the reference): no gradient
+    grads = {k: p.grad for k, p in flatten_with_paths(params).items()}
+    unused = sorted(k for k, g in grads.items() if g is None)
+    bad = sorted(k for k, g in grads.items() if g is not None and not torch.isfinite(g).all())
+    norm = float(torch.sqrt(sum(g.float().square().sum() for g in grads.values()
+                                if g is not None)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"ssm mamba2-1.3b train ({cfg.n_layers} layers, {MAMBA_TRAIN_ROWS} x {MAMBA_TRAIN_SEQ} "
+        f"tokens, remat): loss {float(loss):.4f}, grad norm {norm:.4f}, "
+        f"{len(grads) - len(unused)} gradients, non-finite {bad}, without a gradient path "
+        f"{unused}; forward + backward {wall:.1f} ms; peak {peak:.2f} GiB")
+    if bad or any("ln2" not in k for k in unused) or not math.isfinite(float(loss)) \
+            or not math.isfinite(norm):
+        raise AssertionError(f"ssm mamba2-1.3b train: non-finite loss or gradients {bad}, "
+                             f"missing {unused}")
+    del params, leaves, grads
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, loss=float(loss), grad_norm=norm, ms=wall, peak_gib=peak)
+
+
+def ssm_mamba(dev):
+    """mamba2-1.3b at full width and depth: a counted generate (no
+    kernel launch), timed, its decode step as a CUDA graph; the long
+    prefill timed; the f32 gates; the slot pool and the arena's refusal;
+    then the 4-layer forward and backward."""
+    from repro_torch.serve import GenerateConfig
+    cfg = dec_cfg("mamba2-1.3b")
+    params, batch = dec_model(cfg, dev)
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+    counts, _, _ = dec_generate("mamba2-1.3b", params, batch, cfg, gen, lambda steps: {})
+    out = {"layers": cfg.n_layers, "launches": {k: v for k, v in counts.items() if v},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    out["serve"] = dec_timed("mamba2-1.3b", params, batch, cfg, gen)
+    out["decode_graph_ms"] = decode_graph("ssm mamba2-1.3b", params, batch, cfg,
+                                          out["serve"]["median"]["decode_ms_per_step"], dev)
+    out["decode_profile"] = decode_profile("ssm mamba2-1.3b", params, batch, cfg, dev)
+    out["long_prefill"] = ssm_long_prefill("ssm mamba2-1.3b", params, cfg, dev,
+                                           MAMBA_LONG_PROMPT)
+    out["logit_diff"] = ring_gate("ssm mamba2-1.3b", params, batch, cfg, dev)
+    out["sched"] = ssm_schedulers("mamba2-1.3b", params, cfg, dev)
+    del params, batch
+    torch.cuda.empty_cache()
+    out["train"] = mamba_train(dev)
+    return out
+
+
+def ssm_hymba(dev):
+    """hymba-1.5b at full width and depth: a counted generate with flash
+    decode (B5 on the three global layers only, at indices past the 128
+    meta positions), timed, its decode step as a CUDA graph; B5 at the
+    decode site; the long prompt's prefill timed, then its f32 gates
+    (blocked against quadratic attention, teacher-forced decode against
+    model_apply); the slot pool, the arena and the small arena with B6."""
+    from repro_torch.launch.serve import generator, synth_batch
+    from repro_torch.serve import GenerateConfig, generate
+    cfg = dec_cfg("hymba-1.5b")
+    params, batch = dec_model(cfg, dev)
+    n_global = len(cfg.hybrid.global_attn_layers)
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+    counts, _, _ = dec_generate("hymba-1.5b", params, batch, cfg, gen,
+                                lambda steps: {"flash_decode": n_global * steps})
+    out = {"layers": cfg.n_layers, "launches": {k: v for k, v in counts.items() if v},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if counts["flash_decode"] != n_global * (MAX_NEW - 1):
+        raise AssertionError(f"ssm hymba-1.5b: {counts['flash_decode']} B5 launches, not "
+                             f"{n_global} (the global layers) a step")
+    out["serve"] = dec_timed("hymba-1.5b", params, batch, cfg, gen)
+    with Capture(names=("flash_decode",)) as cap:
+        generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
+    torch.cuda.synchronize()
+    b5_args = cap.calls["flash_decode"][-1][0]
+    del cap
+    if int(torch.as_tensor(b5_args[3]).min()) < cfg.n_meta:
+        raise AssertionError("ssm hymba-1.5b: B5's index does not count the meta tokens")
+    out["b5"] = dict(dec_site("hymba-1.5b", "flash_decode", "decode", b5_args),
+                     launches=counts["flash_decode"])
+    out["decode_graph_ms"] = decode_graph("ssm hymba-1.5b", params, batch, cfg,
+                                          out["serve"]["median"]["decode_ms_per_step"], dev)
+    out["decode_profile"] = decode_profile("ssm hymba-1.5b", params, batch, cfg, dev)
+    out["long_prefill"] = ssm_long_prefill("ssm hymba-1.5b", params, cfg, dev,
+                                           HYMBA_LONG_PROMPT)
+    long_batch = synth_batch(cfg, generator(dev, SEED, 2), SSM_LONG_ROWS, HYMBA_LONG_PROMPT)
+    out["logit_diff"] = ring_gate("ssm hymba-1.5b", params, long_batch, cfg, dev)
+    out["sched"] = ssm_schedulers("hymba-1.5b", params, cfg, dev)
+    del params, batch, long_batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_lm(dev, n_steps=LM_STEPS):
+    """Reduced mamba2-1.3b and hymba-1.5b, --task lm: ``n_steps`` f32 steps
+    on the card and on the CPU from one init (drawn on the CPU), the loss
+    and grad norm of each step within TRAIN_METRIC_RTOL of the CPU's, the
+    parameters within ``adam_drift_bound``."""
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.data import LMTaskConfig, SyntheticLM
+    from repro_torch.models import init_model
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.loop import to_device
+    from repro_torch.tree import flatten_with_paths, tree_map
+    tc = TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, seed=SEED, steps=n_steps)
+    param_tol = adam_drift_bound(tc, n_steps)
+    out = {}
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        base = reduced(get_config(arch))
+        task = SyntheticLM(LMTaskConfig(vocab=base.vocab, seq_len=LM_SEQ))
+        init = init_model(torch.Generator().manual_seed(SEED), base)
+        res = {}
+        for where, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            state = init_train_state(tree_map(lambda t: t.detach().to(device).clone(), init),
+                                     tc)
+            step = make_train_step(base, tc)
+            rows = []
+            for i in range(n_steps):
+                state, m = step(state, to_device(task.sample_batch(i, LM_BATCH), device))
+                rows.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+            res[where] = (rows, {k: v.detach().cpu()
+                                 for k, v in flatten_with_paths(state["params"]).items()})
+        worst = max(abs(r[k] - q[k]) / max(abs(q[k]), 1e-6)
+                    for r, q in zip(res["cuda"][0], res["cpu"][0]) for k in r)
+        pmax = max(float((res["cuda"][1][k] - v).abs().max()) for k, v in res["cpu"][1].items())
+        finite = all(math.isfinite(v) for r in res["cuda"][0] for v in r.values())
+        log(f"ssm lm {arch} reduced f32 ({LM_BATCH} x {LM_SEQ} tokens): card "
+            + "; ".join(f"loss {r['loss']:.6f} grad norm {r['grad_norm']:.6f}"
+                        for r in res["cuda"][0])
+            + f"; against the CPU's steps max relative diff {worst:.3e} (tol "
+            f"{TRAIN_METRIC_RTOL}), parameters max abs diff {pmax:.3e} (tol {param_tol:.3e})")
+        if not finite or worst > TRAIN_METRIC_RTOL or pmax > param_tol:
+            raise AssertionError(f"ssm lm {arch}: the card's steps differ from the CPU's")
+        out[arch] = dict(rows=res["cuda"][0], max_rel_diff=worst, param_max_abs_diff=pmax)
+    return out
+
+
+def ssm_phase(dev):
+    """Phase ssm: mamba2-1.3b, then hymba-1.5b (each at full width and
+    depth, freed before the next), then both reduced archs' --task lm."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"mamba2-1.3b": ssm_mamba(dev)}
+    log(f"ssm mamba2-1.3b: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    out["hymba-1.5b"] = ssm_hymba(dev)
+    log(f"ssm hymba-1.5b: {time.perf_counter() - t1:.1f} s")
+    out["lm"] = ssm_lm(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"ssm phase: {out['wall_s']:.1f} s")
+    return out
+
+
+def ssm_rows(ssm):
+    """B5 and B6 at hymba-1.5b's decode sites for the kernel table, with
+    the launches of the phase's generate (B5) and arena run (B6)."""
+    hy = ssm["hymba-1.5b"]
+    return {"flash_decode": {"hymba-1.5b decode": hy["b5"]},
+            "flash_decode_paged": {"hymba-1.5b paged decode": hy["sched"]["b6"]}}
+
+
 def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve, fc,
-                 dec_sites=None, swa_sites=None, mla_sites=None):
+                 dec_sites=None, swa_sites=None, mla_sites=None, ssm_sites=None):
     """One entry per kernel for the JSON line: serving kernels at their
     decode site with their launches per ``generate``, training kernels at
     the training site with their launches per step (B4 on ``cuda_fused``,
@@ -3993,7 +4379,9 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
     phase-swa sites (``swa_sites``: B5 and B6 at yi-6b's long cache, B1-B4
     at dbrx-132b's long prefill) and its phase-mla sites (``mla_sites``:
     B1-B4 at deepseek-v3-671b's decode and long prefill, with the launches
-    of that phase's generate)."""
+    of that phase's generate) and its phase-ssm sites (``ssm_sites``: B5
+    and B6 at hymba-1.5b's decode, rep 5, past its 128 meta positions,
+    with the launches of that phase's generate or arena run)."""
     kernels = []
     for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
                  "combine", "fused_moe", "flash_decode"):
@@ -4054,6 +4442,8 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
             entry["swa_sites"] = swa_sites[entry["name"]]
         if mla_sites and entry["name"] in mla_sites:
             entry["mla_sites"] = mla_sites[entry["name"]]
+        if ssm_sites and entry["name"] in ssm_sites:
+            entry["ssm_sites"] = ssm_sites[entry["name"]]
     return kernels
 
 
@@ -4101,7 +4491,7 @@ def serve_phases(full, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec", "swa", "mla"),
+    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec", "swa", "mla", "ssm"),
                     help="run phases 1, 2 and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4148,6 +4538,10 @@ def main() -> int:
         mla = mla_phase(dev)
         print(json.dumps({"mla": mla_json(mla), "mla_sites": mla_rows(mla)}), flush=True)
         return 0
+    if args.only == "ssm":
+        ssm = ssm_phase(dev)
+        print(json.dumps({"ssm": ssm, "ssm_sites": ssm_rows(ssm)}), flush=True)
+        return 0
     b4_info = ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5, 7 and 8. serving
@@ -4183,9 +4577,12 @@ def main() -> int:
     # mla. deepseek-v3-671b (2 layers): MLA, 256 experts top-8, MTP training
     mla = mla_phase(dev)
     print(json.dumps({"mla": mla_json(mla)}), flush=True)
+    # ssm. mamba2-1.3b and hymba-1.5b at full width and depth, --task lm
+    ssm = ssm_phase(dev)
+    print(json.dumps({"ssm": ssm}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
-                           fc, dec_rows(dec), swa_rows(swa), mla_rows(mla))
+                           fc, dec_rows(dec), swa_rows(swa), mla_rows(mla), ssm_rows(ssm))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

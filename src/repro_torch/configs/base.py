@@ -1,19 +1,20 @@
 """Config dataclasses of the port (the subset of ``repro.configs.base`` the
-encoder-decoder MoE and the decoder-only families, with full or
-sliding-window attention or multi-head latent attention (MLA), need, the
-communication substrate, ``PagedKVConfig`` and ``TrainConfig``).
+encoder-decoder MoE, the decoder-only families with full or
+sliding-window attention or multi-head latent attention (MLA), the
+Mamba-2 SSM family and the Hymba hybrid need, the communication
+substrate, ``PagedKVConfig`` and ``TrainConfig``).
 
 Plain frozen dataclasses, field for field the reference's defaults, so a
 config built here describes the same model as the reference's. The
-reference's SSM/VLM/hybrid families are not ported, nor its multi-device
-layout fields (``fsdp``, ``seq_parallel``, ``ep_on_model``; ROADMAP.md
-A.5).
+reference's VLM family is not ported (ROADMAP.md A.4f), nor its
+multi-device layout fields (``fsdp``, ``seq_parallel``, ``ep_on_model``;
+ROADMAP.md A.5).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -188,6 +189,35 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD (state-space duality): ``d_inner = expand * d_model``
+    split into heads of ``head_dim``, a state of ``d_state`` per head,
+    B/C shared over ``n_groups`` groups of heads, the scan in chunks of
+    ``chunk`` positions after a causal conv of ``conv_kernel`` taps."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    chunk: int = 64
+    conv_kernel: int = 4
+    n_groups: int = 1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Hymba: attention and SSM heads side by side in every layer, the
+    attention windowed except at ``global_attn_layers``, and
+    ``n_meta_tokens`` learned tokens prepended to every sequence."""
+    n_meta_tokens: int = 128
+    global_attn_layers: Tuple[int, ...] = (0, 15, 31)
+
+
+@dataclass(frozen=True)
 class EncDecConfig:
     n_encoder_layers: int = 12
     encoder_seq: int = 1500
@@ -198,7 +228,7 @@ class EncDecConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str = "tiny"
-    family: str = "dense"               # dense | moe | encdec (the ported ones)
+    family: str = "dense"               # dense | moe | ssm | hybrid | encdec
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -215,7 +245,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
     encdec: Optional[EncDecConfig] = None
+    hybrid: Optional[HybridConfig] = None
     mtp: bool = False                   # DeepSeek-V3 multi-token-prediction head
     dtype: str = "bfloat16"             # activation dtype
     param_dtype: str = "float32"
@@ -254,13 +286,24 @@ class ModelConfig:
                     + d * (m.kv_lora_rank + m.qk_rope_head_dim)
                     + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
                     + h * m.v_head_dim * d)
+        if self.ssm is not None and self.family == "ssm":
+            s = self.ssm
+            di = s.d_inner(d)
+            return d * (2 * di + 2 * s.n_groups * s.d_state + di // s.head_dim) + di * d
         hd = self.head_dim_
         return d * hd * (h + 2 * self.n_kv_heads) + h * hd * d
+
+    @property
+    def n_meta(self) -> int:
+        """Meta tokens prepended to every sequence (the hybrid's), 0 else."""
+        return self.hybrid.n_meta_tokens if self.hybrid is not None else 0
 
     def n_params(self) -> int:
         """Analytic parameter count (embeddings + blocks), as the
         reference counts it (norm scales and biases are not counted, nor
-        the MTP head)."""
+        the MTP head, nor the conv, ``dt_bias``, ``A_log`` and ``D`` of an
+        SSM; the mixer of ``family == "ssm"`` is its SSM, while a hybrid
+        layer counts its attention alone, the reference's undercount)."""
         d = self.d_model
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         attn = self._attn_params()
@@ -316,9 +359,14 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
                               qk_nope_head_dim=32, qk_rope_head_dim=16,
                               v_head_dim=32)
         kw["head_dim"] = 0
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=16)
     if cfg.encdec is not None:
         kw["encdec"] = dataclasses.replace(cfg.encdec, n_encoder_layers=2,
                                            encoder_seq=32)
+    if cfg.hybrid is not None:
+        kw["hybrid"] = HybridConfig(n_meta_tokens=4, global_attn_layers=(0,))
+        kw["ssm"] = SSMConfig(d_state=16, head_dim=32, expand=2, chunk=16)
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)
 

@@ -26,8 +26,8 @@ scheduler's counters and, paged, the page arena's:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zcode-m3-base \
       --trace 32 --slots 8 --paged --backend cuda --flash-decode --eos -1
 
-Decoder-only archs (yi-6b, codeqwen1.5-7b, dbrx-132b, deepseek-v3-671b)
-take prompts alone; ``--layers N`` cuts the depth of one too large for
+Decoder-only archs (yi-6b, codeqwen1.5-7b, dbrx-132b, deepseek-v3-671b,
+mamba2-1.3b, hymba-1.5b) take prompts alone; ``--layers N`` cuts the depth of one too large for
 the card:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
@@ -38,6 +38,19 @@ the card:
 deepseek-v3-671b's layers attend through multi-head latent attention,
 whose absorbed decode is plain PyTorch, as in the reference:
 ``--flash-decode`` reaches no flash-decode kernel on them.
+
+mamba2-1.3b (every layer an SSM) and hymba-1.5b (attention and SSM heads
+side by side, 128 meta tokens) prefill every prompt of the slot pool at
+its exact length. ``--flash-decode`` reaches no kernel on mamba2-1.3b and,
+on hymba-1.5b, B5 (B6 under ``--paged``) on its three global-attention
+layers alone: its windowed layers keep the plain ring read and its SSM
+heads their plain recurrence, as in the reference. ``--paged`` refuses
+mamba2-1.3b (no cache to page):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --flash-decode --eos -1
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --trace 32 --paged --flash-decode --eos -1
 
 Runs on the GPU unless ``--device cpu`` is given, and fails without one.
 Parameters, prompts and sampling draw from distinct streams of ``--seed``.
@@ -89,10 +102,15 @@ def resolve_device(name: str) -> torch.device:
 def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
     """``cfg`` at ``n_layers`` layers. A cut to no more layers than the
     arch's leading dense ones (deepseek-v3-671b's 3) keeps the last layer
-    an MoE layer, so that the cut model still runs both kinds."""
+    an MoE layer, so that the cut model still runs both kinds; a hybrid
+    keeps its global-attention layers that fall below the cut."""
     if not 1 <= n_layers <= cfg.n_layers:
         raise ValueError(f"--layers {n_layers}: 1 to {cfg.n_layers}")
     cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.hybrid is not None:
+        cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+            cfg.hybrid, global_attn_layers=tuple(
+                i for i in cfg.hybrid.global_attn_layers if i < n_layers)))
     if cfg.moe is not None and cfg.moe.first_dense_layers >= n_layers:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, first_dense_layers=n_layers - 1))
@@ -353,8 +371,13 @@ def main(argv=None):
                          "prices the wire at (default 1 = this process)")
     ap.add_argument("--flash-decode", action="store_true",
                     help="decode attention through the flash-decode kernel "
-                         "(GQA layers; MLA layers keep their plain absorbed "
-                         "decode, as in the reference)")
+                         "(GQA layers with a full cache: B5, or B6 under "
+                         "--paged; MLA layers keep their plain absorbed "
+                         "decode, sliding-window layers their plain ring "
+                         "read and SSM heads their plain recurrence, as in "
+                         "the reference: on hymba-1.5b only its global "
+                         "layers 0, 15 and 31 reach a kernel, on "
+                         "mamba2-1.3b none)")
     ap.add_argument("--local-routing", action="store_true",
                     help="Gate-Drop local routing at decode")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -1,8 +1,8 @@
 """Top-level model: embeddings + (the encoder-decoder's encoder) + decoder
 stack + head, and DeepSeek-V3's multi-token-prediction (MTP) head (port
-of ``repro/models/model.py`` for the encoder-decoder family and the
+of ``repro/models/model.py`` for the encoder-decoder family, the
 decoder-only families with full, sliding-window or multi-head latent
-attention).
+attention, the Mamba-2 SSM and the Hymba hybrid).
 
 Public API:
   init_model(gen, cfg)                          -> params
@@ -21,7 +21,15 @@ Prefill and training attention is quadratic up to 2,048 keys and the
 blocked flash attention of ``models/flash.py`` past them (O(L) memory), as
 in the reference. A sliding-window layer's cache is a ring of ``window``
 slots whatever ``max_seq`` is; an MLA layer's cache is its compressed
-latents (``models/mla.py``).
+latents (``models/mla.py``); an SSM layer's is its conv window and state,
+of one size at any length (``models/ssm.py``).
+
+The hybrid (``cfg.hybrid``) prepends ``n_meta_tokens`` learned rows
+(``params["meta"]``) to every sequence and cuts them off after the stack:
+the stack sees positions ``[0, n_meta + L)``, the caches hold ``max_seq +
+n_meta`` of them, and ``decode_step``'s ``index`` (a token's position in
+its prompt and continuation) becomes ``index + n_meta`` inside, so block
+tables and the flash-decode kernels' index are meta-inclusive.
 
 With ``cfg.mtp``, training forwards (``is_training=True``) also return
 ``aux["mtp_hidden"]``: the MTP head's hidden states, from which the loss
@@ -62,6 +70,8 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
         p["encoder"] = T.init_stack(gen, T.layer_plan(cfg, encoder=True), cfg,
                                     dtype, n_total)
         p["enc_final_norm"] = L.init_norm(gen, cfg, cfg.d_model, dtype)
+    if cfg.hybrid is not None:
+        p["meta"] = L.normal(gen, (cfg.n_meta, cfg.d_model), 0.02, dtype)
     if cfg.mtp:
         d = cfg.d_model
         p["mtp"] = {
@@ -113,6 +123,16 @@ def _cross_source(params: Params, batch: Dict, cfg: ModelConfig, *,
 # forward / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings in the activation dtype, behind the hybrid's meta
+    tokens where it has them."""
+    x = L.embed_apply(params["embed"], tokens).to(cfg.torch_dtype)
+    if cfg.n_meta:
+        meta = params["meta"].to(cfg.torch_dtype)
+        x = torch.cat([meta[None].expand((x.shape[0],) + meta.shape), x], 1)
+    return x
+
+
 def head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
@@ -135,15 +155,16 @@ def model_apply(params: Params, batch: Dict, cfg: ModelConfig, *,
     logits: the training loss applies the head itself, chunked, so the
     (B, L, V) f32 logits need not exist at once."""
     tokens = batch["tokens"]
-    x = L.embed_apply(params["embed"], tokens).to(cfg.torch_dtype)
+    x = _embed(params, tokens, cfg)
     cross_src, enc_aux = _cross_source(params, batch, cfg, generator=generator,
                                        decision=decision,
                                        is_training=is_training, ctx=ctx)
     x, _, aux = T.apply_stack(params["decoder"], T.layer_plan(cfg), x, cfg,
                               mode="train", generator=generator,
                               decision=decision, is_training=is_training,
-                              cross_src=cross_src, token_ids=tokens, ctx=ctx)
-    x = L.norm_apply(params["final_norm"], x, cfg)
+                              cross_src=cross_src,
+                              token_ids=None if cfg.n_meta else tokens, ctx=ctx)
+    x = L.norm_apply(params["final_norm"], x[:, cfg.n_meta:], cfg)
     if enc_aux is not None:
         aux = {k: aux[k] + enc_aux[k] for k in aux}
     if cfg.mtp and is_training:
@@ -175,14 +196,15 @@ def _mtp_hidden(params: Params, h: torch.Tensor, tokens: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None, n_cross: Optional[int] = None) -> List[Params]:
-    """Zero decode cache; ``device="meta"`` gives shapes without memory.
-    ``n_cross`` is the source length of the cross-attention K/V (default
-    the config's ``encoder_seq``; the decoder-only families have none)."""
+    """Zero decode cache of ``max_seq`` positions (plus the hybrid's meta
+    tokens); ``device="meta"`` gives shapes without memory. ``n_cross`` is
+    the source length of the cross-attention K/V (default the config's
+    ``encoder_seq``; the decoder-only families have none)."""
     dtype = dtype or cfg.torch_dtype
     if cfg.encdec is not None:
         n_cross = n_cross or cfg.encdec.encoder_seq
-    return T.init_stack_cache(T.layer_plan(cfg), cfg, batch, max_seq,
-                              n_cross or 0, dtype, device)
+    return T.init_stack_cache(T.layer_plan(cfg), cfg, batch,
+                              max_seq + cfg.n_meta, n_cross or 0, dtype, device)
 
 
 def prefill(params: Params, batch: Dict, cfg: ModelConfig, *,
@@ -191,22 +213,24 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig, *,
             last_index: Optional[torch.Tensor] = None, ctx=None
             ) -> Tuple[torch.Tensor, List[Params]]:
     """Prompt forward that returns the logits of the last prompt position
-    (or of ``last_index[b]`` per row) and the decode cache: self-attention
-    K/V padded to ``max_seq`` positions, cross K/V (encoder-decoder) at the
-    source length."""
+    (or of ``last_index[b]`` per row, an index into the prompt) and the
+    decode cache: self-attention K/V padded to ``max_seq`` positions (plus
+    the hybrid's meta tokens), cross K/V (encoder-decoder) at the source
+    length, an SSM layer's conv window and state."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
     max_seq = max_seq or cfg.max_seq
-    x = L.embed_apply(params["embed"], tokens).to(cfg.torch_dtype)
+    x = _embed(params, tokens, cfg)
     cross_src, _ = _cross_source(params, batch, cfg, generator=generator,
                                  decision=False, is_training=False, ctx=ctx)
     x, caches, _ = T.apply_stack(params["decoder"], T.layer_plan(cfg), x, cfg,
                                  mode="prefill", generator=generator,
                                  decision=False, is_training=False,
-                                 cross_src=cross_src, token_ids=tokens,
-                                 max_seq=max_seq, cache_dtype=cfg.torch_dtype,
-                                 ctx=ctx)
-    x = L.norm_apply(params["final_norm"], x, cfg)
+                                 cross_src=cross_src,
+                                 token_ids=None if cfg.n_meta else tokens,
+                                 max_seq=max_seq + cfg.n_meta,
+                                 cache_dtype=cfg.torch_dtype, ctx=ctx)
+    x = L.norm_apply(params["final_norm"], x[:, cfg.n_meta:], cfg)
     if last_index is not None:
         x_last = x[torch.arange(b, device=x.device), last_index.long()][:, None]
     else:
@@ -223,15 +247,18 @@ def decode_step(params: Params, caches: List[Params], token: torch.Tensor,
                 block_tables: Optional[torch.Tensor] = None, ctx=None
                 ) -> Tuple[torch.Tensor, List[Params]]:
     """token: (B, 1); index: absolute position of this token — an int, or a
-    (B,) tensor where every row sits at its own position. Gating Dropout is
-    off at inference, but ``local_routing=True`` reuses its local routing
-    path as the decision. ``token_valid`` (B,) keeps rows out of expert
-    capacity. ``flash_decode=True`` reads attention caches through the
-    flash-decode kernels. ``block_tables`` (B, n_blocks) int32 reads and
+    (B,) tensor where every row sits at its own position (the hybrid adds
+    its meta tokens to it: the caches' position is ``index + n_meta``).
+    Gating Dropout is off at inference, but ``local_routing=True`` reuses
+    its local routing path as the decision. ``token_valid`` (B,) keeps
+    rows out of expert capacity. ``flash_decode=True`` reads attention
+    caches through the flash-decode kernels. ``block_tables`` (B, n_blocks) int32 reads and
     writes the self-attention caches as page arenas (``serve/paged.py``);
-    it needs a (B,) ``index``. ``caches`` are updated in place and
-    returned."""
+    it needs a (B,) ``index``; its tables cover the meta-inclusive
+    positions. ``caches`` are updated in place and returned."""
     x = L.embed_apply(params["embed"], token).to(cfg.torch_dtype)
+    if cfg.n_meta:
+        index = index + cfg.n_meta
     if token_valid is not None and token_valid.dim() == 1:
         token_valid = token_valid[:, None]            # (B,) -> (B, L=1)
     x, caches, _ = T.apply_stack(params["decoder"], T.layer_plan(cfg), x, cfg,

@@ -1,6 +1,7 @@
-"""Transformer assembly for the encoder-decoder MoE and the decoder-only
+"""Transformer assembly for the encoder-decoder MoE, the decoder-only
 families with full or sliding-window attention or multi-head latent
-attention (port of ``repro/models/transformer.py``).
+attention, the Mamba-2 SSM and the Hymba hybrid (port of
+``repro/models/transformer.py``).
 
 Layers are organised into SEGMENTS — contiguous repeats of a (possibly
 multi-layer) pattern of LayerSpecs — whose parameters are stacked along a
@@ -24,7 +25,13 @@ reference's branch at ``scan_layers=True``, its default; the port has no
 ``scan_layers``). A windowed layer's decode cache is a ring buffer of
 ``window`` slots. An MLA layer (``mixer="mla"``, every layer of a config
 with ``cfg.mla``) attends through ``models/mla.py`` and caches its
-compressed latents, padded to ``max_seq`` at prefill.
+compressed latents, padded to ``max_seq`` at prefill. An SSM layer
+(``mixer="ssm"``) mixes through ``models/ssm.py`` and caches its conv
+window and state; a hybrid layer (``mixer="hybrid"``) runs attention and
+the SSM side by side on the same input, each output RMS-scaled by its own
+gain, and adds their mean (Hymba). Its attention is windowed except at
+``cfg.hybrid.global_attn_layers``, so its cache is a ring or a full K/V
+cache beside the SSM's.
 
 Router jitter in training draws from a generator of each layer's own,
 seeded from the step's generator and the layer's index (the reference
@@ -45,6 +52,7 @@ from repro_torch.core.moe import _zero_aux, init_moe_params, moe_apply
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as M
+from repro_torch.models import ssm as S
 from repro_torch.models.flash import banded_flash_attention
 from repro_torch.tree import flatten_with_paths, tree_map, unflatten_paths
 
@@ -57,10 +65,11 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """One layer: GQA or MLA self-attention, optional cross-attention,
-    then a dense FFN or an MoE layer (the reference's other mixers come
-    with their families)."""
-    mixer: str = "gqa"        # gqa | mla
+    """One layer: a mixer (GQA or MLA self-attention, an SSM, or both
+    attention and SSM, the hybrid), optional cross-attention, then a dense
+    FFN or an MoE layer (the reference's cross-only VLM layer comes with
+    its family)."""
+    mixer: str = "gqa"        # gqa | mla | ssm | hybrid
     cross: bool = False       # cross-attention sub-layer
     moe: bool = False
     window: int = 0           # sliding window (0 = full)
@@ -94,20 +103,21 @@ def _compress(specs: List[LayerSpec]) -> List[Segment]:
 
 # the reference's families and layer kinds this port does not run yet, by
 # the ROADMAP.md item that brings them
-_NOT_PORTED = {"ssm": "A.4d (SSM)", "hybrid": "A.4e (hybrid)",
-               "vlm": "A.4f (non-token frontends)"}
+_NOT_PORTED = {"vlm": "A.4f (non-token frontends)"}
 
 
 def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
     """The reference's plan for the ported families: the encoder-decoder
-    (its encoder, or a decoder with cross-attention), and ``dense`` /
-    ``moe`` (GQA self-attention with RoPE over ``cfg.sliding_window``, or
-    MLA where ``cfg.mla`` is set; no cross-attention; an MoE layer where
-    ``MoEConfig.is_moe_layer``)."""
+    (its encoder, or a decoder with cross-attention), ``dense`` / ``moe``
+    (GQA self-attention with RoPE over ``cfg.sliding_window``, or MLA
+    where ``cfg.mla`` is set; no cross-attention), ``ssm`` (an SSM mixer)
+    and ``hybrid`` (attention and SSM, the attention global at
+    ``cfg.hybrid.global_attn_layers`` and over ``cfg.sliding_window``
+    elsewhere); an MoE layer where ``MoEConfig.is_moe_layer``."""
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP.md {_NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("encdec", "dense", "moe"):
+    if cfg.family not in ("encdec", "dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
     moe_at = (lambda i: cfg.moe is not None and cfg.moe.is_moe_layer(i))
     if encoder:
@@ -117,6 +127,14 @@ def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
     if cfg.family == "encdec":
         return _compress([LayerSpec(cross=True, moe=moe_at(i))
                           for i in range(cfg.n_layers)])
+    if cfg.family == "ssm":
+        return _compress([LayerSpec(mixer="ssm", moe=moe_at(i))
+                          for i in range(cfg.n_layers)])
+    if cfg.family == "hybrid":
+        return _compress([LayerSpec(
+            mixer="hybrid", moe=moe_at(i),
+            window=0 if i in cfg.hybrid.global_attn_layers else cfg.sliding_window)
+            for i in range(cfg.n_layers)])
     mixer = "mla" if cfg.mla is not None else "gqa"
     return _compress([LayerSpec(mixer=mixer, moe=moe_at(i),
                                 window=cfg.sliding_window)
@@ -133,9 +151,16 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
     unstacked, as the MTP head's block)."""
     lead = () if reps is None else (reps,)
     out_scale = (2 * max(n_total, 1)) ** -0.5
-    init_attn = M.init_mla if spec.mixer == "mla" else A.init_attn
-    p: Params = {"ln1": L.init_norm(gen, cfg, cfg.d_model, dtype, lead),
-                 "attn": init_attn(gen, cfg, dtype, out_scale, lead)}
+    p: Params = {"ln1": L.init_norm(gen, cfg, cfg.d_model, dtype, lead)}
+    if spec.mixer == "mla":
+        p["attn"] = M.init_mla(gen, cfg, dtype, out_scale, lead)
+    elif spec.mixer in ("gqa", "hybrid"):
+        p["attn"] = A.init_attn(gen, cfg, dtype, out_scale, lead)
+    if spec.mixer in ("ssm", "hybrid"):
+        p["ssm"] = S.init_ssm(gen, cfg, dtype, out_scale, lead)
+    if spec.mixer == "hybrid":
+        ones = torch.ones(lead + (cfg.d_model,), dtype=dtype, device=gen.device)
+        p["mix_norm_attn"], p["mix_norm_ssm"] = ones, ones.clone()
     if spec.cross:
         p["ln_cross"] = L.init_norm(gen, cfg, cfg.d_model, dtype, lead)
         p["cross"] = A.init_cross_attn(gen, cfg, dtype, out_scale, lead)
@@ -165,15 +190,19 @@ def init_stack(gen: torch.Generator, segs: List[Segment], cfg: ModelConfig,
 def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       max_seq: int, n_cross: int, dtype, device,
                       reps: int) -> Params:
+    c: Params = {}
     if spec.mixer == "mla":
-        c: Params = {"attn": M.init_mla_cache(cfg, batch, max_seq, dtype,
-                                              device, lead=(reps,))}
-    elif spec.window > 0:
-        c = {"attn": A.init_ring_cache(cfg, batch, spec.window, dtype,
-                                       device, lead=(reps,))}
-    else:
-        c = {"attn": A.init_kv_cache(cfg, batch, max_seq, dtype, device,
-                                     lead=(reps,))}
+        c["attn"] = M.init_mla_cache(cfg, batch, max_seq, dtype, device,
+                                     lead=(reps,))
+    elif spec.mixer in ("gqa", "hybrid"):
+        if spec.window > 0:
+            c["attn"] = A.init_ring_cache(cfg, batch, spec.window, dtype,
+                                          device, lead=(reps,))
+        else:
+            c["attn"] = A.init_kv_cache(cfg, batch, max_seq, dtype, device,
+                                        lead=(reps,))
+    if spec.mixer in ("ssm", "hybrid"):
+        c["ssm"] = S.init_ssm_cache(cfg, batch, dtype, device, lead=(reps,))
     if spec.cross:
         shape = (reps, batch, n_cross, cfg.n_heads, cfg.head_dim_)
         c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -238,6 +267,63 @@ def _moe_or_ffn(p: Params, spec: LayerSpec, h: torch.Tensor, cfg: ModelConfig,
     return torch.zeros_like(h), zero
 
 
+def _self_attention(spec: LayerSpec, p: Params, h: torch.Tensor,
+                    cfg: ModelConfig, *, mode: str, cache: Optional[Params],
+                    index, flash_decode: bool, block_tables, max_seq: int,
+                    cache_dtype) -> Tuple[torch.Tensor, Optional[Params]]:
+    """A layer's self-attention on its normed input ``h``: (output, its
+    new cache at prefill and decode, else None)."""
+    if spec.mixer == "mla":
+        if mode == "decode":
+            return M.mla_decode(p, h, cache, cfg, index, block_tables=block_tables)
+        o, (c_kv, k_rope) = M.mla_attention(p, h, cfg, return_cache=True)
+        if mode != "prefill":
+            return o, None
+        return o, {"c_kv": _pad_seq(c_kv, max_seq, cache_dtype),
+                   "k_rope": _pad_seq(k_rope, max_seq, cache_dtype)}
+    if mode == "decode":
+        # windowed layers keep their slot-addressed ring cache; only
+        # full-cache layers read through the page table
+        return A.decode_self_attention(
+            p, h, cache, cfg, index, window=spec.window, flash=flash_decode,
+            block_tables=None if spec.window > 0 else block_tables)
+    l = h.shape[1]
+    q, k, v = A.attn_qkv(p, h)
+    pos = torch.arange(l, device=h.device)
+    q = L.apply_rope(q, pos, cfg.rope_theta)
+    k = L.apply_rope(k, pos, cfg.rope_theta)
+    if (cfg.banded_swa and spec.window > 0 and spec.causal
+            and l > 2 * spec.window):
+        qc = 1024 if l % 1024 == 0 or l > 4096 else 512
+        o = banded_flash_attention(q, k, v, spec.window, q_chunk=qc,
+                                   kv_chunk=512)
+    else:
+        o = A.flash_attention(q, k, v, causal=spec.causal, window=spec.window)
+    o = A.attn_out(p, o, h.dtype)
+    if mode != "prefill":
+        return o, None
+    return o, _fill_kv_cache(spec, k, v, max_seq, cache_dtype)
+
+
+def _rms_scale(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS-normalise ``x`` in f32 and scale it (a hybrid branch's output
+    gain)."""
+    xf = x.float()
+    return (xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + eps)
+            * scale.float()).to(x.dtype)
+
+
+def _fill_ssm_cache(prm: Params, h: torch.Tensor, cfg: ModelConfig) -> Params:
+    """The reference's prefill state of an SSM layer, recomputed from its
+    normed input ``h``: the conv window and the final state. Prefill takes
+    the same cache from ``ssm_apply(..., return_state=True)`` instead,
+    bitwise this one (``tests/test_torch_ssm.py``)."""
+    xc, xbc = S._projections(prm, h)
+    xs, bs, cs, dt, a = S._scan_inputs(prm, xc, xbc, cfg)
+    _, hfin = S.ssd_chunked(xs, dt, a, bs, cs, cfg.ssm.chunk)
+    return {"conv": S.conv_tail(xbc, cfg.ssm.conv_kernel), "h": hfin}
+
+
 def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
                  cfg: ModelConfig, *, mode: str, cache: Optional[Params],
                  index, generator, decision, is_training: bool,
@@ -250,45 +336,31 @@ def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
     cross-attention K/V stay slot-addressed. ``ctx`` is the
     expert-parallel context of the MoE layers."""
     new_cache: Params = {}
-    l = x.shape[1]
-    # ---- self-attention ----
+    # ---- mixer: self-attention, an SSM, or both (hybrid) ----
     h = L.norm_apply(p["ln1"], x, cfg)
-    if spec.mixer == "mla":
+    outs = []
+    if spec.mixer != "ssm":
+        o, attn_cache = _self_attention(
+            spec, p["attn"], h, cfg, mode=mode,
+            cache=None if cache is None else cache["attn"], index=index,
+            flash_decode=flash_decode, block_tables=block_tables,
+            max_seq=max_seq, cache_dtype=cache_dtype)
+        if attn_cache is not None:
+            new_cache["attn"] = attn_cache
+        outs.append(o)
+    if spec.mixer in ("ssm", "hybrid"):
         if mode == "decode":
-            o, new_cache["attn"] = M.mla_decode(p["attn"], h, cache["attn"],
-                                                cfg, index,
-                                                block_tables=block_tables)
+            o, new_cache["ssm"] = S.ssm_decode(p["ssm"], h, cache["ssm"], cfg)
+        elif mode == "prefill":
+            o, new_cache["ssm"] = S.ssm_apply(p["ssm"], h, cfg, return_state=True)
         else:
-            o, (c_kv, k_rope) = M.mla_attention(p["attn"], h, cfg,
-                                                return_cache=True)
-            if mode == "prefill":
-                new_cache["attn"] = {"c_kv": _pad_seq(c_kv, max_seq, cache_dtype),
-                                     "k_rope": _pad_seq(k_rope, max_seq,
-                                                        cache_dtype)}
-    elif mode == "decode":
-        # windowed layers keep their slot-addressed ring cache; only
-        # full-cache layers read through the page table
-        o, new_cache["attn"] = A.decode_self_attention(
-            p["attn"], h, cache["attn"], cfg, index, window=spec.window,
-            flash=flash_decode,
-            block_tables=None if spec.window > 0 else block_tables)
+            o = S.ssm_apply(p["ssm"], h, cfg)
+        outs.append(o)
+    if spec.mixer == "hybrid":
+        x = x + 0.5 * (_rms_scale(outs[0], p["mix_norm_attn"])
+                       + _rms_scale(outs[1], p["mix_norm_ssm"]))
     else:
-        q, k, v = A.attn_qkv(p["attn"], h)
-        pos = torch.arange(l, device=x.device)
-        q = L.apply_rope(q, pos, cfg.rope_theta)
-        k = L.apply_rope(k, pos, cfg.rope_theta)
-        if (cfg.banded_swa and spec.window > 0 and spec.causal
-                and l > 2 * spec.window):
-            qc = 1024 if l % 1024 == 0 or l > 4096 else 512
-            o = banded_flash_attention(q, k, v, spec.window, q_chunk=qc,
-                                       kv_chunk=512)
-        else:
-            o = A.flash_attention(q, k, v, causal=spec.causal,
-                                  window=spec.window)
-        o = A.attn_out(p["attn"], o, x.dtype)
-        if mode == "prefill":
-            new_cache["attn"] = _fill_kv_cache(spec, k, v, max_seq, cache_dtype)
-    x = x + o
+        x = x + outs[0]
     # ---- cross attention ----
     if spec.cross:
         h = L.norm_apply(p["ln_cross"], x, cfg)

@@ -90,8 +90,9 @@ def _cache_page_axes(cfg: ModelConfig):
 @dataclasses.dataclass(frozen=True)
 class PagedLayout:
     """Static geometry of a page arena. ``seq_len`` is the logical cache
-    length; ``n_blocks = ceil(seq_len / page_size)`` is every block
-    table's width. Arena leaves carry ``n_pages + 1`` pages: the last one
+    length, meta-inclusive (``max_seq + n_meta``; ``make_layout``);
+    ``n_blocks = ceil(seq_len / page_size)`` is every block table's
+    width. Arena leaves carry ``n_pages + 1`` pages: the last one
     (index ``n_pages``) is the shared scratch page."""
     page_size: int
     n_pages: int
@@ -108,6 +109,14 @@ class PagedLayout:
     def pages_for(self, n_positions: int) -> int:
         """Pages holding logical positions [0, n_positions)."""
         return ceil_div(n_positions, self.page_size)
+
+
+def make_layout(cfg: ModelConfig, max_seq: int, page_size: int,
+                n_pages: int) -> PagedLayout:
+    """The arena of a ``max_seq``-token cache: its logical positions
+    include the hybrid's meta tokens."""
+    return PagedLayout(page_size=page_size, n_pages=n_pages,
+                       seq_len=max_seq + cfg.n_meta)
 
 
 # ---------------------------------------------------------------------------

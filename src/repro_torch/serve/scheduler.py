@@ -13,10 +13,11 @@ schedulers serve a request queue on the engine's slot primitives:
     smallest configured bucket and prefilled in groups whose width is
     padded to a power of two (at most ``admit_width``), dummy rows sent to
     a scratch slot or page. Expert capacity depends on the token count,
-    so these are the reference's batch shapes exactly. Where a padded
-    prompt would overrun a sliding window's ring (``needs_exact_prefill``:
-    the largest bucket exceeds the window), prompts are prefilled at their
-    exact length instead, in groups of one length;
+    so these are the reference's batch shapes exactly. Where padding
+    would change a request's cache (``needs_exact_prefill``: an SSM state,
+    which integrates the pads, or a sliding window's ring, which a padded
+    prompt past the window overruns), prompts are prefilled at their exact
+    length instead, in groups of one length;
   * one batched decode step over ALL slots at per-slot positions; a slot
     retires the moment its request finishes (EOS or its token budget) and
     is re-prefilled with the next queued prompt while the others decode.
@@ -62,12 +63,13 @@ from repro_torch.serve.engine import (GenerateConfig, _check_local_routing,
                                       generate, prefill_into_slots,
                                       slot_pool_like, to_device,
                                       to_device_packed)
-from repro_torch.serve.paged import (PageAllocator, PagedLayout,
-                                     PagePoolExhausted, PrefixCache,
-                                     _cache_page_axes, ceil_div, copy_pages,
+from repro_torch.serve.paged import (PageAllocator, PagePoolExhausted,
+                                     PrefixCache, _cache_page_axes, ceil_div,
+                                     copy_pages,
                                      decode_paged_step, gather_slot_state,
-                                     paged_kv_bytes, paged_pool_like,
-                                     prefill_into_pages, restore_slot_state)
+                                     make_layout, paged_kv_bytes,
+                                     paged_pool_like, prefill_into_pages,
+                                     restore_slot_state)
 from repro_torch.tree import flatten_with_paths
 
 
@@ -109,9 +111,11 @@ class RequestResult:
 
 def needs_exact_prefill(cfg: ModelConfig, max_bucket: int) -> bool:
     """True when right-padded bucket prefill cannot reproduce exact-length
-    prefill: a sliding-window ring evicts real tokens once the padded
-    length exceeds the window. (The reference's other case, SSM state
-    that integrates pads, comes with the SSM family.)"""
+    prefill: an SSM state integrates the pads (the SSM and hybrid
+    families); a sliding-window ring evicts real tokens once the padded
+    length exceeds the window."""
+    if cfg.ssm is not None:
+        return True
     return cfg.sliding_window > 0 and max_bucket > cfg.sliding_window
 
 
@@ -520,6 +524,15 @@ class PagedScheduler(ContinuousScheduler):
         entries, then preempts the youngest-admitted live slot: swap-OUT
         to host memory, not recompute, so re-admitted requests keep their
         outputs bitwise.
+
+    Only the caches that track ``max_seq`` page (full-attention K/V); the
+    rest (a sliding window's ring, an SSM's conv window and state) stay
+    slot-addressed rows beside the arena, written at prefill and carried
+    by a preemption's swap-out and swap-in. The hybrid's meta tokens take
+    the first ``n_meta`` logical positions of every block table: page
+    counts, the write block and the prefix keys include them, and the
+    pages they fill alone hold the same bytes for every request, so they
+    share one prefix key.
     """
 
     def __init__(self, params, cfg: ModelConfig, gen: GenerateConfig, *,
@@ -540,15 +553,15 @@ class PagedScheduler(ContinuousScheduler):
                              "ContinuousScheduler")
         self.paged = paged
         ps = paged.page_size
-        n_blocks = ceil_div(self.max_seq, ps)
+        self._n_meta = cfg.n_meta
+        n_blocks = ceil_div(self.max_seq + self._n_meta, ps)
         n_pages = paged.n_pages or paged.n_slots_equiv * n_blocks
         if n_pages < n_blocks + paged.reserve_pages:
             raise ValueError(
                 f"n_pages={n_pages} cannot hold one full-length request "
                 f"({n_blocks} blocks of {ps}) plus reserve_pages="
                 f"{paged.reserve_pages}; the scheduler could deadlock")
-        self.layout = PagedLayout(page_size=ps, n_pages=n_pages,
-                                  seq_len=self.max_seq)
+        self.layout = make_layout(cfg, self.max_seq, ps, n_pages)
         self._pages = PageAllocator(n_pages)
         self._prefix = PrefixCache(self._pages) if paged.prefix_caching else None
         # rid -> (reserved page list, #prefix-shared pages) while the
@@ -599,12 +612,13 @@ class PagedScheduler(ContinuousScheduler):
                                         for k, v in req.extras.items()))
 
     def _page_key(self, req: Request, f: int):
-        """Key of the first ``f`` full pages: page f-1 ends at position
-        f*ps - 1, which depends on the tokens up to that index (and on the
-        conditioning inputs)."""
+        """Key of the first ``f`` full pages: page f-1 ends at logical
+        position f*ps - 1, which depends on the tokens up to index f*ps -
+        n_meta - 1 (the meta tokens take the first logical positions) and
+        on the conditioning inputs."""
         tokens = np.asarray(req.tokens, np.int64)
-        return ("PG", f, self._cond_key(req),
-                tokens[:f * self.layout.page_size].tobytes())
+        cut = max(0, f * self.layout.page_size - self._n_meta)
+        return ("PG", f, self._cond_key(req), tokens[:cut].tobytes())
 
     def _full_key(self, req: Request):
         tokens = np.asarray(req.tokens, np.int64)
@@ -624,15 +638,15 @@ class PagedScheduler(ContinuousScheduler):
     def _can_admit(self, req: Request) -> bool:
         if req.rid in self._plans:      # re-asked within the same tick
             return True
-        n_tok = len(req.tokens)
-        need = self.layout.pages_for(n_tok)
+        n_pos = len(req.tokens) + self._n_meta
+        need = self.layout.pages_for(n_pos)
         shared: List[int] = []
         if self._prefix is not None:
             self.stats["prefix_lookups"] += 1
             self._prefix.lookups += 1
             hit = self._prefix.get(self._full_key(req))
             if hit is None:
-                for f in range(n_tok // self.layout.page_size, 0, -1):
+                for f in range(n_pos // self.layout.page_size, 0, -1):
                     hit = self._prefix.get(self._page_key(req, f))
                     if hit is not None:
                         break
@@ -680,10 +694,10 @@ class PagedScheduler(ContinuousScheduler):
         tok0, lp0 = self._first_tokens(logits, seeds)
         if self._prefix is not None:
             for i, req in enumerate(group):
-                n_tok = len(req.tokens)
+                n_pos = len(req.tokens) + self._n_meta
                 pages = [int(p) for p in
-                         self._tables[int(slots[i])][:self.layout.pages_for(n_tok)]]
-                for f in range(1, n_tok // self.layout.page_size + 1):
+                         self._tables[int(slots[i])][:self.layout.pages_for(n_pos)]]
+                for f in range(1, n_pos // self.layout.page_size + 1):
                     self._prefix.put(self._page_key(req, f), pages[:f])
                 self._prefix.put(self._full_key(req), pages)
         self._finish_admission(group, bucket, W, lengths, slots, seeds,
@@ -692,7 +706,7 @@ class PagedScheduler(ContinuousScheduler):
 
     def _try_swap_in(self, req: Request) -> bool:
         st = self._swapped[req.rid]
-        need = self.layout.pages_for(st.pos)
+        need = self.layout.pages_for(st.pos + self._n_meta)
         if self._free_capacity() < need + self.paged.reserve_pages:
             return False
         with self.tracer.span("sched.swap_in", rid=req.rid, pages=need):
@@ -815,7 +829,7 @@ class PagedScheduler(ContinuousScheduler):
         for s in range(self.n_slots):
             if not alive[s] or self._slot_rid[s] is None:
                 continue                # rid None: preempted this pass
-            wb = int(self._pos[s]) // ps
+            wb = (int(self._pos[s]) + self._n_meta) // ps
             page = int(self._tables[s, wb])
             if page == scratch:
                 p = self._grow_page(s)

@@ -161,12 +161,20 @@ def test_configs_plans_and_counts_match(arch):
 
 def test_unported_layers_raise_naming_their_roadmap_item():
     cfg = reduced(get_config("yi-6b"))
-    for family, item in (("ssm", "A.4d"), ("hybrid", "A.4e"), ("vlm", "A.4f")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.layer_plan(dataclasses.replace(cfg, family=family))
+    with pytest.raises(NotImplementedError, match="A.4f"):
+        T.layer_plan(dataclasses.replace(cfg, family="vlm"))
     # sliding windows are ported: the plan carries the window
     assert {p.window for s in T.layer_plan(dataclasses.replace(cfg, sliding_window=64))
             for p in s.pattern} == {64}
+    # the SSM and the hybrid are ported: their mixers, and the hybrid's
+    # window everywhere but at its global-attention layers
+    ssm = reduced(get_config("mamba2-1.3b"))
+    assert [(p.mixer, p.window) for s in T.layer_plan(ssm) for p in s.pattern
+            for _ in range(s.repeats)] == [("ssm", 0)] * ssm.n_layers
+    hymba = get_config("hymba-1.5b")
+    flat = [(p.mixer, p.window) for s in T.layer_plan(hymba) for p in s.pattern
+            for _ in range(s.repeats)]
+    assert flat == [("hybrid", 0 if i in (0, 15, 31) else 1024) for i in range(32)]
 
 
 @pytest.mark.parametrize("model", ["yi", "dbrx"])
