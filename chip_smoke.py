@@ -164,14 +164,34 @@ Phases (any failure exits non-zero):
                  one-shot; B6 at the arena's decode site; reduced
                  mamba2-1.3b's and hymba-1.5b's --task lm steps on the card
                  against the CPU's;
+  vlm. the non-token frontends -- after phase ssm, every earlier model
+                 freed (seeded weights, f32 parameters, bf16 activations
+                 unless f32 is named): llama-3.2-vision-90b at full width
+                 (d 8,192, 64/8 heads of 128, vocab 128,256) cut to 10
+                 layers (layers 0 and 5 tanh-gated cross-attention onto
+                 1,601 image embeddings of width 1,280 through img_proj,
+                 the gates set to seeded nonzero values) and whisper-small
+                 at full size (12 + 12 layers, d 768, its encoder on 1,500
+                 audio frames) each generate for 8 requests with flash
+                 decode (B5 once per self-attention layer a step: 8 and
+                 12), timed, the decode step as one CUDA graph and by op;
+                 B5 at each decode site (rep 8 over 64 heads, rep 1 over
+                 12) against plain and SDPA; one layer's plain
+                 cross-attention read at decode timed against its byte
+                 bound; f32: prefill and 8 teacher-forced decode steps
+                 against the plain path; the slot pool, the arena and a
+                 10-page arena that preempts (3 slots) on 8 requests that carry
+                 their own f32 images or frames, tokens against one-shot,
+                 B6 at the arena's decode site; reduced whisper-small's
+                 --task mt steps on the card against the CPU's;
 
   python3 chip_smoke.py --only full_cache
 
 runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
 to compare two trees' B5 and B6 at these sites in one call; ``--only ep``,
-``--only obs``, ``--only dec``, ``--only swa``, ``--only mla`` and
-``--only ssm`` run phases 1, 2 and that phase alone.
+``--only obs``, ``--only dec``, ``--only swa``, ``--only mla``,
+``--only ssm`` and ``--only vlm`` run phases 1, 2 and that phase alone.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -4358,8 +4378,291 @@ def ssm_rows(ssm):
             "flash_decode_paged": {"hymba-1.5b paged decode": hy["sched"]["b6"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase vlm: the non-token frontends (llama-3.2-vision-90b, whisper-small)
+# ---------------------------------------------------------------------------
+
+VLM_LAYERS = 10                   # llama-3.2-vision-90b's depth cut: layers 0 and 5 gated
+# the scheduler trace's first 8 requests on 3 slots: the later ones are
+# admitted as others retire; in the small arena of 10 pages an even
+# request finds an earlier even one's pages (one prompt prefix, one
+# source) and a growing request preempts another, on both archs' traces
+VLM_SCHED_N, VLM_SLOTS, VLM_PAGES_SMALL = 8, 3, 10
+VLM_MT_STEPS, VLM_MT_ROWS, VLM_MT_SEQ = 3, 8, 32   # reduced whisper-small, --task mt
+
+
+def vlm_cfg(arch: str, dtype=None):
+    """The arch at full width (llama-3.2-vision-90b cut to VLM_LAYERS
+    layers), activations in ``dtype`` (default the config's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cut_depth
+    cfg = get_config(arch)
+    if cfg.vlm is not None:
+        cfg = cut_depth(cfg, VLM_LAYERS)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def seed_gates(params, dev):
+    """Every tanh gate set to a seeded value in [0.3, 1), in place: at the
+    reference's zero init a gated layer adds exactly nothing, and nothing
+    about it would be checked. Returns the values."""
+    from repro_torch.tree import flatten_with_paths
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    out = {}
+    for k, t in flatten_with_paths(params).items():
+        if k.rsplit("/", 1)[-1] in ("gate_attn", "gate_ffn"):
+            t.copy_(0.3 + 0.7 * torch.rand(t.shape, generator=g, device=dev))
+            out[k] = [round(v, 4) for v in t.tolist()]
+    return out
+
+
+def n_self_attention(cfg) -> int:
+    """Decoder layers with self-attention: each reads B5 (B6 paged) once a
+    decode step; a VLM's gated layers have none."""
+    from repro_torch.models import transformer as T
+    return sum(seg.repeats for seg in T.layer_plan(cfg) for p in seg.pattern
+               if p.mixer != "none")
+
+
+def vlm_trace(cfg):
+    """The first VLM_SCHED_N requests of phase 7's trace (prompts alone),
+    each carrying f32 N(0, 1) conditioning inputs drawn from seed SEED + 13:
+    the even requests (which share a 32-token prompt prefix) one image or
+    one clip of frames, the odd ones each their own, so that a page is
+    shared only under an equal source. Values are no whole numbers: a cast
+    to int64 on admission would change every token that reads them."""
+    import numpy as np
+    rs = np.random.RandomState(SEED + 13)
+    if cfg.vlm is not None:
+        key, shape = "img_embeds", (cfg.vlm.n_image_tokens, cfg.vlm.d_image)
+    else:
+        key, shape = "frames", (cfg.encdec.encoder_seq, cfg.d_model)
+    shared = rs.standard_normal(shape).astype(np.float32)
+    reqs = sched_trace(cfg.vocab, sources=False)[:VLM_SCHED_N]
+    for r in reqs:
+        r.extras = {key: shared if r.rid % 2 == 0
+                    else rs.standard_normal(shape).astype(np.float32)}
+    return reqs
+
+
+def vlm_scheduler(params, cfg, gen, paged=False, n_pages=0):
+    """A fresh scheduler of phase 7's shape at VLM_SLOTS slots: the slot
+    pool, or the page arena when ``paged`` (``n_pages`` pages, 0 for the
+    default: VLM_SLOTS full-length requests' worth)."""
+    from repro_torch.configs import PagedKVConfig
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import ContinuousScheduler, PagedScheduler
+    kw = dict(n_slots=VLM_SLOTS, prefill_buckets=SCHED_BUCKETS, admit_width=VLM_SLOTS,
+              registry=MetricsRegistry())
+    if paged:
+        return PagedScheduler(params, cfg, gen, paged=PagedKVConfig(
+            page_size=PAGE_SIZE, n_slots_equiv=VLM_SLOTS, n_pages=n_pages), **kw)
+    return ContinuousScheduler(params, cfg, gen, **kw)
+
+
+def vlm_schedulers(label, params, cfg, dev):
+    """``vlm_trace`` in f32 through the slot pool, the page arena and a
+    VLM_PAGES_SMALL-page arena: every run's tokens against one-shot
+    ``generate`` (near-ties allowed), the small arena's prefix hits (the
+    even requests: one prompt prefix, one source) and preemptions;
+    launches per run: B5 (B6 on the arenas) on every
+    self-attention layer per decode tick, nothing else. Returns the stats
+    and B6 at the arena's first decode tick against its plain version,
+    bitwise B5, and timed."""
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.serve import GenerateConfig
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = GenerateConfig(max_new=TRACE_BUDGET, eos_id=-1, flash_decode=True)
+    reqs = vlm_trace(cfg)
+    n_self = n_self_attention(cfg)
+    runs, out, todo = {}, {}, []
+    runs["slot pool"], ss, c, w = run_scheduler(params, cfg32, gen, reqs,
+                                                sched=vlm_scheduler(params, cfg32, gen))
+    todo.append(("slot pool", ss, c, w, "flash_decode"))
+    with Capture(names=("flash_decode_paged",)) as cap:
+        runs["arena"], ps, c, w = run_scheduler(
+            params, cfg32, gen, reqs, sched=vlm_scheduler(params, cfg32, gen, paged=True))
+    todo.append(("arena", ps, c, w, "flash_decode_paged"))
+    b6_args = cap.calls["flash_decode_paged"][0][0]
+    del cap
+    runs["small arena"], sm, c, w = run_scheduler(
+        params, cfg32, gen, reqs,
+        sched=vlm_scheduler(params, cfg32, gen, paged=True, n_pages=VLM_PAGES_SMALL))
+    todo.append(("small arena", sm, c, w, "flash_decode_paged"))
+    if sm.stats["prefix_hits"] == 0 or sm.stats["preemptions"] == 0:
+        raise AssertionError(f"{label}: no prefix hit or no preemption in the small arena "
+                             f"{sm.stats}")
+    for name, sch, counts, wall, key in todo:
+        want = {k: 0 for k in counts}
+        want[key] = n_self * sch.stats["decode_steps"]
+        log(f"vlm {label} {name} f32: {sch.stats}; launches {counts}, expected {want}; "
+            f"{wall:.2f} s")
+        if counts != want or sch.stats["finished"] != VLM_SCHED_N:
+            raise AssertionError(f"{label} {name}: launches {counts} != {want} or {sch.stats}")
+        out[name] = dict(sch.stats, wall_s=wall)
+    checked = against_oneshot(params, cfg32, gen, reqs, runs, ss.max_seq, dev)
+    for name, (n_equal, gaps) in checked.items():
+        log(f"vlm {label} f32: {name}: {n_equal} of {VLM_SCHED_N} requests' tokens (each "
+            f"with its own f32 source) equal one-shot B=1 generate; divergences (rid, first "
+            f"token, top-two logit gap) {gaps}")
+        if any(gap >= NEAR_TIE for _, _, gap in gaps):
+            raise AssertionError(f"{label} {name}: a divergence from one-shot is not a near-tie")
+        out[name].update(oneshot_equal=n_equal, gaps=gaps)
+    out_b6 = FD.flash_decode_paged(*b6_args)
+    torch.cuda.synchronize()
+    err = check(f"{label} flash_decode_paged@decode", out_b6,
+                plain_of("flash_decode_paged")(*b6_args))
+    check(f"{label} flash_decode_paged vs B5", out_b6,
+          FD.flash_decode(b6_args[0], *gathered(b6_args), b6_args[4]), exact=True)
+    out["b6"] = dict(b6_timing(b6_args), max_abs_err=err,
+                     launches=out["arena"]["decode_steps"] * n_self)
+    return out
+
+
+def cross_read(label, params, batch, cfg, dev):
+    """One layer's plain cross-attention at a decode step (8 rows, one
+    query each, against the cached K/V of the whole source: 1,601 image
+    positions or 1,500 frames) in the model's dtype: device ms against the
+    bytes it must move (the cached K/V, the query and output projections'
+    weights, once each) over HBM's rate."""
+    from repro_torch.models import attention as A
+    from repro_torch.tree import tree_map
+    seg = params["decoder"][0]["p0"]
+    p = tree_map(lambda t: t[0], seg["cross"])
+    rows = batch["tokens"].shape[0]
+    src = next(batch[k] for k in ("img_embeds", "frames") if k in batch)
+    n_src = src.shape[1]
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    shape = (rows, n_src, cfg.n_heads, cfg.head_dim_)
+    ck = torch.randn(shape, generator=g, device=dev).to(cfg.torch_dtype)
+    cv = torch.randn(shape, generator=g, device=dev).to(cfg.torch_dtype)
+    h = torch.randn((rows, 1, cfg.d_model), generator=g, device=dev).to(cfg.torch_dtype)
+    ms = device_ms(lambda: A.cross_attention_kv(p, h, ck, cv))
+    nbytes = (2 * ck.numel() * ck.element_size()
+              + sum(p[w].numel() * p[w].element_size() for w in ("wq", "wo")))
+    b_ms = nbytes / PEAK_BYTES_S * 1e3
+    log(f"vlm {label}: plain cross-attention read of one layer at decode ({rows} rows x "
+        f"{n_src} source positions x {cfg.n_heads} heads of {cfg.head_dim_}, "
+        f"{_dt(ck)} cache): {ms:.6f} ms on the device, bound {b_ms:.6f} ms (bytes: "
+        f"{nbytes} of K/V and wq, wo)")
+    return dict(ms=ms, bound_ms=b_ms, nbytes=nbytes, rows=rows, n_src=n_src)
+
+
+def vlm_arch(arch, dev):
+    """One arch at full width (llama-3.2-vision-90b at VLM_LAYERS layers,
+    its gates seeded): a counted generate with flash decode (B5 once per
+    self-attention layer a step, nothing else), timed, the decode step as
+    one CUDA graph and by op; B5 at its decode site; one layer's plain
+    cross-attention read; the f32 gates; the schedulers with B6."""
+    from repro_torch.serve import GenerateConfig, generate
+    t0 = time.perf_counter()
+    cfg = vlm_cfg(arch)
+    params, batch = dec_model(cfg, dev)
+    out = {"layers": cfg.n_layers}
+    if cfg.vlm is not None:
+        out["gates"] = seed_gates(params, dev)
+        log(f"vlm {arch}: gates seeded {out['gates']}")
+    n_self = n_self_attention(cfg)
+    src = {k: tuple(v.shape) for k, v in batch.items() if k != "tokens"}
+    log(f"vlm {arch}: {n_self} self-attention layers of {cfg.n_layers}; conditioning "
+        f"inputs {src}")
+    gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
+    counts, _, _ = dec_generate(arch, params, batch, cfg, gen,
+                                lambda steps: {"flash_decode": n_self * steps})
+    out.update(launches={k: v for k, v in counts.items() if v},
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out["serve"] = dec_timed(arch, params, batch, cfg, gen)
+    out["decode_graph_ms"] = decode_graph(f"vlm {arch}", params, batch, cfg,
+                                          out["serve"]["median"]["decode_ms_per_step"], dev)
+    out["decode_profile"] = decode_profile(f"vlm {arch}", params, batch, cfg, dev)
+    with Capture(names=("flash_decode",)) as cap:
+        generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
+    torch.cuda.synchronize()
+    b5_args = cap.calls["flash_decode"][-1][0]
+    del cap
+    out["b5"] = dict(dec_site(arch, "flash_decode", "decode", b5_args),
+                     launches=counts["flash_decode"])
+    out["cross_read"] = cross_read(arch, params, batch, cfg, dev)
+    d_pre, d_dec = e2e_phase(params, batch, cfg, gen, dev, label=f"vlm {arch} e2e")
+    out["e2e_logit_diff"] = dict(prefill=d_pre, decode=d_dec)
+    out["sched"] = vlm_schedulers(arch, params, cfg, dev)
+    del params, batch
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"vlm {arch}: {out['wall_s']:.1f} s")
+    return out
+
+
+def vlm_mt(dev, n_steps=VLM_MT_STEPS):
+    """Reduced whisper-small, --task mt (the encoder on source tokens, as
+    the reference's ``--task mt`` runs it): ``n_steps`` f32 steps on the
+    card and on the CPU from one init (drawn on the CPU), the loss and grad
+    norm of each step within TRAIN_METRIC_RTOL of the CPU's, the
+    parameters within ``adam_drift_bound``."""
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.data import MTTaskConfig, MultilingualMT
+    from repro_torch.models import init_model
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.loop import to_device
+    from repro_torch.tree import flatten_with_paths, tree_map
+    tc = TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, seed=SEED, steps=n_steps)
+    param_tol = adam_drift_bound(tc, n_steps)
+    base = reduced(get_config("whisper-small"))
+    batches = MultilingualMT(MTTaskConfig(vocab=base.vocab, n_langs=TRAIN_LANGS,
+                                          max_len=VLM_MT_SEQ)).train_batches(VLM_MT_ROWS)
+    init = init_model(torch.Generator().manual_seed(SEED), base)
+    res = {}
+    for where, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        state = init_train_state(tree_map(lambda t: t.detach().to(device).clone(), init), tc)
+        step = make_train_step(base, tc)
+        rows = []
+        for i in range(n_steps):
+            state, m = step(state, to_device(batches(i), device))
+            rows.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        res[where] = (rows, {k: v.detach().cpu()
+                             for k, v in flatten_with_paths(state["params"]).items()})
+    worst = max(abs(r[k] - q[k]) / max(abs(q[k]), 1e-6)
+                for r, q in zip(res["cuda"][0], res["cpu"][0]) for k in r)
+    pmax = max(float((res["cuda"][1][k] - v).abs().max()) for k, v in res["cpu"][1].items())
+    finite = all(math.isfinite(v) for r in res["cuda"][0] for v in r.values())
+    log(f"vlm mt whisper-small reduced f32 ({VLM_MT_ROWS} x {VLM_MT_SEQ} target + source "
+        "tokens): card " + "; ".join(f"loss {r['loss']:.6f} grad norm {r['grad_norm']:.6f}"
+                                    for r in res["cuda"][0])
+        + f"; against the CPU's steps max relative diff {worst:.3e} (tol "
+        f"{TRAIN_METRIC_RTOL}), parameters max abs diff {pmax:.3e} (tol {param_tol:.3e})")
+    if not finite or worst > TRAIN_METRIC_RTOL or pmax > param_tol:
+        raise AssertionError("vlm mt whisper-small: the card's steps differ from the CPU's")
+    return dict(rows=res["cuda"][0], max_rel_diff=worst, param_max_abs_diff=pmax)
+
+
+def vlm_phase(dev):
+    """Phase vlm: llama-3.2-vision-90b (full width, VLM_LAYERS layers), then
+    whisper-small (full size), each freed before the next, then reduced
+    whisper-small's --task mt steps."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"llama-3.2-vision-90b": vlm_arch("llama-3.2-vision-90b", dev),
+           "whisper-small": vlm_arch("whisper-small", dev),
+           "mt": vlm_mt(dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"vlm phase: {out['wall_s']:.1f} s")
+    return out
+
+
+def vlm_rows(vlm):
+    """B5 at both archs' decode sites and B6 at their arenas' for the
+    kernel table, with the launches of the phase's generate (B5) and arena
+    run (B6)."""
+    rows = {"flash_decode": {}, "flash_decode_paged": {}}
+    for arch in ("llama-3.2-vision-90b", "whisper-small"):
+        rows["flash_decode"][f"{arch} decode"] = vlm[arch]["b5"]
+        rows["flash_decode_paged"][f"{arch} paged decode"] = vlm[arch]["sched"]["b6"]
+    return rows
+
+
 def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve, fc,
-                 dec_sites=None, swa_sites=None, mla_sites=None, ssm_sites=None):
+                 dec_sites=None, swa_sites=None, mla_sites=None, ssm_sites=None,
+                 vlm_sites=None):
     """One entry per kernel for the JSON line: serving kernels at their
     decode site with their launches per ``generate``, training kernels at
     the training site with their launches per step (B4 on ``cuda_fused``,
@@ -4381,6 +4684,9 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
     B1-B4 at deepseek-v3-671b's decode and long prefill, with the launches
     of that phase's generate) and its phase-ssm sites (``ssm_sites``: B5
     and B6 at hymba-1.5b's decode, rep 5, past its 128 meta positions,
+    with the launches of that phase's generate or arena run) and its
+    phase-vlm sites (``vlm_sites``: B5 and B6 at llama-3.2-vision-90b's
+    decode, rep 8 over 64 heads, and at whisper-small's, rep 1 over 12,
     with the launches of that phase's generate or arena run)."""
     kernels = []
     for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw", "dispatch",
@@ -4444,6 +4750,8 @@ def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_ser
             entry["mla_sites"] = mla_sites[entry["name"]]
         if ssm_sites and entry["name"] in ssm_sites:
             entry["ssm_sites"] = ssm_sites[entry["name"]]
+        if vlm_sites and entry["name"] in vlm_sites:
+            entry["vlm_sites"] = vlm_sites[entry["name"]]
     return kernels
 
 
@@ -4491,7 +4799,8 @@ def serve_phases(full, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec", "swa", "mla", "ssm"),
+    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec", "swa", "mla", "ssm",
+                                       "vlm"),
                     help="run phases 1, 2 and this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4542,6 +4851,10 @@ def main() -> int:
         ssm = ssm_phase(dev)
         print(json.dumps({"ssm": ssm, "ssm_sites": ssm_rows(ssm)}), flush=True)
         return 0
+    if args.only == "vlm":
+        vlm = vlm_phase(dev)
+        print(json.dumps({"vlm": vlm, "vlm_sites": vlm_rows(vlm)}), flush=True)
+        return 0
     b4_info = ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5, 7 and 8. serving
@@ -4580,9 +4893,13 @@ def main() -> int:
     # ssm. mamba2-1.3b and hymba-1.5b at full width and depth, --task lm
     ssm = ssm_phase(dev)
     print(json.dumps({"ssm": ssm}), flush=True)
+    # vlm. llama-3.2-vision-90b (10 layers) and whisper-small: image and audio sources
+    vlm = vlm_phase(dev)
+    print(json.dumps({"vlm": vlm}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
-                           fc, dec_rows(dec), swa_rows(swa), mla_rows(mla), ssm_rows(ssm))
+                           fc, dec_rows(dec), swa_rows(swa), mla_rows(mla), ssm_rows(ssm),
+                           vlm_rows(vlm))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

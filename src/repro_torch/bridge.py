@@ -27,7 +27,7 @@ def to_torch(flat: Dict[str, np.ndarray], device: Union[str, torch.device], *,
     dtypes = dtypes or {}
     leaves = {}
     for key, arr in flat.items():
-        arr = np.ascontiguousarray(arr)
+        arr = np.asarray(arr, order="C")    # keeps a 0-d leaf 0-d
         if dtypes.get(key) == "bfloat16" or arr.dtype.name == "bfloat16":
             t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
         else:

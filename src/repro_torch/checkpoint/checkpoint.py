@@ -124,7 +124,7 @@ def restore_checkpoint(ckpt_dir: str, template: Any,
             if isinstance(leaf, int):
                 arrays[key] = int(arr)
                 continue
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+            t = torch.from_numpy(np.asarray(arr, order="C"))   # 0-d stays 0-d
             arrays[key] = t.view(torch.int16).view(torch.bfloat16) if key in bf16 else t
     if _grouped(ctx):
         arrays = flatten_with_paths(shard_experts(unflatten_paths(arrays), ctx.rank,

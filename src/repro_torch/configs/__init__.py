@@ -1,29 +1,34 @@
 """Config registry: ``get_config(arch_id)`` / ``ARCHS``. Holds the archs
 this port serves (the encoder-decoder zcode pair, the decoder-only archs
 with full attention, those with sliding-window attention, DeepSeek-V3
-with multi-head latent attention, the Mamba-2 SSM and the Hymba hybrid);
-the reference's VLM and audio archs join with their slice."""
+with multi-head latent attention, the Mamba-2 SSM, the Hymba hybrid, the
+llama-3.2-vision VLM and the whisper-small audio encoder-decoder): every
+arch of the reference."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (COMM_SUBSTRATES, CommConfig,
                                       EncDecConfig, GatingDropoutConfig,
                                       HybridConfig, MLAConfig, ModelConfig,
                                       MoEConfig, PagedKVConfig, SSMConfig,
-                                      Topology, TrainConfig, reduced)
+                                      Topology, TrainConfig, VLMConfig,
+                                      reduced)
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as _CODEQWEN
 from repro_torch.configs.dbrx_132b import CONFIG as _DBRX
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _DEEPSEEK
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as _DANUBE
 from repro_torch.configs.hymba_1_5b import CONFIG as _HYMBA
+from repro_torch.configs.llama_3_2_vision_90b import CONFIG as _LLAMA_VISION
 from repro_torch.configs.mamba2_1_3b import CONFIG as _MAMBA2
 from repro_torch.configs.starcoder2_3b import CONFIG as _STARCODER2
+from repro_torch.configs.whisper_small import CONFIG as _WHISPER
 from repro_torch.configs.yi_6b import CONFIG as _YI
 from repro_torch.configs.zcode_m3 import CONFIG as _ZCODE_BASE
 from repro_torch.configs.zcode_m3 import CONFIG_BIG as _ZCODE_BIG
 
 _REGISTRY = {c.arch_id: c for c in (_DBRX, _DEEPSEEK, _YI, _CODEQWEN,
                                     _STARCODER2, _DANUBE, _MAMBA2, _HYMBA,
-                                    _ZCODE_BASE, _ZCODE_BIG)}
+                                    _LLAMA_VISION, _WHISPER, _ZCODE_BASE,
+                                    _ZCODE_BIG)}
 
 ARCHS = tuple(_REGISTRY)
 
@@ -37,4 +42,4 @@ def get_config(arch_id: str) -> ModelConfig:
 __all__ = ["ARCHS", "COMM_SUBSTRATES", "CommConfig", "EncDecConfig",
            "GatingDropoutConfig", "HybridConfig", "MLAConfig", "ModelConfig",
            "MoEConfig", "PagedKVConfig", "SSMConfig", "Topology",
-           "TrainConfig", "get_config", "reduced"]
+           "TrainConfig", "VLMConfig", "get_config", "reduced"]

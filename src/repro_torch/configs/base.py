@@ -1,14 +1,14 @@
 """Config dataclasses of the port (the subset of ``repro.configs.base`` the
-encoder-decoder MoE, the decoder-only families with full or
-sliding-window attention or multi-head latent attention (MLA), the
-Mamba-2 SSM family and the Hymba hybrid need, the communication
-substrate, ``PagedKVConfig`` and ``TrainConfig``).
+encoder-decoder MoE and its audio variant, the decoder-only families with
+full or sliding-window attention or multi-head latent attention (MLA),
+the Mamba-2 SSM family, the Hymba hybrid and the VLM with gated
+cross-attention need, the communication substrate, ``PagedKVConfig``
+and ``TrainConfig``).
 
 Plain frozen dataclasses, field for field the reference's defaults, so a
 config built here describes the same model as the reference's. The
-reference's VLM family is not ported (ROADMAP.md A.4f), nor its
-multi-device layout fields (``fsdp``, ``seq_parallel``, ``ep_on_model``;
-ROADMAP.md A.5).
+reference's multi-device layout fields (``fsdp``, ``seq_parallel``,
+``ep_on_model``) are not ported (ROADMAP.md A.5).
 """
 from __future__ import annotations
 
@@ -218,7 +218,21 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class VLMConfig:
+    """Llama-3.2-Vision: a tanh-gated cross-attention layer every
+    ``cross_attn_period`` layers onto ``n_image_tokens`` image embeddings
+    of width ``d_image`` (a stub vision encoder's output), projected to
+    ``d_model``."""
+    cross_attn_period: int = 5
+    n_image_tokens: int = 1601
+    d_image: int = 1280
+
+
+@dataclass(frozen=True)
 class EncDecConfig:
+    """The encoder of an encoder-decoder: ``frontend`` "stub" takes audio
+    frames (whisper's conv frontend stubbed: the batch carries ``frames``
+    (B, encoder_seq, d_model)), "tokens" source tokens (``enc_tokens``)."""
     n_encoder_layers: int = 12
     encoder_seq: int = 1500
     frontend: str = "stub"              # stub (frames) | tokens
@@ -228,7 +242,7 @@ class EncDecConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     arch_id: str = "tiny"
-    family: str = "dense"               # dense | moe | ssm | hybrid | encdec
+    family: str = "dense"               # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -246,6 +260,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
+    vlm: Optional[VLMConfig] = None
     encdec: Optional[EncDecConfig] = None
     hybrid: Optional[HybridConfig] = None
     mtp: bool = False                   # DeepSeek-V3 multi-token-prediction head
@@ -303,7 +318,13 @@ class ModelConfig:
         reference counts it (norm scales and biases are not counted, nor
         the MTP head, nor the conv, ``dt_bias``, ``A_log`` and ``D`` of an
         SSM; the mixer of ``family == "ssm"`` is its SSM, while a hybrid
-        layer counts its attention alone, the reference's undercount)."""
+        layer counts its attention alone, the reference's undercount; a
+        VLM's gated cross-attention layer counts as a GQA self-attention
+        layer, where the init holds four d x d projections, and
+        ``img_proj`` is left out, the reference's undercount again:
+        llama-3.2-vision-90b counts 87.665 B against the 90.024 B of its
+        init's weight matrices, 20 x 2 x d x (d - kv x hd) + d_image x d
+        more)."""
         d = self.d_model
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         attn = self._attn_params()
@@ -361,6 +382,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw["head_dim"] = 0
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=16)
+    if cfg.vlm is not None:
+        kw["vlm"] = VLMConfig(cross_attn_period=2, n_image_tokens=16, d_image=64)
     if cfg.encdec is not None:
         kw["encdec"] = dataclasses.replace(cfg.encdec, n_encoder_layers=2,
                                            encoder_seq=32)

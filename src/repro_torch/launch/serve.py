@@ -35,6 +35,18 @@ the card:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v3-671b --layers 2 --backend cuda_fused --eos -1
 
+llama-3.2-vision-90b (a tanh-gated cross-attention layer every fifth
+layer onto 1,601 image embeddings, ``--layers 10`` on one card) and
+whisper-small (its encoder on 1,500 audio frames) serve on synthetic
+conditioning inputs, drawn per request under ``--trace``; ``--flash-decode``
+reaches B5 (B6 under ``--paged``) on their self-attention layers, and their
+cross-attention read stays plain, as in the reference:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-90b --layers 10 --flash-decode --eos -1
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+      --trace 32 --paged --flash-decode --eos -1
+
 deepseek-v3-671b's layers attend through multi-head latent attention,
 whose absorbed decode is plain PyTorch, as in the reference:
 ``--flash-decode`` reaches no flash-decode kernel on them.
@@ -103,7 +115,9 @@ def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
     """``cfg`` at ``n_layers`` layers. A cut to no more layers than the
     arch's leading dense ones (deepseek-v3-671b's 3) keeps the last layer
     an MoE layer, so that the cut model still runs both kinds; a hybrid
-    keeps its global-attention layers that fall below the cut."""
+    keeps its global-attention layers that fall below the cut; a VLM
+    keeps layer 0 gated, and every ``cross_attn_period``-th layer after it
+    (llama-3.2-vision-90b at 10 layers: layers 0 and 5)."""
     if not 1 <= n_layers <= cfg.n_layers:
         raise ValueError(f"--layers {n_layers}: 1 to {cfg.n_layers}")
     cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -134,12 +148,23 @@ def generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
 
 
 def synth_batch(cfg, gen: torch.Generator, batch: int, prompt_len: int):
-    """Prompt tokens (and source tokens for the text encoder-decoder) drawn
-    uniformly from [3, vocab) — ids 0-2 are pad, BOS and EOS."""
+    """Prompt tokens drawn uniformly from [3, vocab) — ids 0-2 are pad, BOS
+    and EOS — and the family's conditioning inputs: SRC_TOKENS source
+    tokens for the text encoder-decoder, f32 N(0, 1) audio frames
+    (encoder_seq, d_model) for a stub frontend, f32 N(0, 1) image
+    embeddings (n_image_tokens, d_image) for the VLM."""
     dev = gen.device
     out = {"tokens": torch.randint(3, cfg.vocab, (batch, prompt_len),
                                    generator=gen, device=dev)}
-    if cfg.encdec is not None:
+    if cfg.vlm is not None:
+        out["img_embeds"] = torch.randn(
+            (batch, cfg.vlm.n_image_tokens, cfg.vlm.d_image), generator=gen,
+            device=dev)
+    if cfg.encdec is not None and cfg.encdec.frontend == "stub":
+        out["frames"] = torch.randn(
+            (batch, cfg.encdec.encoder_seq, cfg.d_model), generator=gen,
+            device=dev)
+    elif cfg.encdec is not None:
         out["enc_tokens"] = torch.randint(3, cfg.vocab, (batch, SRC_TOKENS),
                                           generator=gen, device=dev)
     return out
@@ -186,8 +211,10 @@ def synth_trace(cfg, seed: int, n: int, rate: float, buckets, max_new: int):
     """Synthetic request trace drawn from ``np.random.RandomState(seed)``:
     Poisson arrivals (exponential gaps at ``rate`` requests/s, the first at
     t = 0), prompt lengths uniform over [2, max bucket], token budgets
-    uniform over [2, max_new], tokens uniform over [3, vocab) and, for the
-    encoder-decoder, SRC_TOKENS source tokens per request."""
+    uniform over [2, max_new], tokens uniform over [3, vocab) and each
+    request's own conditioning inputs, as ``synth_batch`` draws them:
+    SRC_TOKENS source tokens, f32 N(0, 1) audio frames or f32 N(0, 1)
+    image embeddings."""
     rs = np.random.RandomState(seed)
     gaps = rs.exponential(1.0 / rate, size=n)
     arrivals = np.cumsum(gaps) - gaps[0]
@@ -197,7 +224,13 @@ def synth_trace(cfg, seed: int, n: int, rate: float, buckets, max_new: int):
         budget = int(rs.randint(2, max_new + 1))
         toks = rs.randint(3, cfg.vocab, size=plen).astype(np.int64)
         extras = {}
-        if cfg.encdec is not None:
+        if cfg.vlm is not None:
+            extras["img_embeds"] = rs.standard_normal(
+                (cfg.vlm.n_image_tokens, cfg.vlm.d_image)).astype(np.float32)
+        if cfg.encdec is not None and cfg.encdec.frontend == "stub":
+            extras["frames"] = rs.standard_normal(
+                (cfg.encdec.encoder_seq, cfg.d_model)).astype(np.float32)
+        elif cfg.encdec is not None:
             extras["enc_tokens"] = rs.randint(3, cfg.vocab,
                                               size=SRC_TOKENS).astype(np.int64)
         reqs.append(Request(rid=i, tokens=toks, extras=extras, max_new=budget,

@@ -6,8 +6,10 @@
 
 Runs on the GPU unless ``--device cpu`` is given, and fails without one.
 Parameters are drawn from ``--seed``; the batches are the reference's
-synthetic multilingual MT task (``--task mt``) or, for the decoder-only
-archs, its synthetic LM task (``--task lm``), bit for bit; every step
+synthetic multilingual MT task (``--task mt``: the encoder-decoders,
+whisper-small's encoder on the source tokens as in the reference) or,
+for the decoder-only archs, its synthetic LM task (``--task lm``), bit
+for bit (no task carries images: the VLM does not train here); every step
 takes the Gating Dropout consensus bit of (seed, step). ``--eval-every N`` scores
 greedy-decoded corpus BLEU (``greedy_bleu``) every N steps and at the
 last (``--task mt``). ``--ckpt-dir`` saves the train state at the end in
@@ -66,6 +68,9 @@ from repro_torch.training import Trainer
 def build_batch_fn(cfg, args):
     """(task, per-step numpy batches of it); pure host work: it runs on
     the prefetch thread."""
+    if cfg.vlm is not None:
+        raise ValueError(f"--task {args.task} has no images for {cfg.arch_id}: "
+                         "its cross-attention layers need img_embeds")
     if args.task == "mt":
         task = MultilingualMT(MTTaskConfig(vocab=cfg.vocab, n_langs=args.langs,
                                            max_len=args.seq))

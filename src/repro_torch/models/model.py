@@ -1,8 +1,7 @@
-"""Top-level model: embeddings + (the encoder-decoder's encoder) + decoder
-stack + head, and DeepSeek-V3's multi-token-prediction (MTP) head (port
-of ``repro/models/model.py`` for the encoder-decoder family, the
-decoder-only families with full, sliding-window or multi-head latent
-attention, the Mamba-2 SSM and the Hymba hybrid).
+"""Top-level model: embeddings + (the encoder-decoder's encoder, or the
+VLM's image projection) + decoder stack + head, and DeepSeek-V3's
+multi-token-prediction (MTP) head (port of ``repro/models/model.py``:
+every family of the reference).
 
 Public API:
   init_model(gen, cfg)                          -> params
@@ -12,10 +11,14 @@ Public API:
   decode_step(params, caches, token, index,...) -> (logits, caches)
   init_cache(cfg, batch, max_seq, dtype)        -> caches
 
-``batch`` keys: "tokens" (B, L) always; "enc_tokens" (B, S_enc) for the
-text encoder-decoder (the paper's MT models), nothing else for the
-decoder-only families. Parameters live on the device of the generator
-that drew them.
+``batch`` keys: "tokens" (B, L) always; plus per family:
+  vlm    : "img_embeds" (B, n_img, d_image)  [stub vision encoder output]
+  encdec : "frames" (B, S_enc, d_model) for audio (stub conv frontend), or
+           "enc_tokens" (B, S_enc) for text (the paper's MT models);
+nothing else for the decoder-only families. The encoder takes ``frames``
+where the batch has them, whatever ``cfg.encdec.frontend`` says, as the
+reference does. Float inputs are cast to the activation dtype first.
+Parameters live on the device of the generator that drew them.
 
 Prefill and training attention is quadratic up to 2,048 keys and the
 blocked flash attention of ``models/flash.py`` past them (O(L) memory), as
@@ -70,6 +73,9 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
         p["encoder"] = T.init_stack(gen, T.layer_plan(cfg, encoder=True), cfg,
                                     dtype, n_total)
         p["enc_final_norm"] = L.init_norm(gen, cfg, cfg.d_model, dtype)
+    if cfg.vlm is not None:
+        p["img_proj"] = L.normal(gen, (cfg.vlm.d_image, cfg.d_model),
+                                 cfg.vlm.d_image ** -0.5, dtype)
     if cfg.hybrid is not None:
         p["meta"] = L.normal(gen, (cfg.n_meta, cfg.d_model), 0.02, dtype)
     if cfg.mtp:
@@ -97,10 +103,15 @@ def _mtp_spec(cfg: ModelConfig) -> T.LayerSpec:
 
 def _encode(params: Params, batch: Dict, cfg: ModelConfig, *, generator,
             decision, is_training, ctx=None):
-    if cfg.encdec.frontend != "tokens":
-        raise NotImplementedError("only the token frontend is ported")
-    tok = batch["enc_tokens"]
-    x = L.embed_apply(params["embed"], tok).to(cfg.torch_dtype)
+    """The encoder over ``frames`` (audio stub frontend output, no token
+    ids) or, without them, the ``enc_tokens`` embeddings, each with
+    sinusoidal positions."""
+    if "frames" in batch:
+        tok = None
+        x = batch["frames"].to(cfg.torch_dtype)
+    else:
+        tok = batch["enc_tokens"]
+        x = L.embed_apply(params["embed"], tok).to(cfg.torch_dtype)
     x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     x, _, aux = T.apply_stack(params["encoder"], T.layer_plan(cfg, encoder=True),
                               x, cfg, mode="train", generator=generator,
@@ -111,12 +122,18 @@ def _encode(params: Params, batch: Dict, cfg: ModelConfig, *, generator,
 
 def _cross_source(params: Params, batch: Dict, cfg: ModelConfig, *,
                   generator, decision, is_training, ctx=None):
-    """(cross_src, aux) of the families that cross-attend; (None, None)
-    for the decoder-only ones."""
-    if cfg.encdec is None:
-        return None, None
-    return _encode(params, batch, cfg, generator=generator, decision=decision,
-                   is_training=is_training, ctx=ctx)
+    """(cross_src, aux) of the families that cross-attend: the encoder's
+    output, or the VLM's projected image embeddings (cast to the
+    activation dtype, then to ``img_proj``'s for the product, then back,
+    the reference's roundings); (None, None) for the decoder-only ones."""
+    if cfg.encdec is not None:
+        return _encode(params, batch, cfg, generator=generator,
+                       decision=decision, is_training=is_training, ctx=ctx)
+    if cfg.vlm is not None:
+        proj = params["img_proj"]
+        img = batch["img_embeds"].to(cfg.torch_dtype).to(proj.dtype)
+        return (img @ proj).to(cfg.torch_dtype), None
+    return None, None
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +216,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     """Zero decode cache of ``max_seq`` positions (plus the hybrid's meta
     tokens); ``device="meta"`` gives shapes without memory. ``n_cross`` is
     the source length of the cross-attention K/V (default the config's
-    ``encoder_seq``; the decoder-only families have none)."""
+    ``encoder_seq``, or the VLM's ``n_image_tokens``; the decoder-only
+    families have none)."""
     dtype = dtype or cfg.torch_dtype
     if cfg.encdec is not None:
         n_cross = n_cross or cfg.encdec.encoder_seq
+    elif cfg.vlm is not None:
+        n_cross = n_cross or cfg.vlm.n_image_tokens
     return T.init_stack_cache(T.layer_plan(cfg), cfg, batch,
                               max_seq + cfg.n_meta, n_cross or 0, dtype, device)
 
@@ -215,8 +235,8 @@ def prefill(params: Params, batch: Dict, cfg: ModelConfig, *,
     """Prompt forward that returns the logits of the last prompt position
     (or of ``last_index[b]`` per row, an index into the prompt) and the
     decode cache: self-attention K/V padded to ``max_seq`` positions (plus
-    the hybrid's meta tokens), cross K/V (encoder-decoder) at the source
-    length, an SSM layer's conv window and state."""
+    the hybrid's meta tokens), cross K/V (encoder-decoder, VLM) at the
+    source length, an SSM layer's conv window and state."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
     max_seq = max_seq or cfg.max_seq

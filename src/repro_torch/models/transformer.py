@@ -31,7 +31,11 @@ window and state; a hybrid layer (``mixer="hybrid"``) runs attention and
 the SSM side by side on the same input, each output RMS-scaled by its own
 gain, and adds their mean (Hymba). Its attention is windowed except at
 ``cfg.hybrid.global_attn_layers``, so its cache is a ring or a full K/V
-cache beside the SSM's.
+cache beside the SSM's. A VLM's gated cross layer (``mixer="none"``,
+``gated_cross``; every ``cfg.vlm.cross_attn_period``-th layer from layer
+0) has no self-attention: it cross-attends onto the projected image
+embeddings and runs its FFN, each output scaled by the tanh of its own
+scalar gate (zero at init), and caches the cross K/V alone.
 
 Router jitter in training draws from a generator of each layer's own,
 seeded from the step's generator and the layer's index (the reference
@@ -65,12 +69,14 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """One layer: a mixer (GQA or MLA self-attention, an SSM, or both
-    attention and SSM, the hybrid), optional cross-attention, then a dense
-    FFN or an MoE layer (the reference's cross-only VLM layer comes with
-    its family)."""
-    mixer: str = "gqa"        # gqa | mla | ssm | hybrid
+    """One layer: a mixer (GQA or MLA self-attention, an SSM, both
+    attention and SSM, the hybrid, or none), optional cross-attention,
+    then a dense FFN or an MoE layer. ``gated_cross`` is the VLM's
+    cross-only layer: no mixer, its cross-attention and FFN outputs
+    tanh-gated."""
+    mixer: str = "gqa"        # gqa | mla | ssm | hybrid | none (cross-only)
     cross: bool = False       # cross-attention sub-layer
+    gated_cross: bool = False # VLM: tanh-gated cross-attn layer (no self-attn)
     moe: bool = False
     window: int = 0           # sliding window (0 = full)
     causal: bool = True
@@ -101,11 +107,6 @@ def _compress(specs: List[LayerSpec]) -> List[Segment]:
     return segs
 
 
-# the reference's families and layer kinds this port does not run yet, by
-# the ROADMAP.md item that brings them
-_NOT_PORTED = {"vlm": "A.4f (non-token frontends)"}
-
-
 def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
     """The reference's plan for the ported families: the encoder-decoder
     (its encoder, or a decoder with cross-attention), ``dense`` / ``moe``
@@ -113,11 +114,10 @@ def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
     where ``cfg.mla`` is set; no cross-attention), ``ssm`` (an SSM mixer)
     and ``hybrid`` (attention and SSM, the attention global at
     ``cfg.hybrid.global_attn_layers`` and over ``cfg.sliding_window``
-    elsewhere); an MoE layer where ``MoEConfig.is_moe_layer``."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP.md {_NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("encdec", "dense", "moe", "ssm", "hybrid"):
+    elsewhere) and ``vlm`` (the decoder-only plan with a gated cross-only
+    layer wherever ``i % cfg.vlm.cross_attn_period == 0``); an MoE layer
+    where ``MoEConfig.is_moe_layer``."""
+    if cfg.family not in ("encdec", "dense", "moe", "ssm", "hybrid", "vlm"):
         raise ValueError(f"unknown family {cfg.family!r}")
     moe_at = (lambda i: cfg.moe is not None and cfg.moe.is_moe_layer(i))
     if encoder:
@@ -136,7 +136,11 @@ def layer_plan(cfg: ModelConfig, *, encoder: bool = False) -> List[Segment]:
             window=0 if i in cfg.hybrid.global_attn_layers else cfg.sliding_window)
             for i in range(cfg.n_layers)])
     mixer = "mla" if cfg.mla is not None else "gqa"
-    return _compress([LayerSpec(mixer=mixer, moe=moe_at(i),
+    gated = (lambda i: cfg.family == "vlm"
+             and i % cfg.vlm.cross_attn_period == 0)
+    return _compress([LayerSpec(mixer="none", cross=True, gated_cross=True)
+                      if gated(i) else
+                      LayerSpec(mixer=mixer, moe=moe_at(i),
                                 window=cfg.sliding_window)
                       for i in range(cfg.n_layers)])
 
@@ -151,7 +155,9 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
     unstacked, as the MTP head's block)."""
     lead = () if reps is None else (reps,)
     out_scale = (2 * max(n_total, 1)) ** -0.5
-    p: Params = {"ln1": L.init_norm(gen, cfg, cfg.d_model, dtype, lead)}
+    p: Params = {}
+    if spec.mixer != "none":
+        p["ln1"] = L.init_norm(gen, cfg, cfg.d_model, dtype, lead)
     if spec.mixer == "mla":
         p["attn"] = M.init_mla(gen, cfg, dtype, out_scale, lead)
     elif spec.mixer in ("gqa", "hybrid"):
@@ -164,6 +170,9 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
     if spec.cross:
         p["ln_cross"] = L.init_norm(gen, cfg, cfg.d_model, dtype, lead)
         p["cross"] = A.init_cross_attn(gen, cfg, dtype, out_scale, lead)
+        if spec.gated_cross:
+            p["gate_attn"] = torch.zeros(lead, dtype=dtype, device=gen.device)
+            p["gate_ffn"] = torch.zeros(lead, dtype=dtype, device=gen.device)
     p["ln2"] = L.init_norm(gen, cfg, cfg.d_model, dtype, lead)
     if spec.moe:
         p["moe"] = init_moe_params(gen, cfg, dtype=dtype, lead=lead)
@@ -171,9 +180,10 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
             dffs = cfg.moe.d_ff(cfg.d_ff) * cfg.moe.n_shared_experts
             p["shared"] = L.init_ffn(gen, cfg.d_model, dffs, cfg, dtype,
                                      out_scale, lead)
-    elif cfg.d_ff > 0:
-        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg, dtype,
-                              out_scale, lead)
+    elif cfg.d_ff > 0 or spec.gated_cross:
+        dff = cfg.d_ff if cfg.d_ff > 0 else 4 * cfg.d_model
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, dff, cfg, dtype, out_scale,
+                              lead)
     return p
 
 
@@ -324,19 +334,18 @@ def _fill_ssm_cache(prm: Params, h: torch.Tensor, cfg: ModelConfig) -> Params:
     return {"conv": S.conv_tail(xbc, cfg.ssm.conv_kernel), "h": hfin}
 
 
-def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
-                 cfg: ModelConfig, *, mode: str, cache: Optional[Params],
-                 index, generator, decision, is_training: bool,
-                 cross_src: Optional[torch.Tensor], token_ids,
-                 token_valid=None, flash_decode: bool = False,
-                 block_tables=None, max_seq: int = 0, cache_dtype=None,
-                 ctx=None) -> Tuple[torch.Tensor, Optional[Params], Dict]:
-    """One transformer layer. Returns (x, new_cache, aux). ``block_tables``
-    (decode only) addresses the self-attention cache as a page arena; the
-    cross-attention K/V stay slot-addressed. ``ctx`` is the
-    expert-parallel context of the MoE layers."""
-    new_cache: Params = {}
-    # ---- mixer: self-attention, an SSM, or both (hybrid) ----
+def _tanh_gate(gate: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """A gated cross layer's output scaled by the tanh of its scalar gate,
+    taken in f32 and cast to the output's dtype, as the reference does."""
+    return torch.tanh(gate.float()).to(o.dtype) * o
+
+
+def _mixer(spec: LayerSpec, p: Params, x: torch.Tensor, cfg: ModelConfig,
+           new_cache: Params, *, mode: str, cache: Optional[Params], index,
+           flash_decode: bool, block_tables, max_seq: int,
+           cache_dtype) -> torch.Tensor:
+    """A layer's mixer sub-layer (self-attention, an SSM, or both) on the
+    residual ``x``; its prefill or decode cache goes into ``new_cache``."""
     h = L.norm_apply(p["ln1"], x, cfg)
     outs = []
     if spec.mixer != "ssm":
@@ -357,10 +366,29 @@ def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
             o = S.ssm_apply(p["ssm"], h, cfg)
         outs.append(o)
     if spec.mixer == "hybrid":
-        x = x + 0.5 * (_rms_scale(outs[0], p["mix_norm_attn"])
-                       + _rms_scale(outs[1], p["mix_norm_ssm"]))
-    else:
-        x = x + outs[0]
+        return x + 0.5 * (_rms_scale(outs[0], p["mix_norm_attn"])
+                          + _rms_scale(outs[1], p["mix_norm_ssm"]))
+    return x + outs[0]
+
+
+def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
+                 cfg: ModelConfig, *, mode: str, cache: Optional[Params],
+                 index, generator, decision, is_training: bool,
+                 cross_src: Optional[torch.Tensor], token_ids,
+                 token_valid=None, flash_decode: bool = False,
+                 block_tables=None, max_seq: int = 0, cache_dtype=None,
+                 ctx=None) -> Tuple[torch.Tensor, Optional[Params], Dict]:
+    """One transformer layer. Returns (x, new_cache, aux). ``block_tables``
+    (decode only) addresses the self-attention cache as a page arena; the
+    cross-attention K/V stay slot-addressed. ``ctx`` is the
+    expert-parallel context of the MoE layers."""
+    new_cache: Params = {}
+    # ---- mixer: self-attention, an SSM, both (hybrid), or none ----
+    if spec.mixer != "none":
+        x = _mixer(spec, p, x, cfg, new_cache, mode=mode, cache=cache,
+                   index=index, flash_decode=flash_decode,
+                   block_tables=block_tables, max_seq=max_seq,
+                   cache_dtype=cache_dtype)
     # ---- cross attention ----
     if spec.cross:
         h = L.norm_apply(p["ln_cross"], x, cfg)
@@ -371,13 +399,18 @@ def _layer_apply(spec: LayerSpec, p: Params, x: torch.Tensor,
             if mode == "prefill":
                 new_cache["cross"] = {"k": ck.to(cache_dtype),
                                       "v": cv.to(cache_dtype)}
-        x = x + A.cross_attention_kv(p["cross"], h, ck, cv)
+        o = A.cross_attention_kv(p["cross"], h, ck, cv)
+        if spec.gated_cross:
+            o = _tanh_gate(p["gate_attn"], o)
+        x = x + o
         if mode == "decode":
             new_cache["cross"] = cache["cross"]
     # ---- FFN / MoE ----
     h = L.norm_apply(p["ln2"], x, cfg)
     y, aux = _moe_or_ffn(p, spec, h, cfg, generator, decision, is_training,
                          token_ids, token_valid, ctx)
+    if spec.gated_cross:
+        y = _tanh_gate(p["gate_ffn"], y)
     x = x + y
     return x, (new_cache if mode in ("prefill", "decode") else None), aux
 

@@ -142,17 +142,21 @@ def init_slot_pool(cfg: ModelConfig, n_slots: int, max_seq: int, *, device,
 def slot_pool_like(batch: Dict[str, Any], cfg: ModelConfig, *, max_seq: int,
                    n_slots: int):
     """Slot pool shaped like the caches ``prefill`` produces for ``batch``
-    (the cross-K/V length follows ``batch["enc_tokens"]``; a decoder-only
-    batch has no cross leaves), on the batch's device. Shapes come from
-    the meta device: nothing is computed."""
+    (the cross-K/V length follows its source, ``cross_len``; a
+    decoder-only batch has no cross leaves), on the batch's device. Shapes
+    come from the meta device: nothing is computed."""
     return init_slot_pool(cfg, n_slots, max_seq, device=batch["tokens"].device,
                           n_cross=cross_len(batch))
 
 
 def cross_len(batch: Dict[str, Any]) -> Optional[int]:
-    """The source length of ``batch``'s cross-attention K/V, or None where
-    the family has no source."""
-    return batch["enc_tokens"].shape[1] if "enc_tokens" in batch else None
+    """The source length of ``batch``'s cross-attention K/V (source
+    tokens, audio frames or image embeddings), or None where the family
+    has no source."""
+    for k in ("enc_tokens", "frames", "img_embeds"):
+        if k in batch:
+            return batch[k].shape[1]
+    return None
 
 
 def _scatter_slots(pool, fresh, axes, slots: torch.Tensor):
@@ -232,9 +236,14 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def to_device_packed(arrays: Dict[str, np.ndarray],
                      device: torch.device) -> Dict[str, torch.Tensor]:
-    """Integer host arrays on ``device`` through ONE copy (``to_device`` of
-    their concatenation): int64 views of the one device buffer, each in
-    its own shape."""
+    """Integer (or bool) host arrays on ``device`` through ONE copy
+    (``to_device`` of their concatenation): int64 views of the one device
+    buffer, each in its own shape. Any other array is refused: its cast
+    to int64 would truncate it."""
+    bad = {k: np.asarray(a).dtype.name for k, a in arrays.items()
+           if np.asarray(a).dtype.kind not in "biu"}
+    if bad:
+        raise TypeError(f"to_device_packed packs integer arrays only: {bad}")
     flat = np.concatenate([np.asarray(a, np.int64).reshape(-1)
                            for a in arrays.values()])
     buf = to_device(flat, device)
@@ -243,6 +252,18 @@ def to_device_packed(arrays: Dict[str, np.ndarray],
         n = int(np.prod(np.shape(a), dtype=np.int64))
         out[name] = buf[at:at + n].view(np.shape(a))
         at += n
+    return out
+
+
+def to_device_batch(arrays: Dict[str, np.ndarray],
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """Host arrays on ``device``: the integer ones through one packed copy
+    (``to_device_packed``), each float one (a conditioning input such as
+    ``frames`` or ``img_embeds``) through ``to_device`` in its own dtype."""
+    floats = {k for k, a in arrays.items() if np.asarray(a).dtype.kind == "f"}
+    out = to_device_packed({k: a for k, a in arrays.items() if k not in floats},
+                           device)
+    out.update({k: to_device(np.asarray(arrays[k]), device) for k in floats})
     return out
 
 
@@ -440,8 +461,9 @@ def generate(params, batch: Dict[str, Any], cfg: ModelConfig,
              gen: GenerateConfig = GenerateConfig(),
              seed: int = 0, ctx=None) -> GenerateResult:
     """Generate ``gen.max_new`` tokens for the prompts ``batch["tokens"]``
-    (B, P) plus the family's conditioning inputs (``enc_tokens`` of the
-    encoder-decoder; none for the decoder-only families), on the
+    (B, P) plus the family's conditioning inputs (``enc_tokens`` or
+    ``frames`` of the encoder-decoder, ``img_embeds`` of the VLM; none for
+    the decoder-only families), on the
     device the parameters and batch live on: beam search when
     ``gen.beam_width > 1``, else greedy or sampled. ``seed`` keys sampling
     (row b draws from the stream of (seed, b)). Runs without autograd, so

@@ -22,7 +22,8 @@ real page never appears twice in one write.
 Which leaves page is found structurally (``_cache_page_axes``): leaves
 whose shape tracks ``max_seq`` (the self-attention K/V) page; the others
 (the cross-attention K/V) keep the slot-pool layout, both in one cache
-tree and one decode step.
+tree and one decode step. A VLM's gated cross layer holds cross K/V
+alone: it reads no block table, and its cache stays slot-addressed.
 
 The reference's arrays are immutable; the port updates the arena and the
 slot leaves IN PLACE (scatter, copy-on-write, swap-in), and every read
@@ -114,7 +115,9 @@ class PagedLayout:
 def make_layout(cfg: ModelConfig, max_seq: int, page_size: int,
                 n_pages: int) -> PagedLayout:
     """The arena of a ``max_seq``-token cache: its logical positions
-    include the hybrid's meta tokens."""
+    include the hybrid's meta tokens. Only self-attention K/V page, so the
+    geometry is the same whatever share of the layers holds cross K/V
+    alone (a VLM's gated layers)."""
     return PagedLayout(page_size=page_size, n_pages=n_pages,
                        seq_len=max_seq + cfg.n_meta)
 
@@ -258,8 +261,9 @@ class PrefixCache:
 def paged_pool_like(batch: Dict[str, Any], cfg: ModelConfig, *, max_seq: int,
                     n_slots: int, layout: PagedLayout):
     """Paged decode pool shaped like the caches ``prefill`` produces for
-    ``batch`` (the cross-K/V length follows ``batch["enc_tokens"]``; a
-    decoder-only batch has no cross leaves), on the batch's device.
+    ``batch`` (the cross-K/V length follows its source, ``cross_len``:
+    source tokens, audio frames or image embeddings; a decoder-only batch
+    has no cross leaves), on the batch's device.
     Pageable leaves become page arenas ``(..., n_pages + 1, page_size,
     ...)``; the others keep the slot-pool layout over ``n_slots`` rows
     (callers include the scratch slot)."""

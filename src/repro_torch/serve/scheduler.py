@@ -48,6 +48,7 @@ index) (``engine._select_rows``), so sampling is placement-invariant too.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -62,7 +63,7 @@ from repro_torch.serve.engine import (GenerateConfig, _check_local_routing,
                                       _select_rows, decode_pool_step,
                                       generate, prefill_into_slots,
                                       slot_pool_like, to_device,
-                                      to_device_packed)
+                                      to_device_batch, to_device_packed)
 from repro_torch.serve.paged import (PageAllocator, PagePoolExhausted,
                                      PrefixCache, _cache_page_axes, ceil_div,
                                      copy_pages,
@@ -76,7 +77,9 @@ from repro_torch.tree import flatten_with_paths
 @dataclasses.dataclass
 class Request:
     """One generation request. ``extras`` holds the family's conditioning
-    inputs WITHOUT a batch axis (``enc_tokens (S,)``). ``max_new`` caps
+    inputs WITHOUT a batch axis (``enc_tokens (S,)``, ``frames (S,
+    d_model)`` or ``img_embeds (n_img, d_image)``; float inputs reach the
+    device in their own dtype). ``max_new`` caps
     this request's generated tokens (default the scheduler's
     ``GenerateConfig.max_new``); ``seed`` keys its sampling stream (default
     its ``rid``); ``arrival`` is in scheduler-clock seconds."""
@@ -390,8 +393,8 @@ class ContinuousScheduler:
     def _prefill_group(self, group: List[Request], bucket: int, now: float):
         with self.tracer.span("sched.prefill", bucket=bucket, group=len(group)):
             W, lengths, slots, seeds, host = self._stage_group(group, bucket)
-            dev = to_device_packed(dict(host, lengths=lengths, slots=slots),
-                                   self.device)
+            dev = to_device_batch(dict(host, lengths=lengths, slots=slots),
+                                  self.device)
             batch = {k: dev[k] for k in host}
             self._ensure_pool(batch)
             logits, self.pool = prefill_into_slots(
@@ -603,12 +606,16 @@ class PagedScheduler(ContinuousScheduler):
     def _cond_key(req: Request) -> Tuple:
         """The request's conditioning inputs as part of its prefix keys: in
         the encoder-decoder every decoder layer after the first reads the
-        source through cross-attention, so equal target prefixes give
-        equal pages only under equal sources. A decoder-only request has
-        none: ``()``, and its pages are keyed on the prompt alone, the
-        reference's key."""
-        return tuple((k, v.dtype.str, v.shape, v.tobytes())
-                     for k, v in sorted((k, np.asarray(v))
+        source (tokens or audio frames) through cross-attention, and in the
+        VLM every layer after the first gated one reads the image, so
+        equal target prefixes give equal pages only under equal sources.
+        Each input enters as its dtype, shape and a 128-bit digest of its
+        bytes (an image is 8 MB). A decoder-only request has none: ``()``,
+        and its pages are keyed on the prompt alone, the reference's
+        key."""
+        return tuple((k, v.dtype.str, v.shape,
+                      hashlib.blake2b(v.tobytes(), digest_size=16).digest())
+                     for k, v in sorted((k, np.ascontiguousarray(v))
                                         for k, v in req.extras.items()))
 
     def _page_key(self, req: Request, f: int):
@@ -684,8 +691,8 @@ class PagedScheduler(ContinuousScheduler):
             self._tables[s] = scratch
             self._tables[s, :len(pages)] = pages
             wt[i, h:len(pages)] = pages[h:]     # shared blocks stay scratch
-        dev = to_device_packed(dict(host, lengths=lengths, slots=slots, wt=wt),
-                               self.device)
+        dev = to_device_batch(dict(host, lengths=lengths, slots=slots, wt=wt),
+                              self.device)
         batch = {k: dev[k] for k in host}
         self._ensure_pool(batch)
         logits, self.pool = prefill_into_pages(

@@ -161,8 +161,14 @@ def test_configs_plans_and_counts_match(arch):
 
 def test_unported_layers_raise_naming_their_roadmap_item():
     cfg = reduced(get_config("yi-6b"))
-    with pytest.raises(NotImplementedError, match="A.4f"):
-        T.layer_plan(dataclasses.replace(cfg, family="vlm"))
+    # the VLM is ported: a gated cross-only layer (no mixer) wherever
+    # i % cross_attn_period == 0, the self-attention plan elsewhere
+    vlm = get_config("llama-3.2-vision-90b")
+    flat = [p for s in T.layer_plan(vlm) for _ in range(s.repeats) for p in s.pattern]
+    period = vlm.vlm.cross_attn_period
+    assert [(p.mixer, p.gated_cross, p.cross) for p in flat] == [
+        ("none", True, True) if i % period == 0 else ("gqa", False, False)
+        for i in range(vlm.n_layers)]
     # sliding windows are ported: the plan carries the window
     assert {p.window for s in T.layer_plan(dataclasses.replace(cfg, sliding_window=64))
             for p in s.pattern} == {64}
