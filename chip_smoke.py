@@ -74,7 +74,26 @@ Phases (any failure exits non-zero):
                  full width through Trainer(eval_every=1), BLEU and the
                  eval's wall time, its scored tokens gated equal to
                  generate's;
-  obs. observability -- after phase ep, on the seeded full-width
+  tp. the model axis -- after phase ep, on phase 6's seeded full-width
+                 zcode-m3-base in f32: (a) for m = 2 and 4, each model
+                 shard's expert FFN through B1's forward, dx and dW on its
+                 d_ff / m slice of w_in (columns) and w_out (rows) at the
+                 training site ((128, 8, 512)) and the decode site ((128,
+                 1, 512)): the shards' summed output and dx and their
+                 joined dW against the unsharded B1 and the plain version,
+                 every launch on the streaming kernel, each sliced product
+                 timed in turns with torch.bmm beside its bound; (b)
+                 --mesh 1,2 on the one card: two ranks of this script
+                 (--tp-rank, started by the phase) under gloo, which takes
+                 the card's tensors (NCCL refuses two ranks on one device;
+                 at d = 1 the tensor-parallel layout issues all-reduces
+                 only), each with the full-width model's d_ff / 2 slice of
+                 every expert: a routed and a Gate-Drop step on cuda within
+                 phase 6's f32 bound of a one-rank run of the same steps,
+                 each rank's B1 launches per step at the d_ff / 2 shapes,
+                 and a short greedy generate whose tokens equal the
+                 one-rank run's;
+  obs. observability -- after phase tp, on the seeded full-width
                  zcode-m3-base (bf16 activations): phase 7's trace through
                  the slot pool, the arena and the 20-page arena with the
                  span tracer and the metrics registry on and every tick
@@ -190,7 +209,7 @@ Phases (any failure exits non-zero):
 runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
 to compare two trees' B5 and B6 at these sites in one call; ``--only ep``,
-``--only obs``, ``--only dec``, ``--only swa``, ``--only mla``,
+``--only tp``, ``--only obs``, ``--only dec``, ``--only swa``, ``--only mla``,
 ``--only ssm`` and ``--only vlm`` run phases 1, 2 and that phase alone.
 
 Prints the kernel table as one JSON line before the last line and, as the
@@ -2037,7 +2056,7 @@ def ep_phase(full, dev):
     OUT.mkdir(parents=True, exist_ok=True)
     rdv = OUT / "ep_rendezvous"
     rdv.unlink(missing_ok=True)
-    ctx = make_group(1, dev, init_method=f"file://{rdv}", rank=0, world_size=1)
+    ctx = make_group((1, 1), dev, init_method=f"file://{rdv}", rank=0, world_size=1)
     try:
         if not (ctx.active and ctx.ep == 1):
             raise AssertionError("ep: the one-rank group is not active")
@@ -2050,6 +2069,276 @@ def ep_phase(full, dev):
     finally:
         close_group()
         rdv.unlink(missing_ok=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase tp: the model axis (tensor parallelism inside the experts)
+# ---------------------------------------------------------------------------
+
+TP_WAYS = (2, 4)            # model-axis widths of the sliced B1 checks
+TP_DECISIONS = (False, True)  # phase tp's two steps: routed, then Gate-Drop
+TP_GEN_ROWS, TP_GEN_PROMPT, TP_GEN_NEW = 4, 16, 8
+TP_RANK_TIMEOUT = 400
+
+
+def tp_ffn(x, w_in, w_out, act, plain=False):
+    """The expert FFN (up, activation, down) on B1's entry points, or its
+    plain version (einsums) with ``plain``; differentiable."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+    if not plain:
+        return K.expert_ffn_op(x, w_in, None, w_out, act)
+    h = ref.activation(act)(torch.einsum("ecd,edf->ecf", x, w_in))
+    return torch.einsum("ecf,efd->ecd", h, w_out)
+
+
+def tp_ffn_grads(x, w_in, w_out, dy, act, plain=False):
+    """(y, dx, dw_in, dw_out) of ``tp_ffn`` against the cotangent ``dy``."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, w_in, w_out)]
+    y = tp_ffn(*leaves, act, plain=plain)
+    grads = torch.autograd.grad(y, leaves, dy)
+    return (y.detach(), *grads)
+
+
+def tp_sliced_site(site, c, full, dev):
+    """One site's sliced B1 check: for each model width m, every model
+    shard's FFN on its d_ff / m slice of w_in (columns) and w_out (rows)
+    through B1's forward, dx and dw; the shards' output and dx summed and
+    their dW slices joined, held against the unsharded B1 and the plain
+    version. Returns {m: the shards' (args) per entry point}."""
+    from repro_torch.kernels import (grouped_ffn, launch_counts, reset_launch_counts)
+    E, d, f = full.moe.n_experts, full.d_model, full.moe.d_ff(full.d_ff)
+    g = torch.Generator(device=dev).manual_seed(40 + c)
+    x = torch.randn(E, c, d, device=dev, generator=g)
+    w_in = torch.randn(E, d, f, device=dev, generator=g) * d ** -0.5
+    w_out = torch.randn(E, f, d, device=dev, generator=g) * f ** -0.5
+    dy = torch.randn(E, c, d, device=dev, generator=g)
+    whole = tp_ffn_grads(x, w_in, w_out, dy, full.act)
+    plain = tp_ffn_grads(x, w_in, w_out, dy, full.act, plain=True)
+    out = {}
+    for m in TP_WAYS:
+        n = f // m
+        reset_launch_counts()
+        shards = [tp_ffn_grads(x, w_in[..., k * n:(k + 1) * n].contiguous(),
+                               w_out[:, k * n:(k + 1) * n].contiguous(), dy, full.act)
+                  for k in range(m)]
+        torch.cuda.synchronize()
+        counts, streamed = launch_counts(), streamed_counts()
+        got = (sum(sh[0] for sh in shards), sum(sh[1] for sh in shards),
+               torch.cat([sh[2] for sh in shards], dim=-1),
+               torch.cat([sh[3] for sh in shards], dim=-2))
+        errs = {}
+        for label, a, w, p in zip(("y", "dx", "dw_in", "dw_out"), got, whole, plain):
+            errs[label] = (check(f"tp sliced {label}@{site} m={m} vs unsharded B1", a, w),
+                           check(f"tp sliced {label}@{site} m={m} vs plain", a, p))
+        want = {"grouped_matmul": 2 * m, "grouped_matmul_dx": 2 * m,
+                "grouped_matmul_dw": 2 * m}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"tp sliced @{site} m={m}: launches {counts} != {want}")
+        variants = {k: "streaming" if streamed[k] == counts[k] else
+                    f"{streamed[k]} of {counts[k]} streaming" for k in want}
+        pred = grouped_ffn.variant(c, d, n, 4, *(t.data_ptr() for t in (x, w_in, dy)))
+        log(f"tp sliced B1 @{site} m={m} (x ({E}, {c}, {d}), w_in slice ({E}, {d}, {n}), "
+            f"w_out slice ({E}, {n}, {d}); f32): shards' sum vs unsharded B1 and plain, "
+            f"max abs err " + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in errs.items())
+            + f" (tol {TOL['float32']}); launches {counts}; variants {variants} "
+            f"(grouped_ffn.variant predicts {pred})")
+        if set(variants.values()) != {"streaming"}:
+            raise AssertionError(f"tp sliced @{site} m={m}: a launch took the tiled kernel")
+        dh = torch.randn(E, c, n, device=dev, generator=g)
+        out[m] = {"errs": errs, "launches": counts, "variants": variants,
+                  "fwd": (x, w_in[..., :n].contiguous()),
+                  "dx_up": (dh, w_in[..., :n].contiguous()),
+                  "dx_down": (dy, w_out[:, :n].contiguous()),
+                  "dw_up": (x, dh)}
+    return out
+
+
+def tp_time(name, site, args):
+    """B1's ``name`` entry point at one sliced site, in turns with its
+    torch.bmm, the plain version alone, and the bound from these inputs."""
+    b_ms, b_by = bound(*work(name, args))
+    k_ms, l_ms = in_turns(lambda: kernel_of(name)(*args), library_of(name, args))
+    p_ms = device_ms(lambda: plain_of(name)(*args))
+    shape = " x ".join(str(tuple(a.shape)) for a in args)
+    log(f"time tp {name}@{site} [{shape}]: kernel {k_ms:.6f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}; {b_ms / k_ms * 100:.1f}% of it), plain {p_ms:.6f} ms, library "
+        f"{l_ms:.6f} ms (torch.bmm, timed in turns with the kernel); "
+        f"{b1_variant(name, args)} variant")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                shape=shape, variant=b1_variant(name, args))
+
+
+def tp_sliced(full, dev):
+    """Phase tp (a): B1 on the model axis's d_ff slices at the training site
+    ((E, C, d) = (128, 8, 512)) and the decode site ((128, 1, 512)),
+    checked and timed."""
+    from repro_torch.core import router as R
+    tokens, E, k = TRAIN_BATCH * TRAIN_SEQ, full.moe.n_experts, full.moe.top_k
+    sites = {"train": min(R.capacity(tokens, E, k, full.moe.capacity_factor), tokens),
+             "decode": min(R.capacity(BATCH, E, k, full.moe.eval_capacity_factor), BATCH)}
+    out, timing = {}, {}
+    for site, c in sites.items():
+        res = tp_sliced_site(site, c, full, dev)
+        for m, r in res.items():
+            entries = ([("grouped_matmul", "fwd")] if site == "decode" else
+                       [("grouped_matmul", "fwd"), ("grouped_matmul_dx", "dx_up"),
+                        ("grouped_matmul_dx", "dx_down"), ("grouped_matmul_dw", "dw_up")])
+            for name, key in entries:
+                label = f"{site}{'' if key == 'fwd' else '_' + key.split('_')[1]}/m={m}"
+                timing[f"{name}@{label}"] = tp_time(name, label, r[key])
+            out[f"{site}/m={m}"] = {k: r[k] for k in ("errs", "launches", "variants")}
+        del res
+    torch.cuda.empty_cache()
+    return out, timing
+
+
+def tp_steps(full, dev, ctx):
+    """The seeded full-width zcode-m3-base (f32, cuda backend): its two
+    phase-tp steps (routed, Gate-Drop) and a short greedy generate, under
+    ``ctx`` (None: one rank, ungrouped). Returns (per-step metrics and
+    launches, the weight shapes B1 saw, the generated tokens)."""
+    from repro_torch.bridge import shard_experts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generator, synth_batch
+    from repro_torch.models import init_model
+    from repro_torch.serve import GenerateConfig, generate
+    from repro_torch.training import init_train_state, make_train_step
+    cfg = train_cfg(full, "cuda", "float32")
+    tc = train_tc(len(TP_DECISIONS))
+    batches = train_batches(dev, len(TP_DECISIONS))
+    params = shard_experts(init_model(generator(dev, SEED, 0), cfg), ctx)
+    torch.cuda.empty_cache()
+    state = init_train_state(params, tc)
+    step = make_train_step(cfg, tc, ctx)
+    rows = []
+    cap = Capture(names=("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw"),
+                  share_over=1 << 16)
+    with cap:
+        for batch, dec in zip(batches, TP_DECISIONS):
+            reset_launch_counts()
+            state, m = step(state, batch, dec)
+            torch.cuda.synchronize()
+            rows.append({**{k: float(m[k]) for k in ("loss", "grad_norm", "balance",
+                                                     "gate_dropped", "comm_a2a_calls")},
+                         "launches": launch_counts(), "streamed": streamed_counts()})
+    shapes = {name: sorted({str(tuple(a.shape)) for args, _ in calls for a in args
+                            if torch.is_tensor(a)}) for name, calls in cap.calls.items()}
+    del cap
+    gen = synth_batch(cfg, generator(dev, SEED, 1), TP_GEN_ROWS, TP_GEN_PROMPT)
+    res = generate(state["params"], gen, cfg, GenerateConfig(max_new=TP_GEN_NEW, eos_id=-1),
+                   ctx=ctx)
+    tokens = res.tokens.cpu().tolist()
+    del state, step, params, batches
+    torch.cuda.empty_cache()
+    return rows, shapes, tokens
+
+
+def tp_rank_main(rank: int, d: str) -> int:
+    """One rank of phase tp (b): --mesh 1,2 on the one card under gloo
+    (NCCL refuses two ranks on one device), its rows and block of experts
+    (every expert's d_ff / 2 slice); writes ``d/rank<rank>.json``."""
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import close_group, make_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = "0"
+    dev = torch.device("cuda")
+    ctx = make_group((1, 2), dev, init_method=f"file://{d}/rendezvous", rank=rank,
+                     world_size=2, backend="gloo")
+    try:
+        t0 = time.perf_counter()
+        rows, shapes, tokens = tp_steps(get_config("zcode-m3-base"), dev, ctx)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(f"{d}/rank{rank}.json", "w") as f:
+            json.dump({"rows": rows, "shapes": shapes, "tokens": tokens, "peak_gib": peak,
+                       "seconds": time.perf_counter() - t0}, f)
+    finally:
+        close_group()
+    return 0
+
+
+def tp_two_ranks(full, dev):
+    """Phase tp (b): the one-rank run of the two steps and the generate,
+    its states freed, then the same under --mesh 1,2 in two processes on
+    this card (gloo): losses, grad norms and balance within phase 6's f32
+    bound of the one-rank run's, each rank's B1 launches per step at the
+    d_ff / 2 shapes, the generated tokens equal."""
+    import shutil
+    ref_rows, ref_shapes, ref_tokens = tp_steps(full, dev, None)
+    log(f"tp one-rank run done; device memory now allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    d = OUT / "tp_ranks"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-rank",
+                               str(r), "--tp-dir", str(d)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TP_RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"tp rank {r} failed (rc {p.returncode}):\n{text[-6000:]}")
+    ranks = [json.loads((d / f"rank{r}.json").read_text()) for r in range(2)]
+    want_launch = expected_train_launches(train_cfg(full, "cuda", "float32"), "cuda")
+    f_half = str(full.moe.d_ff(full.d_ff) // 2)
+    for r, rk in enumerate(ranks):
+        for i, (got, ref) in enumerate(zip(rk["rows"], ref_rows)):
+            worst = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6)
+                     for k in ("loss", "grad_norm", "balance")}
+            log(f"tp rank {r} step {i} ({'Gate-Drop' if got['gate_dropped'] else 'routed'}): "
+                f"loss {got['loss']:.6f} (one rank {ref['loss']:.6f}), relative diff "
+                + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                + f" (tol {TRAIN_METRIC_RTOL}); B1 launches {got['launches']}, streaming "
+                f"{got['streamed']}; a2a calls {got['comm_a2a_calls']}")
+            if (max(worst.values()) > TRAIN_METRIC_RTOL
+                    or got["gate_dropped"] != ref["gate_dropped"]):
+                raise AssertionError(f"tp rank {r} step {i}: differs from the one-rank run")
+            if got["launches"] != want_launch or any(
+                    got["streamed"][k] != got["launches"][k] for k in got["streamed"]):
+                raise AssertionError(f"tp rank {r} step {i}: launches {got['launches']} "
+                                     f"!= {want_launch}, or not all streaming")
+        for name, shapes in rk["shapes"].items():
+            if not shapes or any("2048" in s for s in shapes) or not any(
+                    f_half in s for s in shapes):
+                raise AssertionError(f"tp rank {r}: {name} saw shapes {shapes}, not the "
+                                     f"d_ff / 2 = {f_half} slices")
+        log(f"tp rank {r}: B1 input shapes {rk['shapes']}; peak device memory "
+            f"{rk['peak_gib']:.2f} GiB; {rk['seconds']:.1f} s in the rank")
+        if rk["tokens"] != ref_tokens:
+            raise AssertionError(f"tp rank {r}: generated tokens {rk['tokens']} != the "
+                                 f"one-rank run's {ref_tokens}")
+    log(f"tp --mesh 1,2 on one card under gloo: 2 ranks, {len(TP_DECISIONS)} steps and a "
+        f"greedy generate ({TP_GEN_ROWS} x {TP_GEN_PROMPT} prompt, {TP_GEN_NEW} new) each, "
+        f"tokens equal the one-rank run's; {wall:.1f} s for both processes (start "
+        "included); the one-rank B1 shapes were " + str(ref_shapes))
+    shutil.rmtree(d, ignore_errors=True)
+    return {"one_rank": ref_rows, "ranks": [{k: rk[k] for k in ("rows", "peak_gib", "seconds")}
+                                            for rk in ranks],
+            "tokens_equal": True, "wall_s": wall}
+
+
+def tp_phase(full, dev):
+    """Phase tp: the model axis on phase 6's seeded full-width
+    zcode-m3-base (f32): B1 on its d_ff slices (m = 2, 4) checked and timed,
+    then --mesh 1,2 on the one card."""
+    t0 = time.perf_counter()
+    sliced, timing = tp_sliced(full, dev)
+    out = {"sliced": sliced, "timing": timing, "mesh_1x2": tp_two_ranks(full, dev)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tp phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -4799,13 +5088,17 @@ def serve_phases(full, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("full_cache", "ep", "obs", "dec", "swa", "mla", "ssm",
-                                       "vlm"),
+    ap.add_argument("--only", choices=("full_cache", "ep", "tp", "obs", "dec", "swa", "mla",
+                                       "ssm", "vlm"),
                     help="run phases 1, 2 and this phase alone")
+    ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.tp_rank is not None:          # one rank of phase tp, started by it
+        return tp_rank_main(args.tp_rank, args.tp_dir)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
@@ -4831,6 +5124,9 @@ def main() -> int:
         return full_cache_only(full, dev)
     if args.only == "ep":
         print(json.dumps({"ep": ep_phase(full, dev)}), flush=True)
+        return 0
+    if args.only == "tp":
+        print(json.dumps({"tp": tp_phase(full, dev)}), flush=True)
         return 0
     if args.only == "obs":
         print(json.dumps({"obs": obs_phase(full, dev)}), flush=True)
@@ -4879,6 +5175,8 @@ def main() -> int:
 
     # ep. the expert-parallel path under a one-rank group
     print(json.dumps({"ep": ep_phase(full, dev)}), flush=True)
+    # tp. the model axis: B1 on d_ff slices, --mesh 1,2 on the one card
+    print(json.dumps({"tp": tp_phase(full, dev)}), flush=True)
     # obs. the observability layer over the trainer and both schedulers
     print(json.dumps({"obs": obs_phase(full, dev)}), flush=True)
     # dec. the decoder-only family: yi-6b, dbrx-132b (2 layers), --task lm

@@ -57,20 +57,39 @@ def to_numpy(params: Any) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
     return flat, dtypes
 
 
-def shard_experts(params: Any, rank: int, ep: int) -> Any:
-    """The tree rank ``rank`` of an ep-rank group holds: every expert leaf
-    (``core.moe.is_expert_leaf``) sliced to its block of E/ep experts
-    along the expert axis (-3, after any stacking axes), every other leaf
-    as it is. Every rank slicing the same full init starts an ep-rank run
-    from the model an ep = 1 run starts from."""
+def expert_tp_axis(key: str) -> int:
+    """The axis of an expert leaf (weight or moment, "/"-joined path) that
+    tensor parallelism slices: d_ff, the last axis of ``w_in`` and
+    ``w_gate``, the one before it of ``w_out``."""
+    return -2 if key.split("/")[-1] == "w_out" else -1
+
+
+def shard_experts(params: Any, ctx) -> Any:
+    """The tree this rank of ``ctx`` (a ``core.moe.ParallelContext``)
+    holds: every expert leaf (``core.moe.is_expert_leaf``) sliced to its
+    shard's block of E/ep experts along the expert axis (-3, after any
+    stacking axes) and, in the tensor-parallel layout on a model axis,
+    to its model index's 1/tp of d_ff (``expert_tp_axis``); every other
+    leaf as it is (the reference's expert rules,
+    ``parallel/sharding.py``). Every rank slicing the same full init
+    starts a run from the model a one-rank run starts from."""
     from repro_torch.core.moe import is_expert_leaf
+    if ctx is None or ctx.world == 1:
+        return params
     out = {}
     for key, t in flatten_with_paths(params).items():
         if is_expert_leaf(key):
-            e = t.shape[-3]
-            if e % ep:
-                raise ValueError(f"{key}: {e} experts do not split over ep={ep}")
-            n = e // ep
-            t = t.narrow(t.dim() - 3, rank * n, n).contiguous()
+            t = _block(t, t.dim() - 3, ctx.shard, ctx.ep, key)
+            if ctx.ffn_tp > 1:
+                t = _block(t, t.dim() + expert_tp_axis(key), ctx.model, ctx.ffn_tp, key)
+            t = t.contiguous()
         out[key] = t
     return unflatten_paths(out)
+
+
+def _block(t, dim: int, i: int, n: int, key: str):
+    if t.shape[dim] % n:
+        raise ValueError(f"{key}: axis {dim} of {t.shape[dim]} does not split "
+                         f"{n} ways")
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)

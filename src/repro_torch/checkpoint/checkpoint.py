@@ -10,14 +10,15 @@ written by either package restores into the other's train state. Integer
 leaves (the host step counters) are stored as 0-d int32 arrays, as the
 reference stores its device step counters.
 
-Under an expert-parallel group of more than one rank (``ctx``, a
+Under a (data, model) group of more than one rank (``ctx``, a
 ``core.moe.ParallelContext``) a save gathers every expert leaf (its
-parameters and Adam moments) over the group's ranks along the expert axis,
-so the file holds the full arrays the reference's checkpoint holds; rank 0
-writes it and every rank waits until it is written. A restore under a
-group slices each full expert array to the rank's block
-(``bridge.shard_experts``). A checkpoint carries no mesh: one saved at
-any group size restores at any other that divides the expert count.
+parameters and Adam moments) over both axes, along the expert axis and,
+in the tensor-parallel layout, along d_ff, so the file holds the full
+arrays the reference's checkpoint holds; rank 0 writes it and every rank
+waits until it is written. A restore under a group slices each full
+expert array to the rank's block (``bridge.shard_experts``). A checkpoint
+carries no mesh: one saved at any (d, m) in either layout restores at any
+other whose blocks divide the expert count and d_ff.
 """
 from __future__ import annotations
 
@@ -29,24 +30,32 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.bridge import shard_experts, tensor_to_numpy
+from repro_torch.bridge import expert_tp_axis, shard_experts, tensor_to_numpy
 from repro_torch.tree import flatten_with_paths, unflatten_paths
 
 
 def _grouped(ctx) -> bool:
-    return ctx is not None and ctx.ep > 1
+    return ctx is not None and ctx.world > 1
 
 
 def gather_experts(tree: Any, ctx) -> Any:
-    """``tree`` with every expert leaf gathered over ``ctx``'s ranks along
-    the expert axis (-3): the full arrays, on every rank."""
+    """``tree`` with every expert leaf gathered over all of ``ctx``'s
+    ranks: the full arrays, on every rank. Rank r's block is shard
+    ``r // tp``'s experts sliced to model index ``r % tp``'s d_ff in the
+    tensor-parallel layout, shard r's whole experts under
+    ``ep_on_model``."""
     from repro_torch.core.moe import is_expert_leaf
     out = {}
     for key, leaf in flatten_with_paths(tree).items():
         if torch.is_tensor(leaf) and is_expert_leaf(key):
             part = leaf.detach().contiguous()
-            parts = [torch.empty_like(part) for _ in range(ctx.ep)]
+            parts = [torch.empty_like(part) for _ in range(ctx.world)]
             dist.all_gather(parts, part, group=ctx.group)
+            n = ctx.ffn_tp
+            if n > 1:               # d_ff over each data index's model ranks
+                axis = part.dim() + expert_tp_axis(key)
+                parts = [torch.cat(parts[j * n:(j + 1) * n], dim=axis)
+                         for j in range(ctx.dp)]
             leaf = torch.cat(parts, dim=part.dim() - 3)
         out[key] = leaf
     return unflatten_paths(out)
@@ -127,8 +136,7 @@ def restore_checkpoint(ckpt_dir: str, template: Any,
             t = torch.from_numpy(np.asarray(arr, order="C"))   # 0-d stays 0-d
             arrays[key] = t.view(torch.int16).view(torch.bfloat16) if key in bf16 else t
     if _grouped(ctx):
-        arrays = flatten_with_paths(shard_experts(unflatten_paths(arrays), ctx.rank,
-                                                  ctx.ep))
+        arrays = flatten_with_paths(shard_experts(unflatten_paths(arrays), ctx))
     out = {}
     for key, leaf in tmpl.items():
         t = arrays[key]

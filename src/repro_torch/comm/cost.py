@@ -86,7 +86,8 @@ def transport_cost(comm: CommConfig, *, ep: int, n_experts: int, cap: int,
     """Bytes and calls of ONE routed layer's transport (dispatch + combine)
     per device. ``itemsize`` is the activation dtype's wire width for the
     uncompressed payload; ``tiers`` (gi, go) overrides the hierarchical
-    factorization. Keys: calls, bytes, wire_bytes,
+    factorization where the mesh fixes it (``ep_on_model``: the model and
+    data groups, (m, d)). Keys: calls, bytes, wire_bytes,
     intra_wire_bytes, inter_wire_bytes, exposed_wire_bytes,
     hidden_wire_bytes. A flat substrate's single hop spans every tier, so
     ALL its wire counts as inter-tier — the pessimistic cross-machine

@@ -69,11 +69,15 @@ class CommEnv:
     """Where a transport runs. ``group`` is the expert-parallel process
     group (None: the oracle's virtual emulation); ``intra`` and ``inter``
     are this rank's tier subgroups for the hierarchical substrates (built
-    by ``ParallelContext.comm_env``; None where a tier has one rank)."""
+    by ``ParallelContext.comm_env``; None where a tier has one rank).
+    ``inner_size`` > 0 fixes the intra tier's size and overrides
+    ``CommConfig.ep_inner``: under ``ep_on_model`` the tiers are the model
+    group (intra) and the data group (inter)."""
     ep: int
     group: Any = None
     intra: Any = None
     inter: Any = None
+    inner_size: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -290,10 +294,12 @@ class _Topo:
         return buf.reshape(go, gi, -1, buf.shape[-1])
 
     def from_dispatch_wire(self, b: torch.Tensor, cap: int) -> torch.Tensor:
+        """The expert FFN's (E/ep, ep*cap, d) buffer, contiguous: at cap = 1
+        the reshape is a strided view, and B1 reads its rows in place."""
         go, gi = self.grid
         e_loc = b.shape[2] // cap
         b = b.reshape(go, gi, e_loc, cap, b.shape[-1]).permute(2, 0, 1, 3, 4)
-        return b.reshape(e_loc, self.env.ep * cap, b.shape[-1])
+        return b.reshape(e_loc, self.env.ep * cap, b.shape[-1]).contiguous()
 
     def to_combine_wire(self, buf: torch.Tensor) -> torch.Tensor:
         go, gi = self.grid
@@ -340,7 +346,7 @@ class _FactoredTopo(_Topo):
 
     def __init__(self, comm: CommConfig, env: CommEnv):
         self.env = env
-        gi, go = factored_ep(env.ep, comm.ep_inner)
+        gi, go = factored_ep(env.ep, env.inner_size or comm.ep_inner)
         self.tiers, self.grid = (gi, go), (go, gi)
         real = env.group is not None
         intra = [(env.intra, 1)] if real and gi > 1 else []

@@ -6,9 +6,12 @@ cross-attention need, the communication substrate, ``PagedKVConfig``
 and ``TrainConfig``).
 
 Plain frozen dataclasses, field for field the reference's defaults, so a
-config built here describes the same model as the reference's. The
-reference's multi-device layout fields (``fsdp``, ``seq_parallel``,
-``ep_on_model``) are not ported (ROADMAP.md A.5).
+config built here describes the same model as the reference's.
+``MoEConfig.ep_on_model`` picks the experts' layout on a ``--mesh d,m``
+group with m > 1 (``core/moe.py``): tensor parallelism inside the experts
+(False, the paper's footnote 1) or whole experts over data x model. The
+reference's other layout fields (``fsdp``, ``seq_parallel``) are not
+ported (ROADMAP.md A.5).
 """
 from __future__ import annotations
 
@@ -154,6 +157,11 @@ class MoEConfig:
     router_z_coef: float = 0.0
     moe_layer_period: int = 1
     first_dense_layers: int = 0
+    # on a model axis m > 1: experts over data x model, each whole on one
+    # rank, the layer's tokens split along the sequence over model (needs
+    # E % (d*m) == 0 and L % m == 0); False slices every expert's d_ff
+    # over model (tensor parallelism)
+    ep_on_model: bool = False
     # execution backend (core/backend.py):
     #   auto | oracle | sharded | cuda | cuda_fused
     backend: str = "auto"

@@ -1,10 +1,15 @@
 """Expert-parallel Mixture-of-Experts layer with Gating Dropout (port of
 ``repro/core/moe.py``).
 
-Layout (the paper's): expert parallelism over the ranks of a
-``torch.distributed`` group (the EP group is the data-parallel group, as
-in Switch and DeepSpeed-MoE): rank r holds experts [r*E/ep, (r+1)*E/ep)
-and a block of the batch rows; the router is replicated.
+Layout (the paper's): expert parallelism over the data axis of a
+(data, model) mesh of ``torch.distributed`` ranks (the EP group is the
+data-parallel group, as in Switch and DeepSpeed-MoE): shard s holds
+experts [s*E/ep, (s+1)*E/ep) and a block of the batch rows; the router
+is replicated. On a model axis m > 1 each expert's d_ff is sliced over
+the model group and the FFN's partial outputs summed over it (tensor
+parallelism, the paper's footnote 1), or, with ``MoEConfig.ep_on_model``,
+the experts spread whole over data x model and the layer's tokens split
+along the sequence over the model group (``ParallelContext``).
 
   * ``moe_oracle``  -- plain torch, ``ep`` *virtual* shards, the wire
                        emulated by the transport's permutes; the ground
@@ -52,55 +57,223 @@ def is_expert_leaf(path: str) -> bool:
 
 
 class ParallelContext:
-    """The expert-parallel group threaded through the model (the
-    reference's mesh bundle): ``group`` a ``torch.distributed`` process
-    group, ``rank`` this process's rank in it and ``ep`` its size. Active
-    whenever a group is given, even a group of one rank, where no
-    collective is issued. ``tier_groups`` builds the hierarchical
-    substrates' subgroups on first use, on every rank in the same order."""
+    """The process groups threaded through the model (the reference's mesh
+    bundle) on a ``dp`` x ``tp`` (data, model) mesh of ranks: ``group``
+    holds all of them, and rank r has data index r // tp and model index
+    r % tp, so the tp ranks of a model group are consecutive.
+    ``data_group`` holds the ranks of this rank's model index,
+    ``model_group`` those of its data index (None for a group of one).
+    Active whenever a group is given, even a group of one rank, where no
+    collective is issued.
 
-    def __init__(self, group=None, rank: int = 0, ep: int = 1):
-        self.group, self.rank, self.ep = group, rank, ep
+    The experts' layout on a model axis tp > 1 (``MoEConfig.ep_on_model``,
+    fixed here):
+
+      * tensor parallelism (default): expert parallelism over the data
+        group (``ep`` = dp, the shard index the data index); each rank
+        holds its shard's E/dp experts, sliced to its 1/tp of every
+        expert's d_ff, and the FFN's partial outputs are summed over the
+        model group;
+      * ``ep_on_model``: expert parallelism over the whole group (``ep`` =
+        dp * tp, the shard index the rank); each rank holds E/(dp*tp)
+        whole experts and the layer's tokens are split along the sequence
+        over the model group.
+
+    ``tier_groups`` builds the hierarchical substrates' subgroups on first
+    use, on every rank in the same order."""
+
+    def __init__(self, group=None, rank: int = 0, dp: int = 1, tp: int = 1, *,
+                 data_group=None, model_group=None, ep_on_model: bool = False):
+        self.group, self.rank, self.dp, self.tp = group, rank, dp, tp
+        self.data, self.model = divmod(rank, tp)
+        # on a one-dimensional mesh the whole group is the axis's group
+        self.data_group = (group if tp == 1 else data_group) if dp > 1 else None
+        self.model_group = (group if dp == 1 else model_group) if tp > 1 else None
+        self.ep_on_model = bool(ep_on_model) and tp > 1
         self._tiers: Dict[int, Tuple[Any, Any]] = {}
 
     @property
     def active(self) -> bool:
         return self.group is not None
 
+    @property
+    def world(self) -> int:
+        return self.dp * self.tp
+
+    @property
+    def ep(self) -> int:
+        """The expert-parallel group's size: dp, or dp * tp under
+        ``ep_on_model``."""
+        return self.world if self.ep_on_model else self.dp
+
+    @property
+    def shard(self) -> int:
+        """This rank's index in the expert-parallel group: the data index,
+        or the rank under ``ep_on_model``."""
+        return self.rank if self.ep_on_model else self.data
+
+    @property
+    def ffn_tp(self) -> int:
+        """Ways every expert's d_ff is sliced: tp, or 1 under
+        ``ep_on_model``."""
+        return 1 if self.ep_on_model else self.tp
+
+    @property
+    def layout(self) -> str:
+        return "ep_on_model" if self.ep_on_model else "tensor-parallel"
+
+    def with_layout(self, ep_on_model: bool) -> "ParallelContext":
+        """The same groups under the other experts' layout."""
+        return ParallelContext(self.group, self.rank, self.dp, self.tp,
+                               data_group=self.data_group,
+                               model_group=self.model_group,
+                               ep_on_model=ep_on_model)
+
+    def _ep_groups(self):
+        """Every expert-parallel group as world ranks, in one order on
+        every rank: the tp data groups, or the whole group."""
+        if self.ep_on_model or self.tp == 1:
+            return [list(range(self.world))]
+        return [[j * self.tp + k for j in range(self.dp)] for k in range(self.tp)]
+
     def tier_groups(self, ep_inner: int) -> Tuple[Any, Any]:
         """(intra, inter): this rank's subgroup of ``ep_inner`` consecutive
-        ranks and its subgroup strided by ``ep_inner`` (``ep_tier_groups``),
-        None for a tier of one rank. ``dist.new_group`` is collective over
-        the whole group: every rank creates every subgroup, in order."""
+        members of its expert-parallel group and its subgroup strided by
+        ``ep_inner`` (``ep_tier_groups``), None for a tier of one rank.
+        ``dist.new_group`` is collective over the whole group: every rank
+        creates every subgroup of every expert-parallel group, in order."""
         gi, go = factored_ep(self.ep, ep_inner)
         if gi not in self._tiers:
-            ranks = dist.get_process_group_ranks(self.group)
-            mine = []
-            for groups, size in zip(ep_tier_groups(self.ep, gi), (gi, go)):
-                found = None
-                for g in groups:
+            mine = [None, None]
+            for ranks in self._ep_groups():
+                for t, (groups, size) in enumerate(zip(ep_tier_groups(self.ep, gi),
+                                                       (gi, go))):
                     if size == 1:
                         continue
-                    pg = dist.new_group([ranks[r] for r in g])
-                    if self.rank in g:
-                        found = pg
-                mine.append(found)
+                    for g in groups:
+                        members = [ranks[r] for r in g]
+                        pg = dist.new_group(members)
+                        if self.rank in members:
+                            mine[t] = pg
             self._tiers[gi] = tuple(mine)
         return self._tiers[gi]
 
     def comm_env(self, comm: CommConfig) -> CommEnv:
+        """The transports' environment: the expert-parallel group and, for
+        the hierarchical substrates, its tiers; under ``ep_on_model`` the
+        tiers are the model group (intra) and the data group (inter),
+        whatever ``comm.ep_inner`` says."""
         if not self.active:
             return CommEnv(ep=self.ep)
+        if self.ep_on_model:
+            if not comm.hierarchical:
+                return CommEnv(ep=self.ep, group=self.group)
+            return CommEnv(ep=self.ep, group=self.group, intra=self.model_group,
+                           inter=self.data_group, inner_size=self.tp)
         intra = inter = None
         if comm.hierarchical and self.ep > 1:
             intra, inter = self.tier_groups(comm.ep_inner)
-        return CommEnv(ep=self.ep, group=self.group, intra=intra, inter=inter)
+        return CommEnv(ep=self.ep, group=self.data_group, intra=intra, inter=inter)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum of ``t`` over the group, in place (nothing at ep = 1)."""
-        if self.ep > 1:
+        """Sum of ``t`` over the whole group, in place (nothing at one
+        rank)."""
+        if self.world > 1:
             dist.all_reduce(t, group=self.group)
         return t
+
+    def data_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of ``t`` over the data group, in place (nothing at dp = 1)."""
+        if self.dp > 1:
+            dist.all_reduce(t, group=self.data_group)
+        return t
+
+    def model_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of ``t`` over the model group, in place (nothing at tp = 1)."""
+        if self.tp > 1:
+            dist.all_reduce(t, group=self.model_group)
+        return t
+
+    def model_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model group's ``t``s concatenated along ``dim`` in model
+        index order."""
+        return _all_gather(t, dim, self.model_group, self.tp)
+
+    def data_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The data group's ``t``s concatenated along ``dim`` in data index
+        order."""
+        return _all_gather(t, dim, self.data_group, self.dp)
+
+
+def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    if n == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _SumOverModelBackward(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model group. Placed
+    where a value replicated over the model group enters a computation
+    that each model rank runs on its own part (the expert FFN on its d_ff
+    slice, the router on its tokens): the gradient of the replicated
+    value is the sum of the parts'."""
+
+    @staticmethod
+    def forward(ctx, x, pctx):
+        ctx.pctx = pctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.pctx.model_all_reduce(g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The FFN's partial outputs summed over the model group; identity for
+    the gradient, which is the same on every model rank (the layers after
+    it are replicated over the model group)."""
+
+    @staticmethod
+    def forward(ctx, y, pctx):
+        return pctx.model_all_reduce(y.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SplitSequence(torch.autograd.Function):
+    """This model rank's slice of the positions (axis -2); the gradient
+    gathered over the model group, so the replicated layers before the
+    MoE layer see the whole sequence's gradient on every model rank."""
+
+    @staticmethod
+    def forward(ctx, x, pctx):
+        ctx.pctx = pctx
+        n = x.shape[-2] // pctx.tp
+        return x.narrow(x.dim() - 2, pctx.model * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.pctx.model_all_gather(g, g.dim() - 2), None
+
+
+class _GatherSequence(torch.autograd.Function):
+    """The model group's slices gathered back along the positions (axis
+    -2); the gradient is this rank's slice of the whole sequence's, which
+    every model rank holds alike."""
+
+    @staticmethod
+    def forward(ctx, y, pctx):
+        ctx.pctx = pctx
+        return pctx.model_all_gather(y, y.dim() - 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[-2] // ctx.pctx.tp
+        return g.narrow(g.dim() - 2, ctx.pctx.model * n, n).contiguous(), None
 
 
 def shard_generator(generator: Optional[torch.Generator],
@@ -150,23 +323,31 @@ def _act(h: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _expert_ffn(experts: Params, buf: torch.Tensor, cfg: ModelConfig,
-                kernels: str = "") -> torch.Tensor:
+                kernels: str = "", tp: Optional[ParallelContext] = None
+                ) -> torch.Tensor:
     """Per-expert FFN on (E, C, d) buffers: plain einsums, or the
-    grouped-matmul kernels (B1) with ``kernels``."""
+    grouped-matmul kernels (B1) with ``kernels``. Under ``tp`` (a context
+    of the tensor-parallel layout) the experts hold this rank's slice of
+    d_ff, and the partial outputs are summed over the model group (the
+    paper's footnote-1 tensor slicing; the reference's ``psum`` and its
+    transpose)."""
     w_in = experts["w_in"]
+    x = buf.to(w_in.dtype)
+    if tp is not None:
+        x = _SumOverModelBackward.apply(x, tp)
     if kernels:
         from repro_torch.kernels import ops as K
-        out = K.expert_ffn_op(buf.to(w_in.dtype), w_in, experts.get("w_gate"),
-                              experts["w_out"], cfg.act)
-        return out.to(buf.dtype)
-    x = buf.to(w_in.dtype)
-    h = torch.einsum("ecd,edf->ecf", x, w_in)
-    if cfg.gated_mlp:
-        g = torch.einsum("ecd,edf->ecf", x, experts["w_gate"])
-        h = _act(g, cfg.act) * h
+        y = K.expert_ffn_op(x, w_in, experts.get("w_gate"), experts["w_out"], cfg.act)
     else:
-        h = _act(h, cfg.act)
-    y = torch.einsum("ecf,efd->ecd", h, experts["w_out"])
+        h = torch.einsum("ecd,edf->ecf", x, w_in)
+        if cfg.gated_mlp:
+            g = torch.einsum("ecd,edf->ecf", x, experts["w_gate"])
+            h = _act(g, cfg.act) * h
+        else:
+            h = _act(h, cfg.act)
+        y = torch.einsum("ecf,efd->ecd", h, experts["w_out"])
+    if tp is not None:
+        y = _SumOverModel.apply(y, tp)
     return y.to(buf.dtype)
 
 
@@ -228,11 +409,11 @@ def _token_valid_tk(token_valid: Optional[torch.Tensor], k: int):
 
 def _pipeline(xf, info: R.DispatchInfo, experts: Params, n_experts: int,
               cap: int, cfg: ModelConfig, kernels: str,
-              wire: Callable) -> torch.Tensor:
+              wire: Callable, tp: Optional[ParallelContext] = None) -> torch.Tensor:
     """dispatch -> ``wire(buf, ffn)`` -> combine: plain (``kernels`` ""),
     the kernels B2, B1 per shard and B3 sharing one set of routing tables
     ("cuda"), or B4 on those tables ("cuda_fused": no buffer, so no
-    wire)."""
+    wire, and no model axis); ``tp`` as in ``_expert_ffn``."""
     if kernels:
         from repro_torch.kernels import ops as K
         tables = K.routing_tables(info, n_experts, cap)
@@ -241,19 +422,21 @@ def _pipeline(xf, info: R.DispatchInfo, experts: Params, n_experts: int,
                                   experts["w_out"], n_experts, cap, cfg.act,
                                   tables=tables)
         buf = K.moe_dispatch_op(xf, info, n_experts, cap, tables=tables)
-        out = wire(buf, lambda b: _expert_ffn(experts, b, cfg, kernels))
+        out = wire(buf, lambda b: _expert_ffn(experts, b, cfg, kernels, tp))
         return K.moe_combine_op(out, info, tables=tables)
     buf = R.dispatch(xf, info, n_experts, cap)               # (E, cap, d)
-    return R.combine(wire(buf, lambda b: _expert_ffn(experts, b, cfg)), info)
+    return R.combine(wire(buf, lambda b: _expert_ffn(experts, b, cfg, tp=tp)), info)
 
 
 def _routed_shard(wr, experts, xf, moe: MoEConfig, cfg: ModelConfig,
                   generator, is_training, token_ids, transport,
-                  token_valid=None, kernels: str = ""):
+                  token_valid=None, kernels: str = "",
+                  tp: Optional[ParallelContext] = None):
     """Routed step on one shard: route -> dispatch -> wire -> FFN on this
     rank's E/ep experts over (E/ep, ep*cap, d) -> wire -> combine, the
     wire being the configured substrate's transport. ``token_valid``
-    keeps tokens (retired serving slots) out of capacity competition."""
+    keeps tokens (retired serving slots) out of capacity competition;
+    ``tp`` as in ``_expert_ffn``."""
     T = xf.shape[0]
     E = moe.n_experts
     cf = moe.capacity_factor if is_training else moe.eval_capacity_factor
@@ -263,15 +446,17 @@ def _routed_shard(wr, experts, xf, moe: MoEConfig, cfg: ModelConfig,
     info = R.dispatch_info(rr, E, cap,
                            valid=_token_valid_tk(token_valid, moe.top_k))
     comm_t = transport.telemetry(E, cap, xf.shape[-1], xf.element_size())
-    y = _pipeline(xf, info, experts, E, cap, cfg, kernels, transport.pipelined)
+    y = _pipeline(xf, info, experts, E, cap, cfg, kernels, transport.pipelined, tp)
     return y, _routed_aux(rr, info, moe, comm=comm_t)
 
 
 def _local_shard(wr, experts_loc, xf, moe: MoEConfig, cfg: ModelConfig,
                  generator, is_training, token_ids, my_shard: int, ep: int,
-                 token_valid=None, kernels: str = ""):
+                 token_valid=None, kernels: str = "",
+                 tp: Optional[ParallelContext] = None):
     """Gate-Drop local step: tokens stay on this shard, routed among the
-    local expert group only; no collective."""
+    local expert group only; no all-to-all (under ``tp`` the FFN's
+    partial outputs are still summed over the model group)."""
     T = xf.shape[0]
     E = moe.n_experts
     e_loc = E // ep
@@ -286,7 +471,7 @@ def _local_shard(wr, experts_loc, xf, moe: MoEConfig, cfg: ModelConfig,
     cap = min(R.capacity(T, e_loc, moe.top_k, cf), T)
     info = R.dispatch_info(rr_local, e_loc, cap, valid=valid)
     y = _pipeline(xf, info, experts_loc, e_loc, cap, cfg, kernels,
-                  lambda buf, ffn: ffn(buf))
+                  lambda buf, ffn: ffn(buf), tp)
     return y, _local_aux(rr, info, moe, T)
 
 
@@ -385,17 +570,19 @@ def _select_branch(moe: MoEConfig, decision: Optional[bool],
 
 def _group_mean(aux: Dict[str, torch.Tensor],
                 ctx: ParallelContext) -> Dict[str, torch.Tensor]:
-    """The aux dict's mean over the group (the reference's pmean), in one
-    all-reduce. A differentiable entry keeps its value's mean but takes
-    its gradient as ``entry / ep``: the step's loss is the sum of every
-    rank's, so the group-mean balance term it holds once reaches each
-    rank's router through its own 1/ep share. The ``comm_*`` telemetry is
-    the same on every rank and stays as it is."""
-    if ctx.ep == 1:
+    """The aux dict's mean over the whole group (the reference's pmean over
+    every mesh axis), in one all-reduce. A differentiable entry keeps its
+    value's mean but takes its gradient as ``entry / ep``: the step's loss
+    is the sum of every expert-parallel shard's, so the group-mean balance
+    term it holds once reaches each shard's router through its own 1/ep
+    share (the model ranks of a tensor-parallel shard hold the same term
+    and the same gradient). The ``comm_*`` telemetry is the same on every
+    rank and stays as it is."""
+    if ctx.world == 1:
         return aux
     keys = [k for k in aux if not k.startswith("comm_")]
     flat = ctx.all_reduce(torch.cat([aux[k].detach().float().reshape(-1)
-                                     for k in keys])) / ctx.ep
+                                     for k in keys])) / ctx.world
     out, off = dict(aux), 0
     for k in keys:
         v = aux[k]
@@ -415,26 +602,48 @@ def moe_sharded(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 kernels: str = "") -> Tuple[torch.Tensor, Dict]:
     """The MoE layer on this rank of ``ctx``'s group, with real
     all-to-alls. x: this rank's tokens, (B_loc, L, d) or (T, d);
-    ``params["experts"]`` this rank's E/ep experts
-    (``bridge.shard_experts``); the router replicated. The jitter
-    generator is folded with the rank (``shard_generator``), and the aux
-    dict is the group mean. ``kernels`` "cuda" runs each shard's
-    dispatch, FFN and combine on the kernels (B2, B1, B3), the routed and
-    the Gate-Drop local branch alike; "cuda_fused" runs B4, which has no
-    buffer to put on a wire, so only where the wire moves nothing. A
-    group of one rank issues no collective."""
+    ``params["experts"]`` this rank's block of experts in the context's
+    layout (``bridge.shard_experts``); the router replicated. The jitter
+    generator is folded with the shard index (``shard_generator``; under
+    tensor parallelism the data index, so the model ranks of a shard route
+    alike), and the aux dict is the group mean. Under ``ep_on_model`` the
+    layer runs on this model rank's slice of the positions and gathers the
+    output back. ``kernels`` "cuda" runs each shard's dispatch, FFN and
+    combine on the kernels (B2, B1, B3), the routed and the Gate-Drop
+    local branch alike; "cuda_fused" runs B4, which has no buffer to put
+    on a wire, so only where the wire moves nothing. A group of one rank
+    issues no collective."""
     moe = cfg.moe
-    ep, my = ctx.ep, ctx.rank
     E = moe.n_experts
+    if ctx.tp > 1 and moe.ep_on_model != ctx.ep_on_model:
+        raise ValueError(f"moe.ep_on_model={moe.ep_on_model} on a group laid out "
+                         f"{ctx.layout}: build the group with the config's layout")
+    ep, my = ctx.ep, ctx.shard
+    if E % ep:
+        raise ValueError(f"{ctx.layout} layout: {E} experts do not split over "
+                         f"ep={ep}")
+    split = ctx.ep_on_model
+    if split and x.shape[-2] % ctx.tp:
+        raise ValueError(f"ep_on_model layout: {x.shape[-2]} positions do not split "
+                         f"over the model axis of {ctx.tp} (decoding runs one "
+                         "position a step: generate under the tensor-parallel layout)")
+    experts = params["experts"]
+    f_loc = moe.d_ff(cfg.d_ff) // ctx.ffn_tp
+    if experts["w_in"].shape[-3] != E // ep or experts["w_in"].shape[-1] != f_loc:
+        raise ValueError(f"rank {ctx.rank} holds experts of shape "
+                         f"{tuple(experts['w_in'].shape[-3:])}, not E/ep = {E // ep} "
+                         f"with d_ff {f_loc}: shard them (bridge.shard_experts)")
+    wr = params["router"]["w"]
+    if split:
+        n = x.shape[-2] // ctx.tp
+        x = _SplitSequence.apply(x, ctx)
+        token_ids, token_valid = (
+            None if t is None else t.narrow(t.dim() - 1, ctx.model * n, n)
+            for t in (token_ids, token_valid))
+        wr = _SumOverModelBackward.apply(wr, ctx)
+    tp = ctx if ctx.tp > 1 and not split else None
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
-    if E % ep:
-        raise ValueError(f"{E} experts do not split over ep={ep}")
-    experts = params["experts"]
-    if experts["w_in"].shape[-3] != E // ep:
-        raise ValueError(f"rank {my} holds {experts['w_in'].shape[-3]} experts, "
-                         f"not E/ep = {E // ep}: shard them (bridge.shard_experts)")
-    wr = params["router"]["w"]
     tok = None if token_ids is None else token_ids.reshape(-1)
     tv = None if token_valid is None else token_valid.reshape(-1)
     gen = shard_generator(generator, my)
@@ -445,17 +654,20 @@ def moe_sharded(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     def routed():
         return _routed_shard(wr, experts, xf, moe, cfg, gen, is_training, tok,
-                             transport, token_valid=tv, kernels=kernels)
+                             transport, token_valid=tv, kernels=kernels, tp=tp)
 
     def local():
         return _local_shard(wr, experts, xf, moe, cfg, gen, is_training, tok,
-                            my, ep, token_valid=tv, kernels=kernels)
+                            my, ep, token_valid=tv, kernels=kernels, tp=tp)
 
     def expert_drop():
         return torch.zeros_like(xf), _zero_aux(E, x.device)
 
     y, aux = _select_branch(moe, decision, routed, local, expert_drop)
-    return y.reshape(shape), _group_mean(aux, ctx)
+    y = y.reshape(shape)
+    if split:
+        y = _GatherSequence.apply(y, ctx)
+    return y, _group_mean(aux, ctx)
 
 
 def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,

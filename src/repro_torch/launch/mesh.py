@@ -1,20 +1,25 @@
-"""The expert-parallel process group (counterpart of
+"""The (data, model) mesh of process groups (counterpart of
 ``repro/launch/mesh.py``): one rank per process, as ``torchrun`` starts
 them.
 
-  torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh 2 ...
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2,2 ...
 
-``make_group`` initialises the default process group (NCCL on ``cuda``,
-gloo on ``cpu``) and returns the ``ParallelContext`` the model threads to
-its MoE layers: expert parallelism over every rank (the EP group is the
-data-parallel group). Only that one axis is ported: a model axis (tensor
-parallelism inside the experts, or experts over data x model) is not.
+``--mesh d,m`` is d * m ranks; rank r has data index r // m and model
+index r % m, so the m ranks of a model group are consecutive (a node's
+cards, the hierarchical substrates' intra tier). ``make_group``
+initialises the default process group (NCCL on ``cuda``, gloo on ``cpu``,
+unless ``backend`` names one), builds the data groups (the ranks of one
+model index) and the model groups (the ranks of one data index) and
+returns the ``ParallelContext`` the model threads to its MoE layers. The
+experts' layout on a model axis m > 1 is ``MoEConfig.ep_on_model``'s:
+tensor parallelism inside the experts with expert parallelism over the
+data group, or whole experts over data x model (``core/moe.py``).
 """
 from __future__ import annotations
 
 import os
 import socket
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -22,36 +27,37 @@ import torch.distributed as dist
 from repro_torch.core.moe import ParallelContext
 
 
-def parse_mesh(spec: str) -> int:
-    """``--mesh N`` (or ``N,1``) -> N. A model axis larger than one raises:
-    tensor parallelism inside experts is not ported."""
+def parse_mesh(spec: str) -> Tuple[int, int]:
+    """``--mesh d`` or ``d,m`` -> (d, m)."""
     dims = [int(d) for d in spec.split(",")]
     if len(dims) > 2 or any(d < 1 for d in dims):
-        raise ValueError(f"--mesh {spec!r}: N or N,M")
-    if len(dims) == 2 and dims[1] > 1:
-        raise NotImplementedError(
-            f"--mesh {spec}: a model axis (tensor parallelism inside the "
-            "experts, experts over data x model) is not ported; see "
-            "ROADMAP.md A.5")
-    return dims[0]
+        raise ValueError(f"--mesh {spec!r}: d or d,m")
+    return dims[0], dims[1] if len(dims) == 2 else 1
 
 
-def make_group(ep: int, device, *, init_method: Optional[str] = None,
-               rank: Optional[int] = None,
-               world_size: Optional[int] = None) -> ParallelContext:
-    """Initialise the default process group over ``ep`` ranks and return
-    this rank's context (expert parallelism over the whole group, active
-    even at ep = 1). Rank and world size come from the environment
-    ``torchrun`` sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT)
-    unless given; a ``file://`` ``init_method`` needs no port, and a
-    one-rank group started without ``torchrun`` takes a free localhost
-    port. On ``cuda`` each rank takes the card LOCAL_RANK."""
+def make_group(mesh: Tuple[int, int], device, *, init_method: Optional[str] = None,
+               rank: Optional[int] = None, world_size: Optional[int] = None,
+               backend: Optional[str] = None,
+               ep_on_model: bool = False) -> ParallelContext:
+    """Initialise the default process group over the d * m ranks of
+    ``mesh`` = (d, m) and return this rank's context (active even at one
+    rank), laid out by ``ep_on_model``. Rank and world size come from the
+    environment ``torchrun`` sets (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR/PORT) unless given; a ``file://`` ``init_method`` needs no
+    port, and a one-rank group started without ``torchrun`` takes a free
+    localhost port. On ``cuda`` each rank takes the card LOCAL_RANK.
+    ``backend`` overrides NCCL / gloo (gloo on ``cuda`` runs the model
+    axis of several ranks on one card: NCCL refuses two ranks of a group
+    on one device). ``dist.new_group`` is collective: every rank builds
+    every data and model group, in the same order."""
+    dp, tp = mesh
     device = torch.device(device)
     rank = int(os.environ.get("RANK", 0)) if rank is None else rank
     world_size = (int(os.environ.get("WORLD_SIZE", 1)) if world_size is None
                   else world_size)
-    if world_size != ep:
-        raise ValueError(f"--mesh {ep} under a world of {world_size} processes")
+    if world_size != dp * tp:
+        raise ValueError(f"--mesh {dp},{tp} is {dp * tp} ranks, under a world of "
+                         f"{world_size} processes")
     if device.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
     if init_method is None:
@@ -59,10 +65,22 @@ def make_group(ep: int, device, *, init_method: Optional[str] = None,
                        else f"tcp://localhost:{_free_port()}")
     if not dist.is_initialized():
         dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo",
+            backend or ("nccl" if device.type == "cuda" else "gloo"),
             init_method=init_method, rank=rank, world_size=world_size)
-    return ParallelContext(group=dist.group.WORLD, rank=dist.get_rank(),
-                           ep=dist.get_world_size())
+    rank = dist.get_rank()
+    data_group = model_group = None        # one axis: the whole group
+    if dp > 1 and tp > 1:
+        for k in range(tp):
+            g = dist.new_group([j * tp + k for j in range(dp)])
+            if rank % tp == k:
+                data_group = g
+        for j in range(dp):
+            g = dist.new_group([j * tp + k for k in range(tp)])
+            if rank // tp == j:
+                model_group = g
+    return ParallelContext(group=dist.group.WORLD, rank=rank, dp=dp, tp=tp,
+                           data_group=data_group, model_group=model_group,
+                           ep_on_model=ep_on_model)
 
 
 def _free_port() -> int:

@@ -17,20 +17,26 @@ the reference's layout, and ``--resume`` continues from it at the
 absolute step.
 
 Expert parallelism: one process per rank, as ``torchrun`` starts them;
-``--mesh N`` runs the MoE layers over the N ranks (each holds E/N experts
+``--mesh d`` runs the MoE layers over the d ranks (each holds E/d experts
 and a block of every batch's rows), the dispatch and combine all-to-alls
-being the ``--comm`` substrate's:
+being the ``--comm`` substrate's. ``--mesh d,m`` adds a model axis: d * m
+ranks, the m ranks of a data index running the same rows. By default
+each expert's d_ff is sliced over the model axis and the FFN's partial
+outputs summed over it (tensor parallelism, expert parallelism over the
+data axis); ``--ep-on-model`` spreads whole experts over all d * m ranks
+and splits each MoE layer's tokens along the sequence over the model
+axis (it cannot decode one position a step, so no ``--eval-every``):
 
-  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
-      --device cpu --mesh 2 --reduced --task mt --gd-mode gate_drop \
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --mesh 2,2 --reduced --task mt --gd-mode gate_drop \
       --gd-rate 0.3 --eval-every 4 --log-every 1
 
 ``--device cpu`` takes gloo, ``cuda`` NCCL with one card per rank. Rank 0
 prints the records and writes ``--json-out``, ``--trace-out`` and
-``--metrics-out``. ``--ckpt-dir`` under ``--mesh N`` gathers the expert
+``--metrics-out``. ``--ckpt-dir`` under ``--mesh`` gathers the expert
 shards into one checkpoint of the reference's layout, which rank 0
 writes, and ``--resume`` slices it per rank: a run may resume at another
-mesh than the one that saved it.
+mesh, or layout, than the one that saved it.
 
 Observability: ``--trace-out PATH`` turns on the span tracer (the
 Trainer's ``train_chunk`` / ``chunk.execute`` / ``chunk.fetch`` /
@@ -51,7 +57,6 @@ import dataclasses
 import json
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import COMM_SUBSTRATES, MOE_BACKENDS, TrainConfig
@@ -91,26 +96,25 @@ def greedy_bleu(params, cfg, task, *, n=32, max_new=36, seed=10_000,
     from the prefill logits and the first decode step runs at index
     ``prompt_len``; feeding index 0 after the prefill would overwrite the
     BOS cache slot and corrupt every reported BLEU. ``lang`` restricts
-    the validation batch to one language. Under an expert-parallel
-    ``ctx`` each rank decodes its block of the rows and every rank
-    gathers all the tokens and scores them. ``return_tokens`` returns
-    (bleu, the scored tokens)."""
+    the validation batch to one language. Under a (data, model) ``ctx``
+    each data index decodes its block of the rows (its model ranks
+    alike) and every rank gathers all the tokens over the data group and
+    scores them. ``return_tokens`` returns (bleu, the scored tokens)."""
     kw = {} if lang is None else {"lang": lang}
     b = task.sample_batch(seed, n, **kw)
     rows = slice(None)
-    if ctx is not None and ctx.ep > 1:
-        if n % ctx.ep:
-            raise ValueError(f"{n} eval rows do not split over ep={ctx.ep}")
-        per = n // ctx.ep
-        rows = slice(ctx.rank * per, (ctx.rank + 1) * per)
+    if ctx is not None and ctx.dp > 1:
+        if n % ctx.dp:
+            raise ValueError(f"{n} eval rows do not split over the data axis of "
+                             f"{ctx.dp}")
+        per = n // ctx.dp
+        rows = slice(ctx.data * per, (ctx.data + 1) * per)
     batch = {"enc_tokens": torch.from_numpy(b["enc_tokens"][rows]).to(device),
              "tokens": torch.from_numpy(b["tokens"][rows, :1]).to(device)}
     res = generate(params, batch, cfg, GenerateConfig(max_new=max_new), ctx=ctx)
     tokens = res.tokens
     if rows != slice(None):
-        parts = [torch.empty_like(tokens) for _ in range(ctx.ep)]
-        dist.all_gather(parts, tokens.contiguous(), group=ctx.group)
-        tokens = torch.cat(parts)
+        tokens = ctx.data_all_gather(tokens, 0)
     hyps = [strip_special(h) for h in tokens.cpu().numpy()]
     refs = [strip_special(r) for r in b["labels"]]
     bleu = corpus_bleu(hyps, refs)
@@ -179,8 +183,13 @@ def main(argv=None):
                     help="hierarchical substrates: intra-tier group size "
                          "(divides ep; default the largest divisor <= sqrt)")
     ap.add_argument("--mesh", default=None,
-                    help="N: expert parallelism over N ranks (one process "
-                         "each, started by torchrun)")
+                    help="d or d,m: expert parallelism over d data ranks, "
+                         "each with m model ranks (one process each, started "
+                         "by torchrun)")
+    ap.add_argument("--ep-on-model", action="store_true",
+                    help="on a model axis: whole experts over data x model, "
+                         "tokens split along the sequence over model "
+                         "(default: each expert's d_ff sliced over model)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true",
                     help="restore the latest checkpoint in --ckpt-dir "
@@ -207,7 +216,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
-    ep = parse_mesh(args.mesh) if args.mesh else 0
+    mesh = parse_mesh(args.mesh) if args.mesh else None
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -228,9 +237,13 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, gating_dropout=gd, comm=comm,
             router_type=args.router or cfg.moe.router_type,
-            backend=args.backend or cfg.moe.backend))
+            backend=args.backend or cfg.moe.backend,
+            ep_on_model=args.ep_on_model))
+    if args.ep_on_model and args.eval_every and mesh is not None and mesh[1] > 1:
+        ap.error("--ep-on-model cannot decode one position a step: no --eval-every")
 
-    ctx = make_group(ep, device) if ep else None
+    ctx = (make_group(mesh, device, ep_on_model=args.ep_on_model)
+           if mesh is not None else None)
     lead = ctx is None or ctx.rank == 0
     tracer = set_tracer(Tracer(enabled=bool(args.trace_out or args.profile)))
     try:
@@ -251,10 +264,12 @@ def main(argv=None):
                           prefetch=not args.no_prefetch,
                           log=print if lead else None)
         if args.resume:
-            print(f"resumed {args.ckpt_dir} @ step {trainer.restore()}")
+            step = trainer.restore()
+            if lead:
+                print(f"resumed {args.ckpt_dir} @ step {step}")
         with tracer.profile_window(args.profile if lead else None):
             _, history = trainer.run()
-        if args.ckpt_dir:
+        if args.ckpt_dir and lead:
             print(f"checkpoint -> {args.ckpt_dir}")
         if args.json_out and lead:
             gd = cfg.moe.gating_dropout if cfg.moe is not None else None
@@ -263,6 +278,8 @@ def main(argv=None):
                            "backend": cfg.moe.backend if cfg.moe else None,
                            "comm": cfg.moe.comm.substrate if cfg.moe else None,
                            "ep": ctx.ep if ctx is not None else 1,
+                           "tp": ctx.tp if ctx is not None else 1,
+                           "ep_on_model": bool(ctx is not None and ctx.ep_on_model),
                            "history": history,
                            "gd": dataclasses.asdict(gd) if gd else None}, f)
         if args.trace_out and lead:

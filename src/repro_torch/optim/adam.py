@@ -12,10 +12,10 @@ reference, which returns new trees, ``adam_update`` updates parameters and
 moments IN PLACE: a second copy of parameters and moments would need 30 GB
 more for zcode-m3-base.
 
-Under an expert-parallel group the global-norm clip counts each
-replicated leaf once and sums the squares of the expert shards over the
-group, so every rank clips by the norm of the whole model and the
-replicated weights stay equal across ranks.
+Under a (data, model) group the global-norm clip counts each replicated
+leaf once and sums the squares of the expert shards (unique to each rank
+in either layout) over the whole group, so every rank clips by the norm
+of the whole model and the replicated weights stay equal across ranks.
 """
 from __future__ import annotations
 
@@ -61,9 +61,10 @@ def adam_init(params: Params, tc: TrainConfig) -> OptState:
 def global_norm(tree: Params, ctx=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, on the device.
     Under a group of more than one rank (``ctx``), the expert leaves' sum
-    of squares is summed over the group; replicated leaves count once."""
+    of squares is summed over the whole group; replicated leaves count
+    once."""
     flat = flatten_with_paths(tree)
-    if ctx is None or ctx.ep == 1:
+    if ctx is None or ctx.world == 1:
         norms = [torch.linalg.vector_norm(leaf.float()) for leaf in flat.values()]
         return torch.linalg.vector_norm(torch.stack(norms))
     from repro_torch.core.moe import is_expert_leaf

@@ -207,9 +207,9 @@ def decode_pool_step(params, pool, tok: torch.Tensor, pos: torch.Tensor,
 
 def _all_done(done: torch.Tensor, ctx) -> bool:
     """The loop's exit test: every row done, over the whole group under
-    an expert-parallel ``ctx`` (a rank that left the loop alone would
-    leave the others waiting in their next all-to-all)."""
-    if ctx is None or ctx.ep == 1:
+    a (data, model) ``ctx`` (a rank that left the loop alone would leave
+    the others waiting in their next collective)."""
+    if ctx is None or ctx.world == 1:
         return bool(done.all())
     left = ctx.all_reduce((~done).sum().reshape(1))
     return int(left[0]) == 0

@@ -34,9 +34,10 @@ is a JAX compile-unit device with no counterpart here. What carries over:
     is read before its eval runs, so later records' clocks include the
     eval's time (the reference's convention).
 
-Under an expert-parallel ``ctx`` every rank runs the same loop on the same
-global batches (each step takes its rows), from the same full init with
-its block of experts (``bridge.shard_experts``).
+Under a (data, model) ``ctx`` every rank runs the same loop on the same
+global batches (each step takes its data index's rows), from the same
+full init with its block of experts in the context's layout
+(``bridge.shard_experts``).
 """
 from __future__ import annotations
 
@@ -129,8 +130,7 @@ class Trainer:
         if params is None:
             params = init_model(
                 torch.Generator(device=self.device).manual_seed(tc.seed), cfg)
-            if ctx is not None and ctx.ep > 1:
-                params = shard_experts(params, ctx.rank, ctx.ep)
+            params = shard_experts(params, ctx)
         self.state = init_train_state(params, tc)
         self.start_step = 0
         self.history: List[Dict] = []

@@ -7,13 +7,16 @@ only. ``decision=None`` draws the step's consensus bit on the host
 the backend named by ``cfg.moe.backend`` (oracle / sharded / cuda /
 cuda_fused).
 
-Under an expert-parallel context (``core.moe.ParallelContext``) every
-rank takes the global batch and runs its contiguous block of rows (the
-reference's batch layout); the losses are the reference's global ones:
-the cross-entropy divides by the group's count of masked tokens and the
-balance term is the group mean. Gradients of replicated leaves are summed
-over the group; an expert leaf's gradient already holds every rank's
-contribution through the backward all-to-all.
+Under a (data, model) context (``core.moe.ParallelContext``) every rank
+takes the global batch and runs its data index's contiguous block of rows
+(the reference's batch layout; the model ranks of a data index run the
+same rows); the losses are the reference's global ones: the
+cross-entropy divides by the data group's count of masked tokens and the
+balance term is the group mean. Gradients of replicated leaves are the
+same on every model rank (the MoE layer's model-axis functions see to
+it) and are summed over the data group; an expert leaf's gradient
+already holds every rank's contribution through the backward
+all-to-all, and is never reduced.
 """
 from __future__ import annotations
 
@@ -118,7 +121,7 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
 def _grouped(ctx: Optional[ParallelContext]) -> bool:
     """Whether the step runs over a group of more than one rank (a group
     of one runs the ungrouped arithmetic, bit for bit)."""
-    return ctx is not None and ctx.ep > 1
+    return ctx is not None and ctx.world > 1
 
 
 def total_loss(params, batch: Dict, cfg: ModelConfig, *,
@@ -134,10 +137,10 @@ def total_loss(params, batch: Dict, cfg: ModelConfig, *,
     label or the next one is masked and at the last column.
 
     Under a group ``batch`` holds this rank's rows and ``loss`` is this
-    rank's share of the global loss (its token sums over the group's
+    rank's share of the global loss (its token sums over the data group's
     token count, plus its 1/ep share of the group-mean aux terms), so the
-    ranks' gradients sum to the global loss's; the metrics are the global
-    values."""
+    data group's gradients sum to the global loss's; the metrics are the
+    global values."""
     hidden, aux = model_apply(params, batch, cfg, ctx=ctx, generator=generator,
                               decision=decision, is_training=is_training,
                               return_hidden=True)
@@ -146,12 +149,12 @@ def total_loss(params, batch: Dict, cfg: ModelConfig, *,
     if _grouped(ctx):
         count = (mask.sum() if mask is not None
                  else hidden.new_tensor(float(hidden.shape[0] * hidden.shape[1])))
-        denom = ctx.all_reduce(count.detach().float().reshape(1))[0].clamp_min(1.0)
+        denom = ctx.data_all_reduce(count.detach().float().reshape(1))[0].clamp_min(1.0)
     head = head_matrix(params, cfg)
     loss, acc = chunked_xent(hidden, head, batch["labels"], mask, denom=denom)
     xent = loss
     if denom is not None:
-        xent, acc = ctx.all_reduce(torch.stack([loss.detach(), acc.detach()]))
+        xent, acc = ctx.data_all_reduce(torch.stack([loss.detach(), acc.detach()]))
     metrics = {"xent": xent, "acc": acc}
     total = xent                 # the global loss, reported under a group
     nmoe = n_moe_layers(cfg)
@@ -175,11 +178,12 @@ def total_loss(params, batch: Dict, cfg: ModelConfig, *,
         m2[:, -1] = 0.0
         denom2 = None
         if _grouped(ctx):
-            denom2 = ctx.all_reduce(m2.sum().reshape(1))[0].clamp_min(1.0)
+            denom2 = ctx.data_all_reduce(m2.sum().reshape(1))[0].clamp_min(1.0)
         mtp_l, _ = chunked_xent(aux["mtp_hidden"], head, labels2, m2,
                                 denom=denom2)
         loss = loss + 0.3 * mtp_l
-        mtp_x = mtp_l if denom2 is None else ctx.all_reduce(mtp_l.detach().reshape(1))[0]
+        mtp_x = (mtp_l if denom2 is None
+                 else ctx.data_all_reduce(mtp_l.detach().reshape(1))[0])
         total = total + 0.3 * mtp_x.detach()
         metrics["mtp_xent"] = mtp_x
     metrics["loss"] = loss if denom is None else total
@@ -198,30 +202,31 @@ def step_generator(device, seed: int, step: int,
 
 
 def rank_rows(batch: Dict, ctx: Optional[ParallelContext]) -> Dict:
-    """This rank's contiguous block of the batch rows (all of them
-    without a group)."""
+    """This rank's data index's contiguous block of the batch rows (all
+    of them without a group)."""
     if not _grouped(ctx):
         return batch
     b = next(iter(batch.values())).shape[0]
-    if b % ctx.ep:
-        raise ValueError(f"batch {b} does not split over ep={ctx.ep}")
-    n = b // ctx.ep
-    return {k: v[ctx.rank * n:(ctx.rank + 1) * n] for k, v in batch.items()}
+    if b % ctx.dp:
+        raise ValueError(f"batch {b} does not split over the data axis of {ctx.dp}")
+    n = b // ctx.dp
+    return {k: v[ctx.data * n:(ctx.data + 1) * n] for k, v in batch.items()}
 
 
 def reduce_replicated(grads: List[torch.Tensor], keys: List[str],
                       ctx: Optional[ParallelContext]) -> List[torch.Tensor]:
-    """Sum the gradients of the replicated leaves over the group, in one
-    all-reduce per dtype; expert leaves stay (the backward all-to-all
-    already brought every rank's contribution to the expert's owner)."""
-    if not _grouped(ctx):
+    """Sum the gradients of the replicated leaves over the data group, in
+    one all-reduce per dtype (the model ranks of a data index hold the
+    same ones); expert leaves stay (the backward all-to-all already
+    brought every rank's contribution to the expert's owner)."""
+    if not _grouped(ctx) or ctx.dp == 1:
         return grads
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, key in enumerate(keys):
         if not is_expert_leaf(key):
             by_dtype.setdefault(grads[i].dtype, []).append(i)
     for idx in by_dtype.values():
-        flat = ctx.all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]))
+        flat = ctx.data_all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]))
         for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
             grads[i] = part.view_as(grads[i])
     return grads

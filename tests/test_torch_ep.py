@@ -85,7 +85,11 @@ CASES = ([dict(name=s, substrate=s, decision=False) for s in COMM_SUBSTRATES]
                  mode="gate_expert_drop"),
             dict(name="cuda_routed", substrate="dense", decision=False, backend="cuda"),
             dict(name="cuda_local", substrate="compressed", decision=True,
-                 backend="cuda")])
+                 backend="cuda"),
+            # 4 tokens a rank on 4 experts: capacity 1, where the dispatch
+            # wire's (E/ep, ep * cap, d) arrival was a strided view
+            dict(name="cuda_capacity_1", substrate="dense", decision=False, backend="cuda",
+                 rows=2)])
 for _c in CASES:
     _c.setdefault("ep_inner", 0)
 
@@ -297,14 +301,55 @@ def test_train_cli_mesh_under_torchrun(tmp_path):
     assert arrays["opt/v/encoder/0/p0/moe/experts/w_out"].shape[-3] == 4
 
 
-def test_train_cli_rejects_what_is_not_ported(tmp_path):
-    """A model axis (A.5) is not ported; ``--ckpt-dir`` under ``--mesh 2``
-    is (``test_train_cli_mesh_under_torchrun``), and the CLI still refuses
-    ``--resume`` without a directory."""
-    with pytest.raises(NotImplementedError, match="A.5"):
+def test_train_cli_rejects_what_is_not_ported(tmp_path, monkeypatch):
+    """``--mesh 2,2`` is four ranks: under a world of two the group refuses
+    it (``test_train_cli_mesh_2x2_under_torchrun`` runs it on four);
+    ``--ep-on-model`` cannot decode, so it refuses ``--eval-every`` on a
+    model axis; and the CLI still refuses ``--resume`` without a
+    directory."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="under a world of 2"):
         cli.main(["--device", "cpu", "--reduced", "--mesh", "2,2"])
     with pytest.raises(SystemExit):
+        cli.main(["--device", "cpu", "--reduced", "--mesh", "2,2", "--ep-on-model",
+                  "--eval-every", "2"])
+    with pytest.raises(SystemExit):
         cli.main(["--device", "cpu", "--reduced", "--mesh", "2", "--resume"])
+
+
+@pytest.mark.parametrize("layout", ["tensor_parallel", "ep_on_model"])
+def test_train_cli_mesh_2x2_under_torchrun(layout, tmp_path):
+    """torchrun --standalone --nproc-per-node 4 ... --mesh 2,2: 3 Gate-Drop
+    steps in each layout of the model axis (BLEU at the eval steps under
+    tensor parallelism; ``--ep-on-model`` cannot decode); rank 0 alone
+    prints, the Gate-Drop step moves nothing on the wire, and the gathered
+    checkpoint holds every expert whole."""
+    out = tmp_path / "h.json"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
+    extra = (["--ep-on-model", "--comm", "hierarchical"] if layout == "ep_on_model"
+             else ["--eval-every", "2"])
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--mesh", "2,2", "--reduced", "--steps", "3", "--batch", "4", "--seq", "16",
+         "--langs", "4", "--gd-mode", "gate_drop", "--gd-rate", "0.3", "--log-every", "1",
+         "--no-prefetch", "--json-out", str(out), "--ckpt-dir", str(tmp_path / "ckpt"),
+         *extra],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr[-4000:]
+    recs = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+    assert [rec["step"] for rec in recs] == [0, 1, 2]    # rank 0 alone prints
+    assert [rec["gate_dropped"] for rec in recs] == [0.0, 0.0, 1.0]
+    assert [rec["comm_a2a_calls"] for rec in recs] == (
+        [8.0, 8.0, 0.0] if layout == "ep_on_model" else [4.0, 4.0, 0.0])
+    assert [("bleu" in rec) for rec in recs] == (
+        [False] * 3 if layout == "ep_on_model" else [True, False, True])
+    hist = json.load(open(out))
+    assert (hist["ep"], hist["tp"], hist["ep_on_model"]) == (
+        (4, 2, True) if layout == "ep_on_model" else (2, 2, False))
+    arrays = np.load(tmp_path / "ckpt" / "step_00000003" / "arrays.npz")
+    assert arrays["params/decoder/0/p0/moe/experts/w_in"].shape[-3:] == (4, 256, 256)
+    assert arrays["opt/m/encoder/0/p0/moe/experts/w_out"].shape[-3:] == (4, 256, 256)
 
 
 def _one_rank_cfg(backend, substrate="dense", mode="gate_drop"):
@@ -331,7 +376,8 @@ def test_one_rank_group_is_the_ungrouped_step(tmp_path, monkeypatch):
     jitter on, as configured) the cuda backend's steps are bitwise the
     ungrouped ones, no collective is issued, the comm records read 0, and
     cuda_fused runs the pipeline (B4 is never called)."""
-    ctx = make_group(1, "cpu", init_method=f"file://{tmp_path}/rdv", rank=0, world_size=1)
+    ctx = make_group((1, 1), "cpu", init_method=f"file://{tmp_path}/rdv", rank=0,
+                     world_size=1)
     try:
         assert ctx.active and ctx.ep == 1
         for substrate in ("dense", "hierarchical", "overlapped"):
@@ -361,41 +407,20 @@ def test_one_rank_group_is_the_ungrouped_step(tmp_path, monkeypatch):
 # gathered checkpoints under --mesh 2
 # ---------------------------------------------------------------------------
 
-def _ckpt(d, name, step=STEPS):
-    path = os.path.join(d, name, f"step_{step:08d}")
-    with open(os.path.join(path, "meta.json")) as f:
-        meta = json.load(f)
-    return dict(np.load(os.path.join(path, "arrays.npz"))), meta
-
-
-def _same_checkpoint(got, want):
-    """Keys, shapes, dtypes and meta equal; parameters within 2e-4,
-    moments within 1e-6, counters exact."""
-    (ga, gm), (wa, wm) = got, want
-    assert sorted(ga) == sorted(wa)
-    assert (gm["step"], gm["n_arrays"], gm["dtypes"], gm["arch"]) == \
-        (wm["step"], wm["n_arrays"], wm["dtypes"], wm["arch"])
-    for key, want_arr in wa.items():
-        assert ga[key].shape == want_arr.shape and ga[key].dtype == want_arr.dtype, key
-        atol = 2e-4 if key.startswith("params/") else 1e-6
-        if key.startswith("params/") or key.startswith("opt/m/") or key.startswith("opt/v/"):
-            np.testing.assert_allclose(ga[key], want_arr, atol=atol, rtol=0, err_msg=key)
-        else:
-            np.testing.assert_array_equal(ga[key], want_arr, err_msg=key)
-
-
 def test_gathered_checkpoint_has_the_reference_layout(run):
     """The 2-rank Gate-Drop run (sharded backend) saved by rank 0 against
     the reference's sharded run saved by its own ``save_checkpoint``."""
     *_, d = run
-    got, want = _ckpt(d, "ckpt_gd"), _ckpt(d, "jax_ckpt")
+    got = W.read_checkpoint(d, "ckpt_gd", STEPS)
+    want = W.read_checkpoint(d, "jax_ckpt", STEPS)
     assert got[0]["params/decoder/0/p0/moe/experts/w_in"].shape[-3] == 4
-    _same_checkpoint(got, want)
+    W.assert_same_checkpoint(got, want)
 
 
 def test_gathered_checkpoint_equals_the_mesh1_checkpoint(run):
     *_, d = run
-    _same_checkpoint(_ckpt(d, "ckpt_m2"), _ckpt(d, "ckpt_m1"))
+    W.assert_same_checkpoint(W.read_checkpoint(d, "ckpt_m2", STEPS),
+                             W.read_checkpoint(d, "ckpt_m1", STEPS))
 
 
 @pytest.fixture(scope="module")
