@@ -203,6 +203,20 @@ Phases (any failure exits non-zero):
                  their own f32 images or frames, tokens against one-shot,
                  B6 at the arena's decode site; reduced whisper-small's
                  --task mt steps on the card against the CPU's;
+  dryrun. the meta-device dry run -- after phase vlm: every applicable
+                 (arch x input shape) pair of the reference, all 34, at full
+                 width and the reference's production shapes on
+                 torch.device("meta") (launch/dryrun.py::run_all: each
+                 shallow variant's step one task over a spawned process a
+                 host core, none of which touches a device), artifacts for (data 16, model 16)
+                 and (pod 2, data 16, model 16): each pair's seconds, FLOPs
+                 per step and bytes per device printed, 34 of 34 ok on both
+                 meshes asserted, torch.cuda.memory_allocated() unchanged
+                 across the run; then the dry run's one-device argument
+                 bytes of zcode-m3-base's phase-6 train state asserted equal
+                 to the byte sum of the state phase 6 built on the card,
+                 printed beside that build's memory_allocated delta (with
+                 --only dryrun the phase builds the state itself);
 
   python3 chip_smoke.py --only full_cache
 
@@ -210,7 +224,8 @@ runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
 to compare two trees' B5 and B6 at these sites in one call; ``--only ep``,
 ``--only tp``, ``--only obs``, ``--only dec``, ``--only swa``, ``--only mla``,
-``--only ssm`` and ``--only vlm`` run phases 1, 2 and that phase alone.
+``--only ssm``, ``--only vlm`` and ``--only dryrun`` run phases 1, 2 and that
+phase alone.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -224,6 +239,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1681,7 +1697,7 @@ def train_slice(full, dev, backend: str):
     tc = train_tc(n_steps)
     batches = train_batches(dev, n_steps)
     tokens = sum(int(batches[0][k].numel()) for k in ("tokens", "enc_tokens"))
-    state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
+    state, state_info = built_state(cfg, tc, dev)
     step = make_train_step(cfg, tc)
     it = iter(batches)
     for _ in range(WARMUP_STEPS):
@@ -1770,7 +1786,23 @@ def train_slice(full, dev, backend: str):
     del state, step, m
     torch.cuda.empty_cache()
     return counts["routed"], dict(ms=med, all_ms=ms, tokens_s=tokens / med * 1e3,
-                                  peak_gib=peak / 2**30, **profile)
+                                  peak_gib=peak / 2**30, **state_info, **profile)
+
+
+def built_state(cfg, tc, dev):
+    """Phase 6's train state of ``cfg`` on the card, and what it holds: the
+    byte sum of its tensors (the host step counters as int32, as the dry
+    run counts them) and the memory_allocated delta of building it."""
+    from repro_torch.launch.serve import generator
+    from repro_torch.models import init_model
+    from repro_torch.parallel.sharding import tree_bytes
+    from repro_torch.training import init_train_state
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = init_train_state(init_model(generator(dev, SEED, 0), cfg), tc)
+    torch.cuda.synchronize()
+    return state, dict(state_bytes=tree_bytes(state),
+                       state_alloc_delta=torch.cuda.memory_allocated() - before)
 
 
 # ---------------------------------------------------------------------------
@@ -4949,6 +4981,79 @@ def vlm_rows(vlm):
     return rows
 
 
+def dryrun_phase(full, dev, state_info=None):
+    """Phase dryrun: every applicable pair on both production meshes on the
+    meta device, memory_allocated unchanged across it; then zcode-m3-base's
+    phase-6 state bytes, the dry run's one-device count against the state
+    on the card (``state_info`` from phase 6, else built here)."""
+    from repro_torch.configs import INPUT_SHAPES, applicable_pairs, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import MeshShape, production_mesh
+    t0 = time.perf_counter()
+    meshes = [production_mesh(), production_mesh(multi_pod=True)]
+    jobs = [(get_config(a), INPUT_SHAPES[s]) for a, s in applicable_pairs()]
+    workers = os.cpu_count() or 1           # run_all's default: one process a core
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    results, failures = D.run_all(jobs, meshes, out_dir=OUT.parent / "dryrun")
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    run_s = time.perf_counter() - t0
+    for line in failures:
+        log(f"dryrun {line}: FAIL")
+    pairs = {}
+    for (cfg, shape), got in zip(jobs, results):
+        if got is None:
+            continue
+        row = {"seconds": got[0]["seconds"], "flops_step": got[0]["flops_step"]}
+        for res, mesh in zip(got, meshes):
+            mem = res["memory"]
+            row[mesh.name] = {"argument_bytes_per_device": mem["argument_bytes_per_device"],
+                              "a2a_bytes": res["collectives"]["all-to-all"]["bytes"]}
+            if "saved_activation_bytes_per_device" in mem:
+                row[mesh.name]["saved_bytes_per_device"] = \
+                    mem["saved_activation_bytes_per_device"]
+        pairs[f"{cfg.arch_id} x {shape.name}"] = row
+        log(f"dryrun {cfg.arch_id} x {shape.name}: {row['seconds']:.2f} s of steps, "
+            f"{row['flops_step']:.4g} FLOPs/step; per device "
+            + "; ".join(f"{m.name} arg {row[m.name]['argument_bytes_per_device'] / 2**30:.3f} GiB"
+                        + (f", saved <= {row[m.name]['saved_bytes_per_device'] / 2**30:.3f} GiB"
+                           if "saved_bytes_per_device" in row[m.name] else "")
+                        for m in meshes))
+    ok = {m.name: sum(1 for got in results if got is not None) for m in meshes}
+    log(f"dryrun: {ok} of {len(jobs)} pairs ok on each mesh in {run_s:.1f} s on {workers} "
+        f"processes; memory_allocated delta over the run {delta} B")
+    if failures or len(jobs) != 34 or any(n != 34 for n in ok.values()):
+        raise AssertionError(f"dryrun: {len(failures)} failed of {len(jobs)}")
+    if delta != 0:
+        raise AssertionError(f"dryrun: memory_allocated moved by {delta} B")
+
+    # zcode-m3-base's phase-6 state: the dry run's count on one device
+    cfg = train_cfg(full, "cuda_fused", "bfloat16")
+    tc = train_tc(WARMUP_STEPS + TIMED_STEPS + 5)
+    one = MeshShape(("data", "model"), (1, 1))
+    meta_state = D.step_arguments(cfg, INPUT_SHAPES["train_4k"])["state"]
+    dry_bytes = D.argument_bytes(cfg, one, {"state": meta_state})
+    if tc.moment_dtype != D.train_config(cfg).moment_dtype:
+        raise AssertionError("phase 6's optimizer keeps moments the dry run does not")
+    source = "phase 6"
+    if state_info is None:
+        state, state_info = built_state(cfg, tc, dev)
+        del state
+        torch.cuda.empty_cache()
+        source = "built here"
+    log(f"dryrun: zcode-m3-base train state: dry run (1 x 1 mesh) {dry_bytes} B, the card's "
+        f"state ({source}) {state_info['state_bytes']} B, memory_allocated delta of its build "
+        f"{state_info['state_alloc_delta']} B")
+    if dry_bytes != state_info["state_bytes"]:
+        raise AssertionError(f"dryrun: state bytes {dry_bytes} != {state_info['state_bytes']}")
+    wall = time.perf_counter() - t0
+    log(f"dryrun phase: {wall:.1f} s")
+    return {"pairs": pairs, "ok": ok, "workers": workers, "run_s": run_s,
+            "memory_allocated_delta": delta, "zcode_state_bytes": dry_bytes,
+            "zcode_state": dict(state_info, source=source), "wall_s": wall}
+
+
 def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve, fc,
                  dec_sites=None, swa_sites=None, mla_sites=None, ssm_sites=None,
                  vlm_sites=None):
@@ -5089,7 +5194,7 @@ def serve_phases(full, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("full_cache", "ep", "tp", "obs", "dec", "swa", "mla",
-                                       "ssm", "vlm"),
+                                       "ssm", "vlm", "dryrun"),
                     help="run phases 1, 2 and this phase alone")
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
@@ -5151,6 +5256,9 @@ def main() -> int:
         vlm = vlm_phase(dev)
         print(json.dumps({"vlm": vlm, "vlm_sites": vlm_rows(vlm)}), flush=True)
         return 0
+    if args.only == "dryrun":
+        print(json.dumps({"dryrun": dryrun_phase(full, dev)}), flush=True)
+        return 0
     b4_info = ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5, 7 and 8. serving
@@ -5194,6 +5302,9 @@ def main() -> int:
     # vlm. llama-3.2-vision-90b (10 layers) and whisper-small: image and audio sources
     vlm = vlm_phase(dev)
     print(json.dumps({"vlm": vlm}), flush=True)
+    # dryrun. every applicable (arch x shape) on the meta device, both meshes
+    state_info = {k: t_slice["cuda_fused"][k] for k in ("state_bytes", "state_alloc_delta")}
+    print(json.dumps({"dryrun": dryrun_phase(full, dev, state_info)}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
                            fc, dec_rows(dec), swa_rows(swa), mla_rows(mla), ssm_rows(ssm),

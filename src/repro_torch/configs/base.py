@@ -10,8 +10,12 @@ config built here describes the same model as the reference's.
 ``MoEConfig.ep_on_model`` picks the experts' layout on a ``--mesh d,m``
 group with m > 1 (``core/moe.py``): tensor parallelism inside the experts
 (False, the paper's footnote 1) or whole experts over data x model. The
-reference's other layout fields (``fsdp``, ``seq_parallel``) are not
-ported (ROADMAP.md A.5).
+reference's other layout fields, ``ModelConfig.fsdp`` and
+``seq_parallel``, are read by the sharding rules of the meta-device dry
+run (``parallel/sharding.py``, ``launch/dryrun.py``) alone: on a live run
+they change no number and no layout, as in the reference, whose trainer
+and server build no sharding from them. ``InputShape`` and
+``INPUT_SHAPES`` are the reference's four production input shapes.
 """
 from __future__ import annotations
 
@@ -275,6 +279,12 @@ class ModelConfig:
     dtype: str = "bfloat16"             # activation dtype
     param_dtype: str = "float32"
     remat: bool = True                  # recompute each layer in the backward
+    fsdp: bool = False                  # shard weights over data axis too
+    seq_parallel: bool = False          # shard layer-boundary activations
+                                        # (sequence dim) over the model axis
+                                        # (both read by the dry run's
+                                        # sharding rules alone; a live run
+                                        # changes no number or layout)
     banded_swa: bool = False            # sliding-window attention with block
                                         # skipping: O(L*W) instead of masked
                                         # O(L^2)
@@ -366,6 +376,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab=min(cfg.vocab, 512),
         max_seq=512,
         remat=False,
+        fsdp=False,
         param_dtype="float32",
         dtype="float32",
     )
@@ -400,6 +411,26 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw["ssm"] = SSMConfig(d_state=16, head_dim=32, expand=2, chunk=16)
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# input shapes (the reference's four production shapes)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                            # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}
 
 
 @dataclass(frozen=True)

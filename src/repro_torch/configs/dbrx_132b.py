@@ -4,11 +4,12 @@
 [hf:databricks/dbrx-base] 40L d_model=6144 48H (GQA kv=8) d_ff=10752
 vocab=100352, MoE 16e top-4. Gating Dropout applies (first-class).
 
-The reference also sets ``fsdp=True`` (weights sharded over the data
-axis of a device mesh). One card has no such axis, so the port leaves the
-field out; multi-device layout is ROADMAP.md A.5. At 131.6 B parameters
-(526 GB in f32) the 40-layer model fits no single H100: the card runs it
-with its depth cut.
+``fsdp=True`` as in the reference: the sharding rules
+(``parallel/sharding.py``) shard its dense weights over the data axis of
+the production mesh, which the meta-device dry run (``launch/dryrun.py``)
+reads; a live run changes no number or layout for it. At 131.6 B
+parameters (526 GB in f32) the 40-layer model fits no single H100: the
+card runs it with its depth cut.
 """
 from repro_torch.configs.base import GatingDropoutConfig, ModelConfig, MoEConfig
 
@@ -24,6 +25,7 @@ CONFIG = ModelConfig(
     rope_theta=500_000.0,
     max_seq=32_768,
     norm="layernorm",
+    fsdp=True,
     moe=MoEConfig(
         n_experts=16,
         top_k=4,

@@ -12,11 +12,10 @@ restricted to the local group.
 per head from the shared latent), and ``head_dim_`` (d / H = 56) is not
 any of MLA's head widths: the MLA layers read ``mla`` alone.
 
-The reference also sets ``fsdp=True`` (weights sharded over the data
-axis of a device mesh). One card has no such axis, so the port leaves the
-field out, as for dbrx-132b; multi-device layout is ROADMAP.md A.5. At
-671 B parameters the 61-layer model fits no single H100: the card runs it
-with its depth cut.
+``fsdp=True`` as in the reference and as for dbrx-132b: read by the
+sharding rules of the dry run, changing nothing on a live run. At 671 B
+parameters the 61-layer model fits no single H100: the card runs it with
+its depth cut.
 """
 from repro_torch.configs.base import (GatingDropoutConfig, MLAConfig,
                                       ModelConfig, MoEConfig)
@@ -46,6 +45,7 @@ CONFIG = ModelConfig(
         gating_dropout=GatingDropoutConfig(mode="gate_drop", rate=0.3),
     ),
     mtp=True,
+    fsdp=True,
     dtype="bfloat16",
     source="arXiv:2412.19437",
 )

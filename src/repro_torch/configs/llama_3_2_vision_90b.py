@@ -4,9 +4,9 @@ fifth layer onto stub image embeddings, copied from
 
 [hf:meta-llama/Llama-3.2-11B-Vision] scaled to 90B: 100L d_model=8192
 64H (GQA kv=8) d_ff=28672 vocab=128256. The vision encoder is a stub: the
-batch carries its output, ``img_embeds`` (B, 1601, 1280). The
-reference's ``fsdp=True`` (weights sharded over the data axis) is left
-out: one card has no data axis (ROADMAP.md A.5).
+batch carries its output, ``img_embeds`` (B, 1601, 1280). ``fsdp=True``
+as in the reference: read by the sharding rules of the dry run
+(``parallel/sharding.py``), changing nothing on a live run.
 """
 from repro_torch.configs.base import ModelConfig, VLMConfig
 
@@ -21,6 +21,7 @@ CONFIG = ModelConfig(
     vocab=128256,
     rope_theta=500_000.0,
     max_seq=131_072,
+    fsdp=True,
     vlm=VLMConfig(cross_attn_period=5, n_image_tokens=1601, d_image=1280),
     source="hf:meta-llama/Llama-3.2-11B-Vision (90B scale per assignment)",
 )

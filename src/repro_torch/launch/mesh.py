@@ -14,17 +14,74 @@ returns the ``ParallelContext`` the model threads to its MoE layers. The
 experts' layout on a model axis m > 1 is ``MoEConfig.ep_on_model``'s:
 tensor parallelism inside the experts with expert parallelism over the
 data group, or whole experts over data x model (``core/moe.py``).
+
+``MeshShape`` describes a mesh by axis names and sizes alone, with no
+device and no process group: ``production_mesh`` gives the reference's
+production meshes, (data 16, model 16) and, with ``multi_pod``, (pod 2,
+data 16, model 16), which the sharding rules (``parallel/sharding.py``)
+and the meta-device dry run (``launch/dryrun.py``) read.
 """
 from __future__ import annotations
 
+import math
 import os
 import socket
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.moe import ParallelContext
+
+EP_AXIS = "data"     # batch sharding AND expert parallelism (EP == DP)
+TP_AXIS = "model"    # tensor parallelism: heads, d_ff, vocab
+POD_AXIS = "pod"     # extra pure data parallelism (multi-pod)
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes (no devices): ``shape`` maps name to
+    size as ``jax.sharding.Mesh.shape`` does. Batches shard over the data
+    axes (``POD_AXIS`` then ``EP_AXIS``), experts over ``EP_AXIS`` (the
+    paper's layout), heads, d_ff and vocab over ``TP_AXIS``."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes) or min(self.sizes, default=1) < 1:
+            raise ValueError(f"mesh {self.axis_names} x {self.sizes}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        if POD_AXIS in self.axis_names:
+            return (POD_AXIS, EP_AXIS)
+        return (EP_AXIS,)
+
+    @property
+    def name(self) -> str:
+        """The artifact's mesh tag: pod256 / pod512 for the production
+        meshes, else the sizes joined by "x"."""
+        known = {(("data", "model"), (16, 16)): "pod256",
+                 (("pod", "data", "model"), (2, 16, 16)): "pod512"}
+        return known.get((self.axis_names, self.sizes),
+                         "x".join(str(n) for n in self.sizes))
+
+
+def production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """One pod: (data 16, model 16) = 256 devices; multi-pod: (pod 2,
+    data 16, model 16) = 512 (the reference's ``make_production_mesh``)."""
+    if multi_pod:
+        return MeshShape((POD_AXIS, EP_AXIS, TP_AXIS), (2, 16, 16))
+    return MeshShape((EP_AXIS, TP_AXIS), (16, 16))
 
 
 def parse_mesh(spec: str) -> Tuple[int, int]:

@@ -19,15 +19,34 @@ a row that sees some key, such a block adds exactly nothing (p = 0,
 correction 1 in the forward; zero products in the backward), so skipping
 it changes no bit. A chunk holding a real row that sees no key at all
 visits every block, as the reference does.
+
+Inside ``full_bands()``, ``banded_flash_attention`` computes each band
+with plain full attention instead: the reference's ``use_full``
+cost-accounting mode, which the meta-device dry run
+(``launch/dryrun.py``) selects as the reference's unrolled costing does.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import contextlib
+import contextvars
+from typing import Iterator, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+_FULL_BANDS = contextvars.ContextVar("full_bands", default=False)
+
+
+@contextlib.contextmanager
+def full_bands() -> Iterator[None]:
+    """Within: ``banded_flash_attention`` takes its ``use_full`` cost
+    mode."""
+    token = _FULL_BANDS.set(True)
+    try:
+        yield
+    finally:
+        _FULL_BANDS.reset(token)
 
 
 def _pad_axis(x: torch.Tensor, mult: int, axis: int) -> Tuple[torch.Tensor, int]:
@@ -218,8 +237,10 @@ def banded_flash_attention(q, k, v, window: int, q_offset: int = 0,
     chunk visits only its key band [chunk_start - wpad, chunk_end), so the
     work is O(L * (window + q_chunk)) instead of the masked O(L^2).
     Gradients flow through each band's ``flash_attention`` (O(band)
-    residuals per chunk). (The reference's ``use_full`` cost-accounting
-    mode serves its dry run, which the port has not.)"""
+    residuals per chunk). Inside ``full_bands()`` each band is plain full
+    attention over its positions, the reference's ``use_full``
+    cost-accounting mode."""
+    use_full = _FULL_BANDS.get()
     b, lq, h, hd = q.shape
     lk = k.shape[1]
     if q_chunk % kv_chunk:
@@ -235,10 +256,17 @@ def banded_flash_attention(q, k, v, window: int, q_offset: int = 0,
     band = wpad + q_chunk
     outs = []
     for i in range(nq):
-        outs.append(flash_attention(
-            qp[:, i * q_chunk:(i + 1) * q_chunk],
-            kp[:, i * q_chunk:i * q_chunk + band],
-            vp[:, i * q_chunk:i * q_chunk + band], True, window,
-            q_offset + i * q_chunk, q_offset + i * q_chunk - wpad, q_chunk,
-            kv_chunk))
+        qi = qp[:, i * q_chunk:(i + 1) * q_chunk]
+        ks = kp[:, i * q_chunk:i * q_chunk + band]
+        vs = vp[:, i * q_chunk:i * q_chunk + band]
+        if use_full:
+            from repro_torch.models.attention import full_attention
+            qpos = q_offset + i * q_chunk + torch.arange(q_chunk, device=q.device)
+            kpos = q_offset + i * q_chunk - wpad + torch.arange(band, device=q.device)
+            outs.append(full_attention(qi, ks, vs, causal=True, window=window,
+                                       qpos=qpos, kpos=kpos))
+        else:
+            outs.append(flash_attention(
+                qi, ks, vs, True, window, q_offset + i * q_chunk,
+                q_offset + i * q_chunk - wpad, q_chunk, kv_chunk))
     return torch.cat(outs, dim=1)[:, :lq]

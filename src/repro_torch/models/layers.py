@@ -16,9 +16,20 @@ from repro_torch.configs.base import ModelConfig
 Params = Dict[str, Any]
 
 
+class MetaGenerator:
+    """Stands in for a generator on the meta device, which torch refuses
+    (``torch.Generator(device="meta")`` raises): the init functions draw
+    nothing from it and give meta tensors of the real init's shapes and
+    dtypes (``models/model.py::init_model_meta``)."""
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape: Tuple[int, ...], std: float,
            dtype: torch.dtype) -> torch.Tensor:
-    """N(0, std^2) drawn from ``gen`` on the generator's device."""
+    """N(0, std^2) drawn from ``gen`` on the generator's device (an empty
+    meta tensor from a ``MetaGenerator``)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.randn(shape, generator=gen, dtype=dtype,
                        device=gen.device).mul_(std)
 

@@ -5,6 +5,7 @@ every family of the reference).
 
 Public API:
   init_model(gen, cfg)                          -> params
+  init_model_meta(cfg)                          -> params on "meta"
   model_apply(params, batch, cfg, ...)          -> (logits, aux)    [eval/train]
   head_matrix(params, cfg)                      -> (d, vocab) output head
   prefill(params, batch, cfg, max_seq)          -> (logits, caches)
@@ -89,6 +90,13 @@ def init_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
             "norm_out": L.init_norm(gen, cfg, d, dtype),
         }
     return p
+
+
+def init_model_meta(cfg: ModelConfig) -> Params:
+    """``init_model``'s tree on the meta device: the same keys, shapes and
+    dtypes, nothing drawn and nothing allocated (the dry run's
+    parameters)."""
+    return init_model(L.MetaGenerator(), cfg)
 
 
 def _mtp_spec(cfg: ModelConfig) -> T.LayerSpec:

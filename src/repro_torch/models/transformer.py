@@ -44,9 +44,10 @@ the same noise and routes the same tokens.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -455,6 +456,22 @@ def _unbind_repeats(seg_p: Params) -> List[Params]:
             for r in range(n)]
 
 
+_LAYER_INPUT_OBSERVERS: List[Callable[[torch.Tensor], None]] = []
+
+
+@contextlib.contextmanager
+def observe_layer_inputs(fn: Callable[[torch.Tensor], None]) -> Iterator[None]:
+    """Within: ``fn`` sees each layer's input of a training forward (mode
+    "train"), the layer-boundary activation that remat keeps for the
+    backward, so that a saved-tensor count can tell those apart from the
+    other saved activations. With no observer the loop is empty."""
+    _LAYER_INPUT_OBSERVERS.append(fn)
+    try:
+        yield
+    finally:
+        _LAYER_INPUT_OBSERVERS.remove(fn)
+
+
 def apply_stack(params: List[Params], segs: List[Segment], x: torch.Tensor,
                 cfg: ModelConfig, *, mode: str,
                 caches: Optional[List[Params]] = None, index=None,
@@ -489,6 +506,9 @@ def apply_stack(params: List[Params], segs: List[Segment], x: torch.Tensor,
                     block_tables=block_tables, max_seq=max_seq,
                     cache_dtype=cache_dtype, ctx=ctx)
                 layer += 1
+                if mode == "train":
+                    for observe in _LAYER_INPUT_OBSERVERS:
+                        observe(x)
                 if remat:
                     x, nc, aux = checkpoint(fn, lp, x, use_reentrant=False,
                                             preserve_rng_state=False)

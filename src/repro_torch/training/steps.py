@@ -191,10 +191,13 @@ def total_loss(params, batch: Dict, cfg: ModelConfig, *,
 
 
 def step_generator(device, seed: int, step: int,
-                   micro: Optional[int] = None) -> torch.Generator:
+                   micro: Optional[int] = None) -> Optional[torch.Generator]:
     """The generator of a step (and microbatch) — the reference's
     fold_in(PRNGKey(seed), step) [then fold_in(., micro)]; it seeds each
-    layer's router jitter."""
+    layer's router jitter. None on the meta device, which has no
+    generator: a meta step (the dry run's) draws no jitter."""
+    if torch.device(device).type == "meta":
+        return None
     s = (seed * 1_000_003 + step) % (1 << 62)
     if micro is not None:
         s = (s * 1_000_003 + micro + 1) % (1 << 62)

@@ -147,6 +147,9 @@ def test_configs_plans_and_counts_match(arch):
                 assert getattr(tfull.moe, f.name) == getattr(jfull.moe, f.name), f.name
         assert tfull.moe.gating_dropout.mode == jfull.moe.gating_dropout.mode == "gate_drop"
         assert tfull.moe.gating_dropout.rate == jfull.moe.gating_dropout.rate == 0.3
+    # the layout fields the dry run's sharding rules read: fsdp on dbrx-132b
+    assert (tfull.fsdp, tfull.seq_parallel) == (jfull.fsdp, jfull.seq_parallel) == \
+        (arch == "dbrx-132b", False)
     for red in ({}, dict(n_kv_heads=1), dict(n_kv_heads=2)):
         for jc, tc in ((jfull, tfull), (jax_reduced(jfull, **red), reduced(tfull, **red))):
             js, ts = JT.layer_plan(jc), T.layer_plan(tc)

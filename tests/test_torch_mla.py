@@ -137,9 +137,9 @@ def test_config_matches_reference_but_fsdp():
     _same_fields(tfull, jfull)
     _same_fields(reduced(tfull), jax_reduced(jfull))
     assert ARCH in ARCHS and tfull.source == "arXiv:2412.19437" and tfull.mtp
-    # the reference's weight sharding over a data axis has no one-card
-    # counterpart (ROADMAP.md A.5)
-    assert jfull.fsdp and not hasattr(tfull, "fsdp")
+    # the weight sharding over the data axis, read by the dry run's
+    # sharding rules (parallel/sharding.py)
+    assert jfull.fsdp and tfull.fsdp == jfull.fsdp
     m = reduced(tfull).mla
     assert (m.q_lora_rank, m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim,
             m.v_head_dim) == (64, 32, 32, 16, 32) and reduced(tfull).head_dim == 0

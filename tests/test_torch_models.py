@@ -253,7 +253,8 @@ def test_port_imports_no_jax_and_no_reference():
         "        'repro_torch.metrics', 'repro_torch.metrics.bleu', 'repro_torch.launch.mesh',\n"
         "        'repro_torch.obs.frame', 'repro_torch.analysis.hostsync',\n"
         "        'repro_torch.analysis.launches', 'repro_torch.models.mla',\n"
-        "        'repro_torch.configs.deepseek_v3_671b'}\n"
+        "        'repro_torch.configs.deepseek_v3_671b', 'repro_torch.launch.dryrun',\n"
+        "        'repro_torch.parallel.sharding'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "assert len(mods) >= 55, mods\n"
         "print(len(mods))\n")

@@ -146,7 +146,7 @@ def _plan(segs):
 # ---------------------------------------------------------------------------
 
 def test_config_plan_and_counts_match():
-    """The config field for field (the reference's ``fsdp`` left out) and
+    """The config field for field (``fsdp`` on, as in the reference) and
     its counts; the plan of 100 layers is one segment of a gated layer and
     four self-attention layers, repeated 20 times, as the reference's
     (``tests/test_models.py``); the reduced plans at 2 and 4 layers; the
@@ -160,7 +160,7 @@ def test_config_plan_and_counts_match():
         assert dataclasses.asdict(tc.vlm) == dataclasses.asdict(jc.vlm)
         assert tc.n_params() == jc.n_params()
         assert _plan(T.layer_plan(tc)) == _plan(JT.layer_plan(jc))
-    assert jfull.fsdp and not hasattr(tfull, "fsdp")
+    assert jfull.fsdp and tfull.fsdp == jfull.fsdp
     segs = T.layer_plan(tfull)
     assert len(segs) == 1 and segs[0].repeats == 20 and len(segs[0].pattern) == 5
     gated = segs[0].pattern[0]
