@@ -203,9 +203,11 @@ Phases (any failure exits non-zero):
                  their own f32 images or frames, tokens against one-shot,
                  B6 at the arena's decode site; reduced whisper-small's
                  --task mt steps on the card against the CPU's;
-  dryrun. the meta-device dry run -- after phase vlm: every applicable
-                 (arch x input shape) pair of the reference, all 34, at full
-                 width and the reference's production shapes on
+  dryrun. the meta-device dry run -- after phase vlm: each of the
+                 reference's ten archs once, its train_4k pair (every
+                 applicable (arch x input shape) pair, all 34, under
+                 --only dryrun), at full width and the reference's
+                 production shapes on
                  torch.device("meta") (launch/dryrun.py::run_all: each
                  shallow variant's step one task over a spawned process a
                  host core, none of which touches a device), artifacts for (data 16, model 16)
@@ -217,6 +219,16 @@ Phases (any failure exits non-zero):
                  to the byte sum of the state phase 6 built on the card,
                  printed beside that build's memory_allocated delta (with
                  --only dryrun the phase builds the state itself);
+  lint.   the lint gate -- after phase dryrun: python -m
+                 repro_torch.launch.lint --gate --device cuda --json-out
+                 build/lint/report.json as a subprocess (the 8-rank
+                 executables as 8 gloo processes on the card): exit 0 and
+                 every applicable (executable, pass) cell of the 27 ok
+                 asserted, launch-count (the profiler's kernel launches
+                 equal to the wrappers' calls) and smem-budget (227 KiB a
+                 block) included; each launched kernel's shared bytes,
+                 registers and spills and the seconds printed as one JSON
+                 line;
 
   python3 chip_smoke.py --only full_cache
 
@@ -224,8 +236,8 @@ runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
 to compare two trees' B5 and B6 at these sites in one call; ``--only ep``,
 ``--only tp``, ``--only obs``, ``--only dec``, ``--only swa``, ``--only mla``,
-``--only ssm``, ``--only vlm`` and ``--only dryrun`` run phases 1, 2 and that
-phase alone.
+``--only ssm``, ``--only vlm``, ``--only dryrun`` and ``--only lint`` run
+phases 1, 2 and that phase alone.
 
 Prints the kernel table as one JSON line before the last line and, as the
 last line, {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -273,6 +285,8 @@ TRAIN_LR, TRAIN_WARMUP = 1e-3, 100      # the train CLI's defaults
 PARITY_STEPS = 4                        # f32 steps per backend in the parity run
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 OUT = REPO / "build" / "traces"          # profiler traces (gitignored)
+DRYRUN_PAIRS, DRYRUN_ARCHS = 34, 10      # the reference's applicable pairs, its archs
+LINT_EXECUTABLES = 27                    # the lint gate's registry, the reference's
 REPLACES = {
     "grouped_matmul_dx": ("src/repro_torch/kernels/csrc/grouped_ffn.cu",
                           "src/repro/kernels/grouped_ffn.py:67"),
@@ -4981,9 +4995,10 @@ def vlm_rows(vlm):
     return rows
 
 
-def dryrun_phase(full, dev, state_info=None):
-    """Phase dryrun: every applicable pair on both production meshes on the
-    meta device, memory_allocated unchanged across it; then zcode-m3-base's
+def dryrun_phase(full, dev, state_info=None, sweep=True):
+    """Phase dryrun: every applicable pair (``sweep``; else each arch's
+    train_4k pair, one per arch) on both production meshes on the meta
+    device, memory_allocated unchanged across it; then zcode-m3-base's
     phase-6 state bytes, the dry run's one-device count against the state
     on the card (``state_info`` from phase 6, else built here)."""
     from repro_torch.configs import INPUT_SHAPES, applicable_pairs, get_config
@@ -4991,7 +5006,11 @@ def dryrun_phase(full, dev, state_info=None):
     from repro_torch.launch.mesh import MeshShape, production_mesh
     t0 = time.perf_counter()
     meshes = [production_mesh(), production_mesh(multi_pod=True)]
-    jobs = [(get_config(a), INPUT_SHAPES[s]) for a, s in applicable_pairs()]
+    pairs = list(applicable_pairs())
+    if not sweep:
+        pairs = [(a, "train_4k") for a in sorted({a for a, _ in pairs})]
+    want = DRYRUN_PAIRS if sweep else DRYRUN_ARCHS
+    jobs = [(get_config(a), INPUT_SHAPES[s]) for a, s in pairs]
     workers = os.cpu_count() or 1           # run_all's default: one process a core
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -5001,7 +5020,7 @@ def dryrun_phase(full, dev, state_info=None):
     run_s = time.perf_counter() - t0
     for line in failures:
         log(f"dryrun {line}: FAIL")
-    pairs = {}
+    rows = {}
     for (cfg, shape), got in zip(jobs, results):
         if got is None:
             continue
@@ -5013,7 +5032,7 @@ def dryrun_phase(full, dev, state_info=None):
             if "saved_activation_bytes_per_device" in mem:
                 row[mesh.name]["saved_bytes_per_device"] = \
                     mem["saved_activation_bytes_per_device"]
-        pairs[f"{cfg.arch_id} x {shape.name}"] = row
+        rows[f"{cfg.arch_id} x {shape.name}"] = row
         log(f"dryrun {cfg.arch_id} x {shape.name}: {row['seconds']:.2f} s of steps, "
             f"{row['flops_step']:.4g} FLOPs/step; per device "
             + "; ".join(f"{m.name} arg {row[m.name]['argument_bytes_per_device'] / 2**30:.3f} GiB"
@@ -5023,8 +5042,8 @@ def dryrun_phase(full, dev, state_info=None):
     ok = {m.name: sum(1 for got in results if got is not None) for m in meshes}
     log(f"dryrun: {ok} of {len(jobs)} pairs ok on each mesh in {run_s:.1f} s on {workers} "
         f"processes; memory_allocated delta over the run {delta} B")
-    if failures or len(jobs) != 34 or any(n != 34 for n in ok.values()):
-        raise AssertionError(f"dryrun: {len(failures)} failed of {len(jobs)}")
+    if failures or len(jobs) != want or any(n != want for n in ok.values()):
+        raise AssertionError(f"dryrun: {len(failures)} failed of {len(jobs)} (want {want})")
     if delta != 0:
         raise AssertionError(f"dryrun: memory_allocated moved by {delta} B")
 
@@ -5049,9 +5068,60 @@ def dryrun_phase(full, dev, state_info=None):
         raise AssertionError(f"dryrun: state bytes {dry_bytes} != {state_info['state_bytes']}")
     wall = time.perf_counter() - t0
     log(f"dryrun phase: {wall:.1f} s")
-    return {"pairs": pairs, "ok": ok, "workers": workers, "run_s": run_s,
+    return {"pairs": rows, "ok": ok, "workers": workers, "run_s": run_s,
             "memory_allocated_delta": delta, "zcode_state_bytes": dry_bytes,
             "zcode_state": dict(state_info, source=source), "wall_s": wall}
+
+
+def lint_phase():
+    """Phase lint: the lint gate on the card, ``python -m
+    repro_torch.launch.lint --gate --device cuda --json-out
+    build/lint/report.json`` as a subprocess (its 8 gloo ranks share the
+    card); exit 0 asserted, every applicable (executable, pass) cell of
+    the 27 ok, launch-count (the profiler's kernel launches equal to the
+    wrappers' calls) and smem-budget (each launched kernel within 227 KiB
+    of shared memory per block) included, and a kernel report for every
+    executable that launches one. Returns the cells, each launched
+    kernel's shared bytes, registers and spills, and the seconds."""
+    t0 = time.perf_counter()
+    out = REPO / "build" / "lint" / "report.json"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                               if p]))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.lint", "--gate", "--device",
+                        "cuda", "--json-out", str(out)], capture_output=True, text=True,
+                       env=env, cwd=REPO, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in r.stdout.strip().splitlines()[-12:]:
+        log(f"lint: {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"lint: the gate exited {r.returncode}:\n{r.stdout[-4000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    doc = json.loads(out.read_text())
+    cells = doc["cells"]
+    bad = {f"{n} :: {p}": c for n, row in cells.items() for p, c in row.items() if c != "ok"}
+    n_cells = sum(len(row) for row in cells.values())
+    log(f"lint: {len(cells)} executables, {n_cells} cells, not ok: {bad or 'none'}")
+    if not doc["ok"] or bad or len(cells) != LINT_EXECUTABLES:
+        raise AssertionError(f"lint: cells not ok {bad}, {len(cells)} executables")
+    kernels = {}
+    for name, row in cells.items():
+        if "smem-budget" not in row:
+            continue
+        res = doc["resources"].get(name, {})
+        launched = res.get("launches", {}).get("kernels")
+        if not res.get("kernels") or not launched or not any(launched.values()):
+            raise AssertionError(f"lint {name}: no kernel launch or report from the card: {res}")
+        kernels[name] = [{k: v[k] for k in ("kernel", "wrapper", "launches", "smem_bytes",
+                                            "launch_smem_bytes", "registers", "spill_bytes")}
+                         for v in res["kernels"]]
+        for v in kernels[name]:
+            log(f"lint {name}: {v['kernel']} ({v['wrapper']}) x{v['launches']}: "
+                f"{v['smem_bytes']} B shared per block ({v['launch_smem_bytes']} B at the "
+                f"launch), {v['registers']} registers, {v['spill_bytes']} B spilled")
+    log(f"lint phase: {wall:.1f} s")
+    return {"cells": cells, "kernels": kernels, "verdict": doc["verdict"], "wall_s": wall}
 
 
 def kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve, fc,
@@ -5194,7 +5264,7 @@ def serve_phases(full, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("full_cache", "ep", "tp", "obs", "dec", "swa", "mla",
-                                       "ssm", "vlm", "dryrun"),
+                                       "ssm", "vlm", "dryrun", "lint"),
                     help="run phases 1, 2 and this phase alone")
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
@@ -5259,6 +5329,9 @@ def main() -> int:
     if args.only == "dryrun":
         print(json.dumps({"dryrun": dryrun_phase(full, dev)}), flush=True)
         return 0
+    if args.only == "lint":
+        print(json.dumps({"lint": lint_phase()}), flush=True)
+        return 0
     b4_info = ptxas_report(lib.parent / "nvcc.log")
 
     # 3-5, 7 and 8. serving
@@ -5302,9 +5375,13 @@ def main() -> int:
     # vlm. llama-3.2-vision-90b (10 layers) and whisper-small: image and audio sources
     vlm = vlm_phase(dev)
     print(json.dumps({"vlm": vlm}), flush=True)
-    # dryrun. every applicable (arch x shape) on the meta device, both meshes
+    # dryrun. each arch's train_4k pair on the meta device, both meshes
+    # (--only dryrun: all 34 applicable pairs)
     state_info = {k: t_slice["cuda_fused"][k] for k in ("state_bytes", "state_alloc_delta")}
-    print(json.dumps({"dryrun": dryrun_phase(full, dev, state_info)}), flush=True)
+    print(json.dumps({"dryrun": dryrun_phase(full, dev, state_info, sweep=False)}),
+          flush=True)
+    # lint. the lint gate over the port's 27 executables, on the card
+    print(json.dumps({"lint": lint_phase()}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
                            fc, dec_rows(dec), swa_rows(swa), mla_rows(mla), ssm_rows(ssm),

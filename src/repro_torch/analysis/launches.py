@@ -34,9 +34,9 @@ from __future__ import annotations
 import json
 import re
 from collections import Counter
-from typing import Any, Dict, Union
+from typing import Any, Dict, List, Optional, Union
 
-__all__ = ["KERNELS", "kernel_counts", "port_counts"]
+__all__ = ["KERNELS", "kernel_counts", "launched_kernels", "port_counts"]
 
 # wrapper -> pattern over the demangled kernel name
 KERNELS = {
@@ -52,14 +52,49 @@ KERNELS = {
 _COMPILED = {name: re.compile(p) for name, p in KERNELS.items()}
 
 
-def kernel_counts(trace: Union[str, Dict[str, Any]]) -> Dict[str, int]:
-    """Device kernel launches by name in a ``torch.profiler`` Chrome trace
-    (its path, or the loaded document)."""
+def _kernel_events(trace: Union[str, Dict[str, Any]]) -> List[Dict[str, Any]]:
     if isinstance(trace, str):
         with open(trace) as f:
             trace = json.load(f)
-    return dict(Counter(ev["name"] for ev in trace["traceEvents"]
-                        if ev.get("ph") == "X" and ev.get("cat") == "kernel"))
+    return [ev for ev in trace["traceEvents"]
+            if ev.get("ph") == "X" and ev.get("cat") == "kernel"]
+
+
+def kernel_counts(trace: Union[str, Dict[str, Any]]) -> Dict[str, int]:
+    """Device kernel launches by name in a ``torch.profiler`` Chrome trace
+    (its path, or the loaded document)."""
+    return dict(Counter(ev["name"] for ev in _kernel_events(trace)))
+
+
+def wrapper_of(kernel: str) -> Optional[str]:
+    """The wrapper whose kernel ``kernel`` (a demangled name) is, or None
+    for a kernel that is not the port's."""
+    hits = [name for name, rx in _COMPILED.items() if rx.search(kernel)]
+    if len(hits) > 1:
+        raise ValueError(f"kernel {kernel!r} matches {hits}")
+    return hits[0] if hits else None
+
+
+def launched_kernels(trace: Union[str, Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
+    """The port's kernels in a trace, by name: their wrapper, launches and
+    what the card reported for the launches (CUPTI's kernel record, in the
+    event's args): the most registers per thread and shared memory per
+    block, static and dynamic (None where the trace carries no such
+    argument)."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for ev in _kernel_events(trace):
+        wrapper = wrapper_of(ev["name"])
+        if wrapper is None:
+            continue
+        row = out.setdefault(ev["name"], {"wrapper": wrapper, "launches": 0,
+                                          "registers": None, "smem_bytes": None})
+        row["launches"] += 1
+        args = ev.get("args", {})
+        for key, arg in (("registers", "registers per thread"),
+                         ("smem_bytes", "shared memory")):
+            if arg in args:
+                row[key] = max(int(args[arg]), row[key] or 0)
+    return out
 
 
 def port_counts(kernels: Dict[str, int]) -> Dict[str, int]:
@@ -67,9 +102,7 @@ def port_counts(kernels: Dict[str, int]) -> Dict[str, int]:
     ``kernels.wrappers()``, 0 where none ran), from ``kernel_counts``."""
     out = {name: 0 for name in KERNELS}
     for kname, n in kernels.items():
-        hits = [name for name, rx in _COMPILED.items() if rx.search(kname)]
-        if len(hits) > 1:
-            raise ValueError(f"kernel {kname!r} matches {hits}")
-        if hits:
-            out[hits[0]] += n
+        wrapper = wrapper_of(kname)
+        if wrapper is not None:
+            out[wrapper] += n
     return out

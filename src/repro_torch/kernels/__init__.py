@@ -13,7 +13,9 @@ Each wrapper takes its plain version (``ref.py``) on a CPU tensor and
 launches its CUDA kernel (``csrc/``, built by ``build.py`` at first use) on
 a CUDA tensor, counting launches in ``<wrapper>.launches`` (B1's forward,
 dx and dw and B4 also in ``.launches_streaming``, see
-``grouped_ffn.variant`` and ``moe_megakernel.variant``). B1-B4 are
+``grouped_ffn.variant`` and ``moe_megakernel.variant``) and calls, on
+either device, in ``build.calls``; ``build.launched_variants`` holds each
+launched variant's ``variant_info`` arguments. B1-B4 are
 differentiable through ``torch.autograd.Function``s that run the same
 code on both devices.
 """
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from repro_torch.kernels import (flash_decode, grouped_ffn, moe_dispatch,
+from repro_torch.kernels import (build, flash_decode, grouped_ffn, moe_dispatch,
                                  moe_megakernel)
 
 
@@ -39,6 +41,12 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
+def call_counts() -> Dict[str, int]:
+    """Calls of each wrapper, on either device (a call on a card is one
+    launch of its kernel)."""
+    return {name: build.calls[name] for name in wrappers()}
+
+
 def streaming_counts() -> Dict[str, int]:
     """Launches of B1's forward, dx and dw that took the streaming kernel
     (B4's: ``moe_megakernel.fused_moe.launches_streaming``)."""
@@ -47,7 +55,11 @@ def streaming_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's launches and calls and forget the launched
+    variants."""
     for fn in wrappers().values():
         fn.launches = 0
         if hasattr(fn, "launches_streaming"):
             fn.launches_streaming = 0
+    build.calls.clear()
+    build.launched_variants.clear()

@@ -11,7 +11,10 @@ an explicit ``build()`` call, never at import: importing this module needs
 no compiler and no card.
 
 Each entry point returns ``cudaGetLastError()``; ``check`` raises on a
-non-zero code.
+non-zero code. Each wrapper counts its calls, on either device, in
+``calls`` and notes the variant it launched in ``launched_variants`` (its
+``variant_info`` arguments), so the lint gate can ask the card for the
+resources of what ran.
 """
 from __future__ import annotations
 
@@ -21,8 +24,9 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -38,6 +42,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, Any] = {}
+# wrapper -> calls on either device (a call on a card launches one kernel)
+calls: Counter = Counter()
+# (wrapper, variant_info arguments...) of every kernel variant launched
+# since the last ``kernels.reset_launch_counts()``: few distinct entries
+launched_variants: Set[Tuple] = set()
 
 
 class KernelError(RuntimeError):

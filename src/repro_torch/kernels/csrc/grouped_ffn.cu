@@ -736,6 +736,9 @@ int variant_info(int kind, int* info) {
       dx_max_blocks<T, CT>();         // raises the kernel's shared-memory limit
       return fill_info(reinterpret_cast<const void*>(gmm_stream_dx<T, CT>),
                           DxSmem<T, CT>::kTotal, kFwdThreads, info);
+    case 5:
+      return fill_info(reinterpret_cast<const void*>(grouped_matmul_kernel<T, 1, true, false>),
+                          0, kThreads, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

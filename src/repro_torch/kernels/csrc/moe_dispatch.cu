@@ -34,7 +34,7 @@
 // before it may still be writing the tables, the rows, or the memory the
 // allocator handed out as its output.
 
-#include "common.cuh"
+#include "stream.cuh"
 
 namespace {
 
@@ -276,6 +276,41 @@ extern "C" int repro_moe_combine(const void* buf, const void* token_slot, const 
                                                        n_slots, k, d, pdl != 0, st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What the card reports for one instance (info as fill_info's): kind 0 is
+// B2's kernel moving rows in `word`-byte words (16, 4, 2 or 1), kind 1 is
+// B3's in `dtype`, its top-1 instance at k == 1 else the k-row one, on the
+// 16-byte vector path where `vec` is set
+extern "C" int repro_moe_dispatch_variant_info(int kind, int dtype, int word, int k, int vec,
+                                               int* info) {
+  const void* fn = nullptr;
+  if (kind == 0) {
+    if (word == 16) fn = reinterpret_cast<const void*>(dispatch_rows_kernel<uint4>);
+    if (word == 4) fn = reinterpret_cast<const void*>(dispatch_rows_kernel<uint32_t>);
+    if (word == 2) fn = reinterpret_cast<const void*>(dispatch_rows_kernel<uint16_t>);
+    if (word == 1) fn = reinterpret_cast<const void*>(dispatch_rows_kernel<uint8_t>);
+    return fn == nullptr ? static_cast<int>(cudaErrorInvalidValue)
+                         : fill_info(fn, 0, kDispatchThreads, info);
+  }
+  if (kind != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool one = k == 1, v = vec != 0;
+  if (dtype == kReproF32) {
+    constexpr int V = 16 / sizeof(float);
+    fn = v ? (one ? reinterpret_cast<const void*>(combine_rows_kernel<float, V, 1>)
+                  : reinterpret_cast<const void*>(combine_rows_kernel<float, V, kCombineRows>))
+           : (one ? reinterpret_cast<const void*>(combine_rows_kernel<float, 1, 1>)
+                  : reinterpret_cast<const void*>(combine_rows_kernel<float, 1, kCombineRows>));
+  } else if (dtype == kReproBF16) {
+    using B = __nv_bfloat16;
+    constexpr int V = 16 / sizeof(B);
+    fn = v ? (one ? reinterpret_cast<const void*>(combine_rows_kernel<B, V, 1>)
+                  : reinterpret_cast<const void*>(combine_rows_kernel<B, V, kCombineRows>))
+           : (one ? reinterpret_cast<const void*>(combine_rows_kernel<B, 1, 1>)
+                  : reinterpret_cast<const void*>(combine_rows_kernel<B, 1, kCombineRows>));
+  }
+  return fn == nullptr ? static_cast<int>(cudaErrorInvalidValue)
+                       : fill_info(fn, 0, kCombineThreads, info);
 }
 
 // one empty launch of ``blocks`` x 128 threads, as a programmatic dependent

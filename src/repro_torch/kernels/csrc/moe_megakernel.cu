@@ -782,6 +782,11 @@ int variant_info(int kind, int* info) {
     return fill_info(reinterpret_cast<const void*>(fused_moe_stream<T, CT, false>),
                      stream_smem<T, CT, false>(128), kSThreads, info);
   }
+  if (kind == 3) {
+    stream_max_blocks<T, CT, true>();
+    return fill_info(reinterpret_cast<const void*>(fused_moe_stream<T, CT, true>),
+                     stream_smem<T, CT, true>(128), kSThreads, info);
+  }
   constexpr int BR = CT <= 8 ? 8 : 16;
   if (kind == 1) {
     const int smem = tiled_smem<BR>(512);

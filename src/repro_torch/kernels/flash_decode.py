@@ -160,6 +160,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
                          f"cache {tuple(k.shape)}")
     _check_common("flash_decode", q, k, v)
+    build.calls["flash_decode"] += 1
     if q.device.type == "cpu":
         return plain(q, k, v, index)
     idx = torch.as_tensor(index, device=q.device)
@@ -183,6 +184,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         per, hd ** -0.5, build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
         build.stream_of(q))), "flash_decode")
     flash_decode.launches += 1
+    build.launched_variants.add(("flash_decode", False, q.dtype, k.dtype, hd, rep, per))
     return out
 
 
@@ -217,6 +219,7 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"flash_decode_paged: index {index.dtype}")
     _check_common("flash_decode_paged", q, k, v)
     build.require_contiguous("flash_decode_paged", block_tables)
+    build.calls["flash_decode_paged"] += 1
     if q.device.type == "cpu":
         return plain_paged(q, k, v, block_tables, index)
     rep = h // kv
@@ -238,6 +241,8 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         per, hd ** -0.5, build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype],
         build.stream_of(q))), "flash_decode_paged")
     flash_decode_paged.launches += 1
+    build.launched_variants.add(("flash_decode_paged", True, q.dtype, k.dtype, hd, rep, per,
+                                 ps))
     return out
 
 

@@ -46,6 +46,7 @@ raises. ``grouped_matmul.launches``, ``grouped_matmul_dx.launches`` and
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -87,10 +88,12 @@ def _check(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def _launch(entry: str, a: torch.Tensor, b: torch.Tensor, out_shape,
-            e: int, c: int, d: int, f: int, stream_entry: str = ""):
+            e: int, c: int, d: int, f: int, stream_entry: str = "",
+            wrapper: str = "", kinds: Tuple[str, str] = ("", "")):
     """Launch ``entry`` (x, w)-shaped as (E, C, d, f) into a new tensor, or
-    ``stream_entry`` where given and ``variant`` says ``"streaming"``.
-    Returns (out, whether the streaming kernel ran)."""
+    ``stream_entry`` where given and ``variant`` says ``"streaming"``, and
+    note a ``wrapper``'s launch by its ``variant_info`` kind (``kinds``:
+    tiled, streaming). Returns (out, whether the streaming kernel ran)."""
     build.require_cuda(entry, a, b)
     dt = a.dtype
     out = torch.empty(out_shape, dtype=dt, device=a.device)
@@ -105,6 +108,8 @@ def _launch(entry: str, a: torch.Tensor, b: torch.Tensor, out_shape,
     fn = build.function(name, _ARGTYPES)
     build.check(fn(*ptrs, e, c, d, f, build.DTYPE_CODES[dt],
                    build.stream_of(a)), name)
+    if wrapper:
+        build.launched_variants.add((wrapper, kinds[streaming], dt, c))
     return out, streaming
 
 
@@ -116,12 +121,14 @@ def grouped_matmul_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"grouped_matmul_dx: dy {tuple(dy.shape)}, w "
                          f"{tuple(w.shape)}")
     _check("grouped_matmul_dx", dy, w)
+    build.calls["grouped_matmul_dx"] += 1
     if dy.device.type == "cpu":
         return plain_dx(dy, w)
     e, c, f = dy.shape
     d = w.shape[1]
     out, streaming = _launch("repro_grouped_matmul_dx", dy, w, (e, c, d),
-                             e, c, d, f, "repro_grouped_matmul_dx_stream")
+                             e, c, d, f, "repro_grouped_matmul_dx_stream",
+                             "grouped_matmul_dx", ("tiled_dx", "stream_dx"))
     grouped_matmul_dx.launches += 1
     grouped_matmul_dx.launches_streaming += streaming
     return out
@@ -134,12 +141,14 @@ def grouped_matmul_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"grouped_matmul_dw: x {tuple(x.shape)}, dy "
                          f"{tuple(dy.shape)}")
     _check("grouped_matmul_dw", x, dy)
+    build.calls["grouped_matmul_dw"] += 1
     if x.device.type == "cpu":
         return plain_dw(x, dy)
     e, c, d = x.shape
     f = dy.shape[2]
     out, streaming = _launch("repro_grouped_matmul_dw", x, dy, (e, d, f),
-                             e, c, d, f, "repro_grouped_matmul_dw_stream")
+                             e, c, d, f, "repro_grouped_matmul_dw_stream",
+                             "grouped_matmul_dw", ("tiled_dw", "stream_dw"))
     grouped_matmul_dw.launches += 1
     grouped_matmul_dw.launches_streaming += streaming
     return out
@@ -153,12 +162,14 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        build.calls["grouped_matmul"] += 1
         if x.device.type == "cpu":
             return plain(x, w)
         e, c, d = x.shape
         out, streaming = _launch("repro_grouped_matmul", x, w,
                                  (e, c, w.shape[2]), e, c, d, w.shape[2],
-                                 "repro_grouped_matmul_stream")
+                                 "repro_grouped_matmul_stream", "grouped_matmul",
+                                 ("tiled_fwd", "stream_fwd"))
         grouped_matmul.launches += 1
         grouped_matmul.launches_streaming += streaming
         return out
@@ -185,21 +196,18 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _GroupedMatmul.apply(x, w)
 
 
-grouped_matmul.launches = 0
-grouped_matmul.launches_streaming = 0
-grouped_matmul_dx.launches = 0
-grouped_matmul_dx.launches_streaming = 0
-grouped_matmul_dw.launches = 0
-grouped_matmul_dw.launches_streaming = 0
+for _fn in (grouped_matmul, grouped_matmul_dx, grouped_matmul_dw):
+    _fn.launches = _fn.launches_streaming = 0
 
 
 def variant_info(kind: str, dtype: torch.dtype, c: int) -> dict:
     """What the card reports for one compiled kernel: registers per thread,
     shared memory per block (bytes), spill bytes per thread and resident
     blocks per SM. ``kind``: ``"stream_fwd"``, ``"stream_dw"``,
-    ``"stream_dx"`` (at C rounded up to 1, 4, 8 or 16), ``"tiled_fwd"`` or
-    ``"tiled_dx"`` (the C <= 16 tile). Builds the library; needs a card."""
-    kinds = ("stream_fwd", "stream_dw", "tiled_fwd", "tiled_dx", "stream_dx")
+    ``"stream_dx"`` (at C rounded up to 1, 4, 8 or 16), ``"tiled_fwd"``,
+    ``"tiled_dx"`` or ``"tiled_dw"`` (the C <= 16 tile). Builds the
+    library; needs a card."""
+    kinds = ("stream_fwd", "stream_dw", "tiled_fwd", "tiled_dx", "stream_dx", "tiled_dw")
     info = (ctypes.c_int * 4)()
     fn = build.function("repro_grouped_ffn_variant_info", [_I, _I, _I, _P])
     build.check(fn(kinds.index(kind), build.DTYPE_CODES[dtype], c,

@@ -53,6 +53,7 @@ def _check_tables(name, idx: torch.Tensor, ndim: int) -> None:
 
 def _dispatch_fwd(x: torch.Tensor, slot_token: torch.Tensor,
                   slot_valid: torch.Tensor) -> torch.Tensor:
+    build.calls["dispatch"] += 1
     if x.device.type == "cpu":
         return plain_dispatch(x, slot_token, slot_valid)
     build.require_cuda("dispatch", x, slot_token, slot_valid)
@@ -62,10 +63,14 @@ def _dispatch_fwd(x: torch.Tensor, slot_token: torch.Tensor,
     if out.numel() == 0:
         return out
     fn = build.function("repro_moe_dispatch", [_P, _P, _P, _P, _I, _I, _I, _P])
+    row = d * x.element_size()
     build.check(fn(x.data_ptr(), slot_token.data_ptr(), slot_valid.data_ptr(),
-                   out.data_ptr(), t, s, d * x.element_size(),
-                   build.stream_of(x)), "dispatch")
+                   out.data_ptr(), t, s, row, build.stream_of(x)), "dispatch")
     dispatch.launches += 1
+    # the word the kernel moves rows in (repro_moe_dispatch's rule)
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    word = next(w for w in (16, 4, 2, 1) if row % w == 0 and (aligned or w < 16))
+    build.launched_variants.add(("dispatch", word))
     return out
 
 
@@ -108,6 +113,7 @@ dispatch.launches = 0
 
 def _combine_fwd(buf: torch.Tensor, token_slot: torch.Tensor,
                  weights: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    build.calls["combine"] += 1
     if buf.device.type == "cpu":
         return plain_combine(buf, token_slot, weights, keep)
     build.require_cuda("combine", buf, token_slot, weights, keep)
@@ -126,6 +132,10 @@ def _combine_fwd(buf: torch.Tensor, token_slot: torch.Tensor,
                    build.DTYPE_CODES[buf.dtype], 1, build.stream_of(buf)),
                 "combine")
     combine.launches += 1
+    # the 16-byte vector path or not, top-1 or k rows (launch_combine's rule)
+    vec = (d % (16 // buf.element_size()) == 0 and buf.data_ptr() % 16 == 0
+           and out.data_ptr() % 16 == 0)
+    build.launched_variants.add(("combine", buf.dtype, min(k, 2), vec))
     return out
 
 
@@ -177,3 +187,18 @@ def combine(buf: torch.Tensor, token_slot: torch.Tensor, weights: torch.Tensor,
 
 
 combine.launches = 0
+
+
+def variant_info(kind: str, dtype: torch.dtype = torch.float32, word: int = 16,
+                 k: int = 1, vec: bool = True) -> dict:
+    """What the card reports for one compiled kernel: registers per thread,
+    shared memory per block (bytes), spill bytes per thread and resident
+    blocks per SM. ``kind``: ``"dispatch"`` (rows moved in ``word``-byte
+    words: 16, 4, 2 or 1; any dtype) or ``"combine"`` (``dtype``, its top-1
+    instance at k = 1 else the k-row one, on the 16-byte vector path where
+    ``vec``). Builds the library; needs a card."""
+    info = (ctypes.c_int * 4)()
+    fn = build.function("repro_moe_dispatch_variant_info", [_I, _I, _I, _I, _I, _P])
+    build.check(fn(("dispatch", "combine").index(kind), build.DTYPE_CODES[dtype], word, k,
+                   int(vec), ctypes.cast(info, _P)), "repro_moe_dispatch_variant_info")
+    return dict(zip(("registers", "smem_bytes", "spill_bytes", "blocks_per_sm"), info))

@@ -136,6 +136,10 @@ def _kernel(x, w_in, w_gate, w_out, wcomb, slot_token, token_slot,
     build.check(code, name)
     fused_moe.launches += 1
     fused_moe.launches_streaming += streaming
+    gated = w_gate is not None
+    kind = (("stream_gated" if gated else "stream") if streaming
+            else "tiled_wide" if d > 1024 else "tiled")
+    build.launched_variants.add(("fused_moe", kind, x.dtype, c))
     return out.to(x.dtype)
 
 
@@ -150,6 +154,7 @@ class _FusedMoE(torch.autograd.Function):
         ctx.save_for_backward(x, w_in, w_gate, w_out, wcomb, slot_token,
                               slot_valid, token_slot)
         ctx.act = act
+        build.calls["fused_moe"] += 1
         if x.device.type == "cpu":
             return plain(x, w_in, w_gate, w_out, wcomb, slot_token,
                          slot_valid, token_slot, act)
@@ -223,21 +228,20 @@ def fused_moe(x: torch.Tensor, w_in: torch.Tensor, w_gate: Optional[torch.Tensor
     return y.to(x.dtype)
 
 
-fused_moe.launches = 0
-fused_moe.launches_streaming = 0
+fused_moe.launches = fused_moe.launches_streaming = 0
 
 
 def variant_info(kind: str, dtype: torch.dtype, c: int) -> dict:
     """What the card reports for one compiled (ungated) kernel: registers
     per thread, shared memory per block (bytes), spill bytes per thread and
-    resident blocks per SM. ``kind``: ``"stream"`` (at C rounded up to 1,
-    4, 8 or 16; shared memory for 128 experts), ``"tiled"`` (its 8- or
-    16-row tile at d <= 512) or ``"tiled_wide"`` (gated, past d = 1,024:
-    two columns per thread, the rows staged over d). Builds the library;
-    needs a card."""
+    resident blocks per SM. ``kind``: ``"stream"`` or ``"stream_gated"``
+    (at C rounded up to 1, 4, 8 or 16; shared memory for 128 experts),
+    ``"tiled"`` (ungated, its 8- or 16-row tile at d <= 512) or
+    ``"tiled_wide"`` (gated, past d = 1,024: two columns per thread, the
+    rows staged over d). Builds the library; needs a card."""
     info = (ctypes.c_int * 4)()
     fn = build.function("repro_fused_moe_variant_info", [_I, _I, _I, _P])
-    build.check(fn(("stream", "tiled", "tiled_wide").index(kind),
+    build.check(fn(("stream", "tiled", "tiled_wide", "stream_gated").index(kind),
                    build.DTYPE_CODES[dtype], c,
                    ctypes.cast(info, _P)), "repro_fused_moe_variant_info")
     return dict(zip(("registers", "smem_bytes", "spill_bytes",

@@ -8,6 +8,7 @@ device.
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --comm-table \\
       --arch zcode-m3-base --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --lint-table [--lint-device cpu]
 
 Artifacts: <--out-dir, default build/dryrun>/<arch>__<shape>__<mesh>[__tag].json
 
@@ -54,6 +55,11 @@ the plain path (``moe_backend`` "oracle": the kernels have no meta
 implementation), and the Gating Dropout decision is a host bool, so the
 step takes one branch: ``routed`` by default, the costlier one that pays
 the all-to-all (``--decision dropped`` for the other).
+
+``--lint-table`` prints the lint gate's static pass x executable matrix
+(``analysis/lint.py::lint_table``). The reference's comes from lowering
+alone; the port's runs each executable once, on ``--lint-device`` (the
+card by default, never falling back to the CPU).
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 from collections import Counter
 from fractions import Fraction
 from pathlib import Path
@@ -616,6 +623,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--comm-chunks", type=int, default=0,
                     help="capacity micro-chunks the --comm-table prices "
                          "overlapped substrates at (0 = config default)")
+    ap.add_argument("--lint-table", action="store_true",
+                    help="print the static lint pass x executable matrix "
+                         "(analysis/lint.py; runs each executable once)")
+    ap.add_argument("--lint-device", choices=("cuda", "cpu"), default="cuda",
+                    help="where --lint-table runs the executables")
     ap.add_argument("--tag", default="")
     ap.add_argument("--decision", default="routed", choices=list(DECISIONS),
                     help="the Gating Dropout branch of the step (a host bool "
@@ -639,6 +651,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             ap.error("--comm-table needs --arch and --shape")
         comm_table(args.arch, args.shape, multi_pod=args.multi_pod,
                    quant=args.comm_quant, n_chunks=args.comm_chunks)
+        return 0
+    if args.lint_table:
+        from repro_torch.analysis.lint import check_device, format_lint_table, lint_table
+        try:
+            check_device(args.lint_device)
+        except RuntimeError as e:
+            print(f"dryrun: {e} (pass --lint-device cpu to lint on the CPU)",
+                  file=sys.stderr)
+            return 2
+        print(format_lint_table(lint_table(device=args.lint_device)))
         return 0
     overrides: Dict[str, Any] = {}
     if args.seq_parallel:

@@ -350,13 +350,15 @@ def prefill_into_pages(params, batch: Dict[str, Any], lengths: torch.Tensor,
 def decode_paged_step(params, pool, block_tables: torch.Tensor,
                       tok: torch.Tensor, pos: torch.Tensor, alive: torch.Tensor,
                       cfg: ModelConfig, *, local_routing: bool = False,
-                      flash_decode: bool = False):
+                      flash_decode: bool = False, ctx=None):
     """One batched paged ``decode_step`` over all S block-table rows at
-    per-row positions: the paged twin of ``engine.decode_pool_step``."""
+    per-row positions: the paged twin of ``engine.decode_pool_step``
+    (under an expert-parallel ``ctx`` the rows and the arena are this
+    rank's)."""
     lg, pool = decode_step(params, pool, tok[:, None], pos, cfg,
                            local_routing=local_routing, token_valid=alive,
                            flash_decode=flash_decode,
-                           block_tables=block_tables)
+                           block_tables=block_tables, ctx=ctx)
     return lg[:, 0], pool
 
 
