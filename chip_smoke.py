@@ -613,6 +613,11 @@ B1_STREAMED = ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")
 STREAMED = B1_STREAMED + ("fused_moe",)       # kernels with a streaming variant
 # B1 shapes (E, C, d, f) at full width around C = 16, the streaming limit
 B1_FULL_WIDTH = [(4, c, d, f) for c in (4, 8, 9, 16) for d, f in ((512, 2048), (2048, 512))]
+# B1 shapes (E, C, d, f) that cut the tiled kernel's 128-row, 128-column and
+# 32-deep tiles ragged: C = 17, 100, 128, 300; d and f off the tiles, some
+# with rows of whole 16-byte words (16-byte copies), some not (element loads)
+B1_TILED_RAGGED = [(2, 17, 1030, 130), (3, 100, 136, 260), (2, 128, 200, 300),
+                   (2, 300, 260, 72)]
 
 
 def b1_variant(name, args) -> str:
@@ -696,13 +701,17 @@ def ragged_cases(dev):
                       False))
         # grouped matmul: C = 1, C < 16, C > 16, non-divisible d and f
         # (tiled); C = 4, 8, 9, 16 at full width, a ragged last stage of d
-        # and a ragged column slab (streaming)
+        # and a ragged column slab (streaming); the tiled kernel's row, column
+        # and k tiles cut ragged at C = 17, 100, 128, 300 (16-byte rows and
+        # not), and a view off a 16-byte boundary (element loads)
         for e, c, d, f in ((4, 1, 512, 2048), (3, 5, 100, 70), (2, 17, 64, 64),
                            (2, 100, 130, 200), *B1_FULL_WIDTH, (3, 5, 96, 64),
-                           (2, 2, 40, 136)):
+                           (2, 2, 40, 136), *B1_TILED_RAGGED):
             cases.append(("grouped_matmul", (rn(e, c, d, dtype=dt),
                                              rn(e, d, f, dtype=dt) * d ** -0.5),
                           False))
+        x = rn(1 + 2 * 100 * 72, dtype=dt)[1:].view(2, 100, 72)
+        cases.append(("grouped_matmul", (x, rn(2, 72, 136, dtype=dt) * 72 ** -0.5), False))
     # flash decode: q/kv dtype pairs, GQA, head dims (33: 66-byte bf16 rows
     # take 2-byte copies), index 0, mixed indices, one split and several,
     # rows at tile and split edges of the full cache
@@ -823,7 +832,8 @@ def kernel_phase(calls, dev):
     return out, timing
 
 
-LIBRARY_NAMES = {"grouped_matmul": "torch.bmm", "dispatch": "index_select",
+LIBRARY_NAMES = {"grouped_matmul": "torch.bmm", "grouped_matmul_dx": "torch.bmm on the w^T view",
+                 "grouped_matmul_dw": "torch.bmm on the x^T view", "dispatch": "index_select",
                  "flash_decode": "SDPA"}
 
 
@@ -840,7 +850,7 @@ def time_site(name, site, args, label="", depth=()):
     t = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
              shape=shape)
     note = ""
-    if name == "grouped_matmul":
+    if name in B1_STREAMED:
         t["variant"] = b1_variant(name, args)
         note = f"; {t['variant']} variant"
     elif name == "dispatch":
@@ -1362,10 +1372,21 @@ def train_parity(full, dev):
     return captured
 
 
+# B4 calls on the tiled kernel off the main path (E, k, capacity, T, d, f,
+# gated, act): top-1 and top-4, gated and not, gelu and silu, one to five
+# 64-row units of slots, d past 1,024 and d, f off the 256-column tiles;
+# with 8 tokens over 16 experts most experts are unrouted
+B4_TILED_RAGGED = ((4, 1, 40, 100, 1100, 300, True, "silu"),
+                   (8, 4, 300, 256, 1030, 520, False, "gelu"),
+                   (4, 1, 130, 200, 520, 136, False, "silu"),
+                   (6, 4, 64, 60, 1100, 260, True, "gelu"),
+                   (16, 1, 20, 8, 1100, 200, True, "silu"))
+
+
 def fused_ragged_cases(dev):
     """(args, kwargs) of B4 calls off the main path: k=2, capacity 1, all
-    dropped, one token, d and f not multiples of the tile, d > 512 (two
-    columns per thread), 16-row tiles, gelu and silu (gated)."""
+    dropped, one token, d and f not multiples of the tile, d > 512, C = 12
+    and 20, gelu and silu (gated); then ``B4_TILED_RAGGED``."""
     from repro_torch.configs.base import MoEConfig
     from repro_torch.core import router as R
     from repro_torch.kernels import ops
@@ -1378,7 +1399,8 @@ def fused_ragged_cases(dev):
                 (2, 1, 1, 1, 8, 8, True, "gelu", False),
                 (4, 2, 8, 24, 16, 16, True, "silu", True),
                 (8, 1, 20, 64, 1000, 600, True, "silu", False),
-                (8, 2, 12, 40, 512, 2048, False, "gelu", False)):
+                (8, 2, 12, 40, 512, 2048, False, "gelu", False),
+                *(case + (False,) for case in B4_TILED_RAGGED)):
             x = torch.randn(t, d, generator=g, device=dev)
             wr = torch.randn(d, e, generator=g, device=dev)
             w_in = torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5
@@ -1401,11 +1423,18 @@ def bwd_ragged_cases(dev):
     g = torch.Generator(device=dev).manual_seed(4322)
     cases = []
     for dt in (torch.float32, torch.bfloat16):
-        for e, c, d, f in ((4, 1, 100, 70), (3, 17, 130, 200), (2, 100, 64, 64)):
+        for e, c, d, f in ((4, 1, 100, 70), (3, 17, 130, 200), (2, 100, 64, 64),
+                           *B1_TILED_RAGGED):
             x = torch.randn(e, c, d, generator=g, device=dev).to(dt)
             w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
             dy = torch.randn(e, c, f, generator=g, device=dev).to(dt)
             cases += [("grouped_matmul_dx", (dy, w)), ("grouped_matmul_dw", (x, dy))]
+        # views off a 16-byte boundary: the tiled kernel's element loads
+        base = torch.randn(1 + 2 * 100 * 72, generator=g, device=dev).to(dt)
+        dy = base[1:].view(2, 100, 72)
+        w = (torch.randn(2, 40, 72, generator=g, device=dev) * 40 ** -0.5).to(dt)
+        x = torch.randn(2, 100, 40, generator=g, device=dev).to(dt)
+        cases += [("grouped_matmul_dx", (dy, w)), ("grouped_matmul_dw", (x, dy))]
         # streaming at full width around C = 16, a ragged slab of d and a
         # ragged last chunk of f
         for e, c, d, f in (*B1_FULL_WIDTH, (3, 5, 96, 64), (2, 2, 40, 136)):
@@ -1566,6 +1595,38 @@ def b4_checks(args, kw):
         f"gives exact zeros")
 
 
+def b4_tiled_checks(args, kw, out) -> str:
+    """B4's tiled kernel on one ragged case, beyond its plain version: at
+    top-1 the same bits on a second run and after CUDA-graph replays (each
+    output element takes one add onto zero); where experts are unrouted,
+    NaN in their weights leaves the output finite and equal (bitwise at
+    top-1): they are never read. Returns what was checked, for the log."""
+    from repro_torch.kernels import moe_megakernel
+    fused = kernel_of("fused_moe")
+    x, w_in, w_gate, w_out, topk_w, keep, st, sv, ts = args
+    note = ""
+    if topk_w.shape[1] == 1:
+        check("fused_moe tiled second run", fused(*args, **kw), out, exact=True)
+        check("fused_moe tiled after CUDA-graph replays",
+              graph_replayed(lambda: fused(*args, **kw)), out, exact=True)
+        note += ", bitwise on a second run and after 3 graph replays"
+    live = moe_megakernel.live_experts(topk_w, keep, ts, w_in.shape[0], st.shape[0])
+    if not bool(live.all()):
+        poisoned = []
+        for w in (w_in, w_gate, w_out):
+            poisoned.append(None if w is None else w.clone())
+            if w is not None:
+                poisoned[-1][~live] = float("nan")
+        pout = fused(x, *poisoned, *args[4:], **kw)
+        torch.cuda.synchronize()
+        # top-k > 1: a token's k rows meet in either order
+        top1 = topk_w.shape[1] == 1
+        check("fused_moe tiled with NaN unrouted weights", pout, out, exact=top1)
+        note += (f", NaN in {int((~live).sum())} unrouted experts' weights changes "
+                 f"{'no bit' if top1 else 'nothing beyond the order of adds'}")
+    return note
+
+
 def train_kernel_phase(captured, dev):
     """B4, B1's kernels, B2 and B3 against their plain versions at the
     inputs captured from the first training step and in ragged cases, B4's
@@ -1601,9 +1662,11 @@ def train_kernel_phase(captured, dev):
         if drop_all and float(out.abs().max()) != 0.0:
             raise AssertionError("fused_moe: all dropped but output not zero")
         x, w_in = args[:2]
+        note = b4_tiled_checks(args, kw, out) if took == "tiled" else ""
         b4_rag.append(f"{_dt(w_in)} E={w_in.shape[0]} k={args[4].shape[1]} "
                       f"C={args[6].shape[0] // w_in.shape[0]} T={x.shape[0]} "
-                      f"d={w_in.shape[1]} f={w_in.shape[2]} {took}")
+                      f"d={w_in.shape[1]} f={w_in.shape[2]} {kw['act']}"
+                      f"{' gated' if args[2] is not None else ''} {took}{note}")
         n += 1
     log(f"kernel fused_moe ragged cases and their variants: {b4_rag}")
     b1_rag = []
@@ -1616,8 +1679,9 @@ def train_kernel_phase(captured, dev):
     log(f"kernel grouped_matmul_dx/_dw ragged cases and their variants: {b1_rag}")
     log(f"train kernels: {n} ragged cases agree with their plain versions (B4: k=2, "
         "capacity 1, all dropped, T=1, ragged d and f, d > 512, C=12 and C=20, gelu and "
-        "gated silu; B1 dx/dw: C=1, C=17, C=100, ragged d and f; C=4, 8, 9, 16 at "
-        "full width, a ragged slab of d, a ragged last chunk of f; f32 and bf16)")
+        "gated silu; tiled at C=20-300, k=1 and 4, d > 1,024, gated and not; B1 dx/dw: "
+        "C=1, C=17, C=100, C=128, C=300, ragged d and f, views off 16 bytes; C=4, 8, 9, 16 "
+        "at full width, a ragged slab of d, a ragged last chunk of f; f32 and bf16)")
 
     args, kw = captured["fused_moe"][0]
     b4_checks(args, kw)
@@ -3335,11 +3399,30 @@ def dec_timed(label, params, batch, cfg, gen):
 
 def dec_site(label, name, site, args, depth=()):
     """A kernel at one captured site: against its plain version (B2
-    bitwise), then ``time_site``."""
+    bitwise; B1 also bitwise on a second run), then ``time_site``."""
     out, _ = run_kernel(name, args)
     torch.cuda.synchronize()
     err = check(f"{label} {name}@{site}", out, plain_of(name)(*args), exact=name == "dispatch")
+    if name in B1_STREAMED:
+        check(f"{label} {name}@{site} second run", kernel_of(name)(*args), out, exact=True)
     return dict(time_site(name, site, args, f"{label} ", depth), max_abs_err=err)
+
+
+def tiled_bwd_sites(label, args, depth=()):
+    """B1's dx and dW on the tiled kernel at a full-width prefill site: the
+    forward's captured (x, w) and a seeded dy of its output's shape, each
+    against its plain version and bitwise on a second run, then timed in
+    turns with torch.bmm on the w^T and x^T views (``dec_site``)."""
+    x, w = args
+    g = torch.Generator(device=x.device).manual_seed(SEED + 41)
+    dy = torch.randn(x.shape[0], x.shape[1], w.shape[2], generator=g,
+                     device=x.device).to(x.dtype)
+    out = {}
+    for name, a in (("grouped_matmul_dx", (dy, w)), ("grouped_matmul_dw", (x, dy))):
+        if b1_variant(name, a) != "tiled":
+            raise AssertionError(f"{label} {name}: {b1_variant(name, a)}, not tiled")
+        out[name] = dec_site(label, name, "prefill", a, depth)
+    return out
 
 
 def dec_schedulers(params, cfg, dev):
@@ -3496,6 +3579,9 @@ def dec_dbrx(dev):
                 t = dec_site("dbrx-132b", name, site, args,
                              HEAVY_DEPTH if site == "prefill" else ())
             out["sites"][(name, site)] = t
+            if name == "grouped_matmul" and site == "prefill":
+                for bname, bt in tiled_bwd_sites("dbrx-132b", args, HEAVY_DEPTH).items():
+                    out["sites"][(bname, "prefill")] = bt
     del calls
     with Capture(names=("fused_moe",), share_over=SHARE_OVER) as cap:
         generate(params, batch, fused, dataclasses.replace(gen, max_new=2))
@@ -3604,7 +3690,7 @@ def dec_phase(dev, b4_info):
     """Phase dec: yi-6b (full width and depth), then dbrx-132b (full
     width, DBRX_LAYERS layers), then reduced dbrx-132b's --task lm steps;
     each model's tensors freed before the next. ``b4_info`` is
-    ``b4_report``'s; its tiled variants at 16-row tiles go in the record."""
+    ``b4_report``'s; its tiled variants at C = 128 go in the record."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     yi = dec_yi(dev)
@@ -3616,7 +3702,7 @@ def dec_phase(dev, b4_info):
     lm = dec_train(dev)
     log(f"dec phase: {time.perf_counter() - t0:.1f} s")
     return {"yi-6b": yi, "dbrx-132b": dbrx, "lm": lm,
-            "b4_tiled": {k: v[16] for k, v in b4_info.items() if k.startswith("tiled")}}
+            "b4_tiled": {k: v[128] for k, v in b4_info.items() if k.startswith("tiled")}}
 
 
 def dec_json(dec):
@@ -3639,9 +3725,10 @@ def dec_rows(dec):
         max_abs_err=yi["paged"]["max_abs_err"])
     for (name, site), t in dbrx["sites"].items():
         backend = "cuda_fused" if name == "fused_moe" else "cuda"
+        # dx and dW: none per generate (timed at the prefill forward's shapes)
         rows[name][f"dbrx-132b {site}"] = dict(
             {k: v for k, v in t.items() if k != "host_ms"},
-            launches=dbrx["launches"][backend][name])
+            launches=dbrx["launches"][backend].get(name, 0))
     return {k: v for k, v in rows.items() if v}
 
 
@@ -5424,13 +5511,24 @@ def ptxas_report(path: Path):
                                        text=True).stdout.strip()
         elif "registers" in line or "spill" in line:
             log(f"  ptxas: {entry}: {line.split(':', 1)[-1].strip()}")
-    for kind in ("stream_fwd", "stream_dx", "stream_dw", "tiled_fwd", "tiled_dx"):
+    for kind in ("stream_fwd", "stream_dx", "stream_dw"):
         for dt in (torch.float32, torch.bfloat16):
             infos = {c: grouped_ffn.variant_info(kind, dt, c) for c in (1, 4, 8, 16)}
             log(f"B1 {kind} {_dt(torch.empty(0, dtype=dt))} (C rounded up to 1/4/8/16): "
                 + "; ".join(f"C={c}: {i['registers']} registers, {i['smem_bytes']} B shared, "
                             f"{i['spill_bytes']} B spilled, {i['blocks_per_sm']} blocks/SM"
                             for c, i in infos.items()))
+    for kind in ("tiled_fwd", "tiled_dx", "tiled_dw"):
+        for dt in (torch.float32, torch.bfloat16):
+            infos = {vec: grouped_ffn.variant_info(kind, dt, 128, vec) for vec in (True, False)}
+            plan = grouped_ffn.tiled_plan(kind[6:], 1, 128, 128, 128, dt.itemsize)["smem_bytes"]
+            if any(i["smem_bytes"] != plan for i in infos.values()):
+                raise AssertionError(f"B1 {kind}: shared memory {infos}, tiled_plan {plan}")
+            log(f"B1 {kind} {_dt(torch.empty(0, dtype=dt))} (any C; tiled_plan {plan} B): "
+                + "; ".join(f"{'16-byte' if vec else 'element'} loads: {i['registers']} "
+                            f"registers, {i['smem_bytes']} B shared, {i['spill_bytes']} B "
+                            f"spilled, {i['blocks_per_sm']} blocks/SM"
+                            for vec, i in infos.items()))
     for paged in (False, True):
         for qdt, kvdt in ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
                           (torch.bfloat16, torch.bfloat16)):
@@ -5450,13 +5548,22 @@ def b4_report():
     "kind dtype", then by C."""
     from repro_torch.kernels import moe_megakernel
     out = {}
-    for kind, what in (("stream", "ungated; 128 experts"), ("tiled", "ungated; d <= 512"),
-                       ("tiled_wide", "gated; past d = 1,024")):
+    for kind, what, cs in (("stream", "ungated; 128 experts; C rounded up to 1/4/8/16",
+                            (1, 4, 8, 16)),
+                           ("tiled", "ungated; 128 experts of C slots", (128, 1152)),
+                           ("tiled_gated", "gated; 128 experts of C slots", (128, 1152))):
         for dt in (torch.float32, torch.bfloat16):
-            infos = {c: moe_megakernel.variant_info(kind, dt, c) for c in (1, 4, 8, 16)}
+            infos = {c: moe_megakernel.variant_info(kind, dt, c) for c in cs}
+            for c, i in infos.items():
+                if kind == "stream":
+                    continue
+                plan = moe_megakernel.tiled_plan(128, c, 512, 512, dt.itemsize,
+                                                 kind == "tiled_gated")["smem_bytes"]
+                if i["smem_bytes"] != plan:
+                    raise AssertionError(f"B4 {kind} C={c}: shared memory {i['smem_bytes']}, "
+                                         f"tiled_plan {plan}")
             out[f"{kind} {_dt(torch.empty(0, dtype=dt))}"] = infos
-            log(f"B4 {kind} {_dt(torch.empty(0, dtype=dt))} (C rounded up to 1/4/8/16; "
-                f"{what}): "
+            log(f"B4 {kind} {_dt(torch.empty(0, dtype=dt))} ({what}): "
                 + "; ".join(f"C={c}: {i['registers']} registers, {i['smem_bytes']} B shared, "
                             f"{i['spill_bytes']} B spilled, {i['blocks_per_sm']} blocks/SM"
                             for c, i in infos.items()))

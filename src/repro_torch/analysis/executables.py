@@ -31,8 +31,9 @@ what that run did:
     launch (the profiler's kernel records), and for the variant the
     wrapper took (``variant_info`` of ``grouped_ffn``, ``moe_dispatch``,
     ``moe_megakernel``, ``flash_decode``: registers, shared memory,
-    spills; B4's tiled variants are reported ungated at d <= 512 or
-    gated past d = 1,024, the rows kept the largest).
+    spills; the tiled B1 and B4 as launched, 16-byte or element loads,
+    B4's shared memory for 128 experts of the call's C slots; the rows
+    kept the largest).
 
 A train chunk is a ``lax.scan`` in the reference, whose HLO holds the
 step's body once (K = 2 steps checked against one ``step_cost``); here

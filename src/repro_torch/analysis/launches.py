@@ -11,14 +11,15 @@ the wrappers' ``launch_counts()``:
 
   B1 ``grouped_matmul`` / ``_dx`` / ``_dw``: one ``gmm_stream_fwd`` /
       ``gmm_stream_dx`` / ``gmm_stream_dw`` (streaming) or
-      ``grouped_matmul_kernel<T, TM, A_T, B_T>`` (tiled; the forward
-      <.., false, false>, dx <.., false, true>, dW <.., true, false>). Its
+      ``grouped_matmul_tiled<T, A_T, B_T, VEC>`` (tiled; the forward
+      <.., false, false, ..>, dx <.., false, true, ..>, dW <.., true,
+      false, ..>). Its
       output comes from ``torch.empty``: no fill (an empty product's
       ``zero_`` is the only other launch, off the main path).
   B2 ``dispatch``: one ``dispatch_rows_kernel``.
   B3 ``combine``: one ``combine_rows_kernel`` (a programmatic dependent
       launch, still one launch).
-  B4 ``fused_moe``: one ``fused_moe_stream`` or ``fused_moe_kernel``,
+  B4 ``fused_moe``: one ``fused_moe_stream`` or ``fused_moe_tiled``,
       beside PyTorch's own launches in the wrapper (the zero fill of the
       output, slot weights and counts; the slot-weight scatter; the cast).
   B5 ``flash_decode`` / B6 ``flash_decode_paged``: one
@@ -40,12 +41,12 @@ __all__ = ["KERNELS", "kernel_counts", "launched_kernels", "port_counts"]
 
 # wrapper -> pattern over the demangled kernel name
 KERNELS = {
-    "grouped_matmul": r"gmm_stream_fwd<|grouped_matmul_kernel<[^>]*, false, false>",
-    "grouped_matmul_dx": r"gmm_stream_dx<|grouped_matmul_kernel<[^>]*, false, true>",
-    "grouped_matmul_dw": r"gmm_stream_dw<|grouped_matmul_kernel<[^>]*, true, false>",
+    "grouped_matmul": r"gmm_stream_fwd<|grouped_matmul_tiled<[^,>]*, false, false,",
+    "grouped_matmul_dx": r"gmm_stream_dx<|grouped_matmul_tiled<[^,>]*, false, true,",
+    "grouped_matmul_dw": r"gmm_stream_dw<|grouped_matmul_tiled<[^,>]*, true, false,",
     "dispatch": r"dispatch_rows_kernel<",
     "combine": r"combine_rows_kernel<",
-    "fused_moe": r"fused_moe_stream<|fused_moe_kernel<",
+    "fused_moe": r"fused_moe_stream<|fused_moe_tiled<",
     "flash_decode": r"flash_decode_kernel<[^>]*, false>",
     "flash_decode_paged": r"flash_decode_kernel<[^>]*, true>",
 }

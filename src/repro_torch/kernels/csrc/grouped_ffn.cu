@@ -13,21 +13,23 @@
 // D/bd) with the D axis sequential and an f32 VMEM accumulator; blocks
 // are exact divisors of the shape (platform.py::fit_block).
 //
-// What bounds it on the H100. On the serving and training paths C is 1
-// to 8 rows per expert (16 at most), so each product does at most 2 * C
-// flops per weight-sized element it moves: <= 8 flops per f32 byte at C =
-// 16, against the 20 the f32 CUDA cores need per byte of HBM (67 TFLOP/s
-// over 3.35 TB/s). All three are bound by the bytes of the weight-sized
-// operand: the forward and dx read every expert's w once (537 MB of f32
-// at (128, 2048, 512)), dw writes one. Tensor cores cannot help: an f32
-// wgmma runs in TF32 (10-bit mantissa), which misses the f32 gate of
-// 1e-4 + 1e-4 |ref| against the plain version, and the work is not
-// bound by operations anyway. So there are two designs, both on the CUDA
-// cores in f32, and the wrapper (kernels/grouped_ffn.py::variant) picks
-// one per call:
+// What bounds it on the H100 depends on C, the rows per expert: each
+// product does 2 * C flops per weight-sized element it moves, 0.5 * C per
+// f32 byte, against the 20 per byte (67 TFLOP/s of f32 CUDA cores over
+// 3.35 TB/s of HBM) past which operations, not bytes, set the limit.
+//   - C <= 16 (decode, serving, training: C = 1-8): at most 8 flops per
+//     byte, so all three are bound by the bytes of the weight-sized operand:
+//     the forward and dx read every expert's w once (537 MB of f32 at (128,
+//     2048, 512)), dw writes one.
+//   - C >= 128 (every prefill of dbrx-132b and deepseek-v3-671b: C = 128
+//     to 1,152): 64-576 flops per byte, bound by the f32 FFMA rate.
+// Tensor cores do not serve either: an f32 wgmma runs in TF32 (10-bit
+// mantissa), which misses the f32 gate of 1e-4 + 1e-4 |ref| against the
+// plain version. So there are two designs, both on the CUDA cores in f32,
+// and the wrapper (kernels/grouped_ffn.py::variant) picks one per call:
 //
 // * Streaming kernels, for C <= 16 with 16-byte row strides and 16-byte
-//   aligned pointers (every call on the main path), one per product:
+//   aligned pointers (every decode and training call), one per product:
 //   - forward (gmm_stream_fwd): a persistent grid walks work items
 //     (expert, 128-column slab of F); each item reduces over all of D, so
 //     no sum crosses blocks (no atomics, the same result on every run).
@@ -79,135 +81,23 @@
 //     or TMA store is needed to keep them in flight: with 4 blocks of 256
 //     threads per SM at C = 8 (2-8 by C), each thread issuing 8 stores,
 //     enough are always queued.
-// * The tiled kernel (grouped_matmul_kernel), for everything else (C >
-//   16, ragged row strides, misaligned views): a block owns a (16 or 64)
-//   x 64 output tile of one expert and loops over the reduction axis in
-//   steps of 16 through shared memory, masking ragged edges, so any sizes
-//   work. It moves 4-byte words with one stage in flight and reaches
-//   ~35-55% of the byte bound.
+// * The tiled kernel (grouped_matmul_tiled), for everything else (C > 16,
+//   ragged row strides, misaligned views), the same kernel for all three
+//   products: a register-tiled SGEMM (tile_gemm.cuh). A block owns a 128 x
+//   128 output tile of one expert, 256 threads each with an 8 x 8 f32
+//   accumulator, and walks k in steps of 32 through a 4-stage ring of
+//   16-byte cp.async copies that zero-fill ragged edges; x^T and w^T are
+//   copied along their contiguous axis into layouts that the inner loop
+//   reads 16 bytes at a time. One block per SM. Rows
+//   that are not whole 16-byte words, or misaligned views, take the same
+//   kernel with element loads (its VEC = false instance). No atomics and
+//   no split-K: each output element is one thread's sum in a fixed order.
 
 #include "common.cuh"
 #include "stream.cuh"
+#include "tile_gemm.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// tiled kernel (any shape)
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;   // 16 x 16 threads
-constexpr int kBN = 64;         // 16 threads x 4 columns
-constexpr int kBK = 16;
-
-// TM rows per thread (BM = 16 * TM). A_T: A[m][k] = a[k * M + m] (else
-// a[m * K + k]). B_T: B[k][n] = b[n * K + k] (else b[k * N + n]).
-template <typename T, int TM, bool A_T, bool B_T>
-__global__ void __launch_bounds__(kThreads)
-grouped_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
-                      int M, int K, int N) {
-  constexpr int BM = 16 * TM;
-  __shared__ float As[kBK][BM + 4];    // A tile stored k-major: As[k][m]
-  __shared__ float Bs[kBK][kBN + 4];
-
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * kBN;
-  const T* ae = a + static_cast<size_t>(e) * M * K;
-  const T* be = b + static_cast<size_t>(e) * K * N;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;   // column group: columns tx*4 .. tx*4+3
-  const int ty = tid / 16;   // row group: rows ty*TM .. ty*TM+TM-1
-
-  float acc[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // A tile: BM x 16 values, TM per thread, neighbouring threads on A's
-    // contiguous axis (k, or m when A is read transposed)
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int idx = tid + i * kThreads;
-      const int mm = A_T ? idx % BM : idx / kBK;
-      const int kk = A_T ? idx / BM : idx % kBK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      float v = 0.f;
-      if (gm < M && gk < K)
-        v = to_f32(A_T ? ae[static_cast<size_t>(gk) * M + gm] : ae[static_cast<size_t>(gm) * K + gk]);
-      As[kk][mm] = v;
-    }
-    // B tile: 16 x 64 values, 4 per thread, neighbouring threads on B's
-    // contiguous axis (n, or k when B is read transposed)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * kThreads;
-      const int kk = B_T ? idx % kBK : idx / kBN;
-      const int nn = B_T ? idx / kBK : idx % kBN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      float v = 0.f;
-      if (gk < K && gn < N)
-        v = to_f32(B_T ? be[static_cast<size_t>(gn) * K + gk] : be[static_cast<size_t>(gk) * N + gn]);
-      Bs[kk][nn] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[TM], bv[4];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
-    T* orow = out + (static_cast<size_t>(e) * M + gm) * N;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < N) orow[gn] = from_f32<T>(acc[i][j]);
-    }
-  }
-}
-
-template <typename T, bool A_T, bool B_T>
-void launch_grouped_matmul(const void* a, const void* b, void* out, int E, int M, int K, int N,
-                           cudaStream_t stream) {
-  const T* ap = static_cast<const T*>(a);
-  const T* bp = static_cast<const T*>(b);
-  T* op = static_cast<T*>(out);
-  if (M <= 16) {
-    const dim3 grid(ceil_div(N, kBN), ceil_div(M, 16), E);
-    grouped_matmul_kernel<T, 1, A_T, B_T><<<grid, kThreads, 0, stream>>>(ap, bp, op, M, K, N);
-  } else {
-    const dim3 grid(ceil_div(N, kBN), ceil_div(M, 64), E);
-    grouped_matmul_kernel<T, 4, A_T, B_T><<<grid, kThreads, 0, stream>>>(ap, bp, op, M, K, N);
-  }
-}
-
-template <bool A_T, bool B_T>
-int dispatch_dtype(const void* a, const void* b, void* out, int E, int M, int K, int N, int dtype,
-                   void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == kReproF32) {
-    launch_grouped_matmul<float, A_T, B_T>(a, b, out, E, M, K, N, st);
-  } else if (dtype == kReproBF16) {
-    launch_grouped_matmul<__nv_bfloat16, A_T, B_T>(a, b, out, E, M, K, N, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // streaming kernels (C <= 16)
@@ -627,6 +517,123 @@ gmm_stream_dx(const T* __restrict__ dy, const T* __restrict__ w, T* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// tiled kernel (C > 16, ragged rows, misaligned views)
+// ---------------------------------------------------------------------------
+
+// out (E, M, N) = A (E, M, K) x B (E, K, N): one 128 x 128 tile of expert
+// blockIdx.z per block (tile_gemm.cuh). blockIdx.x walks the row tiles, so
+// that the row tiles of one weight column tile run side by side and share
+// it in L2. A_T: A[m][k] = a[k * M + m] (dw's x^T), else a[m * K + k]. B_T:
+// B[k][n] = b[n * K + k] (dx's w^T), else b[k * N + n]. VEC: every row of a,
+// b and out is a whole number of 16-byte words and 16-byte aligned (checked
+// on the host), so the tile moves 16-byte words; else element by element.
+template <typename T, bool A_T, bool B_T, bool VEC>
+__global__ void __launch_bounds__(tile::kThreads, 1)
+grouped_matmul_tiled(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out, int M,
+                     int K, int N) {
+  constexpr bool AKC = !A_T, BKC = B_T;
+  extern __shared__ __align__(128) unsigned char ring[];
+  const int e = blockIdx.z, m0 = blockIdx.x * tile::kBM, n0 = blockIdx.y * tile::kBN;
+  const T* ae = a + static_cast<size_t>(e) * M * K;
+  const T* be = b + static_cast<size_t>(e) * K * N;
+  const tile::Pos p(tile::kBN / 32);
+  float acc[8][8];
+  if constexpr (AKC) {
+    const tile::KRows<T> sa{ae, K, m0, M - m0, K};
+    if constexpr (BKC) {
+      const tile::KRows<T> sb{be, K, n0, N - n0, K};
+      tile::gemm<T, T, true, true, VEC, VEC, 32, 16>(ring, sa, sb, K, M - m0, p, acc);
+    } else {
+      const tile::MNRows<T> sb{be, N, n0, N, K};
+      tile::gemm<T, T, true, false, VEC, VEC, 32, 16>(ring, sa, sb, K, M - m0, p, acc);
+    }
+  } else {
+    const tile::MNRows<T> sa{ae, M, m0, M, K};
+    const tile::MNRows<T> sb{be, N, n0, N, K};
+    tile::gemm<T, T, false, false, VEC, VEC, 32, 16>(ring, sa, sb, K, M - m0, p, acc);
+  }
+
+  T* oe = out + static_cast<size_t>(e) * M * N + n0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + p.row<AKC>(i);
+    if (m >= M) continue;
+    T* orow = oe + static_cast<size_t>(m) * N;
+    if constexpr (BKC) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = p.col<true, 32, 16>(j);
+        if (n0 + c < N) orow[c] = from_f32<T>(acc[i][j]);
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = p.col<false, 32, 16>(4 * h);
+        const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                            acc[i][4 * h + 3]};
+        if (VEC && n0 + c + 3 < N) {
+          store4(orow + c, v);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (n0 + c + j < N) orow[c + j] = from_f32<T>(v[j]);
+        }
+      }
+    }
+  }
+}
+
+// the tiled kernel's dynamic shared memory: its ring of stages
+template <typename T, bool A_T, bool B_T>
+constexpr int tiled_smem() {
+  return tile::kStages * tile::Stage<T, T, !A_T, B_T, tile::kBM>::kBytes;
+}
+
+template <typename T, bool A_T, bool B_T, bool VEC>
+const void* tiled_kernel() {
+  static const bool raised = [] {
+    cudaFuncSetAttribute(grouped_matmul_tiled<T, A_T, B_T, VEC>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, tiled_smem<T, A_T, B_T>());
+    return true;
+  }();
+  (void)raised;
+  return reinterpret_cast<const void*>(grouped_matmul_tiled<T, A_T, B_T, VEC>);
+}
+
+template <typename T, bool A_T, bool B_T, bool VEC>
+void launch_tiled(const void* a, const void* b, void* out, int E, int M, int K, int N,
+                  cudaStream_t st) {
+  tiled_kernel<T, A_T, B_T, VEC>();
+  const dim3 grid(ceil_div(M, tile::kBM), ceil_div(N, tile::kBN), E);
+  grouped_matmul_tiled<T, A_T, B_T, VEC><<<grid, tile::kThreads, tiled_smem<T, A_T, B_T>(), st>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out), M, K, N);
+}
+
+// (E, M, K) x (E, K, N) with a, b, out of rows lda, ldb, N elements: the
+// 16-byte instance where every row is whole 16-byte words and every pointer
+// 16-byte aligned
+template <bool A_T, bool B_T>
+int dispatch_tiled(const void* a, const void* b, void* out, int E, int M, int K, int N,
+                   int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  const int lda = A_T ? M : K, ldb = B_T ? K : N;
+  auto rows16 = [&](int bytes) {
+    return (lda * bytes) % 16 == 0 && (ldb * bytes) % 16 == 0 && (N * bytes) % 16 == 0 &&
+           aligned16(a) && aligned16(b) && aligned16(out);
+  };
+  if (dtype == kReproF32) {
+    if (rows16(4)) launch_tiled<float, A_T, B_T, true>(a, b, out, E, M, K, N, st);
+    else launch_tiled<float, A_T, B_T, false>(a, b, out, E, M, K, N, st);
+  } else if (dtype == kReproBF16) {
+    if (rows16(2)) launch_tiled<__nv_bfloat16, A_T, B_T, true>(a, b, out, E, M, K, N, st);
+    else launch_tiled<__nv_bfloat16, A_T, B_T, false>(a, b, out, E, M, K, N, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Whether the streaming kernels take (C, K, N) rows with these pointers:
 // the same rule as grouped_ffn.py::variant, checked again here so that a
 // bulk copy is never issued on a ragged or misaligned row.
@@ -716,6 +723,12 @@ int dispatch_stream(int kind, const void* a, const void* b, void* out, int E, in
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool A_T, bool B_T, bool VEC>
+int tiled_info(int* info) {
+  return fill_info(tiled_kernel<T, A_T, B_T, VEC>(), tiled_smem<T, A_T, B_T>(), tile::kThreads,
+                   info);
+}
+
 template <typename T, int CT>
 int variant_info(int kind, int* info) {
   switch (kind) {
@@ -727,18 +740,21 @@ int variant_info(int kind, int* info) {
       return fill_info(reinterpret_cast<const void*>(gmm_stream_dw<T, CT>), 0, kDwThreads,
                           info);
     case 2:
-      return fill_info(reinterpret_cast<const void*>(grouped_matmul_kernel<T, 1, false, false>),
-                          0, kThreads, info);
+      return tiled_info<T, false, false, true>(info);
     case 3:
-      return fill_info(reinterpret_cast<const void*>(grouped_matmul_kernel<T, 1, false, true>),
-                          0, kThreads, info);
+      return tiled_info<T, false, true, true>(info);
     case 4:
       dx_max_blocks<T, CT>();         // raises the kernel's shared-memory limit
       return fill_info(reinterpret_cast<const void*>(gmm_stream_dx<T, CT>),
                           DxSmem<T, CT>::kTotal, kFwdThreads, info);
     case 5:
-      return fill_info(reinterpret_cast<const void*>(grouped_matmul_kernel<T, 1, true, false>),
-                          0, kThreads, info);
+      return tiled_info<T, true, false, true>(info);
+    case 6:
+      return tiled_info<T, false, false, false>(info);
+    case 7:
+      return tiled_info<T, false, true, false>(info);
+    case 8:
+      return tiled_info<T, true, false, false>(info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -757,7 +773,7 @@ int variant_info_rows(int kind, int C, int* info) {
 // out (E, C, F) = x (E, C, D) @ w (E, D, F); tiled kernel, any shape
 extern "C" int repro_grouped_matmul(const void* x, const void* w, void* out, int E, int C, int D,
                                     int F, int dtype, void* stream) {
-  return dispatch_dtype<false, false>(x, w, out, E, C, D, F, dtype, stream);
+  return dispatch_tiled<false, false>(x, w, out, E, C, D, F, dtype, stream);
 }
 
 // the same product on the streaming kernel (C <= 16, 16-byte rows and
@@ -770,7 +786,7 @@ extern "C" int repro_grouped_matmul_stream(const void* x, const void* w, void* o
 // dx (E, C, D) = dy (E, C, F) @ w^T, w (E, D, F) read transposed in place
 extern "C" int repro_grouped_matmul_dx(const void* dy, const void* w, void* dx, int E, int C,
                                        int D, int F, int dtype, void* stream) {
-  return dispatch_dtype<false, true>(dy, w, dx, E, C, F, D, dtype, stream);
+  return dispatch_tiled<false, true>(dy, w, dx, E, C, F, D, dtype, stream);
 }
 
 // the same product on the streaming kernel (same rule as the forward's)
@@ -782,7 +798,7 @@ extern "C" int repro_grouped_matmul_dx_stream(const void* dy, const void* w, voi
 // dw (E, D, F) = x^T @ dy, x (E, C, D) read transposed in place, dy (E, C, F)
 extern "C" int repro_grouped_matmul_dw(const void* x, const void* dy, void* dw, int E, int C,
                                        int D, int F, int dtype, void* stream) {
-  return dispatch_dtype<true, false>(x, dy, dw, E, D, C, F, dtype, stream);
+  return dispatch_tiled<true, false>(x, dy, dw, E, D, C, F, dtype, stream);
 }
 
 // the same product on the streaming kernel (same rule as the forward's)

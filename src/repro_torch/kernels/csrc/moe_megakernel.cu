@@ -11,18 +11,23 @@
 // accumulator in VMEM from the first grid step to the last. Hopper's blocks
 // run concurrently in no fixed order, so that design does not carry over.
 //
-// What bounds it on the H100: the bytes of the weights it must read. An
-// expert none of whose slots carries weight (wslot == 0: empty, dropped or
-// never kept) adds nothing, so only the live experts' w_in (and w_gate)
-// and w_out are needed: 8.4 MB each in f32 at zcode-m3-base's (512, 2048),
-// against 4 x C x d x f FLOPs per expert, at most 8 flops per byte at C =
-// 16 where the f32 CUDA cores need 20 to be the limit. Tensor cores would
-// not help, and an f32 wgmma runs in TF32, which misses the f32 gate.
-// Every intermediate stays in f32. The wrapper (kernels/moe_megakernel.py::
-// variant) picks one of two designs per call:
+// What bounds it on the H100 depends on C, the slots per expert. An expert
+// none of whose slots carries weight (wslot == 0: empty, dropped or never
+// kept) adds nothing, so only the live experts' w_in (and w_gate) and w_out
+// are needed: 8.4 MB each in f32 at zcode-m3-base's (512, 2048), against 2
+// x C x d x f FLOPs per matrix, 0.5 * C flops per f32 byte.
+//   - C <= 16 (decode, serving, training): at most 8 flops per byte, under
+//     the 20 at which the f32 CUDA cores (67 TFLOP/s) and not HBM (3.35
+//     TB/s) set the limit: bound by the live weights' bytes.
+//   - C >= 128 (every prefill of dbrx-132b and deepseek-v3-671b, C = 128 to
+//     1,152): 64-576 flops per byte, bound by the f32 FFMA rate, counted
+//     over the kept slots only.
+// Tensor cores do not serve either: an f32 wgmma runs in TF32, which misses
+// the f32 gate. Every intermediate stays in f32. The wrapper
+// (kernels/moe_megakernel.py::variant) picks one of two designs per call:
 //
 // * The streaming kernel (fused_moe_stream), for C <= 16 with 16-byte rows
-//   of d and f and 16-byte aligned pointers (every call on the main path).
+//   of d and f and 16-byte aligned pointers (every decode and training call).
 //   - Live experts only. Each block scans wslot (E x C values) at its
 //     start, one warp vote per 32 experts, into bit masks in shared memory
 //     and walks the live experts in expert order: nothing leaves the
@@ -60,29 +65,40 @@
 //     spent its tail in those latency-bound reductions of 256 KB per expert
 //     and its items in fences, and missed both of its targets (PERF.md,
 //     Findings).
-// * The tiled kernel (fused_moe_kernel), for every other shape (C > 16,
-//   ragged rows, misaligned views), at any d: one block owns one (expert,
-//   tile of up to BR = 8 or 16 slot rows, range of f), loops over its f in
-//   blocks of 512 columns (h into shared memory) and scatters with f32
-//   atomicAdd. A tile none of whose slots carries weight returns at once.
-//   It moves 4-byte words with no asynchronous copies.
-//   - Shared memory holds at most kKD = 1,024 gathered columns of the
-//     tile's rows: past that (dbrx's d = 6,144 would need 426 KB at BR =
-//     16, against Hopper's 227 KB per block) h's product runs over d in
-//     chunks of kKD, each gathered again from x (which L2 holds) for every
-//     block of f.
-//   - The output columns are walked in blocks of NC x 512. Where d fits
-//     one block (d <= 1,024) the output rows stay in registers over the
-//     whole f range and every slot adds once, as before d was chunked; past
-//     it each (block of f, block of d) is scattered as it is done, and the
-//     f range is split over grid.z to fill the card (the adds of one output
-//     element then meet in either order).
+// * The tiled kernel (fused_moe_tiled), for every other shape (C > 16,
+//   ragged rows, misaligned views), at any d: the streaming kernel's two
+//   phases on B1's register tile (tile_gemm.cuh) shaped 64 x 256, in one
+//   persistent launch of the resident-block count.
+//   - Units (expert, 64-row tile of its slots) that hold a weighted slot are
+//     the only work, and only up to the unit's last weighted slot: each
+//     block lists them from wslot at its start. Slots fill an expert's
+//     capacity from the front, so at C = 128 with ~64 kept slots per expert
+//     (dbrx-132b's and deepseek-v3-671b's prefills) 64-row units compute
+//     ~1.5x the kept rows where 128-row ones computed ~2x.
+//   - Phase A, (unit, 256 columns of f): the unit's rows of x gathered
+//     through slot_token (clipped as the TPU kernel does), one 16-byte
+//     cp.async per row segment (sm_90's TMA cannot gather rows), times
+//     w_in, or gated 128 columns of w_gate and the same 128 of w_in in one
+//     tile; the epilogue writes h = act(..) (gated: act(g) * h) in f32 to an
+//     E x C x f workspace (793 MB at dbrx-132b's 2,304-token prefill, the
+//     cuda pipeline's h) and raises the unit's count.
+//   - Phase B, (unit, 256 columns of d): h @ w_out over all of f in
+//     registers, then out[token] += wslot x acc, one f32 atomicAdd per
+//     (slot, column): a top-1 output element receives exactly one add onto
+//     zero, the same bits on every run, at any d. It first waits on the
+//     unit's count (kMaxSpins, then a trap).
+//   - Items are fetched in order from one counter (zeroed by the caller with
+//     the output), phase A first, expert by expert, column tile by column
+//     tile, the row tiles of one column tile side by side so that they
+//     share its weights in L2. A fetched phase-B item waits only on items
+//     fetched before it by resident blocks, and phase-A items never wait.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
 #include "common.cuh"
 #include "stream.cuh"
+#include "tile_gemm.cuh"
 
 namespace {
 
@@ -93,229 +109,6 @@ __device__ __forceinline__ float activate(float v, int act) {
   // jax.nn.gelu's default: the tanh approximation
   const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
   return 0.5f * v * (1.f + tanhf(u));
-}
-
-// ---------------------------------------------------------------------------
-// tiled kernel (any shape)
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 512;
-constexpr int kBF = kThreads;     // f columns per block of the f loop
-constexpr int kKD = 1024;         // gathered columns of d held in shared memory
-
-// BR slot rows per block; NC output columns of d per thread and block of d
-// (NC x kThreads). grid: (C tiles, E, splits of f of f_span columns each)
-template <typename T, int BR, int NC, bool GATED>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_moe_kernel(const T* __restrict__ x, const T* __restrict__ w_in,
-                 const T* __restrict__ w_gate, const T* __restrict__ w_out,
-                 const int32_t* __restrict__ slot_token, const float* __restrict__ wslot,
-                 float* __restrict__ out, int n_tokens, int C, int D, int F, int act,
-                 int f_span) {
-  extern __shared__ float smem[];
-  const int kd = D < kKD ? D : kKD;
-  float* xs = smem;              // [BR][kd]  gathered rows (one chunk of d), f32
-  float* hs = smem + BR * kd;    // [BR][kBF] activations of one f block
-
-  const int e = blockIdx.y;
-  const int c0 = blockIdx.x * BR;
-  const int tid = threadIdx.x;
-  const int f_lo = blockIdx.z * f_span;
-  const int f_hi = min(F, f_lo + f_span);
-  const size_t wofs = static_cast<size_t>(e) * D * F;
-  const T* wi = w_in + wofs;
-  const T* wg = GATED ? w_gate + wofs : nullptr;
-  const T* wo = w_out + wofs;
-
-  // a tile none of whose slots carries weight adds nothing
-  if (f_lo >= F ||
-      !__syncthreads_or(tid < BR && c0 + tid < C && wslot[e * C + c0 + tid] != 0.f))
-    return;
-
-  // columns [k0, k0 + kn) of the tile's rows into xs
-  auto gather = [&](int k0, int kn) {
-    for (int r = 0; r < BR; ++r) {
-      const int c = c0 + r;
-      if (c < C) {
-        const int t = clamp_index(slot_token[e * C + c], n_tokens);
-        const T* src = x + static_cast<size_t>(t) * D + k0;
-        for (int i = tid; i < kn; i += kThreads) xs[r * kd + i] = to_f32(src[i]);
-      } else {
-        for (int i = tid; i < kn; i += kThreads) xs[r * kd + i] = 0.f;
-      }
-    }
-  };
-
-  float acc[NC][BR];
-  auto zero_acc = [&]() {
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-#pragma unroll
-      for (int r = 0; r < BR; ++r) acc[j][r] = 0.f;
-  };
-  // out[token] += wslot x acc, columns d0 + tid + j * kThreads
-  auto scatter = [&](int d0) {
-#pragma unroll
-    for (int r = 0; r < BR; ++r) {
-      const int c = c0 + r;
-      if (c >= C) continue;
-      const int s = e * C + c;
-      const float wt = wslot[s];
-      if (wt == 0.f) continue;
-      float* orow = out + static_cast<size_t>(clamp_index(slot_token[s], n_tokens)) * D;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int dcol = d0 + tid + j * kThreads;
-        if (dcol < D) atomicAdd(orow + dcol, wt * acc[j][r]);
-      }
-    }
-  };
-
-  // past kKD columns the rows are staged over d, and the output rows, which
-  // then span several blocks of NC x kThreads columns, are added per block
-  // of f; else they stay in registers over all of f
-  const bool wide = D > kKD;
-  const int n_dblk = (D + NC * kThreads - 1) / (NC * kThreads);
-  if (!wide) gather(0, D);
-  zero_acc();
-  __syncthreads();
-
-  for (int f0 = f_lo; f0 < f_hi; f0 += kBF) {
-    // 1. h = act(rows @ w_in[:, f0 + tid]) (gated: act(rows @ w_gate) * (rows @ w_in)),
-    //    over d in chunks of kKD
-    const int col = f0 + tid;
-    float hv[BR], gv[BR];
-#pragma unroll
-    for (int r = 0; r < BR; ++r) hv[r] = gv[r] = 0.f;
-    for (int k0 = 0; k0 < D; k0 += kKD) {
-      const int kn = min(kKD, D - k0);
-      if (wide) {
-        __syncthreads();           // every thread is done with the last chunk
-        gather(k0, kn);
-        __syncthreads();
-      }
-      if (col < f_hi) {
-        const T* wik = wi + static_cast<size_t>(k0) * F + col;
-        const T* wgk = GATED ? wg + static_cast<size_t>(k0) * F + col : nullptr;
-#pragma unroll 8
-        for (int k = 0; k < kn; ++k) {
-          const float a = to_f32(wik[static_cast<size_t>(k) * F]);
-          const float g = GATED ? to_f32(wgk[static_cast<size_t>(k) * F]) : 0.f;
-#pragma unroll
-          for (int r = 0; r < BR; ++r) {
-            const float xv = xs[r * kd + k];
-            hv[r] += xv * a;
-            if (GATED) gv[r] += xv * g;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < BR; ++r)
-      hs[r * kBF + tid] = GATED ? activate(gv[r], act) * hv[r] : activate(hv[r], act);
-    __syncthreads();
-
-    // 2. acc += h @ w_out[f0 : f0 + nf, d block], each block of d in turn
-    const int nf = min(kBF, f_hi - f0);
-    for (int db = 0; db < n_dblk; ++db) {
-      const int d0 = db * NC * kThreads;
-#pragma unroll 8
-      for (int kk = 0; kk < nf; ++kk) {
-        const T* wrow = wo + static_cast<size_t>(f0 + kk) * D + d0;
-        float w[NC];
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const int dcol = tid + j * kThreads;
-          w[j] = d0 + dcol < D ? to_f32(wrow[dcol]) : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < BR; ++r) {
-          const float h = hs[r * kBF + kk];
-#pragma unroll
-          for (int j = 0; j < NC; ++j) acc[j][r] += h * w[j];
-        }
-      }
-      if (wide) {
-        scatter(d0);
-        zero_acc();
-      }
-    }
-    __syncthreads();   // hs (and xs) are rewritten by the next f block
-  }
-
-  // 3. weighted scatter into the token rows
-  if (!wide) scatter(0);
-}
-
-// the tiled kernel's dynamic shared memory at width D
-template <int BR>
-int tiled_smem(int D) {
-  return BR * ((D < kKD ? D : kKD) + kBF) * static_cast<int>(sizeof(float));
-}
-
-// columns of f per split of the f range: one split up to d = kKD (every
-// slot adds once), else enough splits for two blocks per SM
-template <int BR>
-int tiled_f_span(int E, int C, int D, int F) {
-  const int fblocks = ceil_div(F, kBF);
-  if (D <= kKD) return fblocks * kBF;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int tiles = ceil_div(C, BR) * E;
-  int splits = ceil_div(2 * sms, tiles);
-  splits = splits < 1 ? 1 : (splits > fblocks ? fblocks : splits);
-  return ceil_div(fblocks, splits) * kBF;
-}
-
-template <typename T, int BR, int NC, bool GATED>
-cudaError_t launch(const void* x, const void* w_in, const void* w_gate, const void* w_out,
-                   const int32_t* slot_token, const float* wslot, float* out, int n_tokens,
-                   int E, int C, int D, int F, int act, cudaStream_t stream) {
-  auto kernel = fused_moe_kernel<T, BR, NC, GATED>;
-  const size_t smem = tiled_smem<BR>(D);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int f_span = tiled_f_span<BR>(E, C, D, F);
-  const dim3 grid(ceil_div(C, BR), E, ceil_div(F, f_span));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w_in), static_cast<const T*>(w_gate),
-      static_cast<const T*>(w_out), slot_token, wslot, out, n_tokens, C, D, F, act, f_span);
-  return cudaGetLastError();
-}
-
-template <typename T, int BR, int NC>
-cudaError_t by_gated(bool gated, const void* x, const void* w_in, const void* w_gate,
-                     const void* w_out, const int32_t* st, const float* ws, float* out, int n,
-                     int E, int C, int D, int F, int act, cudaStream_t stream) {
-  return gated ? launch<T, BR, NC, true>(x, w_in, w_gate, w_out, st, ws, out, n, E, C, D, F, act,
-                                         stream)
-               : launch<T, BR, NC, false>(x, w_in, w_gate, w_out, st, ws, out, n, E, C, D, F, act,
-                                          stream);
-}
-
-// d <= 512: one column per thread; wider: two per thread, in blocks of
-// 1,024 columns past that
-template <typename T>
-cudaError_t by_shape(bool gated, const void* x, const void* w_in, const void* w_gate,
-                     const void* w_out, const int32_t* st, const float* ws, float* out, int n,
-                     int E, int C, int D, int F, int act, cudaStream_t stream) {
-  if (D <= kThreads) {
-    return C <= 8 ? by_gated<T, 8, 1>(gated, x, w_in, w_gate, w_out, st, ws, out, n, E, C, D, F,
-                                      act, stream)
-                  : by_gated<T, 16, 1>(gated, x, w_in, w_gate, w_out, st, ws, out, n, E, C, D, F,
-                                       act, stream);
-  }
-  return C <= 8 ? by_gated<T, 8, 2>(gated, x, w_in, w_gate, w_out, st, ws, out, n, E, C, D, F, act,
-                                    stream)
-                : by_gated<T, 16, 2>(gated, x, w_in, w_gate, w_out, st, ws, out, n, E, C, D, F,
-                                     act, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -659,6 +452,329 @@ fused_moe_stream(const __grid_constant__ CUtensorMap tm_in,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tiled kernel (C > 16, ragged rows, misaligned views)
+// ---------------------------------------------------------------------------
+
+constexpr int kUnitRows = 64;          // slot rows of a unit (expert, row tile): the tile's m
+constexpr int kCols = tile::kTileOut / kUnitRows;   // the tile's 256 columns
+constexpr int kGatedCols = kCols / 2;  // gated phase A: columns of f per item
+constexpr int kMaxSmem = 232448;       // an H100 block's opt-in maximum
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) / 16 * 16; }
+
+// The ring: the larger of phase A's stages (x, T, by w_in, T) and phase
+// B's (h, f32, by w_out, T).
+template <typename T>
+__host__ __device__ constexpr int tiled_ring() {
+  constexpr int a = tile::kStages * tile::Stage<T, T, true, false, kUnitRows>::kBytes;
+  constexpr int b = tile::kStages * tile::Stage<float, T, true, false, kUnitRows>::kBytes;
+  return a > b ? a : b;
+}
+
+// The tables after the ring, for E experts of RT row tiles: each unit's
+// rows up to its last weighted slot (bytes, 0 for a dead unit), the live
+// experts, each one's first unit among the live units (and their count
+// after the last), the row tile's tokens, and four ints (the fetched item,
+// the live-expert count, the item's unit and column tile).
+__host__ __device__ constexpr int tiled_tables(int E, int RT) {
+  return round16(E * RT) + round16(4 * E) + round16(4 * (E + 1)) + 4 * kUnitRows + 16;
+}
+
+template <typename T>
+__host__ __device__ constexpr int tiled_smem(int E, int C) {
+  return tiled_ring<T>() + tiled_tables(E, (C + kUnitRows - 1) / kUnitRows);
+}
+
+// Phase A's A operand: the unit's slot rows of x, gathered through their
+// (clipped) tokens.
+template <typename T>
+struct Gather {
+  const T* x;
+  const int* toks;
+  int rows, D;
+  __device__ __forceinline__ const T* at(int r, int col, int kt, int& n) const {
+    const int k = kt * tile::kBK + col;
+    n = r < rows ? D - k : 0;
+    return n > 0 ? x + static_cast<size_t>(toks[r]) * D + k : x;
+  }
+  __device__ __forceinline__ long step() const { return tile::kBK; }
+};
+
+// Gated phase A's B operand: columns n0 .. n0 + 127 of w_gate then the same
+// of w_in, one 256-column tile.
+template <typename T>
+struct GatedCols {
+  const T* gate;
+  const T* in;
+  int F, n0, D;
+  __device__ __forceinline__ const T* at(int r, int col, int kt, int& n) const {
+    const int k = kt * tile::kBK + r;
+    const bool second = col >= kGatedCols;
+    const int c = n0 + col - (second ? kGatedCols : 0);
+    n = k < D ? F - c : 0;
+    return n > 0 ? (second ? in : gate) + static_cast<size_t>(k) * F + c : gate;
+  }
+  __device__ __forceinline__ long step() const { return static_cast<long>(tile::kBK) * F; }
+};
+
+// 4 adjacent f32 outputs at p (16-byte aligned where vec), the first n < 4
+// of them where the row ends
+__device__ __forceinline__ void store_h(float* p, const float (&v)[4], bool vec, int n) {
+  if (vec && n >= 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < n) p[j] = v[j];
+  }
+}
+
+// out (T, D) f32 += the weighted FFN of every live unit; hbuf: (E, C, F) f32,
+// the units' h; counts: E x RT int32 (phase-A items done per unit), then
+// the item counter; all zero on entry. VEC: x, the weights and hbuf move in
+// 16-byte words (rows of D and F whole words, pointers aligned; checked on
+// the host), else element by element.
+//
+// One persistent launch (the resident-block count), B4's streaming kernel's
+// two phases on B1's register tile shaped 64 x 256 (tile_gemm.cuh):
+//   Unit (e, rt): expert e's slot rows rt * 64 .. + 63, up to the last that
+//   carries weight; live when one does. Each block lists the live units
+//   from wslot at its start (rows past an expert's last weighted slot, and
+//   experts with none, are never read), in expert order.
+//   Phase A item (live unit, column tile of f): h = act(rows @ w_in) (gated:
+//   act(rows @ w_gate) * (rows @ w_in), both products in one tile of 128 +
+//   128 columns), the rows gathered from x through slot_token, into hbuf;
+//   then the unit's count is raised.
+//   Phase B item (live unit, 256 columns of d): h[rows] @ w_out over all of
+//   f in registers, then out[token(s)] += wslot[s] * acc, one f32 atomicAdd
+//   per (slot, column) of non-zero weight: a top-1 call adds once onto zero
+//   per output element, the same bits on every run.
+//   Items are numbered phase A first, each phase expert-major, then column
+//   tile, then row tile (the row tiles of one weight column tile run side by
+//   side and share it in L2), and fetched in that order from one counter.
+//   A phase-B item waits until its unit's phase-A count is complete: every
+//   item it waits on was fetched before it by a resident block, and
+//   phase-A items never wait, so none waits on a block that has not
+//   started.
+template <typename T, bool GATED, bool VEC>
+__global__ void __launch_bounds__(tile::kThreads, 1)
+fused_moe_tiled(const T* __restrict__ x, const T* __restrict__ w_in,
+                const T* __restrict__ w_gate, const T* __restrict__ w_out,
+                const int32_t* __restrict__ slot_token, const float* __restrict__ wslot,
+                float* __restrict__ out, float* __restrict__ hbuf, int* __restrict__ counts,
+                int n_tokens, int E, int C, int D, int F, int act) {
+  extern __shared__ __align__(128) unsigned char shm[];
+  const int RT = ceil_div_d(C, kUnitRows), n_all = E * RT;
+  unsigned char* rows_of = shm + tiled_ring<T>();
+  int* exp_id = reinterpret_cast<int*>(rows_of + round16(n_all));
+  int* exp_first = exp_id + round16(4 * E) / 4;
+  int* toks = exp_first + round16(4 * (E + 1)) / 4;
+  int* misc = toks + kUnitRows;
+  const int tid = threadIdx.x;
+
+  // each unit's rows up to its last weighted slot (0: a dead unit), then
+  // (one thread) the live experts in order and each one's first live unit
+  // in the order of the live units (expert by expert, row tile by row tile)
+  for (int u = tid; u < n_all; u += tile::kThreads) {
+    const float* ws = wslot + (u / RT) * C + (u % RT) * kUnitRows;
+    int c = min(C - (u % RT) * kUnitRows, kUnitRows);
+    while (c > 0 && ws[c - 1] == 0.f) --c;
+    rows_of[u] = static_cast<unsigned char>(c);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0, k = 0;
+    for (int e = 0; e < E; ++e) {
+      const int first = n;
+      for (int rt = 0; rt < RT; ++rt) n += rows_of[e * RT + rt] != 0;
+      if (n > first) {
+        exp_id[k] = e;
+        exp_first[k++] = first;
+      }
+    }
+    exp_first[k] = n;
+    misc[1] = k;
+  }
+  __syncthreads();
+  const int n_live = misc[1], n_units = exp_first[n_live];
+  const int na = ceil_div_d(F, GATED ? kGatedCols : kCols);   // phase-A items per unit
+  const int nb = ceil_div_d(D, kCols);                        // phase-B items per unit
+  const int n_a = n_units * na, n_items = n_a + n_units * nb;
+  const tile::Pos p(kCols / 32);
+  float acc[8][8];
+
+  for (;;) {
+    if (tid == 0) {
+      // fetch the next item and decode it: its unit (expert e, row tile)
+      // and column tile
+      const int item = atomicAdd(counts + n_all, 1);
+      misc[0] = item;
+      if (item < n_items) {
+        const bool b = item >= n_a;
+        const int per = b ? nb : na, i = b ? item - n_a : item;
+        int lo = 0, hi = n_live - 1;      // the live expert whose units hold unit i / per
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) / 2;
+          if (exp_first[mid] <= i / per) lo = mid;
+          else hi = mid - 1;
+        }
+        const int first = exp_first[lo], nu = exp_first[lo + 1] - first;
+        const int local = i - first * per, e = exp_id[lo];
+        int j = local % nu, rt = 0;       // the expert's j-th live row tile
+        for (;; ++rt)
+          if (rows_of[e * RT + rt] != 0 && j-- == 0) break;
+        misc[2] = e * RT + rt;
+        misc[3] = local / nu;
+      }
+    }
+    __syncthreads();
+    const int item = misc[0];
+    if (item >= n_items) break;
+    const bool phase_b = item >= n_a;
+    const int ue = misc[2], ct = misc[3];
+    const int e = ue / RT, c0 = (ue % RT) * kUnitRows, rows = rows_of[ue];
+    const size_t wofs = static_cast<size_t>(e) * D * F;
+    float* hrows = hbuf + (static_cast<size_t>(e) * C + c0) * F;
+
+    if (!phase_b) {
+      if (tid < kUnitRows)
+        toks[tid] = tid < rows ? clamp_index(slot_token[e * C + c0 + tid], n_tokens) : 0;
+      __syncthreads();
+      const Gather<T> sa{x, toks, rows, D};
+      if constexpr (GATED) {
+        const int n0 = ct * kGatedCols;
+        const GatedCols<T> sb{w_gate + wofs, w_in + wofs, F, n0, D};
+        tile::gemm<T, T, true, false, VEC, VEC, 16, kGatedCols, kUnitRows>(shm, sa, sb, D, rows,
+                                                                          p, acc);
+        const int c = p.col<false, 16, kGatedCols>(0);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int m = p.row<true>(r);
+          if (m >= rows) continue;
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = activate(acc[r][j], act) * acc[r][j + 4];
+          store_h(hrows + static_cast<size_t>(m) * F + n0 + c, v, VEC, F - n0 - c);
+        }
+      } else {
+        const int n0 = ct * kCols;
+        const tile::MNRows<T> sb{w_in + wofs, F, n0, F, D};
+        tile::gemm<T, T, true, false, VEC, VEC, 32, 16, kUnitRows>(shm, sa, sb, D, rows, p, acc);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int m = p.row<true>(r);
+          if (m >= rows) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = p.col<false, 32, 16>(4 * h);
+            float v[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[j] = activate(acc[r][4 * h + j], act);
+            store_h(hrows + static_cast<size_t>(m) * F + n0 + c, v, VEC, F - n0 - c);
+          }
+        }
+      }
+      // the unit's h columns are written: raise its count (the barrier
+      // orders the block's stores before thread 0's fence)
+      __syncthreads();
+      if (tid == 0) {
+        __threadfence();
+        atomicAdd(counts + ue, 1);
+      }
+    } else {
+      if (tid == 0) {
+        // a count that never completes is a fault: trap rather than hang
+        for (int spins = 0; load_acquire(counts + ue) < na; ++spins) {
+          if (spins == tile::kMaxSpins) __trap();
+          __nanosleep(256);
+        }
+      }
+      __syncthreads();
+      const int n0 = ct * kCols;
+      const tile::KRows<float> sa{hrows, F, 0, rows, F};
+      const tile::MNRows<T> sb{w_out + static_cast<size_t>(e) * F * D, D, n0, D, F};
+      tile::gemm<float, T, true, false, VEC, VEC, 32, 16, kUnitRows>(shm, sa, sb, F, rows, p,
+                                                                     acc);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int m = p.row<true>(r);
+        if (m >= rows) continue;
+        const int s = e * C + c0 + m;
+        const float wt = wslot[s];
+        if (wt == 0.f) continue;
+        float* o = out + static_cast<size_t>(clamp_index(slot_token[s], n_tokens)) * D + n0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = p.col<false, 32, 16>(j);
+          if (n0 + c < D) atomicAdd(o + c, wt * acc[r][j]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, bool GATED, bool VEC>
+const void* tiled_kernel() {
+  static const bool raised = [] {
+    cudaFuncSetAttribute(fused_moe_tiled<T, GATED, VEC>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    return true;
+  }();
+  (void)raised;
+  return reinterpret_cast<const void*>(fused_moe_tiled<T, GATED, VEC>);
+}
+
+template <typename T, bool GATED, bool VEC>
+cudaError_t launch_tiled(const void* x, const void* w_in, const void* w_gate, const void* w_out,
+                         const int32_t* st, const float* wslot, float* out, float* hbuf,
+                         int* counts, int n, int E, int C, int D, int F, int act,
+                         cudaStream_t stream) {
+  const void* kernel = tiled_kernel<T, GATED, VEC>();
+  const int smem = tiled_smem<T>(E, C);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  // every block resident: phase-B items wait on other blocks
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, tile::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int RT = ceil_div(C, kUnitRows);
+  const long most = static_cast<long>(E) * RT *
+                    (ceil_div(F, GATED ? kGatedCols : kCols) + ceil_div(D, kCols));
+  const int grid = most < sms * per_sm ? static_cast<int>(most) : sms * per_sm;
+  fused_moe_tiled<T, GATED, VEC><<<grid, tile::kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w_in), static_cast<const T*>(w_gate),
+      static_cast<const T*>(w_out), st, wslot, out, hbuf, counts, n, E, C, D, F, act);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int tiled_dtype(const void* x, const void* w_in, const void* w_gate, const void* w_out,
+                const int32_t* st, const float* wslot, float* out, float* hbuf, int* counts,
+                int n, int E, int C, int D, int F, int act, cudaStream_t s) {
+  const bool vec = (D * sizeof(T)) % 16 == 0 && (F * sizeof(T)) % 16 == 0 && aligned16(x) &&
+                   aligned16(w_in) && (w_gate == nullptr || aligned16(w_gate)) &&
+                   aligned16(w_out) && aligned16(hbuf);
+  const bool gated = w_gate != nullptr;
+  cudaError_t err;
+  if (gated && vec)
+    err = launch_tiled<T, true, true>(x, w_in, w_gate, w_out, st, wslot, out, hbuf, counts, n, E,
+                                      C, D, F, act, s);
+  else if (gated)
+    err = launch_tiled<T, true, false>(x, w_in, w_gate, w_out, st, wslot, out, hbuf, counts, n,
+                                       E, C, D, F, act, s);
+  else if (vec)
+    err = launch_tiled<T, false, true>(x, w_in, w_gate, w_out, st, wslot, out, hbuf, counts, n,
+                                       E, C, D, F, act, s);
+  else
+    err = launch_tiled<T, false, false>(x, w_in, w_gate, w_out, st, wslot, out, hbuf, counts, n,
+                                        E, C, D, F, act, s);
+  return static_cast<int>(err);
+}
+
 // whether the streaming kernel takes these rows and pointers: the same
 // rule as moe_megakernel.py::variant, checked again here so that a bulk
 // copy is never issued on a ragged or misaligned row
@@ -787,24 +903,23 @@ int variant_info(int kind, int* info) {
     return fill_info(reinterpret_cast<const void*>(fused_moe_stream<T, CT, true>),
                      stream_smem<T, CT, true>(128), kSThreads, info);
   }
-  constexpr int BR = CT <= 8 ? 8 : 16;
-  if (kind == 1) {
-    const int smem = tiled_smem<BR>(512);
-    const auto kernel = fused_moe_kernel<T, BR, 1, false>;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    return fill_info(reinterpret_cast<const void*>(kernel), smem, kThreads, info);
-  }
-  if (kind == 2) {
-    const int smem = tiled_smem<BR>(kKD + 1);
-    const auto kernel = fused_moe_kernel<T, BR, 2, true>;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    return fill_info(reinterpret_cast<const void*>(kernel), smem, kThreads, info);
-  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// tiled: kind 1 ungated, 2 gated (16-byte words), 4 and 5 the same with
+// element loads; shared memory for 128 experts of C slots
+template <typename T>
+int tiled_info(int kind, int C, int* info) {
+  const void* kernel = kind == 1   ? tiled_kernel<T, false, true>()
+                       : kind == 2 ? tiled_kernel<T, true, true>()
+                       : kind == 4 ? tiled_kernel<T, false, false>()
+                                   : tiled_kernel<T, true, false>();
+  return fill_info(kernel, tiled_smem<T>(128, C), tile::kThreads, info);
 }
 
 template <typename T>
 int variant_info_rows(int kind, int C, int* info) {
+  if (kind == 1 || kind == 2 || kind == 4 || kind == 5) return tiled_info<T>(kind, C, info);
   if (C == 1) return variant_info<T, 1>(kind, info);
   if (C <= 4) return variant_info<T, 4>(kind, info);
   if (C <= 8) return variant_info<T, 8>(kind, info);
@@ -817,27 +932,26 @@ int variant_info_rows(int kind, int C, int* info) {
 // outputs; x (T, D), w_in / w_gate (E, D, F), w_out (E, F, D) in one dtype;
 // slot_token (E * C,) int32; wslot (E * C,) f32. w_gate may be null
 // (ungated). act: 0 gelu (tanh), 1 silu. Tiled kernel, any shape.
+// workspace: E * C * F f32, no initial value needed; counts: E * ceil(C /
+// 64) + 1 int32, zeroed by the caller.
 extern "C" int repro_fused_moe(const void* x, const void* w_in, const void* w_gate,
                                const void* w_out, const void* slot_token, const void* wslot,
-                               void* out, int n_tokens, int E, int C, int D, int F, int act,
-                               int dtype, void* stream) {
+                               void* out, void* workspace, void* counts, int n_tokens, int E,
+                               int C, int D, int F, int act, int dtype, void* stream) {
   if (act != kGelu && act != kSilu) return static_cast<int>(cudaErrorInvalidValue);
-  const bool gated = w_gate != nullptr;
   const auto* st = static_cast<const int32_t*>(slot_token);
-  const auto* ws = static_cast<const float*>(wslot);
+  const auto* wsl = static_cast<const float*>(wslot);
   auto* o = static_cast<float*>(out);
-  auto strm = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == kReproF32) {
-    err = by_shape<float>(gated, x, w_in, w_gate, w_out, st, ws, o, n_tokens, E, C, D, F, act,
-                          strm);
-  } else if (dtype == kReproBF16) {
-    err = by_shape<__nv_bfloat16>(gated, x, w_in, w_gate, w_out, st, ws, o, n_tokens, E, C, D, F,
-                                  act, strm);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  auto* wk = static_cast<float*>(workspace);
+  auto* cnt = static_cast<int*>(counts);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == kReproF32)
+    return tiled_dtype<float>(x, w_in, w_gate, w_out, st, wsl, o, wk, cnt, n_tokens, E, C, D, F,
+                              act, s);
+  if (dtype == kReproBF16)
+    return tiled_dtype<__nv_bfloat16>(x, w_in, w_gate, w_out, st, wsl, o, wk, cnt, n_tokens, E,
+                                      C, D, F, act, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The same function on the streaming kernel (C <= 16, 16-byte rows and
@@ -865,12 +979,12 @@ extern "C" int repro_fused_moe_stream(const void* x, const void* w_in, const voi
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// What the device reports for one ungated kernel instantiation: info =
-// {registers per thread, shared memory per block (static + dynamic) in
-// bytes, local (spill) bytes per thread, resident blocks per SM}. kind: 0
-// streaming (C rounded up to 1, 4, 8, 16), 1 tiled (its BR = 8 or 16 tile
-// at D <= 512), 2 tiled and gated past D = 1,024 (two columns per thread,
-// d in chunks).
+// What the device reports for one kernel instantiation: info = {registers
+// per thread, shared memory per block (static + dynamic) in bytes, local
+// (spill) bytes per thread, resident blocks per SM}. kind: 0 streaming, 3
+// streaming gated (C rounded up to 1, 4, 8, 16; shared memory for 128
+// experts); 1 tiled, 2 tiled gated (16-byte words), 4 and 5 the same with
+// element loads (shared memory for 128 experts of C slots).
 extern "C" int repro_fused_moe_variant_info(int kind, int dtype, int C, int* info) {
   if (dtype == kReproF32) return variant_info_rows<float>(kind, C, info);
   if (dtype == kReproBF16) return variant_info_rows<__nv_bfloat16>(kind, C, info);

@@ -11,16 +11,18 @@ points, ``grouped_matmul_dx`` (dy @ w^T) and ``grouped_matmul_dw`` (x^T @
 dy), which read the transposed operand in place: w^T is never copied out
 of w (1.07 GB per MoE layer of zcode-m3-base).
 
-What bounds them on the H100: on the serving and training paths C is 1-8
-rows (16 at most), so every entry point is bound by the bytes of the
-weight-sized operand (read by the forward and dx, written by dw), at most
-8 flops per f32 byte against the 20 the f32 CUDA cores could do. Tensor
-cores would not help and an f32 ``wgmma`` runs in TF32, which misses the
-f32 gate, so all kernels run on the CUDA cores in f32. ``variant`` picks
-one of two designs per call:
+What bounds them on the H100 depends on C, the rows per expert: a
+product does 0.5 * C flops per f32 byte of its weight-sized operand,
+against the 20 per byte (67 TFLOP/s of f32 CUDA cores over 3.35 TB/s)
+past which operations set the limit. At C <= 16 (decode, serving,
+training) every entry point is bound by the bytes of that operand (read by
+the forward and dx, written by dw); at C >= 128 (the prefills of
+dbrx-132b and deepseek-v3-671b, C = 128-1,152) by the f32 FFMA rate. An
+f32 ``wgmma`` runs in TF32, which misses the f32 gate, so all kernels run
+on the CUDA cores in f32. ``variant`` picks one of two designs per call:
 
 * ``"streaming"`` (C <= 16, rows of 16-byte multiples, 16-byte aligned
-  pointers: every call on the main path). The forward streams w through
+  pointers: every decode and training call). The forward streams w through
   a 4-stage shared-memory ring filled by bulk asynchronous copies
   (``cp.async.bulk`` on an mbarrier, one producer warp) in a persistent
   grid of (expert, column slab) items, with x staged beside it in chunks
@@ -31,9 +33,16 @@ one of two designs per call:
   registers and met across lanes by xor-shuffles in a fixed order. dw
   loads its x and dy slices once and writes dw with 16-byte streaming
   stores, a whole 512-byte run per warp.
-* ``"tiled"`` (anything else): one output tile per block, the reduction
-  axis looped through shared memory, ragged edges masked, so any shape
-  works (C = 17, d = 130, f = 70, misaligned views).
+* ``"tiled"`` (anything else: C > 16, as at every prefill of the MoE
+  archs, ragged rows, misaligned views): a register-tiled SGEMM, one 128 x
+  128 output tile of one expert per block of 256 threads, each thread an 8
+  x 8 f32 accumulator, k in steps of 32 through a 4-stage ring of 16-byte
+  ``cp.async`` copies that zero-fill ragged edges, one block per SM; x^T
+  and w^T are read along their contiguous axis, no transposed copy. Rows
+  that are not whole 16-byte words or misaligned views take the same
+  kernel with element loads (``tiled_vec`` false). No atomics and no
+  split-K: a second run gives the same bits.
+  ``tiled_plan`` is its launch (tile, grid, shared memory) from the shapes.
 
 The plain versions are ``ref.grouped_matmul_ref``,
 ``ref.grouped_matmul_dx_ref`` and ``ref.grouped_matmul_dw_ref``.
@@ -80,6 +89,42 @@ def variant(c: int, d: int, f: int, itemsize: int, *addresses: int) -> str:
     return "tiled"
 
 
+TILE = (128, 128, 32)        # the tiled kernel's rows, columns and k per stage
+TILED_THREADS = 256
+TILED_STAGES = 4             # its ring of shared-memory stages
+SMEM_MAX = 232448            # an H100 block's opt-in shared memory
+
+
+def tiled_vec(d: int, f: int, itemsize: int, *addresses: int) -> bool:
+    """Whether the tiled kernel moves 16-byte words for a (C, d, f)
+    product: rows of d and of f whole 16-byte words and every address
+    16-byte aligned, any C; else it loads element by element."""
+    return ((d * itemsize) % 16 == 0 and (f * itemsize) % 16 == 0
+            and all(a % 16 == 0 for a in addresses))
+
+
+def tiled_plan(kind: str, e: int, c: int, d: int, f: int, itemsize: int) -> dict:
+    """The tiled kernel's launch for a (E, C, d, f) product of
+    ``itemsize``-byte elements, from the shapes alone (what
+    ``csrc/grouped_ffn.cu::launch_tiled`` launches): ``kind`` ``"fwd"``,
+    ``"dx"`` or ``"dw"``; the GEMM's (m, k, n); the grid (row tiles
+    fastest, column tiles, experts); the ring's stages and its dynamic
+    shared memory. A k-contiguous operand (x, dy, w read as w^T) takes
+    [128][32 + 16 bytes] per stage, an m- or n-contiguous one (w, dy, x
+    read as x^T) [32][128]."""
+    m, k, n = {"fwd": (c, d, f), "dx": (c, f, d), "dw": (d, c, f)}[kind]
+    rows, cols, bk = TILE
+    stages = TILED_STAGES
+
+    def operand(kc: bool) -> int:
+        return (rows * (bk + 16 // itemsize) if kc else bk * cols) * itemsize
+
+    stage = -(-(operand(kind != "dw") + operand(kind == "dx")) // 128) * 128
+    return {"gemm": (m, k, n), "tile": TILE, "threads": TILED_THREADS,
+            "grid": (-(-m // rows), -(-n // cols), e), "stages": stages,
+            "smem_bytes": stages * stage}
+
+
 def _check(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
     if a.dtype != b.dtype:
         raise TypeError(f"{name}: {a.dtype} vs {b.dtype}")
@@ -93,7 +138,8 @@ def _launch(entry: str, a: torch.Tensor, b: torch.Tensor, out_shape,
     """Launch ``entry`` (x, w)-shaped as (E, C, d, f) into a new tensor, or
     ``stream_entry`` where given and ``variant`` says ``"streaming"``, and
     note a ``wrapper``'s launch by its ``variant_info`` kind (``kinds``:
-    tiled, streaming). Returns (out, whether the streaming kernel ran)."""
+    tiled, streaming; the tiled kind with ``tiled_vec``). Returns (out,
+    whether the streaming kernel ran)."""
     build.require_cuda(entry, a, b)
     dt = a.dtype
     out = torch.empty(out_shape, dtype=dt, device=a.device)
@@ -109,7 +155,9 @@ def _launch(entry: str, a: torch.Tensor, b: torch.Tensor, out_shape,
     build.check(fn(*ptrs, e, c, d, f, build.DTYPE_CODES[dt],
                    build.stream_of(a)), name)
     if wrapper:
-        build.launched_variants.add((wrapper, kinds[streaming], dt, c))
+        build.launched_variants.add(
+            (wrapper, kinds[1], dt, c) if streaming
+            else (wrapper, kinds[0], dt, c, tiled_vec(d, f, dt.itemsize, *ptrs)))
     return out, streaming
 
 
@@ -200,17 +248,20 @@ for _fn in (grouped_matmul, grouped_matmul_dx, grouped_matmul_dw):
     _fn.launches = _fn.launches_streaming = 0
 
 
-def variant_info(kind: str, dtype: torch.dtype, c: int) -> dict:
+def variant_info(kind: str, dtype: torch.dtype, c: int, vec: bool = True) -> dict:
     """What the card reports for one compiled kernel: registers per thread,
     shared memory per block (bytes), spill bytes per thread and resident
     blocks per SM. ``kind``: ``"stream_fwd"``, ``"stream_dw"``,
     ``"stream_dx"`` (at C rounded up to 1, 4, 8 or 16), ``"tiled_fwd"``,
-    ``"tiled_dx"`` or ``"tiled_dw"`` (the C <= 16 tile). Builds the
-    library; needs a card."""
+    ``"tiled_dx"`` or ``"tiled_dw"`` (any C; ``vec``: the 16-byte instance,
+    else the element-load one). Builds the library; needs a card."""
     kinds = ("stream_fwd", "stream_dw", "tiled_fwd", "tiled_dx", "stream_dx", "tiled_dw")
+    code = kinds.index(kind)
+    if kind.startswith("tiled") and not vec:
+        code = {"tiled_fwd": 6, "tiled_dx": 7, "tiled_dw": 8}[kind]
     info = (ctypes.c_int * 4)()
     fn = build.function("repro_grouped_ffn_variant_info", [_I, _I, _I, _P])
-    build.check(fn(kinds.index(kind), build.DTYPE_CODES[dtype], c,
+    build.check(fn(code, build.DTYPE_CODES[dtype], c,
                    ctypes.cast(info, _P)), "repro_grouped_ffn_variant_info")
     return dict(zip(("registers", "smem_bytes", "spill_bytes",
                      "blocks_per_sm"), info))

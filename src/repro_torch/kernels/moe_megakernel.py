@@ -7,26 +7,38 @@ The kernels (``csrc/moe_megakernel.cu``) replace the TPU kernel
 buffer never exists in device memory: the kernel gathers each expert's
 slot rows, runs both matmuls with the activation between them in f32, and
 scatters the weighted output rows into a zeroed (T, d) f32 buffer, which
-is cast once to x's dtype. Bound by the bytes of the live experts'
-weights: an expert none of whose slots carries weight (``live_experts``)
-adds nothing and is not read (8.4 MB per expert of zcode-m3-base in f32).
+is cast once to x's dtype. An expert none of whose slots carries weight
+(``live_experts``) adds nothing and is not read (8.4 MB per expert of
+zcode-m3-base in f32). What bounds it depends on C: at C <= 16 (decode,
+serving, training) at most 8 flops per f32 byte of weights, so the bytes
+of the live experts' weights; at C >= 128 (the prefills of dbrx-132b and
+deepseek-v3-671b) 64-576, so the f32 FFMA rate of the CUDA cores (TF32
+misses the f32 gate).
 
 ``variant`` picks one of two designs per call, each one launch:
 
 * ``"streaming"`` (C <= 16, rows of d and f of 16-byte multiples, 16-byte
-  aligned pointers: every call on the main path). A persistent grid walks
-  two phases of items over the live experts only: (expert, chunk of f)
-  items write h = act(x_e @ w_in) to an f32 workspace, then (expert, slice
-  of d, half of f) items add wslot x (h @ w_out) to the output once the
-  expert's h is whole; each streams its weight tile through a ring of
+  aligned pointers: every decode and training call). A persistent grid
+  walks two phases of items over the live experts only: (expert, chunk of
+  f) items write h = act(x_e @ w_in) to an f32 workspace, then (expert,
+  slice of d, half of f) items add wslot x (h @ w_out) to the output once
+  the expert's h is whole; each streams its weight tile through a ring of
   tensor copies (one producer warp, as B1's streaming forward). Top-1
   calls give the same bits on every run and replay under a CUDA graph (the
   per-expert counts are zeroed with the output, in the same fill).
-* ``"tiled"`` (anything else: C > 16, ragged rows, misaligned views), at
-  any d: one block per (expert, tile of slot rows, range of f), weights
-  through 4-byte loads; tiles with no weighted slot return at once. Past d
-  = 1,024 the gathered rows are staged over d in chunks of 1,024 columns
-  and the output is added in blocks of 1,024 columns per block of f.
+* ``"tiled"`` (anything else: C > 16, as at every prefill of the MoE
+  archs, ragged rows, misaligned views), at any d: the same two phases on
+  B1's register tile shaped 64 x 256. Units are (live expert, 64-row tile
+  of slots up to its last weighted slot); phase-A items (unit, 256 columns
+  of f, or 128 of w_gate with the same 128 of w_in when gated) gather x
+  through slot_token and write h = act(..) in f32 to an E x C x f workspace;
+  phase-B items (unit, 256 columns of d) run h @ w_out over all of f in
+  registers and add wslot x acc with one f32 atomicAdd per (slot, column),
+  after waiting on the unit's phase-A count. Items are fetched from one
+  counter in order, phase A first, so none waits on a block that has not
+  started. A top-1 output element receives one add onto zero: the same
+  bits on every run. ``tiled_plan`` is its launch (shared memory,
+  workspace, counts) from the shapes.
 
 Weights arrive folded, as in the reference's ``_fused_jit``: ``wcomb =
 topk_w * keep`` (capacity drops, Gate-Drop local validity and serving's
@@ -56,6 +68,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grouped_ffn import TILED_STAGES, tiled_vec
 from repro_torch.kernels.ref import fused_moe_f32_ref, fused_moe_ref
 
 _P = ctypes.c_void_p
@@ -78,6 +91,41 @@ def variant(c: int, d: int, f: int, itemsize: int, *addresses: int) -> str:
             and (f * itemsize) % 16 == 0 and all(a % 16 == 0 for a in addresses)):
         return "streaming"
     return "tiled"
+
+
+TILE_ROWS = 64          # the tiled kernel's slot rows per unit (its tile: 64 x 256)
+TILE_COLS = 256
+SMEM_MAX = 232448       # an H100 block's opt-in shared memory
+
+
+def tiled_plan(e: int, c: int, d: int, f: int, itemsize: int, gated: bool) -> dict:
+    """The tiled kernel's launch for E experts of C slots, width d and
+    expert width f with ``itemsize``-byte weights, from the shapes alone
+    (what ``csrc/moe_megakernel.cu::launch_tiled`` launches): the row tiles
+    per expert, phase-A and phase-B items per live unit, the ring's stages,
+    its dynamic shared memory (the ring, sized for the larger phase: x by
+    w_in or f32 h by w_out; then a byte per unit and a few ints per
+    expert), the f32 workspace (h, E x C x f) and the int32 counts (one per
+    unit, then the item counter), both allocated by the wrapper."""
+    stages = TILED_STAGES
+    kb = 32 * TILE_COLS * itemsize                                 # a weight tile
+
+    def stage(rows_bytes: int) -> int:
+        return -(-(rows_bytes + kb) // 128) * 128
+
+    ring = stages * max(stage(TILE_ROWS * (32 + 16 // itemsize) * itemsize),   # x rows
+                        stage(TILE_ROWS * (32 + 4) * 4))                       # h rows, f32
+    rt = -(-c // TILE_ROWS)
+
+    def r16(n: int) -> int:
+        return -(-n // 16) * 16
+
+    tables = r16(e * rt) + r16(4 * e) + r16(4 * (e + 1)) + 4 * TILE_ROWS + 16
+    return {"row_tiles": rt, "threads": 256, "stages": stages,
+            "items_per_unit": (-(-f // (TILE_COLS // 2 if gated else TILE_COLS)),
+                               -(-d // TILE_COLS)),
+            "smem_bytes": ring + tables, "workspace_bytes": e * c * f * 4,
+            "counts": e * rt + 1}
 
 
 def _slot_weights(wcomb: torch.Tensor, token_slot: torch.Tensor,
@@ -107,39 +155,37 @@ def _kernel(x, w_in, w_gate, w_out, wcomb, slot_token, token_slot,
     t, d = x.shape
     e, _, f = w_in.shape
     s = slot_token.shape[0]
-    # the output, the slot weights and the streaming kernel's per-expert
-    # counts (int32) zeroed by one fill
-    zeros = torch.zeros(t * d + s + e, dtype=torch.float32, device=x.device)
+    c = s // e
+    gated = w_gate is not None
+    ptrs = [x.data_ptr(), w_in.data_ptr(), w_out.data_ptr()]
+    if gated:
+        ptrs.append(w_gate.data_ptr())
+    streaming = variant(c, d, f, x.element_size(), *ptrs) == "streaming"
+    n_counts = e if streaming else tiled_plan(e, c, d, f, x.element_size(), gated)["counts"]
+    # the output, the slot weights and the kernel's counts (int32) zeroed by
+    # one fill
+    zeros = torch.zeros(t * d + s + n_counts, dtype=torch.float32, device=x.device)
     out = zeros[:t * d].view(t, d)
     if out.numel() == 0 or s == 0 or f == 0:
         return out.to(x.dtype)
     wslot = _slot_weights(wcomb, token_slot, zeros[t * d:t * d + s])
-    c = s // e
-    ptrs = [x.data_ptr(), w_in.data_ptr(), w_out.data_ptr()]
-    if w_gate is not None:
-        ptrs.append(w_gate.data_ptr())
-    streaming = variant(c, d, f, x.element_size(), *ptrs) == "streaming"
-    head = (x.data_ptr(), w_in.data_ptr(),
-            None if w_gate is None else w_gate.data_ptr(), w_out.data_ptr(),
-            slot_token.data_ptr(), wslot.data_ptr(), out.data_ptr())
-    tail = (_ACTS[act], build.DTYPE_CODES[x.dtype], build.stream_of(x))
-    if streaming:
-        h = torch.empty(e * c * f, dtype=torch.float32, device=x.device)
-        name = "repro_fused_moe_stream"
-        fn = build.function(name, [_P] * 9 + [_I] * 7 + [_P])
-        counts = zeros[t * d + s:].view(torch.int32)
-        code = fn(*head, h.data_ptr(), counts.data_ptr(), t, e, c, d, f, *tail)
-    else:
-        name = "repro_fused_moe"
-        fn = build.function(name, [_P] * 7 + [_I] * 7 + [_P])
-        code = fn(*head, t, e, c, d, f, *tail)
+    h = torch.empty(e * c * f, dtype=torch.float32, device=x.device)
+    counts = zeros[t * d + s:].view(torch.int32)
+    name = "repro_fused_moe_stream" if streaming else "repro_fused_moe"
+    fn = build.function(name, [_P] * 9 + [_I] * 7 + [_P])
+    code = fn(x.data_ptr(), w_in.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
+              w_out.data_ptr(), slot_token.data_ptr(), wslot.data_ptr(), out.data_ptr(),
+              h.data_ptr(), counts.data_ptr(), t, e, c, d, f, _ACTS[act],
+              build.DTYPE_CODES[x.dtype], build.stream_of(x))
     build.check(code, name)
     fused_moe.launches += 1
     fused_moe.launches_streaming += streaming
-    gated = w_gate is not None
-    kind = (("stream_gated" if gated else "stream") if streaming
-            else "tiled_wide" if d > 1024 else "tiled")
-    build.launched_variants.add(("fused_moe", kind, x.dtype, c))
+    if streaming:
+        build.launched_variants.add(("fused_moe", "stream_gated" if gated else "stream",
+                                     x.dtype, c))
+    else:
+        build.launched_variants.add(("fused_moe", "tiled_gated" if gated else "tiled", x.dtype,
+                                     c, tiled_vec(d, f, x.element_size(), *ptrs)))
     return out.to(x.dtype)
 
 
@@ -231,18 +277,20 @@ def fused_moe(x: torch.Tensor, w_in: torch.Tensor, w_gate: Optional[torch.Tensor
 fused_moe.launches = fused_moe.launches_streaming = 0
 
 
-def variant_info(kind: str, dtype: torch.dtype, c: int) -> dict:
-    """What the card reports for one compiled (ungated) kernel: registers
-    per thread, shared memory per block (bytes), spill bytes per thread and
-    resident blocks per SM. ``kind``: ``"stream"`` or ``"stream_gated"``
-    (at C rounded up to 1, 4, 8 or 16; shared memory for 128 experts),
-    ``"tiled"`` (ungated, its 8- or 16-row tile at d <= 512) or
-    ``"tiled_wide"`` (gated, past d = 1,024: two columns per thread, the
-    rows staged over d). Builds the library; needs a card."""
+def variant_info(kind: str, dtype: torch.dtype, c: int, vec: bool = True) -> dict:
+    """What the card reports for one compiled kernel: registers per thread,
+    shared memory per block (bytes), spill bytes per thread and resident
+    blocks per SM. ``kind``: ``"stream"`` or ``"stream_gated"`` (at C
+    rounded up to 1, 4, 8 or 16; shared memory for 128 experts),
+    ``"tiled"`` or ``"tiled_gated"`` (shared memory for 128 experts of C
+    slots; ``vec``: the 16-byte instance, else the element-load one).
+    Builds the library; needs a card."""
+    code = ("stream", "tiled", "tiled_gated", "stream_gated").index(kind)
+    if kind.startswith("tiled") and not vec:
+        code += 3
     info = (ctypes.c_int * 4)()
     fn = build.function("repro_fused_moe_variant_info", [_I, _I, _I, _P])
-    build.check(fn(("stream", "tiled", "tiled_wide", "stream_gated").index(kind),
-                   build.DTYPE_CODES[dtype], c,
+    build.check(fn(code, build.DTYPE_CODES[dtype], c,
                    ctypes.cast(info, _P)), "repro_fused_moe_variant_info")
     return dict(zip(("registers", "smem_bytes", "spill_bytes",
                      "blocks_per_sm"), info))

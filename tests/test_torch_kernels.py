@@ -136,6 +136,48 @@ def test_grouped_matmul_variant_of_views():
                                   "grouped_matmul_dw": 0}
 
 
+# The tiled kernel's (E, C, d, f) at every C > 16 site of PERF.md's kernel
+# table (dbrx-132b's prefills, both products of its FFN; deepseek-v3-671b's
+# long prefill, both products) and at chip_smoke.py's ragged tiled shapes.
+_TILED_SITES = [(16, 128, 6144, 10752), (16, 1152, 6144, 10752), (16, 1152, 10752, 6144),
+                (256, 128, 7168, 2048), (256, 128, 2048, 7168), (2, 17, 1030, 130),
+                (3, 100, 136, 260), (2, 300, 260, 72)]
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dw"])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_grouped_matmul_tiled_plan_fits_a_block(kind, itemsize):
+    """``tiled_plan``: the GEMM each product runs, a grid of 128 x 128
+    tiles (row tiles fastest), and a ring of 4 stages whose shared memory
+    fits an H100 block (232,448 B) at every width of the table."""
+    for e, c, d, f in _TILED_SITES:
+        plan = grouped_ffn.tiled_plan(kind, e, c, d, f, itemsize)
+        m, k, n = {"fwd": (c, d, f), "dx": (c, f, d), "dw": (d, c, f)}[kind]
+        assert plan["gemm"] == (m, k, n)
+        assert plan["grid"] == (-(-m // 128), -(-n // 128), e)
+        assert plan["threads"] == 256 and plan["tile"] == (128, 128, 32)
+        assert plan["stages"] == 4
+        assert plan["smem_bytes"] <= grouped_ffn.SMEM_MAX
+    # a k-contiguous operand: 128 rows of 32 + 16 bytes; else 32 rows of 128
+    kc = 128 * (32 + 16 // itemsize) * itemsize
+    mn = 32 * 128 * itemsize
+    ring = {"fwd": kc + mn, "dx": 2 * kc, "dw": 2 * mn}[kind]
+    assert plan["smem_bytes"] == plan["stages"] * ring
+
+
+@pytest.mark.parametrize("args,want", [
+    ((6144, 10752, 4, 0, 256, 512), True),        # dbrx-132b's prefill, f32
+    ((7168, 2048, 2, 0, 256, 512), True),         # deepseek-v3-671b's, bf16
+    ((130, 200, 4), False),                       # rows of d: 520 bytes
+    ((136, 260, 2), False),                       # bf16 rows of f: 520 bytes
+    ((64, 96, 4, 4, 256, 512), False),            # a view 4 bytes off
+])
+def test_grouped_matmul_tiled_vec(args, want):
+    """The tiled kernel moves 16-byte words where rows of d and f are whole
+    words and every operand is 16-byte aligned (any C), else elements."""
+    assert grouped_ffn.tiled_vec(*args) == want
+
+
 # ---------------------------------------------------------------------------
 # B2 dispatch, B3 combine
 # ---------------------------------------------------------------------------
@@ -980,6 +1022,57 @@ def test_cuda_grouped_matmul_unaligned_takes_tiled(dtype):
             grouped_ffn.grouped_matmul_dw.launches) == (2, 2, 2)
     assert streaming_counts() == {"grouped_matmul": 0, "grouped_matmul_dx": 0,
                                   "grouped_matmul_dw": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", _TILED_SITES[5:] + [(2, 128, 200, 300)])
+def test_cuda_grouped_matmul_tiled_matches_plain(e, c, d, f, dtype):
+    """B1's tiled forward, dx and dw at C > 16 with the 128-row, 128-column
+    and 32-deep tiles cut ragged (16-byte rows and not), one launch each,
+    none streaming, against their plain versions and bitwise on a second
+    run (no atomics, no split-K); then on views off a 16-byte boundary
+    (element loads)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(17 + c)
+    x = torch.randn(e, c, d, generator=g, device=dev).to(dtype)
+    w = (torch.randn(e, d, f, generator=g, device=dev) * d ** -0.5).to(dtype)
+    dy = torch.randn(e, c, f, generator=g, device=dev).to(dtype)
+    reset_launch_counts()
+    out = grouped_ffn.grouped_matmul(x, w)
+    dx = grouped_ffn.grouped_matmul_dx(dy, w)
+    dw = grouped_ffn.grouped_matmul_dw(x, dy)
+    assert (grouped_ffn.grouped_matmul.launches, grouped_ffn.grouped_matmul_dx.launches,
+            grouped_ffn.grouped_matmul_dw.launches) == (1, 1, 1)
+    assert streaming_counts() == {"grouped_matmul": 0, "grouped_matmul_dx": 0,
+                                  "grouped_matmul_dw": 0}
+    _gpu_close(out, ref.grouped_matmul_ref(x, w))
+    _gpu_close(dx, ref.grouped_matmul_dx_ref(dy, w))
+    _gpu_close(dw, ref.grouped_matmul_dw_ref(x, dy))
+    assert torch.equal(out, grouped_ffn.grouped_matmul(x, w))
+    assert torch.equal(dx, grouped_ffn.grouped_matmul_dx(dy, w))
+    assert torch.equal(dw, grouped_ffn.grouped_matmul_dw(x, dy))
+    xv = torch.randn(1 + e * c * d, generator=g, device=dev).to(dtype)[1:].view(e, c, d)
+    dyv = torch.randn(1 + e * c * f, generator=g, device=dev).to(dtype)[1:].view(e, c, f)
+    assert not grouped_ffn.tiled_vec(d, f, x.element_size(), xv.data_ptr())
+    _gpu_close(grouped_ffn.grouped_matmul(xv, w), ref.grouped_matmul_ref(xv, w))
+    _gpu_close(grouped_ffn.grouped_matmul_dx(dyv, w), ref.grouped_matmul_dx_ref(dyv, w))
+    _gpu_close(grouped_ffn.grouped_matmul_dw(xv, dyv), ref.grouped_matmul_dw_ref(xv, dyv))
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_matmul_tiled_resources():
+    """The tiled kernel's instances report the shared memory ``tiled_plan``
+    gives, spill nothing, and fit one block per SM."""
+    _card()
+    for kind in ("fwd", "dx", "dw"):
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = grouped_ffn.tiled_plan(kind, 1, 128, 128, 128, dtype.itemsize)
+            for vec in (True, False):
+                info = grouped_ffn.variant_info(f"tiled_{kind}", dtype, 128, vec)
+                assert info["smem_bytes"] == plan["smem_bytes"], (kind, dtype, vec, info)
+                assert info["spill_bytes"] == 0, (kind, dtype, vec, info)
+                assert info["blocks_per_sm"] == 1, (kind, dtype, vec, info)
 
 
 @pytest.mark.cuda

@@ -138,6 +138,34 @@ def test_fused_moe_variant_choice():
     assert v(4, 64, 32, 4, base.data_ptr(), *ptrs, w_gate.data_ptr()) == "tiled"
 
 
+# (E, C, d, f) of the tiled kernel: dbrx-132b's prefill and long prefill,
+# deepseek-v3-671b's long prefill (PERF.md's kernel table), the ragged
+# cases of the card tests
+_TILED_SITES = [(16, 128, 6144, 10752), (16, 1152, 6144, 10752), (256, 128, 7168, 2048),
+                (4, 40, 1100, 300), (8, 300, 1030, 520), (16, 20, 1100, 200),
+                (256, 2048, 7168, 2048)]     # deepseek-v3-671b at 32k tokens, top-8
+
+
+@pytest.mark.parametrize("e,c,d,f", _TILED_SITES)
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("gated", [False, True])
+def test_fused_moe_tiled_plan(e, c, d, f, itemsize, gated):
+    """``tiled_plan``: shared memory within an H100 block's 232,448 B (the
+    ring sized for the larger phase, then the unit tables), the f32 h
+    workspace E * C * f * 4 bytes, one count per unit of 64 slot rows plus
+    the item counter, and the items per live unit of each phase (256
+    columns; gated phase-A items cover 128 columns of w_gate and the same
+    128 of w_in)."""
+    plan = moe_megakernel.tiled_plan(e, c, d, f, itemsize, gated)
+    rt = -(-c // 64)
+    assert plan["row_tiles"] == rt
+    assert plan["smem_bytes"] <= moe_megakernel.SMEM_MAX
+    assert plan["workspace_bytes"] == e * c * f * 4
+    assert plan["counts"] == e * rt + 1
+    assert plan["items_per_unit"] == (-(-f // (128 if gated else 256)), -(-d // 256))
+    assert plan["threads"] == 256
+
+
 @pytest.mark.parametrize("k", [1, 2])
 def test_live_experts_hold_a_kept_slot(k):
     """The kernels skip an expert none of whose slots carries weight
@@ -318,7 +346,7 @@ def test_cuda_fused_moe_matches_plain(dtype):
              (4, 2, 8, 37, 24, 40, True, "silu", "streaming"),   # k=2, ragged d, f
              (4, 1, 1, 16, 100, 70, False, "gelu", "tiled"),     # capacity 1, f ragged
              (2, 1, 1, 1, 8, 8, True, "gelu", "streaming"),      # one token
-             (8, 1, 20, 64, 1000, 600, True, "silu", "tiled"),   # 16-row tiles, d > 512
+             (8, 1, 20, 64, 1000, 600, True, "silu", "tiled"),   # C = 20, d > 512
              (8, 2, 12, 40, 512, 2048, False, "gelu", "streaming")]   # C = 12
     for E, k, cap, T, d, f, gated, act, variant in cases:
         t, r = _gpu_case(dev, E, k, cap, T, d, f, gated, dtype)
@@ -379,11 +407,9 @@ def test_cuda_fused_moe_at_deepseek_widths_matches_plain(dtype):
 @pytest.mark.parametrize("k", [1, 4])
 @pytest.mark.parametrize("d", [1536, 6144])
 def test_cuda_fused_moe_tiled_any_width(d, k, dtype):
-    """B4's tiled kernel past d = 1,024 (the gathered rows staged over d
-    in chunks, the output added per block of f and of d): dbrx-132b's
-    width 6,144 and 1,536 (a ragged last chunk of d), gated silu, small E
-    and f, C = 40 (three 16-row tiles, the last ragged), against the plain
-    version. The weights take the model's init scale (std d^-0.5 in,
+    """B4's tiled kernel past d = 1,024: dbrx-132b's width 6,144 and 1,536
+    (a ragged last 256-column tile of d), gated silu, small E and f, C = 40
+    (one 64-row unit, cut ragged), against the plain version. The weights take the model's init scale (std d^-0.5 in,
     f^-0.5 out; ``make_case``'s 0.1 would put pre-activations at std 7.8
     at this width), so the outputs are O(1) as the f32 tolerance of sums
     in another order assumes."""
@@ -403,6 +429,86 @@ def test_cuda_fused_moe_tiled_any_width(d, k, dtype):
     atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1.6e-2)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     assert float(want.abs().max()) > 0
+
+
+# B4 calls on the tiled kernel (E, k, capacity, T, d, f, gated, act):
+# chip_smoke.py's B4_TILED_RAGGED
+_TILED_CASES = [(4, 1, 40, 100, 1100, 300, True, "silu"),
+                (8, 4, 300, 256, 1030, 520, False, "gelu"),
+                (4, 1, 130, 200, 520, 136, False, "silu"),
+                (6, 4, 64, 60, 1100, 260, True, "gelu"),
+                (16, 1, 20, 8, 1100, 200, True, "silu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _TILED_CASES)
+def test_cuda_fused_moe_tiled_matches_plain(case, dtype):
+    """B4's tiled kernel at C > 16: one to five 64-row units of slots, top-1
+    and top-4, gated and not, gelu and silu, d past 1,024 and d, f off the
+    256-column tiles, against the plain version (weights at the model's init
+    scale); at top-1 the same bits on a second run and after CUDA-graph
+    replays; NaN in the unrouted experts' weights changes nothing (bitwise
+    at top-1: they are never read)."""
+    E, k, cap, T, d, f, gated, act = case
+    dev = _card()
+    t, r = _gpu_case(dev, E, k, cap, T, d, f, gated, dtype, seed=9)
+    for name, fan_in in (("w_in", d), ("w_gate", d), ("w_out", f)):
+        if t[name] is not None:
+            t[name] = (t[name].float() * (10.0 * fan_in ** -0.5)).to(dtype)
+    args = [t["x"], t["w_in"], t["w_gate"], t["w_out"], r["topk_w"], r["keep"],
+            r["slot_token"], r["slot_valid"], r["token_slot"]]
+    got, took = _took(args, act)
+    assert took == "tiled"
+    wcomb = (r["topk_w"] * r["keep"]).float()
+    want = ref.fused_moe_f32_ref(*args[:4], wcomb, r["slot_token"], r["slot_valid"],
+                                 r["token_slot"].clamp(0, E * cap - 1), act)
+    torch.cuda.synchronize()
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1.6e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert float(want.abs().max()) > 0
+    if k == 1:
+        assert torch.equal(got, moe_megakernel.fused_moe(*args, act=act))
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            moe_megakernel.fused_moe(*args, act=act)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = moe_megakernel.fused_moe(*args, act=act)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, got)
+    live = moe_megakernel.live_experts(r["topk_w"], r["keep"], r["token_slot"], E, E * cap)
+    if not bool(live.all()):
+        for i in (1, 2, 3):
+            if args[i] is not None:
+                args[i] = args[i].clone()
+                args[i][~live] = float("nan")
+        poisoned = moe_megakernel.fused_moe(*args, act=act)
+        if k == 1:
+            assert torch.equal(poisoned, got)
+        else:
+            torch.testing.assert_close(poisoned.float(), got.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_moe_tiled_resources():
+    """The tiled kernel's instances report the shared memory ``tiled_plan``
+    gives (128 experts of C slots) and spill nothing."""
+    _card()
+    for kind in ("tiled", "tiled_gated"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for c in (128, 1152):
+                plan = moe_megakernel.tiled_plan(128, c, 512, 512, dtype.itemsize,
+                                                 kind == "tiled_gated")
+                for vec in (True, False):
+                    info = moe_megakernel.variant_info(kind, dtype, c, vec)
+                    assert info["smem_bytes"] == plan["smem_bytes"], (kind, dtype, c, info)
+                    assert info["spill_bytes"] == 0, (kind, dtype, c, vec, info)
+                    assert info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.cuda

@@ -211,19 +211,19 @@ def test_profile_window_writes_a_trace_the_launch_counter_reads(tmp_path):
 KERNEL_NAMES = {
     "void (anonymous namespace)::gmm_stream_fwd<float, 8>(float const*, float const*, "
     "float*, int, int, int, int)": ("grouped_matmul", 5),
-    "void (anonymous namespace)::grouped_matmul_kernel<__nv_bfloat16, 4, false, false>("
+    "void (anonymous namespace)::grouped_matmul_tiled<__nv_bfloat16, false, false, true>("
     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, int, int, int)":
         ("grouped_matmul", 2),
     "void (anonymous namespace)::gmm_stream_dx<__nv_bfloat16, 8>(...)": ("grouped_matmul_dx", 3),
-    "void (anonymous namespace)::grouped_matmul_kernel<float, 1, false, true>(...)":
+    "void (anonymous namespace)::grouped_matmul_tiled<float, false, true, false>(...)":
         ("grouped_matmul_dx", 1),
     "void (anonymous namespace)::gmm_stream_dw<float, 8>(...)": ("grouped_matmul_dw", 4),
-    "void (anonymous namespace)::grouped_matmul_kernel<float, 4, true, false>(...)":
+    "void (anonymous namespace)::grouped_matmul_tiled<float, true, false, true>(...)":
         ("grouped_matmul_dw", 1),
     "void (anonymous namespace)::dispatch_rows_kernel<uint4>(...)": ("dispatch", 7),
     "void (anonymous namespace)::combine_rows_kernel<float, 4, 1>(...)": ("combine", 7),
     "void (anonymous namespace)::fused_moe_stream<float, 8, false>(...)": ("fused_moe", 2),
-    "void (anonymous namespace)::fused_moe_kernel<__nv_bfloat16, 16, 64, true>(...)":
+    "void (anonymous namespace)::fused_moe_tiled<__nv_bfloat16, true, true>(...)":
         ("fused_moe", 1),
     "void (anonymous namespace)::flash_decode_kernel<float, __nv_bfloat16, 1, false>"
     "((anonymous namespace)::Args)": ("flash_decode", 6),
