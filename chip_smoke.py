@@ -104,9 +104,9 @@ Phases (any failure exits non-zero):
                  and torch.profiler's launch counts over a few ticks
                  (analysis/launches.py) equal the wrappers'; the
                  static-batching baseline (static_batch_serve) and the
-                 continuous scheduler in turns (wall time, tokens/s; a
-                 number, not a claim); a replay with the tracer on and
-                 off in turns and a span's ns per call; then the Trainer
+                 continuous scheduler, one run each (wall time, tokens/s;
+                 a number, not a claim); a replay with the tracer on, then
+                 off, and a span's ns per call; then the Trainer
                  (4 Gate-Drop 0.3 steps on cuda, tracer and frame on):
                  its span vocabulary, load_imbalance in every record, and
                  one more chunk in a profiler window under the guard: its
@@ -234,13 +234,17 @@ Phases (any failure exits non-zero):
 
 runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
-to compare two trees' B5 and B6 at these sites in one call; ``--only ep``,
-``--only tp``, ``--only obs``, ``--only dec``, ``--only swa``, ``--only mla``,
-``--only ssm``, ``--only vlm``, ``--only dryrun`` and ``--only lint`` run
-phases 1, 2 and that phase alone.
+to compare two trees' B5 and B6 at these sites in one call; ``--only
+sites`` runs phases 1 and 2 (with the build's register and spill report)
+and B3, B5 and B6 at the shapes of the kernel table's rows on seeded
+inputs, against plain and library in turns (``sites_phase``);
+``--only ep``, ``--only tp``, ``--only obs``, ``--only dec``, ``--only
+swa``, ``--only mla``, ``--only ssm``, ``--only vlm``, ``--only dryrun``
+and ``--only lint`` run phases 1, 2 and that phase alone.
 
-Prints the kernel table as one JSON line before the last line and, as the
-last line, {"ok": true, "device": {...}}. Needs one CUDA device.
+Prints each phase's seconds as one JSON line ({"phase_seconds": ...}), the
+kernel table as one JSON line before the last line and, as the last line,
+{"ok": true, "device": {...}}. Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -309,7 +313,7 @@ REPLACES = {
 TRACE_N, TRACE_PROMPT, TRACE_BUDGET, TRACE_PREFIX = 32, 64, 32, 32
 SCHED_SLOTS, SCHED_ADMIT, SCHED_BUCKETS = 8, 4, (8, 16, 32, 64)
 PAGE_SIZE, PAGES_SMALL = 16, 20        # the small arena must preempt
-TIMED_REPLAYS = 3
+TIMED_REPLAYS = 1                       # phase 7's timed replays of each scheduler
 NEAR_TIE = 1e-4                         # top-two logit gap of a tolerated divergence
 # phase 8: zcode-m3-base's full cache (its max_seq), every row at the last
 # position; N_COLD caches of 16.8 MB each rotate in a timed graph, more than
@@ -864,32 +868,33 @@ def time_site(name, site, args, label="", depth=()):
     return t
 
 
-def combine_no_pdl(buf, ts, w, keep):
-    """B3's kernel launched without PDL (``repro_moe_combine`` with pdl 0,
-    which the wrapper never passes), into a new tensor; not counted."""
-    from repro_torch.kernels import build
-    fn = build.function("repro_moe_combine", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                        + [ctypes.c_void_p])
+def combine_no_pdl(buf, ts, w, keep, cols=None):
+    """B3's kernel launched without PDL (which the wrapper never asks
+    for), on the grid its plan picks or, given ``cols``, on that one, into
+    a new tensor; not counted."""
+    from repro_torch.kernels import moe_dispatch
     out = torch.empty((ts.shape[0], buf.shape[1]), dtype=buf.dtype, device=buf.device)
-    build.check(fn(buf.data_ptr(), ts.data_ptr(), w.data_ptr(), keep.data_ptr(), out.data_ptr(),
-                   ts.shape[0], buf.shape[0], ts.shape[1], buf.shape[1],
-                   build.DTYPE_CODES[buf.dtype], 0, torch.cuda.current_stream().cuda_stream),
-                "combine without PDL")
+    moe_dispatch.launch_combine(buf, ts, w, keep, out, pdl=False, cols=cols)
     return out
 
 
 def combine_site(site, args):
-    """B3 at one site: against its plain version; at top-1 the same bits
-    on a second run, with PDL off and after CUDA-graph replays; then timed
-    in turns: the kernel with PDL off (``ms``: each call in the timed
-    graph follows another B3, and with PDL it would overlap that B3, which
-    the main path never runs), the kernel as the wrapper launches it (PDL
-    on: ``pdl_self_overlap_ms``) and ``embedding_bag``."""
+    """B3 at one site: against its plain version, bitwise its other grid
+    (both sum in the order of k); at top-1 the same bits on a second run,
+    with PDL off and after CUDA-graph replays; then timed in turns: the
+    kernel with PDL off (``ms``: each call in the timed graph follows
+    another B3, and with PDL it would overlap that B3, which the main path
+    never runs), the kernel as the wrapper launches it (PDL on:
+    ``pdl_self_overlap_ms``), the grid the plan did not pick (PDL off:
+    ``other_grid_ms``) and ``embedding_bag``."""
+    from repro_torch.kernels import moe_dispatch
     kernel = kernel_of("combine")
+    cols = moe_dispatch.plan_of(args[0], args[1])
     out = kernel(*args)
     torch.cuda.synchronize()
     plain = plain_of("combine")(*args)
     err = check(f"combine@{site}", out, plain)
+    check(f"combine@{site} other grid", combine_no_pdl(*args, cols=not cols), out, exact=True)
     top1 = args[1].shape[1] == 1
     if top1:
         check(f"combine@{site} second run", kernel(*args), out, exact=True)
@@ -897,17 +902,20 @@ def combine_site(site, args):
         check(f"combine@{site} after CUDA-graph replays",
               graph_replayed(lambda: kernel(*args)), out, exact=True)
     fns = {"ms": lambda: combine_no_pdl(*args), "pdl_self_overlap_ms": lambda: kernel(*args),
+           "other_grid_ms": lambda: combine_no_pdl(*args, cols=not cols),
            "library_ms": library_of("combine", args)}
     t = dict(zip(fns, in_turns(*fns.values())))
     b_ms, b_by = bound(*work("combine", args))
     t.update(plain_ms=device_ms(lambda: plain_of("combine")(*args)), bound_ms=b_ms,
              bound_by=b_by, max_abs_err=err, bitwise_plain=torch.equal(out, plain),
+             grid="cols" if cols else "rows",
              shape=" x ".join(str(tuple(a.shape)) for a in args))
-    log(f"time combine@{site} [{t['shape']}]: kernel {t['ms']:.6f} ms with PDL off (PDL on "
-        f"{t['pdl_self_overlap_ms']:.6f}, overlapping the B3 before it in the graph), bound "
+    log(f"time combine@{site} [{t['shape']}]: kernel ({t['grid']} grid) {t['ms']:.6f} ms with "
+        f"PDL off (PDL on {t['pdl_self_overlap_ms']:.6f}, overlapping the B3 before it in the "
+        f"graph; the {'rows' if cols else 'cols'} grid {t['other_grid_ms']:.6f}), bound "
         f"{b_ms:.6f} ms ({b_by}; {b_ms / t['ms'] * 100:.2f}% of it), plain "
         f"{t['plain_ms']:.6f} ms, library {t['library_ms']:.6f} ms (embedding_bag; all timed "
-        f"in turns); max abs err {err:.3e}" + (
+        f"in turns); max abs err {err:.3e}; bitwise the other grid" + (
             "; top-1: bitwise on a second run, PDL off and after 3 graph replays; bitwise "
             f"the plain version: {t['bitwise_plain']}" if top1 else ""))
     return t
@@ -2672,11 +2680,11 @@ def tick_window(params, cfg, gen, reqs, paged, tag):
 def obs_static(params, cfg, gen, reqs):
     """(c) Table 8's comparison point: ``static_batch_serve`` (FIFO
     same-length batches of OBS_BATCH through ``generate``) and the
-    ContinuousScheduler on the same trace, in turns (static, continuous,
-    continuous, static). A number, not a claim."""
+    ContinuousScheduler on the same trace, one after the other. A number,
+    not a claim."""
     from repro_torch.serve import static_batch_serve
     rows = {"static": [], "continuous": []}
-    for kind in ("static", "continuous", "continuous", "static"):
+    for kind in ("static", "continuous"):
         if kind == "static":
             torch.cuda.synchronize()
             toks, wall = static_batch_serve(params, cfg, gen, reqs, batch_size=OBS_BATCH,
@@ -2691,7 +2699,7 @@ def obs_static(params, cfg, gen, reqs):
            for k, v in rows.items()}
     lengths = sorted({len(r.tokens) for r in reqs})
     log(f"obs static batching (batch {OBS_BATCH}; {len(lengths)} distinct prompt lengths) vs "
-        f"the continuous scheduler, in turns: wall s static {out['static']['wall_s']} "
+        f"the continuous scheduler, one after the other: wall s static {out['static']['wall_s']} "
         f"continuous {out['continuous']['wall_s']}; tokens/s static {out['static']['tok_s']} "
         f"continuous {out['continuous']['tok_s']}; {equal} of {TRACE_N} requests get the "
         "scheduler's tokens (capacity depends on the batch's makeup: reported, not gated)")
@@ -2700,11 +2708,11 @@ def obs_static(params, cfg, gen, reqs):
 
 
 def obs_tracer_cost(params, cfg, gen, reqs):
-    """(d) A slot-pool replay with the tracer on and off, in turns (on,
-    off, off, on), and a span's cost in ns per call, off and on."""
+    """(d) A slot-pool replay with the tracer on, then off, and a span's
+    cost in ns per call, off and on."""
     from repro_torch.obs import Tracer
     walls = {True: [], False: []}
-    for on in (True, False, False, True):
+    for on in (True, False):
         _, _, _, wall = run_scheduler(params, cfg, gen, reqs, tracer=Tracer(enabled=on))
         walls[on].append(wall)
     ns = {}
@@ -2715,8 +2723,8 @@ def obs_tracer_cost(params, cfg, gen, reqs):
             with tr.span("sched.decode", alive=8):
                 pass
         ns[on] = (time.perf_counter() - t0) / SPAN_CALLS * 1e9
-    log(f"obs tracer cost: slot-pool replay wall s with the tracer on {walls[True]}, off "
-        f"{walls[False]} (in turns); a span {ns[False]:.1f} ns per call off, {ns[True]:.1f} "
+    log(f"obs tracer cost: slot-pool replay wall s with the tracer on {walls[True]}, then "
+        f"off {walls[False]}; a span {ns[False]:.1f} ns per call off, {ns[True]:.1f} "
         "ns on")
     return dict(replay_on_s=walls[True], replay_off_s=walls[False], span_off_ns=ns[False],
                 span_on_ns=ns[True])
@@ -3310,6 +3318,9 @@ def deep_decode_graph(params, batch, cfg, dev):
 # ---------------------------------------------------------------------------
 
 DBRX_LAYERS = 2          # dbrx-132b's depth cut: at 40 layers (131.6 B) it fits no H100
+EAGER_ROUNDS = 1         # timed generate rounds of the models that decode at 20-170 ms a
+                         # step eagerly (yi-6b, starcoder2, mamba2, hymba, llama-3.2-vision,
+                         # whisper); the serving CLI's 5 elsewhere
 LM_STEPS = 3             # reduced --task lm steps (phases dec, mla); seed 0's drop
 LM_BATCH, LM_SEQ = 16, 64  # bits are 0, 0, 1
 HEAVY_DEPTH = (2, 5)     # device_ms depth at dbrx's prefill sites (tens of ms a call)
@@ -3384,12 +3395,14 @@ def dec_generate(label, params, batch, cfg, gen, expect):
     return counts, streamed, res
 
 
-def dec_timed(label, params, batch, cfg, gen):
-    """The serving CLI's timed rounds (median and spread)."""
+def dec_timed(label, params, batch, cfg, gen, n_rounds=None):
+    """The serving CLI's timed rounds (median and spread): its
+    TIMED_ROUNDS, or ``n_rounds``."""
     from repro_torch.launch.serve import TIMED_ROUNDS, spread, time_generate
-    med, rounds, _ = time_generate(params, batch, cfg, gen)
+    n_rounds = n_rounds or TIMED_ROUNDS
+    med, rounds, _ = time_generate(params, batch, cfg, gen, n_rounds=n_rounds)
     rows, plen = batch["tokens"].shape
-    log(f"dec {label}: median of {TIMED_ROUNDS} rounds [min, max] ({rows} x {plen} prompt "
+    log(f"dec {label}: median of {n_rounds} rounds [min, max] ({rows} x {plen} prompt "
         f"tokens, {gen.max_new - 1} decode steps): prefill {med['prefill_ms']:.2f} ms "
         f"{spread(rounds['prefill_ms'])}, decode {med['decode_ms_per_step']:.2f} ms/step "
         f"{spread(rounds['decode_ms_per_step'])}, total {med['total_ms']:.2f} ms "
@@ -3468,7 +3481,7 @@ def dec_yi(dev):
     gen = GenerateConfig(max_new=MAX_NEW, eos_id=-1, flash_decode=True)
     counts, _, _ = dec_generate("yi-6b", params, batch, cfg, gen,
                                 lambda steps: {"flash_decode": cfg.n_layers * steps})
-    timed = dec_timed("yi-6b", params, batch, cfg, gen)
+    timed = dec_timed("yi-6b", params, batch, cfg, gen, EAGER_ROUNDS)
     with Capture(names=("flash_decode",)) as cap:
         generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
     torch.cuda.synchronize()
@@ -3964,7 +3977,7 @@ def swa_windowed(arch, dev, layers=None, timed=True, exact=False):
     counts, _, _ = dec_generate(arch, params, batch, cfg, gen, lambda steps: {})
     out = {"layers": cfg.n_layers, "launches": counts}
     if timed:
-        out["serve"] = dec_timed(arch, params, batch, cfg, gen)
+        out["serve"] = dec_timed(arch, params, batch, cfg, gen, EAGER_ROUNDS)
         out["decode_graph_ms"] = decode_graph(f"swa {arch}", params, batch, cfg,
                                               out["serve"]["median"]["decode_ms_per_step"],
                                               dev)
@@ -4469,7 +4482,7 @@ MAMBA_LONG_PROMPT = 4096          # 32 chunks of 128
 HYMBA_LONG_PROMPT = 2048          # + 128 meta tokens: past the 1,024 window and 2 x 1,024 keys
 MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_ROWS, MAMBA_TRAIN_SEQ = 4, 2, 1024
 SSM_SCHED_N = 6                   # the scheduler trace's first requests (2-64 tokens)
-SSM_LONG_REPS = 3
+SSM_LONG_REPS = 1
 
 
 @torch.no_grad()
@@ -4675,7 +4688,7 @@ def ssm_mamba(dev):
     counts, _, _ = dec_generate("mamba2-1.3b", params, batch, cfg, gen, lambda steps: {})
     out = {"layers": cfg.n_layers, "launches": {k: v for k, v in counts.items() if v},
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    out["serve"] = dec_timed("mamba2-1.3b", params, batch, cfg, gen)
+    out["serve"] = dec_timed("mamba2-1.3b", params, batch, cfg, gen, EAGER_ROUNDS)
     out["decode_graph_ms"] = decode_graph("ssm mamba2-1.3b", params, batch, cfg,
                                           out["serve"]["median"]["decode_ms_per_step"], dev)
     out["decode_profile"] = decode_profile("ssm mamba2-1.3b", params, batch, cfg, dev)
@@ -4709,7 +4722,7 @@ def ssm_hymba(dev):
     if counts["flash_decode"] != n_global * (MAX_NEW - 1):
         raise AssertionError(f"ssm hymba-1.5b: {counts['flash_decode']} B5 launches, not "
                              f"{n_global} (the global layers) a step")
-    out["serve"] = dec_timed("hymba-1.5b", params, batch, cfg, gen)
+    out["serve"] = dec_timed("hymba-1.5b", params, batch, cfg, gen, EAGER_ROUNDS)
     with Capture(names=("flash_decode",)) as cap:
         generate(params, batch, cfg, dataclasses.replace(gen, max_new=2))
     torch.cuda.synchronize()
@@ -4993,7 +5006,7 @@ def vlm_arch(arch, dev):
                                 lambda steps: {"flash_decode": n_self * steps})
     out.update(launches={k: v for k, v in counts.items() if v},
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    out["serve"] = dec_timed(arch, params, batch, cfg, gen)
+    out["serve"] = dec_timed(arch, params, batch, cfg, gen, EAGER_ROUNDS)
     out["decode_graph_ms"] = decode_graph(f"vlm {arch}", params, batch, cfg,
                                           out["serve"]["median"]["decode_ms_per_step"], dev)
     out["decode_profile"] = decode_profile(f"vlm {arch}", params, batch, cfg, dev)
@@ -5350,12 +5363,13 @@ def serve_phases(full, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("full_cache", "ep", "tp", "obs", "dec", "swa", "mla",
-                                       "ssm", "vlm", "dryrun", "lint"),
+    ap.add_argument("--only", choices=("full_cache", "sites", "ep", "tp", "obs", "dec", "swa",
+                                       "mla", "ssm", "vlm", "dryrun", "lint"),
                     help="run phases 1, 2 and this phase alone")
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5384,6 +5398,10 @@ def main() -> int:
     full = get_config("zcode-m3-base")
     if args.only == "full_cache":
         return full_cache_only(full, dev)
+    if args.only == "sites":
+        ptxas_report(lib.parent / "nvcc.log")
+        print(json.dumps({"sites": sites_phase(dev)}), flush=True)
+        return 0
     if args.only == "ep":
         print(json.dumps({"ep": ep_phase(full, dev)}), flush=True)
         return 0
@@ -5420,55 +5438,66 @@ def main() -> int:
         print(json.dumps({"lint": lint_phase()}), flush=True)
         return 0
     b4_info = ptxas_report(lib.parent / "nvcc.log")
+    seconds = {"device and build": time.perf_counter() - t_start}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
 
     # 3-5, 7 and 8. serving
-    t0 = time.perf_counter()
-    errs, timing, counts, paged, b4_serve, fc = serve_phases(full, dev)
+    errs, timing, counts, paged, b4_serve, fc = phase("serving (3-5, 7, 8)", serve_phases,
+                                                      full, dev)
     torch.cuda.empty_cache()
-    log(f"serving phases: {time.perf_counter() - t0:.1f} s; device memory now allocated "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"device memory now allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     # 6. training
-    t0 = time.perf_counter()
-    captured = train_parity(full, dev)
-    t_errs, t_timing = train_kernel_phase(captured, dev)
-    del captured
-    torch.cuda.empty_cache()
-    t_counts, t_slice = {}, {}
-    for backend in ("cuda_fused", "cuda"):
-        t_counts[backend], t_slice[backend] = train_slice(full, dev, backend)
-    log(f"training phase: {time.perf_counter() - t0:.1f} s")
+    def training():
+        captured = train_parity(full, dev)
+        t_errs, t_timing = train_kernel_phase(captured, dev)
+        del captured
+        torch.cuda.empty_cache()
+        t_counts, t_slice = {}, {}
+        for backend in ("cuda_fused", "cuda"):
+            t_counts[backend], t_slice[backend] = train_slice(full, dev, backend)
+        return t_errs, t_timing, t_counts, t_slice
+
+    t_errs, t_timing, t_counts, t_slice = phase("training (6)", training)
     print(json.dumps({"train": {b: {k: v for k, v in t.items()}
                                 for b, t in t_slice.items()}}), flush=True)
 
     # ep. the expert-parallel path under a one-rank group
-    print(json.dumps({"ep": ep_phase(full, dev)}), flush=True)
+    print(json.dumps({"ep": phase("ep", ep_phase, full, dev)}), flush=True)
     # tp. the model axis: B1 on d_ff slices, --mesh 1,2 on the one card
-    print(json.dumps({"tp": tp_phase(full, dev)}), flush=True)
+    print(json.dumps({"tp": phase("tp", tp_phase, full, dev)}), flush=True)
     # obs. the observability layer over the trainer and both schedulers
-    print(json.dumps({"obs": obs_phase(full, dev)}), flush=True)
+    print(json.dumps({"obs": phase("obs", obs_phase, full, dev)}), flush=True)
     # dec. the decoder-only family: yi-6b, dbrx-132b (2 layers), --task lm
-    dec = dec_phase(dev, b4_info)
+    dec = phase("dec", dec_phase, dev, b4_info)
     print(json.dumps({"dec": dec_json(dec)}), flush=True)
     # swa. sliding-window archs, exact-length prefill, the long-prompt sites
-    swa = swa_phase(dev)
+    swa = phase("swa", swa_phase, dev)
     print(json.dumps({"swa": swa}), flush=True)
     # mla. deepseek-v3-671b (2 layers): MLA, 256 experts top-8, MTP training
-    mla = mla_phase(dev)
+    mla = phase("mla", mla_phase, dev)
     print(json.dumps({"mla": mla_json(mla)}), flush=True)
     # ssm. mamba2-1.3b and hymba-1.5b at full width and depth, --task lm
-    ssm = ssm_phase(dev)
+    ssm = phase("ssm", ssm_phase, dev)
     print(json.dumps({"ssm": ssm}), flush=True)
     # vlm. llama-3.2-vision-90b (10 layers) and whisper-small: image and audio sources
-    vlm = vlm_phase(dev)
+    vlm = phase("vlm", vlm_phase, dev)
     print(json.dumps({"vlm": vlm}), flush=True)
     # dryrun. each arch's train_4k pair on the meta device, both meshes
     # (--only dryrun: all 34 applicable pairs)
     state_info = {k: t_slice["cuda_fused"][k] for k in ("state_bytes", "state_alloc_delta")}
-    print(json.dumps({"dryrun": dryrun_phase(full, dev, state_info, sweep=False)}),
+    print(json.dumps({"dryrun": phase("dryrun", dryrun_phase, full, dev, state_info, False)}),
           flush=True)
     # lint. the lint gate over the port's 27 executables, on the card
-    print(json.dumps({"lint": lint_phase()}), flush=True)
+    print(json.dumps({"lint": phase("lint", lint_phase)}), flush=True)
+    seconds["total"] = time.perf_counter() - t_start
+    print(json.dumps({"phase_seconds": seconds}), flush=True)
 
     kernels = kernel_table(errs, timing, counts, t_errs, t_timing, t_counts, paged, b4_serve,
                            fc, dec_rows(dec), swa_rows(swa), mla_rows(mla), ssm_rows(ssm),
@@ -5494,13 +5523,82 @@ def full_cache_only(full, dev) -> int:
     return 0
 
 
+# --only sites: B3, B5 and B6 at the kernel table's shapes on seeded inputs.
+# B5: (label, rows, query heads, kv heads, head dim, positions), bf16 caches,
+# every row at position - 2
+B5_SITES = (("zcode-m3-base", 8, 8, 8, 64, 34), ("whisper-small", 8, 12, 12, 64, 34),
+            ("yi-6b", 8, 32, 4, 128, 34), ("dbrx-132b", 8, 48, 8, 128, 34),
+            ("llama-3.2-vision-90b", 8, 64, 8, 128, 34), ("hymba-1.5b", 8, 25, 5, 64, 162),
+            ("yi-6b long", 2, 32, 4, 128, 3586))
+# B6: (label, rows, query heads, kv heads, head dim, pages a row, arena
+# dtype), pages of 16 in a seeded permutation, row i at (i + 1) / rows of
+# its pages
+B6_SITES = (("zcode-m3-base", 9, 8, 8, 64, 6, torch.bfloat16),
+            ("whisper-small", 4, 12, 12, 64, 6, torch.float32),
+            ("llama-3.2-vision-90b", 4, 64, 8, 128, 6, torch.float32),
+            ("yi-6b", 9, 32, 4, 128, 6, torch.float32),
+            ("hymba-1.5b", 9, 25, 5, 64, 14, torch.float32),
+            ("yi-6b long", 3, 32, 4, 128, 226, torch.float32))
+# B3: (label, tokens, k, experts, slots an expert, d, dtype); each token's k
+# slots on distinct experts, a tenth dropped
+B3_SITES = (("zcode-m3-base decode", 8, 1, 128, 1, 512, torch.bfloat16),
+            ("zcode-m3-base prefill", 256, 1, 128, 4, 512, torch.bfloat16),
+            ("zcode-m3-base training", 1024, 1, 128, 8, 512, torch.float32),
+            ("dbrx-132b decode", 8, 4, 16, 4, 6144, torch.bfloat16),
+            ("dbrx-132b prefill", 256, 4, 16, 128, 6144, torch.bfloat16),
+            ("dbrx-132b long prefill", 2304, 4, 16, 1152, 6144, torch.bfloat16),
+            ("deepseek-v3-671b decode", 8, 8, 256, 1, 7168, torch.bfloat16),
+            ("deepseek-v3-671b long prefill", 2048, 8, 256, 128, 7168, torch.bfloat16))
+
+
+def sites_phase(dev):
+    """``--only sites``: B5, B6 and B3 at the shapes of the kernel table's
+    rows (B5_SITES, B6_SITES, B3_SITES) on seeded inputs, each checked
+    against its plain version and timed in turns with its library call
+    (``time_site``, ``b6_timing``, ``combine_site``: B3 also on the grid
+    its plan did not pick). The quick way to compare two trees' B3, B5 and
+    B6 in one call; the table's own rows come from the main path's inputs
+    in the whole run."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    out = {"flash_decode": {}, "flash_decode_paged": {}, "combine": {}}
+    for label, b, h, kv, hd, s in B5_SITES:
+        q = torch.randn(b, h, hd, generator=g, device=dev)
+        k, v = (torch.randn(b, s, kv, hd, generator=g, device=dev).bfloat16() for _ in range(2))
+        args = (q, k, v, torch.full((b,), s - 2, dtype=torch.int32, device=dev))
+        check(f"flash_decode@{label}", kernel_of("flash_decode")(*args),
+              plain_of("flash_decode")(*args))
+        out["flash_decode"][label] = time_site("flash_decode", label, args)
+    for label, b, h, kv, hd, nb, dt in B6_SITES:
+        q = torch.randn(b, h, hd, generator=g, device=dev)
+        k, v = (torch.randn(b * nb + 1, PAGE_SIZE, kv, hd, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        tables = torch.randperm(b * nb, generator=g, device=dev).reshape(b, nb).to(torch.int32)
+        idx = torch.tensor([(i + 1) * nb * PAGE_SIZE // b - 1 for i in range(b)],
+                           dtype=torch.int32, device=dev)
+        args = (q, k, v, tables, idx)
+        out6 = kernel_of("flash_decode_paged")(*args)
+        check(f"flash_decode_paged@{label}", out6, plain_of("flash_decode_paged")(*args))
+        check(f"flash_decode_paged@{label} vs B5", out6,
+              kernel_of("flash_decode")(q, *gathered(args), idx), exact=True)
+        log(f"B6 site {label}:")
+        out["flash_decode_paged"][label] = b6_timing(args)
+    for label, t, k, e, c, d, dt in B3_SITES:
+        buf = torch.randn(e * c, d, generator=g, device=dev).to(dt)
+        experts = torch.rand(t, e, generator=g, device=dev).argsort(dim=1)[:, :k]
+        ts = (experts * c + torch.randint(0, c, (t, k), generator=g, device=dev))
+        w = torch.rand(t, k, generator=g, device=dev)
+        keep = torch.rand(t, k, generator=g, device=dev) < 0.9
+        out["combine"][label] = combine_site(label, (buf, ts.to(torch.int32), w, keep))
+    return out
+
+
 def ptxas_report(path: Path):
     """Each kernel's registers and spills from the build's ptxas report,
     and what the card reports for B1's, B5's, B6's and B4's variants.
     Returns ``b4_report``'s."""
     import re
     import shutil
-    from repro_torch.kernels import flash_decode, grouped_ffn
+    from repro_torch.kernels import flash_decode, grouped_ffn, moe_dispatch
     entry = "?"
     for line in path.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -5533,13 +5631,20 @@ def ptxas_report(path: Path):
         for qdt, kvdt in ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
                           (torch.bfloat16, torch.bfloat16)):
             infos = {(hd, rep): flash_decode.variant_info(paged, qdt, kvdt, hd, rep)
-                     for hd, rep in ((64, 1), (128, 1), (64, 8), (128, 8))}
+                     for hd, rep in ((64, 1), (128, 1), (64, 5), (128, 8))}
             log(f"{'B6' if paged else 'B5'} q {_dt(torch.empty(0, dtype=qdt))}, cache "
                 f"{_dt(torch.empty(0, dtype=kvdt))} (128 positions per split, pages of 16): "
                 + "; ".join(f"hd={hd} rep={rep}: {i['registers']} registers, "
                             f"{i['smem_bytes']} B shared, {i['spill_bytes']} B spilled, "
                             f"{i['blocks_per_sm']} blocks/SM"
                             for (hd, rep), i in infos.items()))
+    for dt in (torch.float32, torch.bfloat16):
+        infos = {(grid, k): moe_dispatch.variant_info("combine", dt, k=k, cols=grid == "cols")
+                 for grid in ("rows", "cols") for k in (1, 8)}
+        log(f"B3 {_dt(torch.empty(0, dtype=dt))} (16-byte words): "
+            + "; ".join(f"{grid} k={'1' if k == 1 else 'K'}: {i['registers']} registers, "
+                        f"{i['spill_bytes']} B spilled, {i['blocks_per_sm']} blocks/SM"
+                        for (grid, k), i in infos.items()))
     return b4_report()
 
 

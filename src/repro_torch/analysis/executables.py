@@ -205,7 +205,7 @@ def _variant_info(key: Tuple) -> Dict[str, int]:
     if wrapper == "dispatch":
         return moe_dispatch.variant_info("dispatch", word=a[0])
     if wrapper == "combine":
-        return moe_dispatch.variant_info("combine", a[0], k=a[1], vec=a[2])
+        return moe_dispatch.variant_info("combine", a[0], k=a[1], vec=a[2], cols=a[3])
     paged, qdt, kvdt, hd, rep, per, *ps = a
     return flash_decode.variant_info(paged, qdt, kvdt, hd, rep, per, *ps)
 

@@ -11,10 +11,11 @@
 //
 // What bounds them on the H100: bytes. Every live K/V row is read once and
 // used for 2 * rep * hd flops (rep = H / KV <= 8): 2 * rep flops per byte,
-// far below the ~295 at which tensor cores would matter, so all math is f32
-// on the CUDA cores. One block per (row, kv head) walking the whole cache
-// (the earlier kernel) leaves most SMs idle and pays one memory latency per
-// position; so here:
+// far below the ~295 at which tensor cores would matter, so at rep 1 all
+// math is f32 on the CUDA cores (at rep > 1, below, the tensor cores cut
+// instructions, not time at the roofline). One block per (row, kv head)
+// walking the whole cache (the earlier kernel) leaves most SMs idle and
+// pays one memory latency per position; so here:
 //
 // - The cache is split over blocks (flash-decoding): grid (KV, B, n_split),
 //   split i taking the logical positions [i * per, (i + 1) * per), per a
@@ -52,10 +53,35 @@
 //   a memset before each launch that splits, cost 2 us per call at zcode's
 //   full cache on the card.) Two launches that split must therefore not run
 //   at once: the wrapper orders an eager one after the last, whatever its
-//   stream. With n_split == 1 (the serving shapes, at most 96 positions)
-//   there is no workspace and no merge. (A thread-block cluster per (row, kv
+//   stream. With n_split == 1 (a cache of at most 192 positions: every
+//   serving shape) there is no workspace and no merge. (A thread-block cluster per (row, kv
 //   head), merging through distributed shared memory, ran slower on the
 //   card: clusters of 8 blocks did not all fit at once.)
+//
+// Grouped-query heads (rep = H / KV of 2-8: yi-6b, llama-3.2-vision,
+// dbrx-132b and hymba at rep 8, 8, 6 and 5) take bodies of their own. The
+// one above dots a K row with all rep heads in turn, q re-read from shared
+// memory each time, then runs a softmax and P.V head by head: at rep 8, hd
+// 128 a serial chain of ~600 FMAs and ~60 shuffles a lane per tile, 1.6x
+// SDPA at 34 positions and 3.4x at yi-6b's 3,586. At rep > 1:
+// - flash_decode_mma_kernel (a bf16 cache, hd a multiple of 16: every
+//   grouped-query site of the main path): four warps of 16 positions a
+//   tile; scores and P.V as bf16 mma.sync with f32 accumulation, K and V
+//   read from the staged rows by ldmatrix, so each K/V row staged once
+//   serves all rep heads, and per tile a warp issues 40-56 mma where the
+//   lane chain above ran ~1,300 instructions. An f32 operand (q of an f32
+//   query, p) goes in as three bf16 parts, so every product is exact and
+//   the f32 gate holds (plain TF32 would not).
+// - flash_decode_gqa_kernel (f32 caches, other head dims): eight warps of
+//   8 positions a tile; a warp's lanes are 8 heads x 4 parts, lane (r,
+//   part) holding head r's q at the chunks part, part + 4, ... in
+//   registers; the scores go through shared memory to a rolled P.V loop.
+// Both end in gqa_finish: the warps meet in warp order; a split's partial
+// is written, and the merging block takes every split's partial in split
+// order with a running max, 16 splits' loads in flight at once. That block
+// reads every partial at one SM's share of the card's bandwidth (rep 8, hd
+// 128: 4,160 bytes a split), which is what keeps a long cache's time above
+// its byte bound.
 //
 // B5 and B6 run one device body over the same splits, tiles and reduction
 // order; only the row address differs (logical position j of row b lives
@@ -63,6 +89,7 @@
 // the contiguous cache its tables address.
 
 #include "stream.cuh"
+
 
 namespace {
 
@@ -206,7 +233,8 @@ __device__ __forceinline__ void issue_warp_tile(const Args& a, const int* tbl, i
 }
 
 // One block: kv head g = blockIdx.x, row b = blockIdx.y, split blockIdx.z;
-// kR >= rep query heads per kv head held in registers.
+// kR >= rep query heads per kv head held in registers (launched at kR = 1:
+// rep > 1 takes flash_decode_mma_kernel or flash_decode_gqa_kernel).
 template <typename TQ, typename TKV, int kR, bool kPaged>
 __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   constexpr int V = kPerChunk<TKV>;
@@ -485,8 +513,614 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// rep > 1: grouped-query heads (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kMergeLoads = 16;  // splits whose partials a merging thread loads at once
+
+// The rows of tile t that the warp whose rows of each tile start at r0 (of
+// kRowsT) owns, below position `limit`.
+template <int kRowsT>
+__device__ __forceinline__ int warp_rows(int start, int t, int r0, int limit) {
+  return max(0, min(kRowsT, limit - (start + t * kTile + r0)));
+}
+
+// The start of a grouped-query block, as flash_decode_kernel's: B6's table
+// slice and the first kStages - 1 tiles of each warp issued (B5's first
+// split its first tile before the index is in, reading every row up to
+// `end`), the padding of staged rows zeroed. Returns the end of the live
+// positions of the split.
+template <typename TKV, bool kPaged, int kRowsT, int kThreadsT>
+__device__ __forceinline__ int gqa_prologue(const Args& a, unsigned char* stages, int* tbl,
+                                            int start, int end, int r0) {
+  const Geometry& geo = a.geo;
+  const int b = blockIdx.y, g = blockIdx.x, tid = threadIdx.x, lane = tid % 32;
+  const int first_page = kPaged ? start / a.ps : 0;
+  const auto issue = [&](int t, int limit, const int* pages) {
+    issue_warp_tile<TKV, kPaged>(a, pages, first_page, b, g, start + t * kTile + r0,
+                                 warp_rows<kRowsT>(start, t, r0, limit),
+                                 stages + (t % kStages) * geo.stage_bytes, r0, lane);
+  };
+  const int last = min(a.index64 ? static_cast<int>(static_cast<const int64_t*>(a.index)[b])
+                                 : static_cast<const int32_t*>(a.index)[b],
+                       a.S - 1);
+  const int live_end = min(end, last + 1);
+  int first = 0;
+  if constexpr (kPaged) {
+    const int n_pages = (end - 1) / a.ps - first_page + 1;
+    for (int i = tid; i < n_pages; i += kThreadsT) {
+      tbl[i] = clamp_index(a.bt[static_cast<size_t>(b) * a.nb + first_page + i], a.n_arena);
+    }
+  } else if (blockIdx.z == 0) {
+    issue(0, end, tbl);  // up to `end`: the index is not in yet
+    first = 1;
+  }
+  // B6's first tiles read their pages from row b's table in device memory
+  const int* row_table = kPaged ? a.bt + static_cast<size_t>(b) * a.nb + first_page : tbl;
+  for (; first < kStages - 1; ++first) issue(first, live_end, row_table);
+  if (geo.row_bytes % 16) {  // staged rows' padding reads as zeros
+    for (int i = tid; i < kStages * 2 * kTile; i += kThreadsT) {
+      unsigned char* pad = stages + i * geo.pstride + geo.row_bytes;
+      for (int t = 0; t < geo.chunks * 16 - geo.row_bytes; t += 2) {
+        *reinterpret_cast<uint16_t*>(pad + t) = 0;
+      }
+    }
+  }
+  __syncthreads();  // the table slice, the padding
+  return live_end;
+}
+
+// Floats between two splits' partials of a grouped-query launch (acc
+// [rep][hd], m [rep], l [rep]), a whole number of 16-byte words
+__host__ __device__ __forceinline__ int gqa_stride(int rep, int hd) {
+  return (rep * (hd + 2) + 3) / 4 * 4;
+}
+
+// The end of a grouped-query block: its warps' states (red [warp][rep][hdp]
+// unnormalised outputs, m_w and l_w per warp and head) meet in warp order,
+// each head's warp weights exp(m_w - max) taken once; then the output, or
+// with n_split > 1 the block's partial, its arrival and, in the last block
+// of the (row, kv head) to arrive, the merge. Thread (h, d0) takes head h's
+// kOut dims from d0 * kOut; the merge runs over the splits in split order,
+// kMergeLoads at a time with all their loads (m, l and the thread's
+// outputs, as 16-byte words where kVec: hd a multiple of 16) in flight at
+// once, the running max rescaling what came before. (One block reads every
+// partial, at one SM's share of the card's bandwidth: at rep 8, hd 128 a
+// partial is 4,160 bytes.)
+template <typename TQ, int kThreadsT, bool kVec>
+__device__ __forceinline__ void gqa_finish(const Args& a, const float* red,
+                                           const float (*m_w)[kMaxRep],
+                                           const float (*l_w)[kMaxRep]) {
+  constexpr int kWarpsT = kThreadsT / 32;
+  constexpr int kLanes = kThreadsT / kMaxRep;   // threads per head
+  constexpr int kOut = kMaxHeadDim / kLanes;    // dims a thread takes
+  static_assert(kOut % 4 == 0, "whole 16-byte words of a partial");
+  __shared__ float wt_s[kWarpsT][kMaxRep];      // the warps' weights exp(m_w - m_all)
+  __shared__ float m_s[kMaxRep];
+  __shared__ float l_s[kMaxRep];
+  __shared__ int merge_s;
+  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int rep = a.rep, hd = a.hd, hdp = a.geo.hdp, n_split = a.n_split;
+  const int h = tid / kLanes, d0 = (tid % kLanes) * kOut;
+  TQ* out = static_cast<TQ*>(a.out) + (static_cast<size_t>(b) * a.KV * rep + g * rep) * hd;
+  const int stride = gqa_stride(rep, hd);
+  float* parts =
+      n_split > 1 ? a.ws + (static_cast<size_t>(b) * a.KV + g) * n_split * stride : nullptr;
+  if (tid < rep) {
+    float m_all = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarpsT; ++w) m_all = fmaxf(m_all, m_w[w][tid]);
+    float l_all = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarpsT; ++w) {
+      const float wt = expf(m_w[w][tid] - m_all);
+      wt_s[w][tid] = wt;
+      l_all += l_w[w][tid] * wt;
+    }
+    m_s[tid] = m_all;
+    l_s[tid] = l_all;
+  }
+  __syncthreads();
+  if (h < rep && d0 < hd) {
+    // the thread's kOut dims of every warp as 16-byte words (hdp is whole
+    // words; a thread reading kOut scalars a word apart from its neighbour's
+    // hit one bank 8 ways)
+    float o[kOut];
+#pragma unroll
+    for (int u = 0; u < kOut; ++u) o[u] = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarpsT; ++w) {
+      const float wt = wt_s[w][h];
+      const float4* r4 = reinterpret_cast<const float4*>(red + (w * rep + h) * hdp + d0);
+#pragma unroll
+      for (int u = 0; u < kOut / 4; ++u) {
+        const float4 x = r4[u];
+        o[4 * u] += x.x * wt;
+        o[4 * u + 1] += x.y * wt;
+        o[4 * u + 2] += x.z * wt;
+        o[4 * u + 3] += x.w * wt;
+      }
+    }
+    float* part = parts ? parts + static_cast<size_t>(split) * stride + h * hd + d0 : nullptr;
+    if (part && kVec) {  // d0 + kOut <= hd
+#pragma unroll
+      for (int u = 0; u < kOut / 4; ++u) {
+        reinterpret_cast<float4*>(part)[u] = make_float4(o[4 * u], o[4 * u + 1], o[4 * u + 2],
+                                                         o[4 * u + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kOut; ++u) {
+        if (d0 + u >= hd) break;
+        if (part) {
+          part[u] = o[u];
+        } else {
+          out[h * hd + d0 + u] = from_f32<TQ>(l_s[h] > 0.f ? o[u] / l_s[h] : 0.f);
+        }
+      }
+    }
+    if (part && d0 == 0) {
+      float* ml = parts + static_cast<size_t>(split) * stride + rep * hd;
+      ml[h] = l_s[h] > 0.f ? m_s[h] : kNegInf;
+      ml[rep + h] = l_s[h];
+    }
+  }
+  if (!parts) return;
+
+  __syncthreads();  // orders the block's partial before thread 0's release
+  if (tid == 0) {
+    int* counter = &g_arrivals[b * a.KV + g];
+    const bool merges = arrive_acq_rel(counter) == n_split - 1;
+    if (merges) atomicExch(counter, 0);  // the next launch starts from zero
+    merge_s = merges;
+  }
+  __syncthreads();
+  if (!merge_s || h >= rep) return;
+  float m_run = kNegInf, l_run = 0.f, o[kOut];
+#pragma unroll
+  for (int u = 0; u < kOut; ++u) o[u] = 0.f;
+  for (int s0 = 0; s0 < n_split; s0 += kMergeLoads) {
+    float mb[kMergeLoads], lb[kMergeLoads], ob[kMergeLoads][kOut];
+#pragma unroll
+    for (int k = 0; k < kMergeLoads; ++k) {
+      const bool on = s0 + k < n_split;
+      const float* p = parts + static_cast<size_t>(on ? s0 + k : 0) * stride;
+      mb[k] = on ? __ldcg(p + rep * hd + h) : kNegInf;
+      lb[k] = on ? __ldcg(p + rep * hd + rep + h) : 0.f;
+      if constexpr (kVec) {  // d0 + kOut <= hd
+        const float4* p4 = reinterpret_cast<const float4*>(p + h * hd + d0);
+#pragma unroll
+        for (int u = 0; u < kOut / 4; ++u) {
+          const float4 w4 = on && d0 < hd ? __ldcg(p4 + u) : make_float4(0.f, 0.f, 0.f, 0.f);
+          ob[k][4 * u] = w4.x;
+          ob[k][4 * u + 1] = w4.y;
+          ob[k][4 * u + 2] = w4.z;
+          ob[k][4 * u + 3] = w4.w;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kOut; ++u) {
+          ob[k][u] = on && d0 + u < hd ? __ldcg(p + h * hd + d0 + u) : 0.f;
+        }
+      }
+    }
+    float m_new = m_run;
+#pragma unroll
+    for (int k = 0; k < kMergeLoads; ++k) m_new = lb[k] > 0.f ? fmaxf(m_new, mb[k]) : m_new;
+    const float c = expf(m_run - m_new);
+    l_run *= c;
+#pragma unroll
+    for (int u = 0; u < kOut; ++u) o[u] *= c;
+#pragma unroll
+    for (int k = 0; k < kMergeLoads; ++k) {
+      // a split with no live position (l = 0, its outputs 0) takes weight
+      // 0; a select, not a branch, so that no load waits behind one
+      const float w = lb[k] > 0.f ? expf(mb[k] - m_new) : 0.f;
+      l_run += lb[k] * w;
+#pragma unroll
+      for (int u = 0; u < kOut; ++u) o[u] += ob[k][u] * w;
+    }
+    m_run = m_new;
+  }
+#pragma unroll
+  for (int u = 0; u < kOut; ++u) {
+    if (d0 + u < hd) out[h * hd + d0 + u] = from_f32<TQ>(l_run > 0.f ? o[u] / l_run : 0.f);
+  }
+}
+
+// ---- on the CUDA cores: f32 caches, and head dims not a multiple of 16 ----
+
+constexpr int kGqaThreads = 256;
+constexpr int kGqaWarps = kGqaThreads / 32;
+constexpr int kGqaRows = kTile / kGqaWarps;   // a warp's positions of each tile
+constexpr int kParts = 32 / kMaxRep;          // lanes per query head
+static_assert(kParts == 4, "a warp is 8 heads x 4 parts");
+
+// a lane's 16-byte chunks of a row of kMaxHeadDim values
+template <typename TKV>
+constexpr int kLaneChunks = kMaxHeadDim * static_cast<int>(sizeof(TKV)) / 16 / kParts;
+
+// One block: kv head g = blockIdx.x, row b = blockIdx.y, split blockIdx.z.
+template <typename TQ, typename TKV, bool kPaged>
+__global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const Args a) {
+  constexpr int V = kPerChunk<TKV>;
+  constexpr int NC = kLaneChunks<TKV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float m_w[kGqaWarps][kMaxRep];
+  __shared__ float l_w[kGqaWarps][kMaxRep];
+  __shared__ float sc[kGqaWarps][kGqaRows][kMaxRep];  // a tile's scores, per warp
+  const Geometry& geo = a.geo;
+  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rep = a.rep, hd = a.hd, C = geo.chunks;
+  const int r = lane / kParts, part = lane % kParts;  // the lane's head and chunks part + 4i
+  const int start = split * a.per;
+  const int end = min(start + a.per, a.S);
+  const int r0 = warp * kGqaRows;  // the warp's rows of every tile
+
+  unsigned char* stages = smem + (-smem_u32(smem) & 127);  // 128-byte aligned
+  int* tbl = reinterpret_cast<int*>(stages + kStages * geo.stage_bytes);  // B6
+  const int first_page = kPaged ? start / a.ps : 0;
+  const TQ* q = static_cast<const TQ*>(a.q) + (static_cast<size_t>(b) * a.KV + g) * rep * hd;
+  float qr[NC][V];  // head r's q (scaled) at the lane's chunks; zero past hd and rep
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int d = (part + i * kParts) * V + e;
+      qr[i][e] = r < rep && d < hd ? to_f32(q[r * hd + d]) * a.scale : 0.f;
+    }
+  }
+  const int live_end =
+      gqa_prologue<TKV, kPaged, kGqaRows, kGqaThreads>(a, stages, tbl, start, end, r0);
+  const int n_tiles = live_end > start ? (live_end - start + kTile - 1) / kTile : 0;
+
+  float m_run = kNegInf, l_run = 0.f, acc[NC][V];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    wait_copies<kStages - 2>();
+    __syncwarp();
+    const int tn = t + kStages - 1;
+    issue_warp_tile<TKV, kPaged>(a, tbl, first_page, b, g, start + tn * kTile + r0,
+                                 warp_rows<kGqaRows>(start, tn, r0, live_end),
+                                 stages + (tn % kStages) * geo.stage_bytes, r0, lane);
+    const int rows = warp_rows<kGqaRows>(start, t, r0, live_end);
+    if (rows == 0) continue;  // the warp's rows all lie past the index
+    const unsigned char* buf = stages + (t % kStages) * geo.stage_bytes;
+
+    // scores of head r at the warp's rows (a partial sum per chunk, then
+    // the quad's), kept in sc, and their max. (The position loops stay
+    // rolled: unrolled by 2, with the shuffles inside, the results on the
+    // card took only each warp's first row; the cause was not found.)
+    float mx = kNegInf;
+#pragma unroll 1
+    for (int j = 0; j < rows; ++j) {
+      const unsigned char* krow = buf + (r0 + j) * geo.pstride;
+      float sp[NC];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = part + i * kParts;
+        sp[i] = 0.f;
+        if (c < C) {
+          float kv[V];
+          load16(reinterpret_cast<const TKV*>(krow + c * 16), kv);
+#pragma unroll
+          for (int e = 0; e < V; ++e) sp[i] = fmaf(qr[i][e], kv[e], sp[i]);
+        }
+      }
+      float sj = sp[0];
+#pragma unroll
+      for (int i = 1; i < NC; ++i) sj += sp[i];
+      sj += __shfl_xor_sync(kFull, sj, 1);
+      sj += __shfl_xor_sync(kFull, sj, 2);
+      if (part == 0) sc[warp][j][r] = sj;
+      mx = fmaxf(mx, sj);
+    }
+    __syncwarp();
+    const float m_new = fmaxf(m_run, mx);
+    const float corr = expf(m_run - m_new);
+    m_run = m_new;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[i][e] *= corr;
+    }
+    float psum = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < rows; ++j) {
+      const float p = expf(sc[warp][j][r] - m_new);
+      psum += p;
+      const unsigned char* vrow = buf + (kTile + r0 + j) * geo.pstride;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = part + i * kParts;
+        if (c < C) {
+          float vv[V];
+          load16(reinterpret_cast<const TKV*>(vrow + c * 16), vv);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+        }
+      }
+    }
+    l_run = l_run * corr + psum;
+    __syncwarp();  // sc is written again at the next tile
+  }
+  wait_copies<0>();  // no copy may land after the block moves on
+
+  __syncthreads();  // every warp is done with the stages: the warps meet there
+  float* red = reinterpret_cast<float*>(stages);  // [warp][rep][hdp]
+  if (r < rep) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = part + i * kParts;
+      if (c < C) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) red[(warp * rep + r) * geo.hdp + c * V + e] = acc[i][e];
+      }
+    }
+    if (part == 0) {
+      m_w[warp][r] = m_run;
+      l_w[warp][r] = l_run;
+    }
+  }
+  __syncthreads();
+  gqa_finish<TQ, kGqaThreads, false>(a, red, m_w, l_w);
+}
+
+// ---- on the tensor cores: bf16 caches, head dims a multiple of 16 ----
+//
+// Per warp and tile, 16 positions. Scores S = q K^T as mma m16n8k16 (rows:
+// the 8 heads, padded to 16; columns: two blocks of 8 positions; k: 16 head
+// dims), O^T = V^T P^T as m16n8k16 (rows: 16 head dims; columns: the 8
+// heads; k: the 16 positions), both bf16 in, f32 accumulated. The cache is
+// bf16 already; an f32 operand (q of an f32 query, p) goes in as three
+// bf16 parts (8 bits of mantissa each: 24 together, f32's), so every
+// product is exact in f32 and only the sums' order differs from the CUDA
+// cores'. K and V come from shared memory by ldmatrix (V transposed),
+// rows padded by 16 bytes: no bank conflict. The scores' C fragment of
+// head g, positions 2t, 2t + 1 (+ 8) is P^T's B fragment as it stands.
+
+constexpr int kMmaThreads = 128;
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMmaRows = kTile / kMmaWarps;    // a warp's positions of each tile: the k of P.V
+constexpr int kSplitParts = 3;                 // bf16 parts of an f32 operand
+constexpr int kMaxKSteps = kMaxHeadDim / 16;   // 16-dim steps of a head
+static_assert(kMmaRows == 16, "P.V takes 16 positions a step");
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a b: m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// x (two f32) as NP pairs of bf16 (the lower element in the low half): x =
+// sum of the parts, to f32's precision at NP = 3
+template <int NP>
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&out)[NP]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    out[p] = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= __low2float(h);
+    x1 -= __high2float(h);
+  }
+}
+
+// One block: kv head g = blockIdx.x, row b = blockIdx.y, split blockIdx.z;
+// a bf16 cache. Lane (g8, t4) = (lane / 4, lane % 4) of the mma fragments.
+template <typename TQ, bool kPaged>
+__global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Args a) {
+  using TKV = __nv_bfloat16;
+  constexpr int NQ = sizeof(TQ) == 2 ? 1 : kSplitParts;  // a bf16 query is one part
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float m_w[kMmaWarps][kMaxRep];
+  __shared__ float l_w[kMmaWarps][kMaxRep];
+  const Geometry& geo = a.geo;
+  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int rep = a.rep, hd = a.hd, n_steps = hd / 16;
+  const int start = split * a.per;
+  const int end = min(start + a.per, a.S);
+  const int r0 = warp * kMmaRows;
+
+  unsigned char* stages = smem + (-smem_u32(smem) & 127);  // 128-byte aligned
+  int* tbl = reinterpret_cast<int*>(stages + kStages * geo.stage_bytes);  // B6
+  const int first_page = kPaged ? start / a.ps : 0;
+  // q of head g8 as the A fragments of S (a0: dims 16 ks + 2 t4, + 1; a2:
+  // the same + 8; a1, a3, heads 8-15: zero), unscaled (the scale multiplies
+  // the scores, as in the plain version), in NQ bf16 parts
+  // (loaded before the prologue and split after it, so that q's round
+  // trip overlaps the index's and the first tiles')
+  const TQ* q = static_cast<const TQ*>(a.q) + (static_cast<size_t>(b) * a.KV + g) * rep * hd;
+  float qx[kMaxKSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kMaxKSteps; ++ks) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = ks * 16 + (e / 2) * 8 + 2 * t4 + e % 2;
+      qx[ks][e] = g8 < rep && ks < n_steps ? to_f32(q[g8 * hd + d]) : 0.f;
+    }
+  }
+  const int live_end =
+      gqa_prologue<TKV, kPaged, kMmaRows, kMmaThreads>(a, stages, tbl, start, end, r0);
+  uint32_t qa[kMaxKSteps][2][NQ];
+#pragma unroll
+  for (int ks = 0; ks < kMaxKSteps; ++ks) {
+    split_pair<NQ>(qx[ks][0], qx[ks][1], qa[ks][0]);
+    split_pair<NQ>(qx[ks][2], qx[ks][3], qa[ks][1]);
+  }
+  const int n_tiles = live_end > start ? (live_end - start + kTile - 1) / kTile : 0;
+  // this lane's row address in an ldmatrix.x4: matrix lane / 8, its row lane % 8
+  const int mrow = (lane >> 4) * 8 + (lane & 7), mcol = ((lane >> 3) & 1) * 16;
+
+  float m_run = kNegInf, l_run = 0.f;  // head g8's
+  float co[kMaxKSteps][4];  // O^T: dims 16 mb + g8 (+ 8), heads 2 t4, 2 t4 + 1
+#pragma unroll
+  for (int mb = 0; mb < kMaxKSteps; ++mb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) co[mb][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    wait_copies<kStages - 2>();
+    __syncwarp();
+    const int tn = t + kStages - 1;
+    issue_warp_tile<TKV, kPaged>(a, tbl, first_page, b, g, start + tn * kTile + r0,
+                                 warp_rows<kMmaRows>(start, tn, r0, live_end),
+                                 stages + (tn % kStages) * geo.stage_bytes, r0, lane);
+    const int rows = warp_rows<kMmaRows>(start, t, r0, live_end);
+    if (rows == 0) continue;  // the warp's rows all lie past the index
+    const unsigned char* kbase = stages + (t % kStages) * geo.stage_bytes + r0 * geo.pstride;
+    unsigned char* vbase = stages + (t % kStages) * geo.stage_bytes +
+                           (kTile + r0) * geo.pstride;
+    if (rows < kMmaRows) {
+      // V rows past the live ones hold stale or unwritten bytes, and 0 x NaN
+      // is NaN in the product: zero them (their p is 0, K rows' scores are
+      // masked instead). (Written as one flat loop over rows x chunks, the
+      // zeroing faulted on the card at hd 64 from 9 live rows on; the
+      // cause was not found.)
+      for (int r = rows; r < kMmaRows; ++r) {
+        for (int c = lane; c < geo.chunks; c += 32) {
+          *reinterpret_cast<uint4*>(vbase + r * geo.pstride + c * 16) = make_uint4(0, 0, 0, 0);
+        }
+      }
+      __syncwarp();
+    }
+
+    // scores of head g8 at positions 2 t4, 2 t4 + 1 (block 0) and + 8 (block
+    // 1). The A rows 8-15 (no head) carry q's second part where it has one:
+    // its scores land in c2, c3 beside the first part's. Two accumulators a
+    // block (the steps' parity) so that no mma waits on the one before it
+    float cs[2][2][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cs[c][0][e] = cs[c][1][e] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < kMaxKSteps; ++ks) {
+      if (ks < n_steps) {
+        uint32_t kb[4];  // B fragments: block 0's dims 16 ks + (0, 8), then block 1's
+        ldmatrix_x4(kb, kbase + mrow * geo.pstride + ks * 32 + mcol);
+        const uint32_t a1 = NQ > 1 ? qa[ks][0][1] : 0u, a3 = NQ > 1 ? qa[ks][1][1] : 0u;
+        mma_bf16(cs[ks % 2][0], qa[ks][0][0], a1, qa[ks][1][0], a3, kb[0], kb[1]);
+        mma_bf16(cs[ks % 2][1], qa[ks][0][0], a1, qa[ks][1][0], a3, kb[2], kb[3]);
+        if (NQ > 2) {
+          mma_bf16(cs[ks % 2][0], qa[ks][0][2], 0u, qa[ks][1][2], 0u, kb[0], kb[1]);
+          mma_bf16(cs[ks % 2][1], qa[ks][0][2], 0u, qa[ks][1][2], 0u, kb[2], kb[3]);
+        }
+      }
+    }
+    float sv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int nb = e / 2, i = e % 2;
+      sv[e] = (cs[0][nb][i] + cs[0][nb][i + 2]) + (cs[1][nb][i] + cs[1][nb][i + 2]);
+    }
+    const int pos[4] = {2 * t4, 2 * t4 + 1, 8 + 2 * t4, 9 + 2 * t4};
+    float mx = kNegInf;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sv[e] *= a.scale;
+      mx = pos[e] < rows ? fmaxf(mx, sv[e]) : mx;
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    const float corr = expf(m_run - m_new);
+    m_run = m_new;
+    float psum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sv[e] = pos[e] < rows ? expf(sv[e] - m_new) : 0.f;  // p
+      psum += sv[e];
+    }
+    l_run = l_run * corr + psum;  // this lane's positions; the quad's summed at the end
+    // P^T's B fragments (positions 2 t4, + 1 and + 8, + 9 of head g8), in
+    // three bf16 parts; the rescale of heads 2 t4, 2 t4 + 1 from their quads
+    uint32_t pb[2][kSplitParts];
+    split_pair<kSplitParts>(sv[0], sv[1], pb[0]);
+    split_pair<kSplitParts>(sv[2], sv[3], pb[1]);
+    const float c_lo = __shfl_sync(kFull, corr, 8 * t4);
+    const float c_hi = __shfl_sync(kFull, corr, 8 * t4 + 4);
+#pragma unroll
+    for (int mb = 0; mb < kMaxKSteps; ++mb) {
+      if (mb < n_steps) {
+        co[mb][0] *= c_lo;
+        co[mb][1] *= c_hi;
+        co[mb][2] *= c_lo;
+        co[mb][3] *= c_hi;
+        uint32_t va[4];  // A fragments of V^T: dims 16 mb + (0, 8) x positions (0, 8)
+        ldmatrix_x4_trans(va, vbase + mrow * geo.pstride + mb * 32 + mcol);
+#pragma unroll
+        for (int p = 0; p < kSplitParts; ++p) {
+          mma_bf16(co[mb], va[0], va[1], va[2], va[3], pb[0][p], pb[1][p]);
+        }
+      }
+    }
+  }
+  wait_copies<0>();  // no copy may land after the block moves on
+  l_run += __shfl_xor_sync(kFull, l_run, 1);
+  l_run += __shfl_xor_sync(kFull, l_run, 2);
+
+  __syncthreads();  // every warp is done with the stages: the warps meet there
+  float* red = reinterpret_cast<float*>(stages);  // [warp][rep][hdp]
+#pragma unroll
+  for (int mb = 0; mb < kMaxKSteps; ++mb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = 2 * t4 + e % 2, d = 16 * mb + g8 + (e / 2) * 8;
+      if (mb < n_steps && h < rep) red[(warp * rep + h) * geo.hdp + d] = co[mb][e];
+    }
+  }
+  if (t4 == 0 && g8 < rep) {
+    m_w[warp][g8] = m_run;
+    l_w[warp][g8] = l_run;
+  }
+  __syncthreads();
+  gqa_finish<TQ, kMmaThreads, true>(a, red, m_w, l_w);
+}
+
+// The device body of a launch: one query head per kv head; grouped-query
+// heads on the tensor cores (a bf16 cache, head dims a multiple of 16); or
+// grouped-query heads on the CUDA cores
+enum class Body { kRep1, kTensorCores, kCudaCores };
+
+template <typename TKV>
+Body body_for(int rep, int hd) {
+  if (rep == 1) return Body::kRep1;
+  return sizeof(TKV) == 2 && hd % 16 == 0 ? Body::kTensorCores : Body::kCudaCores;
+}
+
 // The layout of a launch: copies as wide as the rows and bases allow;
-// paged, room for the table entries of one split of `per` positions.
+// paged, room for the table entries of one split of `per` positions. Rows
+// padded by 16 bytes (no bank conflict: flash_decode_kernel's lane pairs,
+// the tensor cores' ldmatrix) but on the CUDA cores at rep > 1 (its parts
+// read adjacent chunks); q in shared memory at rep 1 only.
 template <typename TKV>
 Geometry geometry(int hd, int rep, int per, int ps, bool paged, const void* k, const void* v) {
   Geometry geo;
@@ -501,17 +1135,34 @@ Geometry geometry(int hd, int rep, int per, int ps, bool paged, const void* k, c
       break;
     }
   }
-  geo.pstride = geo.chunks * 16 + 16;
+  const Body body = body_for<TKV>(rep, hd);
+  geo.pstride = geo.chunks * 16 + (body == Body::kCudaCores ? 0 : 16);
   geo.stage_bytes = 2 * kTile * geo.pstride;
   geo.table = paged ? per / ps + 2 : 0;
-  geo.smem = kStages * geo.stage_bytes + (rep * geo.hdp + geo.table) * 4 + 128;
+  geo.smem = kStages * geo.stage_bytes +
+             ((body == Body::kRep1 ? rep * geo.hdp : 0) + geo.table) * 4 + 128;
   return geo;
 }
 
+using KernelFn = void (*)(const Args);
+
+// the kernel of rep query heads per kv head at head dim hd, and its threads
 template <typename TQ, typename TKV, bool kPaged>
-auto kernel_for(int rep) {
-  return rep == 1 ? flash_decode_kernel<TQ, TKV, 1, kPaged>
-                  : flash_decode_kernel<TQ, TKV, kMaxRep, kPaged>;
+KernelFn kernel_for(int rep, int hd) {
+  switch (body_for<TKV>(rep, hd)) {
+    case Body::kRep1: return flash_decode_kernel<TQ, TKV, 1, kPaged>;
+    case Body::kTensorCores: return flash_decode_mma_kernel<TQ, kPaged>;
+    default: return flash_decode_gqa_kernel<TQ, TKV, kPaged>;
+  }
+}
+
+template <typename TKV>
+int threads_for(int rep, int hd) {
+  switch (body_for<TKV>(rep, hd)) {
+    case Body::kRep1: return kThreads;
+    case Body::kTensorCores: return kMmaThreads;
+    default: return kGqaThreads;
+  }
 }
 
 // Launches the (TQ, TKV) instance that q_dtype and kv_dtype name; false if
@@ -547,11 +1198,12 @@ int launch(Args a, int B, int q_dtype, int kv_dtype, cudaStream_t st) {
     using TQ = decltype(tq);
     using TKV = decltype(tkv);
     a.geo = geometry<TKV>(a.hd, a.rep, a.per, a.ps, kPaged, a.k, a.v);
-    const auto kernel = kernel_for<TQ, TKV, kPaged>(a.rep);
+    const auto kernel = kernel_for<TQ, TKV, kPaged>(a.rep, a.hd);
     if (a.geo.smem > kDefaultSmem) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.geo.smem);
     }
-    kernel<<<dim3(a.KV, B, a.n_split), kThreads, a.geo.smem, st>>>(a);
+    const dim3 grid(a.KV, B, a.n_split);
+    kernel<<<grid, threads_for<TKV>(a.rep, a.hd), a.geo.smem, st>>>(a);
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -598,12 +1250,12 @@ extern "C" int repro_flash_decode_variant_info(int paged, int q_dtype, int kv_dt
     using TQ = decltype(tq);
     using TKV = decltype(tkv);
     const Geometry geo = geometry<TKV>(hd, rep, per, ps, paged != 0, nullptr, nullptr);
-    const void* fn = paged ? reinterpret_cast<const void*>(kernel_for<TQ, TKV, true>(rep))
-                           : reinterpret_cast<const void*>(kernel_for<TQ, TKV, false>(rep));
+    const void* fn = reinterpret_cast<const void*>(
+        paged ? kernel_for<TQ, TKV, true>(rep, hd) : kernel_for<TQ, TKV, false>(rep, hd));
     if (geo.smem > kDefaultSmem) {  // as a launch does: the limit never drops below the default
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
     }
-    code = fill_info(fn, geo.smem, kThreads, info);
+    code = fill_info(fn, geo.smem, threads_for<TKV>(rep, hd), info);
   });
   return code;
 }

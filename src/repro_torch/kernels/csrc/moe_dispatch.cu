@@ -3,9 +3,9 @@
 // Replace repro/kernels/moe_dispatch.py::_dispatch_impl / _dispatch_kernel
 // and ::_combine_impl / _make_combine_kernel. On the TPU each grid step
 // DMAs one (1, bd) row named by the scalar-prefetched routing table. Here a
-// warp owns a row (dispatch: a slot row; combine: a token row) and its
-// lanes read the row's indices themselves; rows move as 16-byte words
-// where the row width allows.
+// warp owns a row (dispatch: a slot row; combine: a token row, or on its
+// cols grid a thread owns a word of one) and reads the row's indices
+// itself; rows move as 16-byte words where the row width allows.
 //
 // Both move bytes: dispatch copies S rows, combine reads K rows per token
 // and writes one. Neither does enough arithmetic to matter, and on this
@@ -19,20 +19,31 @@
 // before its stores, and runs 4 rows per block so that the training site's
 // 1,024 slots spread over every SM.
 //
-// combine runs one warp per token, 4 tokens per block. Every lane loads
-// the table entries of up to 4 rows at once (the lanes share the address:
-// one request per warp), then all its words of those rows, then the FMAs,
-// so a row waits on one table load. Top-1 (every call of the main path)
-// takes an instance with no loop over k: in a kernel this short the fetch
-// of its own instructions sits on the chain too, and a shuffle of the
-// table entries from lanes 0..K-1 or a loop over k ran slower at decode
-// than the block-per-token kernel this replaced. It launches as a
-// programmatic dependent launch (PDL): its launch and the placement of
-// its blocks overlap the end of the kernel before it on the stream,
-// eagerly and as a CUDA-graph edge. The PDL rule: the kernel makes no
-// global load or store before griddepcontrol.wait, since the kernel
-// before it may still be writing the tables, the rows, or the memory the
-// allocator handed out as its output.
+// combine has two grids, which the wrapper picks from the shapes
+// (kernels/moe_dispatch.py::combine_plan):
+// - rows: one warp per token, 4 tokens per block, where a row takes one
+//   pass, or tokens enough to fill the card at k <= 4. Every lane loads the
+//   table entries of up to 4 rows at once (the lanes share the address:
+//   one request per warp), then all its words of those rows, then the
+//   FMAs, so a row waits on one table load. Top-1 takes an instance with
+//   no loop over k: in a kernel this short the fetch of its own
+//   instructions sits on the chain too, and a shuffle of the table
+//   entries from lanes 0..K-1 or a loop over k ran slower at decode than
+//   the block-per-token kernel this replaced.
+// - cols: one thread per 16-byte word of the output, a flat grid over T x
+//   d, for wide rows at few tokens or k > 4 (decode at d 6,144-7,168, k
+//   4-8: one warp a token put 8 warps on 132 SMs, each walking its row in
+//   6-7 passes of two dependent steps). A thread loads the table entries
+//   of up to 8 rows at once, then its word of every one of them, then the
+//   FMAs: one table round trip and one row round trip per output word,
+//   over T x d / 8 (bf16) threads.
+// Both sum in f32 in the order k = 0..K-1, w * keep times the row, and
+// cast once. Both launch as a programmatic dependent launch (PDL): their
+// launch and the placement of their blocks overlap the end of the kernel
+// before it on the stream, eagerly and as a CUDA-graph edge. The PDL rule:
+// the kernel makes no global load or store before griddepcontrol.wait,
+// since the kernel before it may still be writing the tables, the rows,
+// or the memory the allocator handed out as its output.
 
 #include "stream.cuh"
 
@@ -99,6 +110,7 @@ constexpr int kCombineThreads = 128;
 constexpr int kTokensPerBlock = kCombineThreads / 32;   // one warp per token row
 constexpr int kCombineWords = 4;    // a lane's words of one row per pass (2 KB rows in one)
 constexpr int kCombineRows = 4;     // rows whose words a lane loads before its first FMA (k > 1)
+constexpr int kColRows = 8;         // the cols grid's rows loaded before the first FMA (k > 1)
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Vec {
@@ -178,6 +190,51 @@ combine_rows_kernel(const T* __restrict__ buf, const int32_t* __restrict__ token
   }
 }
 
+// The cols grid: thread g takes word i = g % n_vec of token t = g / n_vec.
+// R rows per step as in combine_rows_kernel: R = 1 the top-1 instance,
+// else k rows in steps of kColRows (one step up to k = 8)
+template <typename T, int V, int R>
+__global__ void __launch_bounds__(kCombineThreads)
+combine_cols_kernel(const T* __restrict__ buf, const int32_t* __restrict__ token_slot,
+                    const float* __restrict__ topk_w, const uint8_t* __restrict__ keep,
+                    T* __restrict__ out, int n_tokens, int n_slots, int k, int d) {
+  wait_for_previous_grid();           // before any global access
+  using Row = Vec<T, V>;
+  const int n_vec = d / V;
+  const long long g = static_cast<long long>(blockIdx.x) * kCombineThreads + threadIdx.x;
+  if (g >= static_cast<long long>(n_tokens) * n_vec) return;
+  const int t = static_cast<int>(g / n_vec), i = static_cast<int>(g % n_vec);
+  const int n_rows = R == 1 ? 1 : k;
+  const Row* rows = reinterpret_cast<const Row*>(buf);
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
+  for (int j0 = 0; j0 < n_rows; j0 += R) {
+    const Row* src[R];
+    float w[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int tk = t * k + min(j0 + j, n_rows - 1);
+      src[j] = rows + static_cast<size_t>(clamp_index(__ldg(token_slot + tk), n_slots)) * n_vec;
+      w[j] = __ldg(topk_w + tk) * (__ldg(keep + tk) ? 1.f : 0.f);
+    }
+    Row v[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) v[j] = j0 + j < n_rows ? src[j][i] : Row{};
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j0 + j < n_rows) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] += w[j] * to_f32(v[j].e[e]);
+      }
+    }
+  }
+  Row o;
+#pragma unroll
+  for (int e = 0; e < V; ++e) o.e[e] = from_f32<T>(acc[e]);
+  reinterpret_cast<Row*>(out)[g] = o;
+}
+
 // an empty kernel that obeys the PDL rule (repro_launch_floor); its one
 // argument keeps cudaLaunchKernelEx's argument array from being empty
 __global__ void launch_floor_kernel(int) { wait_for_previous_grid(); }
@@ -214,23 +271,38 @@ cudaError_t launch_ex(void (*kernel)(Params...), int blocks, int threads, bool p
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
+template <typename T>
+using CombineKernel = void (*)(const T*, const int32_t*, const float*, const uint8_t*, T*, int,
+                               int, int, int);
+
+// B3's instance: the cols or rows grid, top-1 or k rows, on the 16-byte
+// vector path (vec) or one element a word
+template <typename T>
+CombineKernel<T> combine_kernel(bool cols, bool top1, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  if (cols) {
+    return vec ? (top1 ? combine_cols_kernel<T, V, 1> : combine_cols_kernel<T, V, kColRows>)
+               : (top1 ? combine_cols_kernel<T, 1, 1> : combine_cols_kernel<T, 1, kColRows>);
+  }
+  return vec ? (top1 ? combine_rows_kernel<T, V, 1> : combine_rows_kernel<T, V, kCombineRows>)
+             : (top1 ? combine_rows_kernel<T, 1, 1> : combine_rows_kernel<T, 1, kCombineRows>);
+}
+
 // the 16-byte vector path where d is whole words and both rows are
 // aligned, else one element a word (ragged d, a view off a 16-byte boundary)
 template <typename T>
 cudaError_t launch_combine(const void* buf, const int32_t* token_slot, const float* topk_w,
                            const uint8_t* keep, void* out, int n_tokens, int n_slots, int k,
-                           int d, bool pdl, cudaStream_t stream) {
+                           int d, bool cols, bool pdl, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  const T* b = static_cast<const T*>(buf);
-  T* o = static_cast<T*>(out);
   const bool vec = d % V == 0 && aligned16(buf) && aligned16(out);
-  void (*kernel)(const T*, const int32_t*, const float*, const uint8_t*, T*, int, int, int, int) =
-      vec ? (k == 1 ? combine_rows_kernel<T, V, 1>
-                              : combine_rows_kernel<T, V, kCombineRows>)
-                    : (k == 1 ? combine_rows_kernel<T, 1, 1>
-                              : combine_rows_kernel<T, 1, kCombineRows>);
-  return launch_ex(kernel, ceil_div(n_tokens, kTokensPerBlock), kCombineThreads, pdl, stream, b,
-                   token_slot, topk_w, keep, o, n_tokens, n_slots, k, d);
+  const long long threads = static_cast<long long>(n_tokens) * (d / (vec ? V : 1));
+  const long long blocks = cols ? (threads + kCombineThreads - 1) / kCombineThreads
+                                : ceil_div(n_tokens, kTokensPerBlock);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return launch_ex(combine_kernel<T>(cols, k == 1, vec), static_cast<int>(blocks),
+                   kCombineThreads, pdl, stream, static_cast<const T*>(buf), token_slot, topk_w,
+                   keep, static_cast<T*>(out), n_tokens, n_slots, k, d);
 }
 
 // the launch's own error, else any error pending from before
@@ -260,30 +332,32 @@ extern "C" int repro_moe_dispatch(const void* x, const void* slot_token, const v
   return static_cast<int>(cudaGetLastError());
 }
 
+// cols: the cols grid (else rows), as combine_plan picks
 extern "C" int repro_moe_combine(const void* buf, const void* token_slot, const void* topk_w,
                                  const void* keep, void* out, int n_tokens, int n_slots, int k,
-                                 int d, int dtype, int pdl, void* stream) {
+                                 int d, int dtype, int cols, int pdl, void* stream) {
   const auto* slots = static_cast<const int32_t*>(token_slot);
   const auto* w = static_cast<const float*>(topk_w);
   const auto* kp = static_cast<const uint8_t*>(keep);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kReproF32) {
     return launch_status(launch_combine<float>(buf, slots, w, kp, out, n_tokens, n_slots, k,
-                                               d, pdl != 0, st));
+                                               d, cols != 0, pdl != 0, st));
   }
   if (dtype == kReproBF16) {
     return launch_status(launch_combine<__nv_bfloat16>(buf, slots, w, kp, out, n_tokens,
-                                                       n_slots, k, d, pdl != 0, st));
+                                                       n_slots, k, d, cols != 0, pdl != 0, st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // What the card reports for one instance (info as fill_info's): kind 0 is
 // B2's kernel moving rows in `word`-byte words (16, 4, 2 or 1), kind 1 is
-// B3's in `dtype`, its top-1 instance at k == 1 else the k-row one, on the
-// 16-byte vector path where `vec` is set
+// B3's in `dtype`, on the cols grid where `cols` is set (else rows), its
+// top-1 instance at k == 1 else the k-row one, on the 16-byte vector path
+// where `vec` is set
 extern "C" int repro_moe_dispatch_variant_info(int kind, int dtype, int word, int k, int vec,
-                                               int* info) {
+                                               int cols, int* info) {
   const void* fn = nullptr;
   if (kind == 0) {
     if (word == 16) fn = reinterpret_cast<const void*>(dispatch_rows_kernel<uint4>);
@@ -294,20 +368,11 @@ extern "C" int repro_moe_dispatch_variant_info(int kind, int dtype, int word, in
                          : fill_info(fn, 0, kDispatchThreads, info);
   }
   if (kind != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool one = k == 1, v = vec != 0;
   if (dtype == kReproF32) {
-    constexpr int V = 16 / sizeof(float);
-    fn = v ? (one ? reinterpret_cast<const void*>(combine_rows_kernel<float, V, 1>)
-                  : reinterpret_cast<const void*>(combine_rows_kernel<float, V, kCombineRows>))
-           : (one ? reinterpret_cast<const void*>(combine_rows_kernel<float, 1, 1>)
-                  : reinterpret_cast<const void*>(combine_rows_kernel<float, 1, kCombineRows>));
+    fn = reinterpret_cast<const void*>(combine_kernel<float>(cols != 0, k == 1, vec != 0));
   } else if (dtype == kReproBF16) {
-    using B = __nv_bfloat16;
-    constexpr int V = 16 / sizeof(B);
-    fn = v ? (one ? reinterpret_cast<const void*>(combine_rows_kernel<B, V, 1>)
-                  : reinterpret_cast<const void*>(combine_rows_kernel<B, V, kCombineRows>))
-           : (one ? reinterpret_cast<const void*>(combine_rows_kernel<B, 1, 1>)
-                  : reinterpret_cast<const void*>(combine_rows_kernel<B, 1, kCombineRows>));
+    fn = reinterpret_cast<const void*>(
+        combine_kernel<__nv_bfloat16>(cols != 0, k == 1, vec != 0));
   }
   return fn == nullptr ? static_cast<int>(cudaErrorInvalidValue)
                        : fill_info(fn, 0, kCombineThreads, info);

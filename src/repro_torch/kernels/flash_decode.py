@@ -19,13 +19,19 @@ kernels (``csrc/flash_decode.cu``) split the cache over blocks
 contiguous range of positions, a multiple of ``TILE``, and stages its K/V
 rows into shared memory with 16-byte asynchronous copies, and the last
 block of a (row, kv head) to finish merges the ranges' partial softmax
-states in range order, in the same launch. ``split_plan`` picks the ranges
+states in range order, in the same launch. One query head per kv head
+runs on the CUDA cores; grouped-query heads (rep 2-8) on a bf16 cache with
+a head dim a multiple of 16 run on the tensor cores (bf16 ``mma.sync``, an
+f32 query and the softmax weights as three bf16 parts each, so every
+product is exact in f32), and otherwise on CUDA cores whose lanes hold 8
+heads' q in registers; either way each staged K/V row serves every head of
+its kv head. ``split_plan`` picks the ranges
 from the cache's capacity, the rows, the kv heads and the SM count alone,
 never from ``index``, so the wrapper reads nothing from the device and a
 call can be captured in a CUDA graph. B5 and B6 share the plan and the device body, so
-B6 equals B5 bitwise on the contiguous cache its tables address. At the
-serving shapes (at most 96 positions) ``n_split`` is 1: one block per (row,
-kv head), no workspace, no merge.
+B6 equals B5 bitwise on the contiguous cache its tables address. A cache
+of at most 192 positions (every serving shape) takes ``n_split`` 1: one
+block per (row, kv head), no workspace, no merge.
 
 Their plain versions are ``ref.flash_decode_ref`` and
 ``ref.flash_decode_paged_ref``.
@@ -53,7 +59,7 @@ from repro_torch.kernels.ref import flash_decode_paged_ref, flash_decode_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_REP = 8          # query heads per kv head the kernel holds in registers
+MAX_REP = 8          # query heads per kv head: the 8 head rows of the kernels at rep > 1
 MAX_HEAD_DIM = 128
 # split plan (TILE is csrc/flash_decode.cu's kTile)
 TILE = 64              # positions per staged tile
@@ -69,15 +75,20 @@ def split_plan(capacity: int, rows: int, kv_heads: int, sms: int) -> Tuple[int, 
     """(n_split, positions per split) for a cache of ``capacity`` positions
     (B5: S; B6: n_blocks * page_size) read by ``rows * kv_heads`` blocks
     per split on a card of ``sms`` SMs. Split i covers positions [i * per,
-    min((i + 1) * per, capacity)); ``per`` is a multiple of ``TILE``. Ranges
-    shrink until the grid holds about ``BLOCKS_PER_SM`` blocks per SM, but
-    not below ``MIN_SPLIT_TILES`` tiles, so caches of fewer than 192
-    positions take one split; a range holds at most ``MAX_SPLIT_TILES``
-    tiles."""
+    min((i + 1) * per, capacity)); ``per`` is a multiple of ``TILE``. A
+    cache of fewer than 2 * ``MIN_SPLIT_TILES`` tiles (at most 192
+    positions) takes one split. Else ranges shrink until the grid holds
+    about ``BLOCKS_PER_SM`` blocks per SM, but not below
+    ``MIN_SPLIT_TILES`` tiles, and hold at most ``MAX_SPLIT_TILES``. The
+    range is picked first and rounded up, so a grid that wants more blocks
+    than the cache has ranges of ``MIN_SPLIT_TILES`` takes all of them
+    (yi-6b's 57 tiles over 8 (row, kv head) pairs: 29 of 2 tiles, not 19
+    of 3)."""
     tiles = max(1, math.ceil(capacity / TILE))
+    if tiles < 2 * MIN_SPLIT_TILES:
+        return 1, tiles * TILE
     want = math.ceil(BLOCKS_PER_SM * sms / max(1, rows * kv_heads))
-    n = max(1, min(want, tiles // MIN_SPLIT_TILES), math.ceil(tiles / MAX_SPLIT_TILES))
-    per = math.ceil(tiles / n)
+    per = min(MAX_SPLIT_TILES, max(MIN_SPLIT_TILES, math.ceil(tiles / want)))
     return math.ceil(tiles / per), per * TILE
 
 
@@ -96,13 +107,15 @@ def plan_of(q: torch.Tensor, k: torch.Tensor,
     return split_plan(cap, q.shape[0], k.shape[2], sms or _sm_count(q.device))
 
 
-def _workspace(q: torch.Tensor, n_split: int) -> Optional[torch.Tensor]:
+def _workspace(q: torch.Tensor, kv: int, n_split: int) -> Optional[torch.Tensor]:
     """f32 partial states (m, l and the unnormalised output per query head)
-    of every split, merged inside the launch; none for one split."""
+    of every split, merged inside the launch, each a whole number of
+    16-byte words; none for one split."""
     if n_split == 1:
         return None
     b, h, hd = q.shape
-    return torch.empty(b * h * n_split * (hd + 2), dtype=torch.float32, device=q.device)
+    stride = -(-(h // kv) * (hd + 2) // 4) * 4
+    return torch.empty(b * kv * n_split * stride, dtype=torch.float32, device=q.device)
 
 
 _split_lock = threading.Lock()
@@ -174,7 +187,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0 or s == 0:
         return out.zero_()
     n_split, per = plan_of(q, k)
-    ws = _workspace(q, n_split)
+    ws = _workspace(q, kv, n_split)
     fn = build.function("repro_flash_decode",
                         [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P])
@@ -230,7 +243,7 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     n_split, per = plan_of(q, k, block_tables)
-    ws = _workspace(q, n_split)
+    ws = _workspace(q, kv, n_split)
     fn = build.function("repro_flash_decode_paged",
                         [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, ctypes.c_float, _I, _I, _P])

@@ -11,10 +11,11 @@ Kernels (``csrc/moe_dispatch.cu``) replace the TPU kernels of
 and ``_combine_impl``/``_make_combine_kernel``). Their bytes are few, so
 the launch and the chain of dependent loads set their time on the H100:
 dispatch moves each slot row once as 16-byte words, one warp per row;
-combine sums the K rows of a token in f32, one warp per token, and
-launches as a programmatic dependent launch (PDL) of the kernel before
-it. Each function's plain version is ``ref.dispatch_ref`` /
-``ref.combine_ref``.
+combine sums the K rows of a token in f32, one warp per token or, for
+wide rows at few tokens or k > 4, one thread per 16-byte word of the
+output (``combine_plan``), and launches as a programmatic dependent launch (PDL)
+of the kernel before it. Each function's plain version is
+``ref.dispatch_ref`` / ``ref.combine_ref``.
 
 Both are differentiable through ``torch.autograd.Function``s whose
 backwards are the reference's custom VJPs (``_dispatch_bwd``,
@@ -31,6 +32,8 @@ or raises. ``dispatch.launches`` / ``combine.launches`` count launches.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -40,6 +43,13 @@ from repro_torch.kernels.ref import combine_ref, dispatch_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = (torch.float32, torch.bfloat16)
+# combine's grids (csrc/moe_dispatch.cu): rows, one warp per token, 4 a
+# block, its lanes taking ROW_PASS_WORDS 16-byte words of the row a pass
+# and ROW_STEP rows a dependent step; cols, one thread per word of the
+# output
+ROW_PASS_WORDS = 32 * 4
+ROW_STEP = 4
+ROW_WARPS_PER_SM = 4     # warps per SM the rows grid wants to hide its latency
 
 plain_dispatch = dispatch_ref
 plain_combine = combine_ref
@@ -111,31 +121,69 @@ def dispatch(x: torch.Tensor, slot_token: torch.Tensor,
 dispatch.launches = 0
 
 
+def combine_plan(n_tokens: int, k: int, d: int, itemsize: int, sms: int) -> bool:
+    """True for the cols grid (one thread per 16-byte word of the output),
+    False for rows (one warp per token), from shapes alone. Rows where a
+    warp reads its row in one pass (every zcode-m3-base site); else cols
+    where the rows grid puts fewer than ROW_WARPS_PER_SM warps on an SM
+    (decode at any k, dbrx-132b's 256-token prefill) or takes a token's k
+    rows in more than one dependent step (k > ROW_STEP: deepseek-v3-671b's
+    top-8), and rows at many tokens of k <= ROW_STEP (dbrx-132b's
+    2,304-token prefill), where the two ran within a few percent."""
+    if d * itemsize <= 16 * ROW_PASS_WORDS:
+        return False
+    return n_tokens < ROW_WARPS_PER_SM * sms or k > ROW_STEP
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan_of(buf: torch.Tensor, token_slot: torch.Tensor) -> bool:
+    """``combine_plan`` for combine's inputs, on buf's card."""
+    t, k = token_slot.shape
+    return combine_plan(t, k, buf.shape[1], buf.element_size(), _sm_count(buf.device))
+
+
+def launch_combine(buf: torch.Tensor, token_slot: torch.Tensor, weights: torch.Tensor,
+                   keep: torch.Tensor, out: torch.Tensor, pdl: bool = True,
+                   cols: Optional[bool] = None) -> None:
+    """One launch of B3's kernel into ``out`` on the current stream, on
+    the grid ``plan_of`` picks unless ``cols`` is given; as a programmatic
+    dependent of the kernel before it where ``pdl`` (eagerly, and as a
+    programmatic edge under CUDA-graph capture). Checks nothing and counts
+    nothing: ``combine`` does both."""
+    s, d = buf.shape
+    t, k = token_slot.shape
+    fn = build.function("repro_moe_combine",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+    build.check(fn(buf.data_ptr(), token_slot.data_ptr(), weights.data_ptr(),
+                   keep.data_ptr(), out.data_ptr(), t, s, k, d,
+                   build.DTYPE_CODES[buf.dtype],
+                   int(plan_of(buf, token_slot) if cols is None else cols), int(pdl),
+                   build.stream_of(buf)), "combine")
+
+
 def _combine_fwd(buf: torch.Tensor, token_slot: torch.Tensor,
                  weights: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     build.calls["combine"] += 1
     if buf.device.type == "cpu":
         return plain_combine(buf, token_slot, weights, keep)
     build.require_cuda("combine", buf, token_slot, weights, keep)
-    s, d = buf.shape
+    d = buf.shape[1]
     t, k = token_slot.shape
     out = torch.empty((t, d), dtype=buf.dtype, device=buf.device)
     if out.numel() == 0:
         return out
-    # the last int is pdl: launch as a programmatic dependent of the
-    # kernel before it on the stream (eagerly, and as a programmatic edge
-    # under CUDA-graph capture)
-    fn = build.function("repro_moe_combine",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-    build.check(fn(buf.data_ptr(), token_slot.data_ptr(), weights.data_ptr(),
-                   keep.data_ptr(), out.data_ptr(), t, s, k, d,
-                   build.DTYPE_CODES[buf.dtype], 1, build.stream_of(buf)),
-                "combine")
+    launch_combine(buf, token_slot, weights, keep, out)
     combine.launches += 1
-    # the 16-byte vector path or not, top-1 or k rows (launch_combine's rule)
+    # the 16-byte vector path or not, top-1 or k rows (the rule of
+    # csrc/moe_dispatch.cu::launch_combine), the grid
     vec = (d % (16 // buf.element_size()) == 0 and buf.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0)
-    build.launched_variants.add(("combine", buf.dtype, min(k, 2), vec))
+    build.launched_variants.add(("combine", buf.dtype, min(k, 2), vec,
+                                 plan_of(buf, token_slot)))
     return out
 
 
@@ -190,15 +238,17 @@ combine.launches = 0
 
 
 def variant_info(kind: str, dtype: torch.dtype = torch.float32, word: int = 16,
-                 k: int = 1, vec: bool = True) -> dict:
+                 k: int = 1, vec: bool = True, cols: bool = False) -> dict:
     """What the card reports for one compiled kernel: registers per thread,
     shared memory per block (bytes), spill bytes per thread and resident
     blocks per SM. ``kind``: ``"dispatch"`` (rows moved in ``word``-byte
-    words: 16, 4, 2 or 1; any dtype) or ``"combine"`` (``dtype``, its top-1
-    instance at k = 1 else the k-row one, on the 16-byte vector path where
-    ``vec``). Builds the library; needs a card."""
+    words: 16, 4, 2 or 1; any dtype) or ``"combine"`` (``dtype``, on the
+    cols grid where ``cols`` else rows, its top-1 instance at k = 1 else
+    the k-row one, on the 16-byte vector path where ``vec``). Builds the
+    library; needs a card."""
     info = (ctypes.c_int * 4)()
-    fn = build.function("repro_moe_dispatch_variant_info", [_I, _I, _I, _I, _I, _P])
+    fn = build.function("repro_moe_dispatch_variant_info", [_I, _I, _I, _I, _I, _I, _P])
     build.check(fn(("dispatch", "combine").index(kind), build.DTYPE_CODES[dtype], word, k,
-                   int(vec), ctypes.cast(info, _P)), "repro_moe_dispatch_variant_info")
+                   int(vec), int(cols), ctypes.cast(info, _P)),
+                "repro_moe_dispatch_variant_info")
     return dict(zip(("registers", "smem_bytes", "spill_bytes", "blocks_per_sm"), info))

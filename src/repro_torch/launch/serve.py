@@ -175,9 +175,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_generate(params, batch, cfg, gen: GenerateConfig, *, seed: int = 0):
+def time_generate(params, batch, cfg, gen: GenerateConfig, *, seed: int = 0,
+                  n_rounds: int = TIMED_ROUNDS):
     """Host-clock timing of warm ``generate`` calls, each ending in a device
-    sync, over TIMED_ROUNDS rounds. Every round times a prefill-only call (``max_new=1``: prefill
+    sync, over ``n_rounds`` rounds. Every round times a prefill-only call (``max_new=1``: prefill
     and the first token) and a full call; decode ms/step is (full -
     prefill-only) / decode steps, and tokens/s is generated tokens over the
     full call. Returns ({metric: median}, {metric: [per round]}, last
@@ -186,7 +187,7 @@ def time_generate(params, batch, cfg, gen: GenerateConfig, *, seed: int = 0):
     first = dataclasses.replace(gen, max_new=1)
     rounds = {"prefill_ms": [], "total_ms": [], "decode_ms_per_step": [],
               "tok_s": []}
-    for _ in range(TIMED_ROUNDS):
+    for _ in range(n_rounds):
         t0 = monotonic()
         generate(params, batch, cfg, first, seed=seed)
         _sync(device)

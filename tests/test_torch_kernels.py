@@ -198,7 +198,8 @@ def test_dispatch_matches_pallas(t, s, d, valid_p, dtype, jx):
 
 @pytest.mark.parametrize("t,k,s,d,keep_p", [(12, 1, 16, 64, 0.8),
                                             (10, 2, 12, 37, 0.8),   # k=2
-                                            (5, 2, 6, 32, 0.0)])    # all dropped
+                                            (5, 2, 6, 32, 0.0),     # all dropped
+                                            (8, 8, 64, 1024, 0.9)])  # decode, wide rows
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_combine_matches_pallas(t, k, s, d, keep_p, dtype, jx):
     rs = np.random.RandomState(3)
@@ -212,6 +213,32 @@ def test_combine_matches_pallas(t, k, s, d, keep_p, dtype, jx):
                                torch.from_numpy(keep))
     assert got.dtype == tb.dtype
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("t,k,d,itemsize,sms,cols", [
+    (8, 8, 7168, 2, 132, True),      # deepseek-v3-671b decode: 7 passes a warp on rows
+    (8, 4, 6144, 2, 132, True),      # dbrx-132b decode
+    (256, 4, 6144, 2, 132, True),    # dbrx-132b prefill: 2 warps an SM on rows
+    (527, 4, 6144, 2, 132, True),
+    (528, 4, 6144, 2, 132, False),   # 4 warps an SM
+    (2304, 4, 6144, 2, 132, False),  # dbrx-132b long prefill
+    (2048, 8, 7168, 2, 132, True),   # deepseek-v3-671b long prefill: k in two steps on rows
+    (2048, 5, 7168, 2, 132, True),
+    (8, 2, 1024, 4, 132, True),      # f32 rows past one pass
+    (1024, 1, 512, 4, 132, False),   # zcode's training site: a row in one pass
+    (256, 1, 512, 2, 132, False),    # zcode's prefill
+    (8, 1, 512, 2, 132, False),      # zcode's decode
+    (8, 8, 1024, 2, 132, False),
+    (64, 4, 6144, 2, 8, False),      # a small card, its warps filled
+])
+def test_combine_plan(t, k, d, itemsize, sms, cols):
+    """Rows where a warp reads its row in one pass; else cols where the
+    rows grid puts fewer than 4 warps on an SM or takes k rows in more
+    than one step. From shapes alone: no table, weight or keep value."""
+    import inspect
+    assert moe_dispatch.combine_plan(t, k, d, itemsize, sms) is cols
+    assert set(inspect.signature(moe_dispatch.combine_plan).parameters) == {
+        "n_tokens", "k", "d", "itemsize", "sms"}
 
 
 # ---------------------------------------------------------------------------
@@ -384,14 +411,36 @@ def test_split_plan_covers_the_capacity(cap, rows, kv, sms):
 
 
 def test_split_plan_at_the_serving_and_full_cache_shapes():
-    """One split at the main path's 34-96-position caches (no workspace, no
-    merge) on any card size; zcode's full 1,024-position cache over 8 rows
-    of 8 kv heads takes 8 splits of 128 on 132 SMs."""
-    for cap in range(1, 97):
-        for rows in (1, 8, 9, 32):
-            for sms in (1, 66, 114, 132, 1000):
-                assert flash_decode.split_plan(cap, rows, 8, sms)[0] == 1
+    """One split below 193 positions (the main path's 34-162-position
+    caches: no workspace, no merge) on any card size and any grid;
+    zcode's full 1,024-position cache over 8 rows of 8 kv heads takes 8
+    splits of 128 on 132 SMs, and yi-6b's 3,586-position cache over 2 rows
+    of 4 kv heads 29 of 128 (every range at MIN_SPLIT_TILES: 232 blocks)."""
+    for cap in range(1, 193):
+        for rows in (1, 2, 8, 9, 32):
+            for kv in (1, 4, 5, 8):
+                for sms in (1, 66, 114, 132, 1000):
+                    assert flash_decode.split_plan(cap, rows, kv, sms) == (
+                        1, -(-cap // flash_decode.TILE) * flash_decode.TILE)
+    assert flash_decode.split_plan(193, 8, 8, 132)[0] == 2
     assert flash_decode.split_plan(1024, 8, 8, 132) == (8, 128)
+    assert flash_decode.split_plan(3586, 2, 4, 132) == (29, 128)
+
+
+@pytest.mark.parametrize("cap", [193, 1024, 3586, 7232, 32768])
+def test_split_plan_ranges_fill_the_grid(cap):
+    """Past 192 positions every range holds MIN_SPLIT_TILES tiles or more,
+    and fewer tiles only where the grid already holds BLOCKS_PER_SM
+    blocks per SM (or the range is at MAX_SPLIT_TILES)."""
+    for rows, kv, sms in ((1, 1, 132), (2, 4, 132), (8, 8, 132), (64, 8, 132), (3, 4, 114)):
+        n, per = flash_decode.split_plan(cap, rows, kv, sms)
+        tiles = -(-cap // flash_decode.TILE)
+        assert per >= flash_decode.MIN_SPLIT_TILES * flash_decode.TILE
+        if per > flash_decode.MIN_SPLIT_TILES * flash_decode.TILE:
+            smaller = per - flash_decode.TILE
+            assert (-(-tiles * flash_decode.TILE // smaller) * rows * kv
+                    > flash_decode.BLOCKS_PER_SM * sms
+                    or per == flash_decode.MAX_SPLIT_TILES * flash_decode.TILE)
 
 
 @pytest.mark.parametrize("nb,ps", [(6, 16), (64, 16), (1024, 1), (300, 1), (16, 17), (5, 17)])
@@ -613,16 +662,11 @@ def test_cuda_combine_top8_at_deepseek_widths_matches_plain(dtype):
         _gpu_close(moe_dispatch.combine(buf, ts, w, keep), ref.combine_ref(buf, ts, w, keep))
 
 
-def _combine_no_pdl(buf, ts, w, keep):
-    """B3's kernel without PDL: its C entry with pdl 0, which the wrapper
-    never passes."""
-    fn = build.function("repro_moe_combine", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                        + [ctypes.c_void_p])
+def _combine_no_pdl(buf, ts, w, keep, cols=None):
+    """B3's kernel without PDL (which the wrapper never asks for), on the
+    grid the plan picks or, given ``cols``, on that one."""
     out = torch.empty((ts.shape[0], buf.shape[1]), dtype=buf.dtype, device=buf.device)
-    build.check(fn(buf.data_ptr(), ts.data_ptr(), w.data_ptr(), keep.data_ptr(), out.data_ptr(),
-                   ts.shape[0], buf.shape[0], ts.shape[1], buf.shape[1],
-                   build.DTYPE_CODES[buf.dtype], 0, torch.cuda.current_stream().cuda_stream),
-                "combine")
+    moe_dispatch.launch_combine(buf, ts, w, keep, out, pdl=False, cols=cols)
     return out
 
 
@@ -634,7 +678,7 @@ def test_cuda_combine_top1_bitwise(dtype):
     version's."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(7)
-    for t, s, d in ((8, 128, 512), (1024, 1024, 512)):
+    for t, s, d in ((8, 128, 512), (1024, 1024, 512), (8, 64, 7168)):
         buf = torch.randn(s, d, generator=g, device=dev).to(dtype)
         ts = torch.randint(-2, s + 2, (t, 1), generator=g, device=dev, dtype=torch.int32)
         w = torch.rand(t, 1, generator=g, device=dev)
@@ -643,6 +687,45 @@ def test_cuda_combine_top1_bitwise(dtype):
         assert torch.equal(y, moe_dispatch.combine(buf, ts, w, keep))
         assert torch.equal(y, _combine_no_pdl(buf, ts, w, keep))
         assert torch.equal(y, ref.combine_ref(buf, ts, w, keep))
+        cols = moe_dispatch.plan_of(buf, ts)
+        assert cols == (d == 7168)
+        assert torch.equal(y, _combine_no_pdl(buf, ts, w, keep, cols=not cols))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,k", [(6144, 4), (7168, 8)])
+def test_cuda_combine_wide_rows_at_decode_matches_plain(d, k, dtype):
+    """dbrx-132b's (d 6,144, top-4 of 16 experts) and deepseek-v3-671b's
+    (d 7,168, top-8 of 256) decode combine, 8 tokens: the plan takes the
+    cols grid; against the plain version, bitwise the rows grid (both sum
+    in the order of k), on a second run and after CUDA-graph replays. Then
+    the cols grid past one step of 8 rows (k = 12) and on its element path
+    (a view off a 16-byte boundary, d + 2)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(12)
+    e, t = (16, 8) if k == 4 else (256, 8)
+    buf = torch.randn(e * 4, d, generator=g, device=dev).to(dtype)
+    experts = torch.rand(t, e, generator=g, device=dev).argsort(dim=1)[:, :k]
+    ts = (experts * 4 + torch.randint(0, 4, (t, k), generator=g, device=dev)).to(torch.int32)
+    w = torch.rand(t, k, generator=g, device=dev)
+    keep = torch.rand(t, k, generator=g, device=dev) < 0.9
+    assert moe_dispatch.plan_of(buf, ts)
+    y = moe_dispatch.combine(buf, ts, w, keep)
+    _gpu_close(y, ref.combine_ref(buf, ts, w, keep))
+    assert torch.equal(y, _combine_no_pdl(buf, ts, w, keep, cols=False))
+    assert torch.equal(y, moe_dispatch.combine(buf, ts, w, keep))
+    assert torch.equal(_graph_replayed(lambda: moe_dispatch.combine(buf, ts, w, keep)), y)
+    for kk, offset in ((12, 0), (k, 1)):
+        base = torch.randn(offset + 50 * (d + 2 * offset), generator=g, device=dev).to(dtype)
+        wide = base[offset:].view(50, d + 2 * offset)
+        ts2 = torch.randint(-1, 51, (3, kk), generator=g, device=dev, dtype=torch.int32)
+        w2 = torch.rand(3, kk, generator=g, device=dev)
+        keep2 = torch.rand(3, kk, generator=g, device=dev) < 0.8
+        assert moe_dispatch.plan_of(wide, ts2)
+        y2 = moe_dispatch.combine(wide, ts2, w2, keep2)
+        _gpu_close(y2, ref.combine_ref(wide, ts2, w2, keep2))
+        assert torch.equal(y2, _combine_no_pdl(wide, ts2, w2, keep2, cols=False))
 
 
 @pytest.mark.cuda
@@ -650,16 +733,18 @@ def test_cuda_combine_dropped_nan_row_propagates():
     """A dropped (t, k) still reads its row and multiplies it by 0, as the
     reference does: a NaN row gives NaN there, and only there."""
     dev = _card()
-    buf = torch.ones(6, 64, device=dev)
-    buf[3] = float("nan")
-    ts = torch.tensor([[3, 0], [1, 2], [0, 3]], dtype=torch.int32, device=dev)
-    w = torch.full((3, 2), 0.5, device=dev)
-    keep = torch.tensor([[False, True], [True, True], [True, False]], device=dev)
-    got = moe_dispatch.combine(buf, ts, w, keep)
-    want = ref.combine_ref(buf, ts, w, keep)
-    assert torch.equal(got.isnan(), want.isnan())
-    assert got[[0, 2]].isnan().all() and not got[1].isnan().any()
-    torch.testing.assert_close(got[1], want[1])
+    for d in (64, 2048):                       # the rows grid, then cols
+        buf = torch.ones(6, d, device=dev)
+        buf[3] = float("nan")
+        ts = torch.tensor([[3, 0], [1, 2], [0, 3]], dtype=torch.int32, device=dev)
+        w = torch.full((3, 2), 0.5, device=dev)
+        keep = torch.tensor([[False, True], [True, True], [True, False]], device=dev)
+        assert moe_dispatch.plan_of(buf, ts) == (d == 2048)
+        got = moe_dispatch.combine(buf, ts, w, keep)
+        want = ref.combine_ref(buf, ts, w, keep)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert got[[0, 2]].isnan().all() and not got[1].isnan().any()
+        torch.testing.assert_close(got[1], want[1])
 
 
 def _combine_arena(t, k, s, d, dtype, dev, head=0):
@@ -886,6 +971,45 @@ def test_cuda_flash_decode_gqa_geometries_match_plain(h, kv, qdt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kvdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("rep", [5, 8])
+def test_cuda_flash_decode_gqa_sweep_matches_plain(rep, hd, kvdt):
+    """B5 and B6 on the grouped-query kernel: rep 5 and 8 over 4 kv heads,
+    head dims 64 and 128, f32 queries, f32 and bf16 caches of 34 (one
+    split), 1,024 and 3,586 positions (several, rows at a split's last
+    position, the next split's first and the last): against the plain
+    version, bitwise on a second run, and B6 (pages of 17, 16 and 2, as
+    the cache divides, in a permuted arena) bitwise B5."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(100 * rep + hd)
+    kv = 4
+    for b, s, ps in ((8, 34, 17), (4, 1024, 16), (2, 3586, 2)):
+        q = torch.randn(b, rep * kv, hd, generator=g, device=dev)
+        k = torch.randn(b, s, kv, hd, generator=g, device=dev).to(kvdt)
+        v = torch.randn(b, s, kv, hd, generator=g, device=dev).to(kvdt)
+        n_split, per = flash_decode.plan_of(q, k)
+        assert (n_split > 1) == (s > 192)
+        if s > 192:
+            idx = torch.tensor([per - 1, per, s - 1, s // 2][:b], device=dev, dtype=torch.int32)
+        else:
+            idx = torch.randint(0, s, (b,), generator=g, device=dev, dtype=torch.int32)
+            idx[0] = 0
+        out = flash_decode.flash_decode(q, k, v, idx)
+        _gpu_close(out, ref.flash_decode_ref(q, k, v, idx))
+        assert torch.equal(flash_decode.flash_decode(q, k, v, idx), out)
+        nb = s // ps
+        perm = torch.randperm(b * nb, generator=g, device=dev)
+        tables = perm.reshape(b, nb).to(torch.int32)
+        ka = torch.empty((b * nb + 1, ps, kv, hd), dtype=kvdt, device=dev)
+        va = torch.empty_like(ka)
+        ka[perm] = k.reshape(b * nb, ps, kv, hd)
+        va[perm] = v.reshape(b * nb, ps, kv, hd)
+        ka[-1], va[-1] = 1e4, -1e4                      # the scratch page
+        assert torch.equal(flash_decode.flash_decode_paged(q, ka, va, tables, idx), out)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_decode_split_launches_on_two_streams():
     """Launches that split, issued in turns on two streams with no sync
     between them (two server threads, each with its stream), are ordered by
@@ -934,12 +1058,18 @@ def test_cuda_flash_decode_variant_resources():
     """The serving instance (f32 q, bf16 cache, hd 64, one query head per
     kv head) does not spill and fits four blocks per SM, B5 and B6, at one
     tile and at two tiles per split (zcode's full cache: 512 blocks, all
-    resident at once on 132 SMs)."""
+    resident at once on 132 SMs). At hd 128, rep 8 the tensor-core body (a
+    bf16 cache) does not spill and fits two blocks per SM (yi-6b's 3,586
+    positions: 232 blocks, all resident at once), and the CUDA-core body
+    (an f32 cache) does not spill and fits one."""
     _card()
     for paged in (False, True):
         for per in (flash_decode.TILE, 2 * flash_decode.TILE):
             info = flash_decode.variant_info(paged, torch.float32, torch.bfloat16, per=per)
             assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 4, info
+        for kvdt, blocks in ((torch.bfloat16, 2), (torch.float32, 1)):
+            info = flash_decode.variant_info(paged, torch.float32, kvdt, hd=128, rep=8)
+            assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= blocks, info
 
 
 @pytest.mark.cuda
