@@ -236,7 +236,7 @@ runs phases 1, 2 and 8 alone (the decode step at depth 1,023 on its own
 seeded weights) and prints their numbers as one JSON line: the quick way
 to compare two trees' B5 and B6 at these sites in one call; ``--only
 sites`` runs phases 1 and 2 (with the build's register and spill report)
-and B3, B5 and B6 at the shapes of the kernel table's rows on seeded
+and B2, B3, B5 and B6 at the shapes of the kernel table's rows on seeded
 inputs, against plain and library in turns (``sites_phase``);
 ``--only ep``, ``--only tp``, ``--only obs``, ``--only dec``, ``--only
 swa``, ``--only mla``, ``--only ssm``, ``--only vlm``, ``--only dryrun``
@@ -858,7 +858,12 @@ def time_site(name, site, args, label="", depth=()):
         t["variant"] = b1_variant(name, args)
         note = f"; {t['variant']} variant"
     elif name == "dispatch":
-        note = f"; kernel / library {k_ms / l_ms:.3f}"
+        from repro_torch.kernels import moe_dispatch
+        x, st, _ = args
+        per, stream = moe_dispatch.dispatch_plan(st.shape[0], x.shape[1] * x.element_size())
+        t.update(per_thread=per, stream=stream)
+        note = (f"; {per} words a thread, {'evict-first' if stream else 'plain'} stores; kernel / "
+                f"library {k_ms / l_ms:.3f}")
     elif name == "flash_decode":
         t["n_split"] = n_split_of(args)
         note = f"; n_split {t['n_split']}"
@@ -5523,13 +5528,19 @@ def full_cache_only(full, dev) -> int:
     return 0
 
 
-# --only sites: B3, B5 and B6 at the kernel table's shapes on seeded inputs.
-# B5: (label, rows, query heads, kv heads, head dim, positions), bf16 caches,
-# every row at position - 2
-B5_SITES = (("zcode-m3-base", 8, 8, 8, 64, 34), ("whisper-small", 8, 12, 12, 64, 34),
-            ("yi-6b", 8, 32, 4, 128, 34), ("dbrx-132b", 8, 48, 8, 128, 34),
-            ("llama-3.2-vision-90b", 8, 64, 8, 128, 34), ("hymba-1.5b", 8, 25, 5, 64, 162),
-            ("yi-6b long", 2, 32, 4, 128, 3586))
+# --only sites: B2, B3, B5 and B6 at the kernel table's shapes on seeded inputs.
+# B5: (label, rows, query heads, kv heads, head dim, positions, cache
+# dtype), every row at position - 2; starcoder2-3b's grouping (rep 12: two
+# head groups) reaches B5 on no shipped path (its layers read a ring)
+B5_SITES = (("zcode-m3-base", 8, 8, 8, 64, 34, torch.bfloat16),
+            ("whisper-small", 8, 12, 12, 64, 34, torch.bfloat16),
+            ("yi-6b", 8, 32, 4, 128, 34, torch.bfloat16),
+            ("dbrx-132b", 8, 48, 8, 128, 34, torch.bfloat16),
+            ("llama-3.2-vision-90b", 8, 64, 8, 128, 34, torch.bfloat16),
+            ("hymba-1.5b", 8, 25, 5, 64, 162, torch.bfloat16),
+            ("yi-6b long", 2, 32, 4, 128, 3586, torch.bfloat16),
+            ("starcoder2-3b rep 12", 8, 24, 2, 128, 34, torch.bfloat16),
+            ("starcoder2-3b rep 12, f32 cache", 8, 24, 2, 128, 34, torch.float32))
 # B6: (label, rows, query heads, kv heads, head dim, pages a row, arena
 # dtype), pages of 16 in a seeded permutation, row i at (i + 1) / rows of
 # its pages
@@ -5549,21 +5560,75 @@ B3_SITES = (("zcode-m3-base decode", 8, 1, 128, 1, 512, torch.bfloat16),
             ("dbrx-132b long prefill", 2304, 4, 16, 1152, 6144, torch.bfloat16),
             ("deepseek-v3-671b decode", 8, 8, 256, 1, 7168, torch.bfloat16),
             ("deepseek-v3-671b long prefill", 2048, 8, 256, 128, 7168, torch.bfloat16))
+# B2 at B3's sites: the same routing (k distinct experts a token, C slots an
+# expert), its slot tables as the router fills them (a slot past an
+# expert's capacity dropped, an unfilled one invalid)
+B2_SITES = B3_SITES
+DISPATCH_PLANS = ((1, False), (2, False), (1, True), (2, True))   # the kernel's instances
+
+
+def routed_tables(t: int, k: int, e: int, c: int, g) -> tuple:
+    """(slot_token, slot_valid) of t tokens routed to k distinct experts
+    each (seeded), filled in token order into e experts of c slots."""
+    dev = g.device
+    experts = torch.rand(t, e, generator=g, device=dev).argsort(dim=1)[:, :k].reshape(-1)
+    pos = F.one_hot(experts, e).cumsum(0).gather(1, experts[:, None])[:, 0] - 1
+    kept = pos < c
+    slot = (experts * c + pos)[kept]
+    st = torch.zeros(e * c, dtype=torch.int32, device=dev)
+    sv = torch.zeros(e * c, dtype=torch.bool, device=dev)
+    st[slot] = (torch.arange(t * k, device=dev) // k)[kept].to(torch.int32)
+    sv[slot] = True
+    return st, sv
+
+
+def dispatch_site(label, args):
+    """B2 at one site: bitwise its plain version on the plan
+    ``dispatch_plan`` picks (words a thread, evict-first stores) and on
+    each other instance, then ``time_site`` (in turns with
+    ``index_select``) and the other instances timed in turns with the
+    plan's."""
+    from repro_torch.kernels import moe_dispatch
+    x, st, sv = args
+    out = kernel_of("dispatch")(*args)
+    torch.cuda.synchronize()
+    check(f"dispatch@{label}", out, plain_of("dispatch")(*args), exact=True)
+    t = time_site("dispatch", label, args)
+
+    def forced(plan):
+        def run():
+            y = torch.empty((st.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
+            moe_dispatch.launch_dispatch(x, st, sv, y, plan=plan)
+            return y
+        return run
+
+    plan = (t["per_thread"], t["stream"])
+    others = [p for p in DISPATCH_PLANS if p != plan]
+    for p in others:
+        check(f"dispatch@{label} plan {p}", forced(p)(), out, exact=True)
+    ms = in_turns(forced(plan), *(forced(p) for p in others))
+    name = lambda p: f"{p[0]} {'evict-first' if p[1] else 'plain'}"  # noqa: E731
+    t["plan_ms"] = {name(p): m for p, m in zip([plan, *others], ms)}
+    t["valid_slots"] = int(sv.sum())
+    log(f"  dispatch@{label}: {t['valid_slots']} of {st.shape[0]} slots valid; (words a thread, "
+        f"stores) -> ms in turns {t['plan_ms']}")
+    return t
 
 
 def sites_phase(dev):
-    """``--only sites``: B5, B6 and B3 at the shapes of the kernel table's
-    rows (B5_SITES, B6_SITES, B3_SITES) on seeded inputs, each checked
-    against its plain version and timed in turns with its library call
-    (``time_site``, ``b6_timing``, ``combine_site``: B3 also on the grid
-    its plan did not pick). The quick way to compare two trees' B3, B5 and
-    B6 in one call; the table's own rows come from the main path's inputs
-    in the whole run."""
+    """``--only sites``: B5, B6, B3 and B2 at the shapes of the kernel
+    table's rows (B5_SITES, B6_SITES, B3_SITES, B2_SITES) on seeded inputs,
+    each checked against its plain version and timed in turns with its
+    library call (``time_site``, ``b6_timing``, ``combine_site``: B3 also
+    on the grid its plan did not pick; ``dispatch_site``: B2 also on the
+    instances its plan did not pick). The quick way to compare two
+    trees' B2, B3, B5 and B6 in one call; the table's own rows come from
+    the main path's inputs in the whole run."""
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
-    out = {"flash_decode": {}, "flash_decode_paged": {}, "combine": {}}
-    for label, b, h, kv, hd, s in B5_SITES:
+    out = {"flash_decode": {}, "flash_decode_paged": {}, "combine": {}, "dispatch": {}}
+    for label, b, h, kv, hd, s, dt in B5_SITES:
         q = torch.randn(b, h, hd, generator=g, device=dev)
-        k, v = (torch.randn(b, s, kv, hd, generator=g, device=dev).bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, s, kv, hd, generator=g, device=dev).to(dt) for _ in range(2))
         args = (q, k, v, torch.full((b,), s - 2, dtype=torch.int32, device=dev))
         check(f"flash_decode@{label}", kernel_of("flash_decode")(*args),
               plain_of("flash_decode")(*args))
@@ -5589,6 +5654,9 @@ def sites_phase(dev):
         w = torch.rand(t, k, generator=g, device=dev)
         keep = torch.rand(t, k, generator=g, device=dev) < 0.9
         out["combine"][label] = combine_site(label, (buf, ts.to(torch.int32), w, keep))
+    for label, t, k, e, c, d, dt in B2_SITES:
+        x = torch.randn(t, d, generator=g, device=dev).to(dt)
+        out["dispatch"][label] = dispatch_site(label, (x, *routed_tables(t, k, e, c, g)))
     return out
 
 
@@ -5631,13 +5699,19 @@ def ptxas_report(path: Path):
         for qdt, kvdt in ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
                           (torch.bfloat16, torch.bfloat16)):
             infos = {(hd, rep): flash_decode.variant_info(paged, qdt, kvdt, hd, rep)
-                     for hd, rep in ((64, 1), (128, 1), (64, 5), (128, 8))}
+                     for hd, rep in ((64, 1), (128, 1), (64, 5), (128, 8), (128, 12))}
             log(f"{'B6' if paged else 'B5'} q {_dt(torch.empty(0, dtype=qdt))}, cache "
                 f"{_dt(torch.empty(0, dtype=kvdt))} (128 positions per split, pages of 16): "
                 + "; ".join(f"hd={hd} rep={rep}: {i['registers']} registers, "
                             f"{i['smem_bytes']} B shared, {i['spill_bytes']} B spilled, "
                             f"{i['blocks_per_sm']} blocks/SM"
                             for (hd, rep), i in infos.items()))
+    infos = {(word, n, cs): moe_dispatch.variant_info("dispatch", word=word, per_thread=n,
+                                                      stream=cs)
+             for word in (16, 4) for n, cs in DISPATCH_PLANS}
+    log("B2 (words of 16 or 4 bytes, 1-2 a thread, plain or evict-first stores): " + "; ".join(
+        f"{word} B x {n}{' cs' if cs else ''}: {i['registers']} registers, {i['spill_bytes']} B "
+        f"spilled, {i['blocks_per_sm']} blocks/SM" for (word, n, cs), i in infos.items()))
     for dt in (torch.float32, torch.bfloat16):
         infos = {(grid, k): moe_dispatch.variant_info("combine", dt, k=k, cols=grid == "cols")
                  for grid in ("rows", "cols") for k in (1, 8)}

@@ -203,7 +203,8 @@ def _variant_info(key: Tuple) -> Dict[str, int]:
     if wrapper == "fused_moe":
         return moe_megakernel.variant_info(*a)
     if wrapper == "dispatch":
-        return moe_dispatch.variant_info("dispatch", word=a[0])
+        word, per, stream = a
+        return moe_dispatch.variant_info("dispatch", word=word, per_thread=per, stream=stream)
     if wrapper == "combine":
         return moe_dispatch.variant_info("combine", a[0], k=a[1], vec=a[2], cols=a[3])
     paged, qdt, kvdt, hd, rep, per, *ps = a

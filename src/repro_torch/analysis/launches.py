@@ -16,14 +16,14 @@ the wrappers' ``launch_counts()``:
       false, ..>). Its
       output comes from ``torch.empty``: no fill (an empty product's
       ``zero_`` is the only other launch, off the main path).
-  B2 ``dispatch``: one ``dispatch_rows_kernel``.
+  B2 ``dispatch``: one ``dispatch_words_kernel<W, N>``.
   B3 ``combine``: one ``combine_rows_kernel`` or ``combine_cols_kernel``
       (a programmatic dependent launch, still one launch).
   B4 ``fused_moe``: one ``fused_moe_stream`` or ``fused_moe_tiled``,
       beside PyTorch's own launches in the wrapper (the zero fill of the
       output, slot weights and counts; the slot-weight scatter; the cast).
   B5 ``flash_decode`` / B6 ``flash_decode_paged``: one
-      ``flash_decode_kernel<TQ, TKV, 1, false|true>`` (one query head per
+      ``flash_decode_kernel<TQ, TKV, false|true>`` (one query head per
       kv head), ``flash_decode_mma_kernel<TQ, false|true>`` (grouped-query
       heads on a bf16 cache) or ``flash_decode_gqa_kernel<TQ, TKV,
       false|true>`` (the others); a split cache's merge runs inside the
@@ -47,7 +47,7 @@ KERNELS = {
     "grouped_matmul": r"gmm_stream_fwd<|grouped_matmul_tiled<[^,>]*, false, false,",
     "grouped_matmul_dx": r"gmm_stream_dx<|grouped_matmul_tiled<[^,>]*, false, true,",
     "grouped_matmul_dw": r"gmm_stream_dw<|grouped_matmul_tiled<[^,>]*, true, false,",
-    "dispatch": r"dispatch_rows_kernel<",
+    "dispatch": r"dispatch_words_kernel<",
     "combine": r"combine_(rows|cols)_kernel<",
     "fused_moe": r"fused_moe_stream<|fused_moe_tiled<",
     "flash_decode": r"flash_decode(_gqa|_mma)?_kernel<[^>]*, false>",

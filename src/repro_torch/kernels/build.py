@@ -8,7 +8,9 @@ at the repository root (listed in ``.gitignore``), keyed on a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one loads
 at once. The build happens at first use, inside the first kernel launch or
 an explicit ``build()`` call, never at import: importing this module needs
-no compiler and no card.
+no compiler and no card. ``REPRO_SMEM_CHECK=1`` in the environment adds
+``-DREPRO_SMEM_CHECK`` (flash decode's address check,
+``csrc/flash_decode.cu``): off by default, and a library of its own.
 
 Each entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code. Each wrapper counts its calls, on either device, in
@@ -35,6 +37,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
+CHECK_ENV = "REPRO_SMEM_CHECK"   # "1": build with the address check
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,8 +60,15 @@ def sources() -> Sequence[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def nvcc_flags() -> Tuple[str, ...]:
+    """The compile flags: ``NVCC_FLAGS``, and ``-DREPRO_SMEM_CHECK`` where
+    the environment sets ``REPRO_SMEM_CHECK=1``."""
+    check = ("-DREPRO_SMEM_CHECK",) if os.environ.get(CHECK_ENV) == "1" else ()
+    return NVCC_FLAGS + check
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -92,7 +102,7 @@ def build() -> Path:
     jobs = []
     for src in sources():
         obj = out.with_name(f"{src.stem}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *nvcc_flags(), "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
     link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]

@@ -10,19 +10,21 @@
 // gathers the pages bt[b, j] (scalar prefetch) and runs B5's body on them.
 //
 // What bounds them on the H100: bytes. Every live K/V row is read once and
-// used for 2 * rep * hd flops (rep = H / KV <= 8): 2 * rep flops per byte,
+// used for 2 * rep * hd flops (rep = H / KV): 2 * rep flops per byte,
 // far below the ~295 at which tensor cores would matter, so at rep 1 all
 // math is f32 on the CUDA cores (at rep > 1, below, the tensor cores cut
 // instructions, not time at the roofline). One block per (row, kv head)
 // walking the whole cache (the earlier kernel) leaves most SMs idle and
 // pays one memory latency per position; so here:
 //
-// - The cache is split over blocks (flash-decoding): grid (KV, B, n_split),
-//   split i taking the logical positions [i * per, (i + 1) * per), per a
-//   multiple of kTile. The wrapper (kernels/flash_decode.py::split_plan)
-//   picks n_split from the capacity (B5: S; B6: nb * ps), B, KV and the SM
-//   count, never from index, so it reads nothing from the device. A split
-//   that starts past index[b] writes an empty partial (m = -1e30, l = 0).
+// - The cache is split over blocks (flash-decoding): grid (KV x head
+//   groups, B, n_split) (one head group but at rep > 8, below), split i
+//   taking the logical positions [i * per, (i + 1) * per), per a multiple
+//   of kTile. The wrapper (kernels/flash_decode.py::split_plan) picks
+//   n_split from the capacity (B5: S; B6: nb * ps), B, KV, the head groups
+//   and the SM count, never from index, so it reads nothing from the
+//   device. A split that starts past index[b] writes an empty partial (m =
+//   -1e30, l = 0).
 // - Loads are staged: each of a block's four warps copies its 16 positions
 //   of every tile (K and V rows) into shared memory, kStages tiles in
 //   flight, so it pays one memory latency per tile, not per position. Each
@@ -58,8 +60,9 @@
 //   head), merging through distributed shared memory, ran slower on the
 //   card: clusters of 8 blocks did not all fit at once.)
 //
-// Grouped-query heads (rep = H / KV of 2-8: yi-6b, llama-3.2-vision,
-// dbrx-132b and hymba at rep 8, 8, 6 and 5) take bodies of their own. The
+// Grouped-query heads (rep = H / KV > 1: yi-6b, llama-3.2-vision,
+// dbrx-132b and hymba at rep 8, 8, 6 and 5; starcoder2-3b's 12) take bodies
+// of their own. The
 // one above dots a K row with all rep heads in turn, q re-read from shared
 // memory each time, then runs a softmax and P.V head by head: at rep 8, hd
 // 128 a serial chain of ~600 FMAs and ~60 shuffles a lane per tile, 1.6x
@@ -76,6 +79,13 @@
 //   8 positions a tile; a warp's lanes are 8 heads x 4 parts, lane (r,
 //   part) holding head r's q at the chunks part, part + 4, ... in
 //   registers; the scores go through shared memory to a rolled P.V loop.
+// A grouped-query block takes one head group: up to kMaxRep = 8 query heads
+// of its kv head, so grid x is (kv head, head group) and rep > 8 takes
+// ceil(rep / 8) blocks per (row, kv head, split), each reading the kv
+// head's cache (rep 12: two reads where one would do; the blocks of a kv
+// head run side by side and the second read mostly hits L2). The split
+// plan, the merge's partials and its arrival counters go by (row, kv head,
+// head group).
 // Both end in gqa_finish: the warps meet in warp order; a split's partial
 // is written, and the merging block takes every split's partial in split
 // order with a running max, 16 splits' loads in flight at once. That block
@@ -88,6 +98,8 @@
 // at arena row bt[b, j / ps] * ps + j % ps). So B6 equals B5 bitwise on
 // the contiguous cache its tables address.
 
+#include <cstring>
+
 #include "stream.cuh"
 
 
@@ -98,17 +110,23 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;                  // positions per staged tile (flash_decode.TILE)
 constexpr int kWarpRows = kTile / kWarps;  // a warp's positions of each tile
 constexpr int kStages = 3;                 // tiles in flight per warp
-constexpr int kMaxRep = 8;                 // query heads per kv head
+constexpr int kMaxRep = 8;                 // query heads of a grouped-query block (a head group)
 constexpr int kMaxHeadDim = 128;
-constexpr int kMaxGroups = 1 << 16;        // (row, kv head) pairs of a launch that splits
+constexpr int kMaxGroups = 1 << 16;        // (row, kv head, head group) of a launch that splits
 constexpr int kMergeBatch = 8;             // splits whose partials one merge load batch holds
 constexpr int kDefaultSmem = 48 * 1024;    // dynamic shared memory a launch may take unasked
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kWarpRows * 2 == 32, "two lanes per position of a warp's rows");
 
-// arrivals of the splits of each (row, kv head); see the header
+// arrivals of the splits of each (row, kv head, head group); see the header
 __device__ int g_arrivals[kMaxGroups];
+
+// Head groups per kv head: at rep > 1 a block takes the query heads [hg *
+// kMaxRep, min(rep, (hg + 1) * kMaxRep)) of its kv head, hg its head group
+__host__ __device__ __forceinline__ int head_groups(int rep) {
+  return (rep + kMaxRep - 1) / kMaxRep;
+}
 
 // Layout of a block's shared memory and copies, from the host.
 struct Geometry {
@@ -137,6 +155,7 @@ struct Args {
   int n_split, per;
   float scale;
   Geometry geo;
+  int* check;         // REPRO_SMEM_CHECK builds: the address check's record
 };
 
 // values of T in one 16-byte chunk of a staged row
@@ -175,6 +194,118 @@ __device__ __forceinline__ int arrive_acq_rel(int* counter) {
   return old;
 }
 
+// ---------------------------------------------------------------------------
+// The address check, off unless built with -DREPRO_SMEM_CHECK (which
+// kernels/build.py adds where the environment sets REPRO_SMEM_CHECK=1).
+// Every access of a body to its dynamic shared memory (a staged row's
+// copy, read or zeroing, an ldmatrix row, q, B6's table slice, the warps'
+// outputs) is held to [stages, smem + geo.smem): the launch's dynamic
+// shared memory past its 128-byte alignment. Every K/V row copy is held to
+// the cache's extent (B6: the arena's), every table entry read to the
+// tables'. The first access outside writes a record to mapped host memory
+// (repro_flash_decode_check_record reads it, also after the fault has
+// cost the context) and the kernel traps. In a default build the checks
+// compile to nothing.
+// ---------------------------------------------------------------------------
+
+#ifdef REPRO_SMEM_CHECK
+constexpr bool kAddressCheck = true;
+#else
+constexpr bool kAddressCheck = false;
+#endif
+
+// the access a record names (flash_decode.CHECK_SITES, in this order)
+enum CheckSite : int {
+  kSiteCopyToShared = 1,  // a cp.async's destination
+  kSiteCopyFromCache,     // a cp.async's K or V source
+  kSitePadding,           // the zeroed padding of a staged row
+  kSiteZeroV,             // the tensor-core body's zeroed V rows
+  kSiteLdmatrixK,         // an ldmatrix row of K
+  kSiteLdmatrixV,         // an ldmatrix row of V (transposed)
+  kSiteStagedK,           // a CUDA-core body's read of a staged K row
+  kSiteStagedV,           // a CUDA-core body's read of a staged V row
+  kSiteQuery,             // q in shared memory (rep 1)
+  kSiteTableSlice,        // B6's table entries in shared memory
+  kSiteTableRead,         // B6's table entries in device memory
+  kSiteWarpOutputs,       // the warps' outputs over the stages
+};
+
+// a record: found, site, block x, y, z, thread, offset (low, high 32
+// bits), bytes, extent (low, high)
+constexpr int kCheckWords = 11;
+
+__device__ int g_check_claimed;          // the first thread to fault writes the record
+__device__ volatile int g_check_written;  // ... and sets this once it is out
+
+// Writes the record (the first faulting thread) and traps; every other
+// faulting thread waits for the record first, since a trap ends the grid
+// before stores still on their way to host memory land.
+__device__ __noinline__ void address_fault(int* record, int site, long long offset, int bytes,
+                                           long long extent) {
+  if (atomicCAS(&g_check_claimed, 0, 1) != 0) {
+    while (g_check_written == 0) {
+    }
+  } else if (record != nullptr) {
+    volatile int* r = record;
+    r[1] = site;
+    r[2] = blockIdx.x;
+    r[3] = blockIdx.y;
+    r[4] = blockIdx.z;
+    r[5] = threadIdx.x;
+    r[6] = static_cast<int>(offset & 0xffffffffLL);
+    r[7] = static_cast<int>(offset >> 32);
+    r[8] = bytes;
+    r[9] = static_cast<int>(extent & 0xffffffffLL);
+    r[10] = static_cast<int>(extent >> 32);
+    __threadfence_system();
+    r[0] = 1;
+    __threadfence_system();
+    g_check_written = 1;
+  } else {
+    g_check_written = 1;
+  }
+  __trap();
+}
+
+// `bytes` at p lie in the launch's dynamic shared memory past its alignment
+__device__ __forceinline__ void check_shared(const Args& a, const void* p, int bytes, int site) {
+  if constexpr (kAddressCheck) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const long long base = smem_u32(smem);
+    const long long lo = base + (-base & 127), hi = base + a.geo.smem;
+    const long long x = __isShared(p) ? static_cast<long long>(smem_u32(p)) : -1LL;
+    if (x < lo || x + bytes > hi) address_fault(a.check, site, x - lo, bytes, hi - lo);
+  }
+}
+
+// `bytes` at p lie in [base, base + extent)
+__device__ __forceinline__ void check_global(const Args& a, const void* base, long long extent,
+                                             const void* p, int bytes, int site) {
+  if constexpr (kAddressCheck) {
+    const long long off = static_cast<const char*>(p) - static_cast<const char*>(base);
+    if (off < 0 || off + bytes > extent) address_fault(a.check, site, off, bytes, extent);
+  }
+}
+
+// a B6 table entry, in the block's slice or in the tables in device memory
+__device__ __forceinline__ void check_table(const Args& a, const int* e) {
+  if constexpr (kAddressCheck) {
+    if (__isShared(e)) {
+      check_shared(a, e, 4, kSiteTableSlice);
+    } else {
+      check_global(a, a.bt, 4LL * gridDim.y * a.nb, e, 4, kSiteTableRead);
+    }
+  }
+}
+
+// bytes of K (and of V) a launch may read: B5's cache, B6's arena
+template <typename TKV, bool kPaged>
+__device__ __forceinline__ long long cache_bytes(const Args& a) {
+  const long long rows = kPaged ? static_cast<long long>(a.n_arena) * a.ps
+                                : static_cast<long long>(gridDim.y) * a.S;
+  return rows * a.KV * a.hd * static_cast<long long>(sizeof(TKV));
+}
+
 // Element offset of logical position j of row b, kv head g: in the
 // contiguous cache, or in the page arena through table entries `tbl` (of
 // pages first_page, first_page + 1, ...: the block's slice in shared
@@ -183,6 +314,7 @@ template <bool kPaged>
 __device__ __forceinline__ size_t row_offset(const Args& a, const int* tbl, int first_page,
                                              int b, int j, int g) {
   if constexpr (kPaged) {
+    check_table(a, tbl + (j / a.ps - first_page));
     const int page = clamp_index(tbl[j / a.ps - first_page], a.n_arena);
     return ((static_cast<size_t>(page) * a.ps + j % a.ps) * a.KV + g) * a.hd;
   } else {
@@ -209,6 +341,13 @@ __device__ __forceinline__ void issue_rows(const Args& a, const int* tbl, int fi
     const size_t row = row_offset<kPaged>(a, tbl, first_page, b, j0 + jj, g) * sizeof(TKV);
     unsigned char* dst = buf + (r0 + jj) * ps;
     for (int c = c0; c < cpr; c += 32) {
+      if constexpr (kAddressCheck) {
+        for (int kv = 0; kv < 2; ++kv) {
+          check_shared(a, dst + kv * kTile * ps + c * W, W, kSiteCopyToShared);
+          check_global(a, kv ? vb : kb, cache_bytes<TKV, kPaged>(a), (kv ? vb : kb) + row + c * W,
+                       W, kSiteCopyFromCache);
+        }
+      }
       copy_async<W>(dst + c * W, kb + row + c * W);
       copy_async<W>(dst + kTile * ps + c * W, vb + row + c * W);
     }
@@ -232,27 +371,41 @@ __device__ __forceinline__ void issue_warp_tile(const Args& a, const int* tbl, i
   commit_copies();
 }
 
+// Zeroes the padding of every staged row (rows not whole 16-byte chunks),
+// so that it reads as zeros; `threads` threads of the block share it.
+__device__ __forceinline__ void zero_padding(const Args& a, unsigned char* stages, int threads) {
+  const Geometry& geo = a.geo;
+  if (geo.row_bytes % 16 == 0) return;
+  for (int i = threadIdx.x; i < kStages * 2 * kTile; i += threads) {
+    unsigned char* pad = stages + i * geo.pstride + geo.row_bytes;
+    for (int t = 0; t < geo.chunks * 16 - geo.row_bytes; t += 2) {
+      check_shared(a, pad + t, 2, kSitePadding);
+      *reinterpret_cast<uint16_t*>(pad + t) = 0;
+    }
+  }
+}
+
 // One block: kv head g = blockIdx.x, row b = blockIdx.y, split blockIdx.z;
-// kR >= rep query heads per kv head held in registers (launched at kR = 1:
-// rep > 1 takes flash_decode_mma_kernel or flash_decode_gqa_kernel).
-template <typename TQ, typename TKV, int kR, bool kPaged>
+// one query head per kv head, its q in shared memory (rep > 1 takes
+// flash_decode_mma_kernel or flash_decode_gqa_kernel).
+template <typename TQ, typename TKV, bool kPaged>
 __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   constexpr int V = kPerChunk<TKV>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float m_w[kWarps][kR];
-  __shared__ float l_w[kWarps][kR];
+  __shared__ float m_w[kWarps];
+  __shared__ float l_w[kWarps];
   __shared__ int merge_s;
   const Geometry& geo = a.geo;
   const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int rep = a.rep, hd = a.hd, C = geo.chunks;
+  const int hd = a.hd, C = geo.chunks;
   const int start = split * a.per;
   const int end = min(start + a.per, a.S);
   const int r0 = warp * kWarpRows;  // the warp's rows of every tile
 
   unsigned char* stages = smem + (-smem_u32(smem) & 127);  // 128-byte aligned
-  float* q_s = reinterpret_cast<float*>(stages + kStages * geo.stage_bytes);  // [rep][hdp]
-  int* tbl = reinterpret_cast<int*>(q_s + rep * geo.hdp);                    // B6
+  float* q_s = reinterpret_cast<float*>(stages + kStages * geo.stage_bytes);  // [hdp]
+  int* tbl = reinterpret_cast<int*>(q_s + geo.hdp);                          // B6
   const int first_page = kPaged ? start / a.ps : 0;
   // the warp's rows of tile t below position `limit`
   const auto rows_of = [&](int t, int limit) {
@@ -276,18 +429,16 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
                        a.S - 1);
   const int live_end = min(end, last + 1);
   const int n_tiles = live_end > start ? (live_end - start + kTile - 1) / kTile : 0;
-  const TQ* q = static_cast<const TQ*>(a.q) + (static_cast<size_t>(b) * a.KV + g) * rep * hd;
-  float qv[kR];  // rep * hdp <= kR * kThreads values
-#pragma unroll
-  for (int k = 0; k < kR; ++k) {
-    const int i = tid + k * kThreads, d = i % geo.hdp;
-    qv[k] = i < rep * geo.hdp && d < hd ? to_f32(q[i / geo.hdp * hd + d]) : 0.f;
-  }
+  const TQ* q = static_cast<const TQ*>(a.q) + (static_cast<size_t>(b) * a.KV + g) * hd;
+  const float qv = tid < hd ? to_f32(q[tid]) : 0.f;  // hd <= hdp <= kThreads
   int first = 0;  // tiles issued before the barrier
   if constexpr (kPaged) {
     const int n_pages = (end - 1) / a.ps - first_page + 1;
     for (int i = tid; i < n_pages; i += kThreads) {
-      tbl[i] = clamp_index(a.bt[static_cast<size_t>(b) * a.nb + first_page + i], a.n_arena);
+      const int32_t* e = a.bt + static_cast<size_t>(b) * a.nb + first_page + i;
+      check_table(a, e);
+      check_shared(a, tbl + i, 4, kSiteTableSlice);
+      tbl[i] = clamp_index(*e, a.n_arena);
     }
   } else if (split == 0) {
     issue(0, end, tbl, 0);  // up to `end`: the index is not in yet
@@ -295,18 +446,11 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   }
   const int* row_table = kPaged ? a.bt + static_cast<size_t>(b) * a.nb : tbl;
   for (; first < kStages - 1; ++first) issue(first, live_end, row_table, 0);
-#pragma unroll
-  for (int k = 0; k < kR; ++k) {
-    if (tid + k * kThreads < rep * geo.hdp) q_s[tid + k * kThreads] = qv[k] * a.scale;
+  if (tid < geo.hdp) {
+    check_shared(a, q_s + tid, 4, kSiteQuery);
+    q_s[tid] = qv * a.scale;
   }
-  if (geo.row_bytes % 16) {  // staged rows' padding reads as zeros
-    for (int i = tid; i < kStages * 2 * kTile; i += kThreads) {
-      unsigned char* pad = stages + i * geo.pstride + geo.row_bytes;
-      for (int t = 0; t < C * 16 - geo.row_bytes; t += 2) {
-        *reinterpret_cast<uint16_t*>(pad + t) = 0;
-      }
-    }
-  }
+  zero_padding(a, stages, kThreads);
   __syncthreads();  // q, the table slice, the padding
 
   // scores: lanes 2j and 2j + 1 take row j of the warp's rows, chunks
@@ -317,14 +461,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   const int n_sub = 32 / C, pc = lane % C, sub = lane / C;
   const bool pv_on = sub < n_sub;
 
-  float m_run[kR], l_run[kR], acc[kR][V];
+  float m_run = kNegInf, l_run = 0.f, acc[V];
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    m_run[r] = kNegInf;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < V; ++e) acc[r][e] = 0.f;
-  }
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     wait_copies<kStages - 2>();
@@ -334,63 +473,48 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
     if (rows == 0) continue;  // the warp's rows all lie past the index
     const unsigned char* buf = stages + (t % kStages) * geo.stage_bytes;
 
-    float s[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) s[r] = 0.f;
+    float s = 0.f;
     if (sj < rows) {
       const unsigned char* krow = buf + (r0 + sj) * geo.pstride;
 #pragma unroll 4
       for (int c = c_lo; c < c_hi; ++c) {
         float kv[V];
+        check_shared(a, krow + c * 16, 16, kSiteStagedK);
         load16(reinterpret_cast<const TKV*>(krow + c * 16), kv);
+        check_shared(a, q_s + c * V, 4 * V, kSiteQuery);
+        const float4* qq = reinterpret_cast<const float4*>(q_s + c * V);
 #pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          if (r >= rep) break;
-          const float4* qq = reinterpret_cast<const float4*>(q_s + r * geo.hdp + c * V);
-#pragma unroll
-          for (int e4 = 0; e4 < V / 4; ++e4) {
-            const float4 q4 = qq[e4];
-            s[r] = fmaf(q4.x, kv[4 * e4], s[r]);
-            s[r] = fmaf(q4.y, kv[4 * e4 + 1], s[r]);
-            s[r] = fmaf(q4.z, kv[4 * e4 + 2], s[r]);
-            s[r] = fmaf(q4.w, kv[4 * e4 + 3], s[r]);
-          }
+        for (int e4 = 0; e4 < V / 4; ++e4) {
+          const float4 q4 = qq[e4];
+          s = fmaf(q4.x, kv[4 * e4], s);
+          s = fmaf(q4.y, kv[4 * e4 + 1], s);
+          s = fmaf(q4.z, kv[4 * e4 + 2], s);
+          s = fmaf(q4.w, kv[4 * e4 + 3], s);
         }
       }
     }
+    s += __shfl_xor_sync(kFull, s, 1);
+    float mx = sj < rows ? s : kNegInf;
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      if (r >= rep) break;
-      s[r] += __shfl_xor_sync(kFull, s[r], 1);
-      float mx = sj < rows ? s[r] : kNegInf;
+    for (int o = 2; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    const float m_new = fmaxf(m_run, mx);
+    const float corr = expf(m_run - m_new);
+    m_run = m_new;
+    s = sj < rows ? expf(s - m_new) : 0.f;  // p of row sj
+    l_run = l_run * corr + (half ? 0.f : s);
 #pragma unroll
-      for (int o = 2; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-      const float m_new = fmaxf(m_run[r], mx);
-      const float corr = expf(m_run[r] - m_new);
-      m_run[r] = m_new;
-      s[r] = sj < rows ? expf(s[r] - m_new) : 0.f;  // p of row sj
-      l_run[r] = l_run[r] * corr + (half ? 0.f : s[r]);
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[r][e] *= corr;
-    }
+    for (int e = 0; e < V; ++e) acc[e] *= corr;
 #pragma unroll 4
     for (int j = 0; j < kWarpRows; j += n_sub) {
       const int jj = j + sub;
-      float p[kR];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        if (r >= rep) break;
-        p[r] = __shfl_sync(kFull, s[r], (2 * jj) & 31);
-      }
+      const float p = __shfl_sync(kFull, s, (2 * jj) & 31);
       if (pv_on && jj < rows) {
+        const unsigned char* vrow = buf + (kTile + r0 + jj) * geo.pstride + pc * 16;
+        check_shared(a, vrow, 16, kSiteStagedV);
         float vv[V];
-        load16(reinterpret_cast<const TKV*>(buf + (kTile + r0 + jj) * geo.pstride + pc * 16), vv);
+        load16(reinterpret_cast<const TKV*>(vrow), vv);
 #pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          if (r >= rep) break;
-#pragma unroll
-          for (int e = 0; e < V; ++e) acc[r][e] = fmaf(p[r], vv[e], acc[r][e]);
-        }
+        for (int e = 0; e < V; ++e) acc[e] = fmaf(p, vv[e], acc[e]);
       }
     }
   }
@@ -398,66 +522,56 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
 
   // the warp's totals: l over its lanes, acc over its subgroups in order
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    if (r >= rep) break;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) l_run[r] += __shfl_xor_sync(kFull, l_run[r], o);
+  for (int o = 1; o < 32; o <<= 1) l_run += __shfl_xor_sync(kFull, l_run, o);
+  {
     float tot[V];
 #pragma unroll
-    for (int e = 0; e < V; ++e) tot[e] = acc[r][e];
+    for (int e = 0; e < V; ++e) tot[e] = acc[e];
     for (int sg = 1; sg < n_sub; ++sg) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) tot[e] += __shfl_sync(kFull, acc[r][e], sg * C + pc);
+      for (int e = 0; e < V; ++e) tot[e] += __shfl_sync(kFull, acc[e], sg * C + pc);
     }
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[r][e] = tot[e];
+    for (int e = 0; e < V; ++e) acc[e] = tot[e];
   }
   __syncthreads();  // every warp is done with the stages: the warps meet there
-  float* red = reinterpret_cast<float*>(stages);  // [warp][rep][hdp]
+  float* red = reinterpret_cast<float*>(stages);  // [warp][hdp]
   if (lane < C) {
+    check_shared(a, red + warp * geo.hdp + lane * V, 4 * V, kSiteWarpOutputs);
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      if (r >= rep) break;
-#pragma unroll
-      for (int e = 0; e < V; ++e) red[(warp * rep + r) * geo.hdp + lane * V + e] = acc[r][e];
-    }
+    for (int e = 0; e < V; ++e) red[warp * geo.hdp + lane * V + e] = acc[e];
   }
   if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      if (r >= rep) break;
-      m_w[warp][r] = m_run[r];
-      l_w[warp][r] = l_run[r];
-    }
+    m_w[warp] = m_run;
+    l_w[warp] = l_run;
   }
   __syncthreads();
 
-  const int H = a.KV * rep;
-  TQ* out = static_cast<TQ*>(a.out) + (static_cast<size_t>(b) * H + g * rep) * hd;
-  const int stride = rep * (hd + 2);  // a partial: acc [rep][hd], m [rep], l [rep]
+  TQ* out = static_cast<TQ*>(a.out) + (static_cast<size_t>(b) * a.KV + g) * hd;
+  const int stride = hd + 2;  // a partial: acc [hd], m, l
   float* parts = a.n_split > 1
                      ? a.ws + (static_cast<size_t>(b) * a.KV + g) * a.n_split * stride
                      : nullptr;
-  for (int i = tid; i < rep * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
+  for (int d = tid; d < hd; d += kThreads) {
     float m_all = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, m_w[w][r]);
+    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, m_w[w]);
     float l_all = 0.f, o = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float wt = expf(m_w[w][r] - m_all);
-      l_all += l_w[w][r] * wt;
-      o += red[(w * rep + r) * geo.hdp + d] * wt;
+      const float wt = expf(m_w[w] - m_all);
+      l_all += l_w[w] * wt;
+      check_shared(a, red + w * geo.hdp + d, 4, kSiteWarpOutputs);
+      o += red[w * geo.hdp + d] * wt;
     }
     if (!parts) {
-      out[i] = from_f32<TQ>(l_all > 0.f ? o / l_all : 0.f);
+      out[d] = from_f32<TQ>(l_all > 0.f ? o / l_all : 0.f);
     } else {
       float* part = parts + static_cast<size_t>(split) * stride;
-      part[i] = o;
+      part[d] = o;
       if (d == 0) {
-        part[rep * hd + r] = l_all > 0.f ? m_all : kNegInf;
-        part[rep * hd + rep + r] = l_all;
+        part[hd] = l_all > 0.f ? m_all : kNegInf;
+        part[hd + 1] = l_all;
       }
     }
   }
@@ -476,8 +590,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   // w = exp(m - max m) over a batch of kMergeBatch splits (across batches
   // the running max rescales what came before); a split with l = 0 takes
   // no part
-  for (int i = tid; i < rep * hd; i += kThreads) {
-    const int r = i / hd;
+  for (int d = tid; d < hd; d += kThreads) {
     float m_all = kNegInf, l_all = 0.f, o = 0.f;
     for (int s0 = 0; s0 < a.n_split; s0 += kMergeBatch) {
       float mb[kMergeBatch], lb[kMergeBatch], ob[kMergeBatch];
@@ -486,9 +599,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
         mb[u] = lb[u] = ob[u] = 0.f;
         if (s0 + u < a.n_split) {
           const float* p = parts + static_cast<size_t>(s0 + u) * stride;
-          mb[u] = __ldcg(p + rep * hd + r);
-          lb[u] = __ldcg(p + rep * hd + rep + r);
-          ob[u] = __ldcg(p + i);
+          mb[u] = __ldcg(p + hd);
+          lb[u] = __ldcg(p + hd + 1);
+          ob[u] = __ldcg(p + d);
         }
       }
       float m_new = m_all;
@@ -509,7 +622,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
       }
       m_all = m_new;
     }
-    out[i] = from_f32<TQ>(l_all > 0.f ? o / l_all : 0.f);
+    out[d] = from_f32<TQ>(l_all > 0.f ? o / l_all : 0.f);
   }
 }
 
@@ -521,21 +634,53 @@ constexpr int kMergeLoads = 16;  // splits whose partials a merging thread loads
 
 // The rows of tile t that the warp whose rows of each tile start at r0 (of
 // kRowsT) owns, below position `limit`.
+//
+// Loops over these live rows: none may be unrolled with a count known
+// only at run time. NVVM gives such a loop a trip count of its own,
+// computed above the tile loop from a second copy of the split's live end,
+// min(end, index + 1, S), which its PTX forms as min(min(end, -max(-S,
+// ~index)), S); ptxas (CUDA 12.8) fuses that neg and the two mins into one
+// three-way VIMNMX3 and drops the negation, so the count runs as many
+// extra rows as the index is deep. Seen on the card under the address check
+// (REPRO_SMEM_CHECK; tests/test_torch_address_check_cuda.py): the V-row
+// zeroing written as one flat loop over rows x chunks (unrolled by 4)
+// stored past the warp's 16 rows and past the shared memory; the CUDA-core
+// body's position loops under #pragma unroll 2 skipped their unrolled
+// pairs and ran once, so only each warp's first row counted. So loops over
+// live rows run a fixed count with each row predicated (the zeroing;
+// flash_decode_kernel's P.V), or stay rolled (#pragma unroll 1:
+// flash_decode_gqa_kernel).
 template <int kRowsT>
 __device__ __forceinline__ int warp_rows(int start, int t, int r0, int limit) {
   return max(0, min(kRowsT, limit - (start + t * kTile + r0)));
 }
 
-// The start of a grouped-query block, as flash_decode_kernel's: B6's table
-// slice and the first kStages - 1 tiles of each warp issued (B5's first
-// split its first tile before the index is in, reading every row up to
-// `end`), the padding of staged rows zeroed. Returns the end of the live
-// positions of the split.
+// The block of a grouped-query launch: grid x is (kv head, head group),
+// the head group fastest (so that the blocks reading one kv head's cache
+// run together and share it in L2)
+struct HeadGroup {
+  int g;         // kv head
+  int nh;        // the block's query heads: min(kMaxRep, rep - hg * kMaxRep)
+  size_t head0;  // its first query head among q's B * KV * rep
+};
+
+__device__ __forceinline__ HeadGroup head_group(const Args& a) {
+  const int n_hg = head_groups(a.rep);
+  const int g = blockIdx.x / n_hg, hg = blockIdx.x % n_hg;
+  return {g, min(kMaxRep, a.rep - hg * kMaxRep),
+          (static_cast<size_t>(blockIdx.y) * a.KV + g) * a.rep + hg * kMaxRep};
+}
+
+// The start of a grouped-query block of kv head g, as
+// flash_decode_kernel's: B6's table slice and the first kStages - 1 tiles
+// of each warp issued (B5's first split its first tile before the index is
+// in, reading every row up to `end`), the padding of staged rows zeroed.
+// Returns the end of the live positions of the split.
 template <typename TKV, bool kPaged, int kRowsT, int kThreadsT>
-__device__ __forceinline__ int gqa_prologue(const Args& a, unsigned char* stages, int* tbl,
+__device__ __forceinline__ int gqa_prologue(const Args& a, int g, unsigned char* stages, int* tbl,
                                             int start, int end, int r0) {
   const Geometry& geo = a.geo;
-  const int b = blockIdx.y, g = blockIdx.x, tid = threadIdx.x, lane = tid % 32;
+  const int b = blockIdx.y, tid = threadIdx.x, lane = tid % 32;
   const int first_page = kPaged ? start / a.ps : 0;
   const auto issue = [&](int t, int limit, const int* pages) {
     issue_warp_tile<TKV, kPaged>(a, pages, first_page, b, g, start + t * kTile + r0,
@@ -550,7 +695,10 @@ __device__ __forceinline__ int gqa_prologue(const Args& a, unsigned char* stages
   if constexpr (kPaged) {
     const int n_pages = (end - 1) / a.ps - first_page + 1;
     for (int i = tid; i < n_pages; i += kThreadsT) {
-      tbl[i] = clamp_index(a.bt[static_cast<size_t>(b) * a.nb + first_page + i], a.n_arena);
+      const int32_t* e = a.bt + static_cast<size_t>(b) * a.nb + first_page + i;
+      check_table(a, e);
+      check_shared(a, tbl + i, 4, kSiteTableSlice);
+      tbl[i] = clamp_index(*e, a.n_arena);
     }
   } else if (blockIdx.z == 0) {
     issue(0, end, tbl);  // up to `end`: the index is not in yet
@@ -559,29 +707,24 @@ __device__ __forceinline__ int gqa_prologue(const Args& a, unsigned char* stages
   // B6's first tiles read their pages from row b's table in device memory
   const int* row_table = kPaged ? a.bt + static_cast<size_t>(b) * a.nb + first_page : tbl;
   for (; first < kStages - 1; ++first) issue(first, live_end, row_table);
-  if (geo.row_bytes % 16) {  // staged rows' padding reads as zeros
-    for (int i = tid; i < kStages * 2 * kTile; i += kThreadsT) {
-      unsigned char* pad = stages + i * geo.pstride + geo.row_bytes;
-      for (int t = 0; t < geo.chunks * 16 - geo.row_bytes; t += 2) {
-        *reinterpret_cast<uint16_t*>(pad + t) = 0;
-      }
-    }
-  }
+  zero_padding(a, stages, kThreadsT);
   __syncthreads();  // the table slice, the padding
   return live_end;
 }
 
 // Floats between two splits' partials of a grouped-query launch (acc
-// [rep][hd], m [rep], l [rep]), a whole number of 16-byte words
+// [nh][hd], m [nh], l [nh] of the block's nh <= min(rep, kMaxRep) heads), a
+// whole number of 16-byte words
 __host__ __device__ __forceinline__ int gqa_stride(int rep, int hd) {
-  return (rep * (hd + 2) + 3) / 4 * 4;
+  return ((rep < kMaxRep ? rep : kMaxRep) * (hd + 2) + 3) / 4 * 4;
 }
 
-// The end of a grouped-query block: its warps' states (red [warp][rep][hdp]
-// unnormalised outputs, m_w and l_w per warp and head) meet in warp order,
-// each head's warp weights exp(m_w - max) taken once; then the output, or
-// with n_split > 1 the block's partial, its arrival and, in the last block
-// of the (row, kv head) to arrive, the merge. Thread (h, d0) takes head h's
+// The end of a grouped-query block (its head group hgp): its warps' states
+// (red [warp][nh][hdp] unnormalised outputs, m_w and l_w per warp and head)
+// meet in warp order, each head's warp weights exp(m_w - max) taken once;
+// then the output, or with n_split > 1 the block's partial, its arrival
+// and, in the last block of the (row, kv head, head group) to arrive, the
+// merge. Thread (h, d0) takes head h's
 // kOut dims from d0 * kOut; the merge runs over the splits in split order,
 // kMergeLoads at a time with all their loads (m, l and the thread's
 // outputs, as 16-byte words where kVec: hd a multiple of 16) in flight at
@@ -589,7 +732,7 @@ __host__ __device__ __forceinline__ int gqa_stride(int rep, int hd) {
 // partial, at one SM's share of the card's bandwidth: at rep 8, hd 128 a
 // partial is 4,160 bytes.)
 template <typename TQ, int kThreadsT, bool kVec>
-__device__ __forceinline__ void gqa_finish(const Args& a, const float* red,
+__device__ __forceinline__ void gqa_finish(const Args& a, const HeadGroup& hgp, const float* red,
                                            const float (*m_w)[kMaxRep],
                                            const float (*l_w)[kMaxRep]) {
   constexpr int kWarpsT = kThreadsT / 32;
@@ -600,14 +743,14 @@ __device__ __forceinline__ void gqa_finish(const Args& a, const float* red,
   __shared__ float m_s[kMaxRep];
   __shared__ float l_s[kMaxRep];
   __shared__ int merge_s;
-  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int rep = a.rep, hd = a.hd, hdp = a.geo.hdp, n_split = a.n_split;
+  const int split = blockIdx.z, tid = threadIdx.x;
+  const int rep = hgp.nh, hd = a.hd, hdp = a.geo.hdp, n_split = a.n_split;
   const int h = tid / kLanes, d0 = (tid % kLanes) * kOut;
-  TQ* out = static_cast<TQ*>(a.out) + (static_cast<size_t>(b) * a.KV * rep + g * rep) * hd;
-  const int stride = gqa_stride(rep, hd);
-  float* parts =
-      n_split > 1 ? a.ws + (static_cast<size_t>(b) * a.KV + g) * n_split * stride : nullptr;
+  TQ* out = static_cast<TQ*>(a.out) + hgp.head0 * hd;
+  const int stride = gqa_stride(a.rep, hd);
+  // the partials and the arrival counter of (row, kv head, head group)
+  const size_t group = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  float* parts = n_split > 1 ? a.ws + group * n_split * stride : nullptr;
   if (tid < rep) {
     float m_all = kNegInf;
 #pragma unroll
@@ -634,6 +777,7 @@ __device__ __forceinline__ void gqa_finish(const Args& a, const float* red,
     for (int w = 0; w < kWarpsT; ++w) {
       const float wt = wt_s[w][h];
       const float4* r4 = reinterpret_cast<const float4*>(red + (w * rep + h) * hdp + d0);
+      check_shared(a, r4, 4 * kOut, kSiteWarpOutputs);
 #pragma unroll
       for (int u = 0; u < kOut / 4; ++u) {
         const float4 x = r4[u];
@@ -671,7 +815,7 @@ __device__ __forceinline__ void gqa_finish(const Args& a, const float* red,
 
   __syncthreads();  // orders the block's partial before thread 0's release
   if (tid == 0) {
-    int* counter = &g_arrivals[b * a.KV + g];
+    int* counter = &g_arrivals[group];
     const bool merges = arrive_acq_rel(counter) == n_split - 1;
     if (merges) atomicExch(counter, 0);  // the next launch starts from zero
     merge_s = merges;
@@ -742,7 +886,8 @@ static_assert(kParts == 4, "a warp is 8 heads x 4 parts");
 template <typename TKV>
 constexpr int kLaneChunks = kMaxHeadDim * static_cast<int>(sizeof(TKV)) / 16 / kParts;
 
-// One block: kv head g = blockIdx.x, row b = blockIdx.y, split blockIdx.z.
+// One block: a head group of kv head g (blockIdx.x, head_group), row b =
+// blockIdx.y, split blockIdx.z.
 template <typename TQ, typename TKV, bool kPaged>
 __global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const Args a) {
   constexpr int V = kPerChunk<TKV>;
@@ -752,9 +897,10 @@ __global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const 
   __shared__ float l_w[kGqaWarps][kMaxRep];
   __shared__ float sc[kGqaWarps][kGqaRows][kMaxRep];  // a tile's scores, per warp
   const Geometry& geo = a.geo;
-  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const HeadGroup hgp = head_group(a);
+  const int g = hgp.g, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int rep = a.rep, hd = a.hd, C = geo.chunks;
+  const int rep = hgp.nh, hd = a.hd, C = geo.chunks;
   const int r = lane / kParts, part = lane % kParts;  // the lane's head and chunks part + 4i
   const int start = split * a.per;
   const int end = min(start + a.per, a.S);
@@ -763,7 +909,7 @@ __global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const 
   unsigned char* stages = smem + (-smem_u32(smem) & 127);  // 128-byte aligned
   int* tbl = reinterpret_cast<int*>(stages + kStages * geo.stage_bytes);  // B6
   const int first_page = kPaged ? start / a.ps : 0;
-  const TQ* q = static_cast<const TQ*>(a.q) + (static_cast<size_t>(b) * a.KV + g) * rep * hd;
+  const TQ* q = static_cast<const TQ*>(a.q) + hgp.head0 * hd;
   float qr[NC][V];  // head r's q (scaled) at the lane's chunks; zero past hd and rep
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
@@ -774,7 +920,7 @@ __global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const 
     }
   }
   const int live_end =
-      gqa_prologue<TKV, kPaged, kGqaRows, kGqaThreads>(a, stages, tbl, start, end, r0);
+      gqa_prologue<TKV, kPaged, kGqaRows, kGqaThreads>(a, g, stages, tbl, start, end, r0);
   const int n_tiles = live_end > start ? (live_end - start + kTile - 1) / kTile : 0;
 
   float m_run = kNegInf, l_run = 0.f, acc[NC][V];
@@ -796,9 +942,8 @@ __global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const 
     const unsigned char* buf = stages + (t % kStages) * geo.stage_bytes;
 
     // scores of head r at the warp's rows (a partial sum per chunk, then
-    // the quad's), kept in sc, and their max. (The position loops stay
-    // rolled: unrolled by 2, with the shuffles inside, the results on the
-    // card took only each warp's first row; the cause was not found.)
+    // the quad's), kept in sc, and their max. Both position loops stay
+    // rolled (see warp_rows)
     float mx = kNegInf;
 #pragma unroll 1
     for (int j = 0; j < rows; ++j) {
@@ -810,6 +955,7 @@ __global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const 
         sp[i] = 0.f;
         if (c < C) {
           float kv[V];
+          check_shared(a, krow + c * 16, 16, kSiteStagedK);
           load16(reinterpret_cast<const TKV*>(krow + c * 16), kv);
 #pragma unroll
           for (int e = 0; e < V; ++e) sp[i] = fmaf(qr[i][e], kv[e], sp[i]);
@@ -843,6 +989,7 @@ __global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const 
         const int c = part + i * kParts;
         if (c < C) {
           float vv[V];
+          check_shared(a, vrow + c * 16, 16, kSiteStagedV);
           load16(reinterpret_cast<const TKV*>(vrow + c * 16), vv);
 #pragma unroll
           for (int e = 0; e < V; ++e) acc[i][e] = fmaf(p, vv[e], acc[i][e]);
@@ -861,6 +1008,7 @@ __global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const 
     for (int i = 0; i < NC; ++i) {
       const int c = part + i * kParts;
       if (c < C) {
+        check_shared(a, red + (warp * rep + r) * geo.hdp + c * V, 4 * V, kSiteWarpOutputs);
 #pragma unroll
         for (int e = 0; e < V; ++e) red[(warp * rep + r) * geo.hdp + c * V + e] = acc[i][e];
       }
@@ -871,7 +1019,7 @@ __global__ void __launch_bounds__(kGqaThreads, 1) flash_decode_gqa_kernel(const 
     }
   }
   __syncthreads();
-  gqa_finish<TQ, kGqaThreads, false>(a, red, m_w, l_w);
+  gqa_finish<TQ, kGqaThreads, false>(a, hgp, red, m_w, l_w);
 }
 
 // ---- on the tensor cores: bf16 caches, head dims a multiple of 16 ----
@@ -929,8 +1077,9 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&out)[N
   }
 }
 
-// One block: kv head g = blockIdx.x, row b = blockIdx.y, split blockIdx.z;
-// a bf16 cache. Lane (g8, t4) = (lane / 4, lane % 4) of the mma fragments.
+// One block: a head group of kv head g (blockIdx.x, head_group), row b =
+// blockIdx.y, split blockIdx.z; a bf16 cache. Lane (g8, t4) = (lane / 4,
+// lane % 4) of the mma fragments.
 template <typename TQ, bool kPaged>
 __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Args a) {
   using TKV = __nv_bfloat16;
@@ -939,10 +1088,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Arg
   __shared__ float m_w[kMmaWarps][kMaxRep];
   __shared__ float l_w[kMmaWarps][kMaxRep];
   const Geometry& geo = a.geo;
-  const int g = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const HeadGroup hgp = head_group(a);
+  const int g = hgp.g, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g8 = lane / 4, t4 = lane % 4;
-  const int rep = a.rep, hd = a.hd, n_steps = hd / 16;
+  const int rep = hgp.nh, hd = a.hd, n_steps = hd / 16;
   const int start = split * a.per;
   const int end = min(start + a.per, a.S);
   const int r0 = warp * kMmaRows;
@@ -955,7 +1105,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Arg
   // the scores, as in the plain version), in NQ bf16 parts
   // (loaded before the prologue and split after it, so that q's round
   // trip overlaps the index's and the first tiles')
-  const TQ* q = static_cast<const TQ*>(a.q) + (static_cast<size_t>(b) * a.KV + g) * rep * hd;
+  const TQ* q = static_cast<const TQ*>(a.q) + hgp.head0 * hd;
   float qx[kMaxKSteps][4];
 #pragma unroll
   for (int ks = 0; ks < kMaxKSteps; ++ks) {
@@ -966,7 +1116,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Arg
     }
   }
   const int live_end =
-      gqa_prologue<TKV, kPaged, kMmaRows, kMmaThreads>(a, stages, tbl, start, end, r0);
+      gqa_prologue<TKV, kPaged, kMmaRows, kMmaThreads>(a, g, stages, tbl, start, end, r0);
   uint32_t qa[kMaxKSteps][2][NQ];
 #pragma unroll
   for (int ks = 0; ks < kMaxKSteps; ++ks) {
@@ -1000,12 +1150,16 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Arg
     if (rows < kMmaRows) {
       // V rows past the live ones hold stale or unwritten bytes, and 0 x NaN
       // is NaN in the product: zero them (their p is 0, K rows' scores are
-      // masked instead). (Written as one flat loop over rows x chunks, the
-      // zeroing faulted on the card at hd 64 from 9 live rows on; the
-      // cause was not found.)
-      for (int r = rows; r < kMmaRows; ++r) {
-        for (int c = lane; c < geo.chunks; c += 32) {
-          *reinterpret_cast<uint4*>(vbase + r * geo.pstride + c * 16) = make_uint4(0, 0, 0, 0);
+      // masked instead), lane c its chunk c (chunks <= 16) of each: a loop
+      // of a fixed count, each row predicated (see warp_rows)
+      if (lane < geo.chunks) {
+#pragma unroll
+        for (int r = 0; r < kMmaRows; ++r) {
+          if (r >= rows) {
+            check_shared(a, vbase + r * geo.pstride + lane * 16, 16, kSiteZeroV);
+            *reinterpret_cast<uint4*>(vbase + r * geo.pstride + lane * 16) =
+                make_uint4(0, 0, 0, 0);
+          }
         }
       }
       __syncwarp();
@@ -1025,6 +1179,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Arg
     for (int ks = 0; ks < kMaxKSteps; ++ks) {
       if (ks < n_steps) {
         uint32_t kb[4];  // B fragments: block 0's dims 16 ks + (0, 8), then block 1's
+        check_shared(a, kbase + mrow * geo.pstride + ks * 32 + mcol, 16, kSiteLdmatrixK);
         ldmatrix_x4(kb, kbase + mrow * geo.pstride + ks * 32 + mcol);
         const uint32_t a1 = NQ > 1 ? qa[ks][0][1] : 0u, a3 = NQ > 1 ? qa[ks][1][1] : 0u;
         mma_bf16(cs[ks % 2][0], qa[ks][0][0], a1, qa[ks][1][0], a3, kb[0], kb[1]);
@@ -1075,6 +1230,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Arg
         co[mb][2] *= c_lo;
         co[mb][3] *= c_hi;
         uint32_t va[4];  // A fragments of V^T: dims 16 mb + (0, 8) x positions (0, 8)
+        check_shared(a, vbase + mrow * geo.pstride + mb * 32 + mcol, 16, kSiteLdmatrixV);
         ldmatrix_x4_trans(va, vbase + mrow * geo.pstride + mb * 32 + mcol);
 #pragma unroll
         for (int p = 0; p < kSplitParts; ++p) {
@@ -1094,7 +1250,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Arg
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int h = 2 * t4 + e % 2, d = 16 * mb + g8 + (e / 2) * 8;
-      if (mb < n_steps && h < rep) red[(warp * rep + h) * geo.hdp + d] = co[mb][e];
+      if (mb < n_steps && h < rep) {
+        check_shared(a, red + (warp * rep + h) * geo.hdp + d, 4, kSiteWarpOutputs);
+        red[(warp * rep + h) * geo.hdp + d] = co[mb][e];
+      }
     }
   }
   if (t4 == 0 && g8 < rep) {
@@ -1102,7 +1261,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma_kernel(const Arg
     l_w[warp][g8] = l_run;
   }
   __syncthreads();
-  gqa_finish<TQ, kMmaThreads, true>(a, red, m_w, l_w);
+  gqa_finish<TQ, kMmaThreads, true>(a, hgp, red, m_w, l_w);
 }
 
 // The device body of a launch: one query head per kv head; grouped-query
@@ -1140,7 +1299,7 @@ Geometry geometry(int hd, int rep, int per, int ps, bool paged, const void* k, c
   geo.stage_bytes = 2 * kTile * geo.pstride;
   geo.table = paged ? per / ps + 2 : 0;
   geo.smem = kStages * geo.stage_bytes +
-             ((body == Body::kRep1 ? rep * geo.hdp : 0) + geo.table) * 4 + 128;
+             ((body == Body::kRep1 ? geo.hdp : 0) + geo.table) * 4 + 128;
   return geo;
 }
 
@@ -1150,7 +1309,7 @@ using KernelFn = void (*)(const Args);
 template <typename TQ, typename TKV, bool kPaged>
 KernelFn kernel_for(int rep, int hd) {
   switch (body_for<TKV>(rep, hd)) {
-    case Body::kRep1: return flash_decode_kernel<TQ, TKV, 1, kPaged>;
+    case Body::kRep1: return flash_decode_kernel<TQ, TKV, kPaged>;
     case Body::kTensorCores: return flash_decode_mma_kernel<TQ, kPaged>;
     default: return flash_decode_gqa_kernel<TQ, TKV, kPaged>;
   }
@@ -1184,12 +1343,37 @@ bool dispatch_dtypes(int q_dtype, int kv_dtype, Launch&& launch) {
 }
 
 bool bad_args(int B, int KV, int rep, int hd, int S, int n_split, int per, const float* ws) {
-  if (rep < 1 || rep > kMaxRep || hd < 1 || hd > kMaxHeadDim || S < 1) return true;
+  if (rep < 1 || hd < 1 || hd > kMaxHeadDim || S < 1) return true;
   if (n_split < 1 || per < kTile || per % kTile) return true;
   if (static_cast<long long>(n_split) * per < S || static_cast<long long>(n_split - 1) * per >= S) {
     return true;
   }
-  return n_split > 1 && (ws == nullptr || static_cast<long long>(B) * KV > kMaxGroups);
+  // every (row, kv head, head group) of a launch that splits has a counter
+  const long long groups = static_cast<long long>(B) * KV * head_groups(rep);
+  return n_split > 1 && (ws == nullptr || groups > kMaxGroups);
+}
+
+// The address check's record in mapped host memory (kCheckWords ints),
+// allocated at the first launch of a REPRO_SMEM_CHECK build; its device
+// address, or nullptr in a default build.
+int* g_check_host = nullptr;
+int* g_check_device = nullptr;
+
+int* check_record() {
+  if constexpr (kAddressCheck) {
+    if (g_check_host == nullptr) {
+      void* host = nullptr;
+      if (cudaHostAlloc(&host, kCheckWords * sizeof(int), cudaHostAllocMapped) != cudaSuccess) {
+        return nullptr;
+      }
+      memset(host, 0, kCheckWords * sizeof(int));
+      void* dev = nullptr;
+      cudaHostGetDevicePointer(&dev, host, 0);
+      g_check_host = static_cast<int*>(host);
+      g_check_device = static_cast<int*>(dev);
+    }
+  }
+  return g_check_device;
 }
 
 template <bool kPaged>
@@ -1202,7 +1386,8 @@ int launch(Args a, int B, int q_dtype, int kv_dtype, cudaStream_t st) {
     if (a.geo.smem > kDefaultSmem) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.geo.smem);
     }
-    const dim3 grid(a.KV, B, a.n_split);
+    a.check = check_record();
+    const dim3 grid(a.KV * head_groups(a.rep), B, a.n_split);
     kernel<<<grid, threads_for<TKV>(a.rep, a.hd), a.geo.smem, st>>>(a);
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -1218,7 +1403,7 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, c
   auto* w = static_cast<float*>(ws);
   if (bad_args(B, KV, rep, hd, S, n_split, per, w)) return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, index, index64, nullptr, out, w, S, KV, rep, hd,
-         0, 1, 0, n_split, per, scale, {}};
+         0, 1, 0, n_split, per, scale, {}, nullptr};
   return launch<false>(a, B, q_dtype, kv_dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -1233,7 +1418,7 @@ extern "C" int repro_flash_decode_paged(const void* q, const void* k, const void
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{q, k, v, index, index64, static_cast<const int32_t*>(block_tables),
-         out, w, nb * ps, KV, rep, hd, nb, ps, n_arena, n_split, per, scale, {}};
+         out, w, nb * ps, KV, rep, hd, nb, ps, n_arena, n_split, per, scale, {}, nullptr};
   return launch<true>(a, B, q_dtype, kv_dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -1242,7 +1427,7 @@ extern "C" int repro_flash_decode_paged(const void* q, const void* k, const void
 // page size ps, the cache 16-byte aligned.
 extern "C" int repro_flash_decode_variant_info(int paged, int q_dtype, int kv_dtype, int hd,
                                                int rep, int per, int ps, int* info) {
-  if (rep < 1 || rep > kMaxRep || hd < 1 || hd > kMaxHeadDim || per < kTile || ps < 1) {
+  if (rep < 1 || hd < 1 || hd > kMaxHeadDim || per < kTile || ps < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int code = static_cast<int>(cudaErrorInvalidValue);
@@ -1258,4 +1443,13 @@ extern "C" int repro_flash_decode_variant_info(int paged, int q_dtype, int kv_dt
     code = fill_info(fn, geo.smem, threads_for<TKV>(rep, hd), info);
   });
   return code;
+}
+
+// The address check's record (kCheckWords ints, all zero while no access
+// has failed the check) into `out`; cudaErrorNotSupported from a build
+// without REPRO_SMEM_CHECK. Host memory: readable after a fault.
+extern "C" int repro_flash_decode_check_record(int* out) {
+  if (!kAddressCheck) return static_cast<int>(cudaErrorNotSupported);
+  for (int i = 0; i < kCheckWords; ++i) out[i] = g_check_host ? g_check_host[i] : 0;
+  return 0;
 }

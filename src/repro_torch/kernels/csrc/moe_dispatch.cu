@@ -3,21 +3,32 @@
 // Replace repro/kernels/moe_dispatch.py::_dispatch_impl / _dispatch_kernel
 // and ::_combine_impl / _make_combine_kernel. On the TPU each grid step
 // DMAs one (1, bd) row named by the scalar-prefetched routing table. Here a
-// warp owns a row (dispatch: a slot row; combine: a token row, or on its
-// cols grid a thread owns a word of one) and reads the row's indices
-// itself; rows move as 16-byte words where the row width allows.
+// thread owns one or a few words of a slot row (dispatch), or a warp a
+// token row or a thread a word of one (combine), and reads the row's
+// indices itself; rows move as 16-byte words where the row width allows.
 //
 // Both move bytes: dispatch copies S rows, combine reads K rows per token
 // and writes one. Neither does enough arithmetic to matter, and on this
-// card neither is bound by its bytes either: at decode dispatch copies 128
+// card neither is bound by its bytes at decode: there dispatch copies 128
 // rows of 1 KB (0.04 us at the byte bound) and combine reads 8 rows and
 // writes 8 (~16 KB, 5 ns), so the launch and the latency of their
-// dependent loads set their time.
+// dependent loads set their time. A long prefill's dispatch (18,432 rows
+// of 12 KB) is bound by the bytes it writes.
 //
-// dispatch loads a slot's validity and token together and the row right
-// after (one dependent step, as index_select's), all of a lane's row words
-// before its stores, and runs 4 rows per block so that the training site's
-// 1,024 slots spread over every SM.
+// dispatch is a flat grid over S x the row's words: thread i takes N words
+// of one slot row. It loads the slot's validity and token together, then
+// its N words, then stores them: every load is one table round trip and
+// one row round trip from the thread's start, and an SM holds 16 bytes in
+// flight per resident thread (32 KB at 2,048), which covers the card's
+// latency at its bandwidth. (A warp per slot row, 4 rows a block, walked
+// dbrx-132b's 12 KB rows in 6 dependent passes on 16 blocks and lost 1.8x
+// to index_select at decode.) dispatch_plan in kernels/moe_dispatch.py
+// picks from the shapes N = 2 for rows past 4 KB (half the threads and
+// blocks: 3-5% faster at dbrx-132b's and deepseek-v3-671b's decode, equal
+// at their prefills), else 1, and evict-first stores for outputs of 16 MB
+// or more (the long prefills' 226-470 MB: 6-7% faster; an output the next
+// kernel reads from L2 keeps plain stores). An invalid slot stores zeros
+// and reads no row.
 //
 // combine has two grids, which the wrapper picks from the shapes
 // (kernels/moe_dispatch.py::combine_plan):
@@ -55,47 +66,86 @@ namespace {
 // ---------------------------------------------------------------------------
 
 constexpr int kDispatchThreads = 128;
-constexpr int kRowsPerBlock = kDispatchThreads / 32;   // one warp per slot row
-constexpr int kWordsInFlight = 4;                      // a lane's loads before its stores
 
-// Both table loads issue at once on the read-only path and the source row
-// is chosen by predicate, so the row's loads wait on one dependent step;
-// each lane issues up to kWordsInFlight words of the row before it stores
-// any (2 at decode's 1 KB rows, 4 at the training site's 2 KB).
-template <typename W>
+// Thread i of the grid takes words c, c + tpr, ..., c + (N - 1) tpr of slot
+// row s = i / tpr, c = i % tpr: the tpr = ceil(row_words / N) threads of a
+// row read and write its words side by side, a warp's loads one segment of
+// the row. The two table loads issue at once on the read-only path, the
+// row's N loads once they are in, the N stores after all of them;
+// kStream stores them evict-first (st.global.cs), for outputs the next
+// kernel will not find in L2 anyway.
+template <typename W, int N, bool kStream>
 __global__ void __launch_bounds__(kDispatchThreads)
-dispatch_rows_kernel(const W* __restrict__ x, const int32_t* __restrict__ slot_token,
-                     const uint8_t* __restrict__ slot_valid, W* __restrict__ out,
-                     int n_tokens, int n_slots, int row_words) {
-  const int s = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (s >= n_slots) return;
-  const int lane = threadIdx.x % 32;
+dispatch_words_kernel(const W* __restrict__ x, const int32_t* __restrict__ slot_token,
+                      const uint8_t* __restrict__ slot_valid, W* __restrict__ out,
+                      int n_tokens, unsigned n_threads, int row_words, unsigned tpr) {
+  const unsigned i = blockIdx.x * kDispatchThreads + threadIdx.x;
+  if (i >= n_threads) return;
+  const int s = static_cast<int>(i / tpr), c = static_cast<int>(i % tpr);
   const bool valid = __ldg(slot_valid + s) != 0;
   const int t = clamp_index(__ldg(slot_token + s), n_tokens);
   const W* src = x + static_cast<size_t>(t) * row_words;
   W* dst = out + static_cast<size_t>(s) * row_words;
-  for (int i0 = lane; i0 < row_words; i0 += 32 * kWordsInFlight) {
-    W v[kWordsInFlight];
+  W v[N];
 #pragma unroll
-    for (int j = 0; j < kWordsInFlight; ++j) {
-      const int i = i0 + 32 * j;
-      v[j] = valid && i < row_words ? __ldg(src + i) : W{};
-    }
+  for (int j = 0; j < N; ++j) {
+    const int w = c + j * static_cast<int>(tpr);
+    v[j] = valid && w < row_words ? __ldg(src + w) : W{};
+  }
 #pragma unroll
-    for (int j = 0; j < kWordsInFlight; ++j) {
-      const int i = i0 + 32 * j;
-      if (i < row_words) dst[i] = v[j];
+  for (int j = 0; j < N; ++j) {
+    const int w = c + j * static_cast<int>(tpr);
+    if (w < row_words) {
+      if constexpr (kStream) {
+        __stcs(dst + w, v[j]);
+      } else {
+        dst[w] = v[j];
+      }
     }
   }
 }
 
 template <typename W>
-void launch_dispatch(const void* x, const int32_t* slot_token, const uint8_t* slot_valid,
-                     void* out, int n_tokens, int n_slots, int row_bytes, cudaStream_t stream) {
-  const dim3 grid(ceil_div(n_slots, kRowsPerBlock));
-  dispatch_rows_kernel<W><<<grid, kDispatchThreads, 0, stream>>>(
+using DispatchKernel = void (*)(const W*, const int32_t*, const uint8_t*, W*, int, unsigned, int,
+                                unsigned);
+
+// B2's instance of N words a thread (1 or 2), streaming its stores or not,
+// else nullptr
+template <typename W>
+DispatchKernel<W> dispatch_kernel(int per_thread, bool stream) {
+  if (per_thread == 1) {
+    return stream ? dispatch_words_kernel<W, 1, true> : dispatch_words_kernel<W, 1, false>;
+  }
+  if (per_thread == 2) {
+    return stream ? dispatch_words_kernel<W, 2, true> : dispatch_words_kernel<W, 2, false>;
+  }
+  return nullptr;
+}
+
+template <typename W>
+int launch_dispatch(const void* x, const int32_t* slot_token, const uint8_t* slot_valid,
+                    void* out, int n_tokens, int n_slots, int row_bytes, int per_thread,
+                    bool stream, cudaStream_t st) {
+  const auto kernel = dispatch_kernel<W>(per_thread, stream);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int row_words = row_bytes / static_cast<int>(sizeof(W));
+  const long long tpr = ceil_div(row_words, per_thread);
+  const long long n_threads = tpr * n_slots;
+  if (n_threads >= 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>((n_threads + kDispatchThreads - 1) / kDispatchThreads);
+  kernel<<<blocks, kDispatchThreads, 0, st>>>(
       static_cast<const W*>(x), slot_token, slot_valid, static_cast<W*>(out), n_tokens,
-      n_slots, row_bytes / static_cast<int>(sizeof(W)));
+      static_cast<unsigned>(n_threads), row_words, static_cast<unsigned>(tpr));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the word dispatch moves rows in: the widest of 16, 4, 2 and 1 bytes that
+// divides a row and both bases (a view off a word boundary takes a
+// narrower one)
+int dispatch_word(const void* x, const void* out, int row_bytes) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
+                        static_cast<uintptr_t>(row_bytes);
+  return any % 16 == 0 ? 16 : (any % 4 == 0 ? 4 : (any % 2 == 0 ? 2 : 1));
 }
 
 // ---------------------------------------------------------------------------
@@ -313,23 +363,29 @@ int launch_status(cudaError_t err) {
 
 }  // namespace
 
+// per_thread: the words a thread moves (1 or 2), stream: evict-first
+// stores, as dispatch_plan picks them
 extern "C" int repro_moe_dispatch(const void* x, const void* slot_token, const void* slot_valid,
                                   void* out, int n_tokens, int n_slots, int row_bytes,
-                                  void* stream) {
+                                  int per_thread, int stream, void* cuda_stream) {
   const auto* tok = static_cast<const int32_t*>(slot_token);
   const auto* valid = static_cast<const uint8_t*>(slot_valid);
-  auto st = static_cast<cudaStream_t>(stream);
-  const bool al = aligned16(x) && aligned16(out);
-  if (row_bytes % 16 == 0 && al) {
-    launch_dispatch<uint4>(x, tok, valid, out, n_tokens, n_slots, row_bytes, st);
-  } else if (row_bytes % 4 == 0) {
-    launch_dispatch<uint32_t>(x, tok, valid, out, n_tokens, n_slots, row_bytes, st);
-  } else if (row_bytes % 2 == 0) {
-    launch_dispatch<uint16_t>(x, tok, valid, out, n_tokens, n_slots, row_bytes, st);
-  } else {
-    launch_dispatch<uint8_t>(x, tok, valid, out, n_tokens, n_slots, row_bytes, st);
+  auto st = static_cast<cudaStream_t>(cuda_stream);
+  const bool cs = stream != 0;
+  switch (dispatch_word(x, out, row_bytes)) {
+    case 16:
+      return launch_dispatch<uint4>(x, tok, valid, out, n_tokens, n_slots, row_bytes, per_thread,
+                                    cs, st);
+    case 4:
+      return launch_dispatch<uint32_t>(x, tok, valid, out, n_tokens, n_slots, row_bytes,
+                                       per_thread, cs, st);
+    case 2:
+      return launch_dispatch<uint16_t>(x, tok, valid, out, n_tokens, n_slots, row_bytes,
+                                       per_thread, cs, st);
+    default:
+      return launch_dispatch<uint8_t>(x, tok, valid, out, n_tokens, n_slots, row_bytes,
+                                      per_thread, cs, st);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // cols: the cols grid (else rows), as combine_plan picks
@@ -352,18 +408,21 @@ extern "C" int repro_moe_combine(const void* buf, const void* token_slot, const 
 }
 
 // What the card reports for one instance (info as fill_info's): kind 0 is
-// B2's kernel moving rows in `word`-byte words (16, 4, 2 or 1), kind 1 is
+// B2's kernel moving rows in `word`-byte words (16, 4, 2 or 1),
+// `per_thread` of them a thread (1 or 2), with evict-first stores where
+// `stream` is set, kind 1 is
 // B3's in `dtype`, on the cols grid where `cols` is set (else rows), its
 // top-1 instance at k == 1 else the k-row one, on the 16-byte vector path
 // where `vec` is set
-extern "C" int repro_moe_dispatch_variant_info(int kind, int dtype, int word, int k, int vec,
-                                               int cols, int* info) {
+extern "C" int repro_moe_dispatch_variant_info(int kind, int dtype, int word, int per_thread,
+                                               int stream, int k, int vec, int cols, int* info) {
   const void* fn = nullptr;
   if (kind == 0) {
-    if (word == 16) fn = reinterpret_cast<const void*>(dispatch_rows_kernel<uint4>);
-    if (word == 4) fn = reinterpret_cast<const void*>(dispatch_rows_kernel<uint32_t>);
-    if (word == 2) fn = reinterpret_cast<const void*>(dispatch_rows_kernel<uint16_t>);
-    if (word == 1) fn = reinterpret_cast<const void*>(dispatch_rows_kernel<uint8_t>);
+    const bool cs = stream != 0;
+    if (word == 16) fn = reinterpret_cast<const void*>(dispatch_kernel<uint4>(per_thread, cs));
+    if (word == 4) fn = reinterpret_cast<const void*>(dispatch_kernel<uint32_t>(per_thread, cs));
+    if (word == 2) fn = reinterpret_cast<const void*>(dispatch_kernel<uint16_t>(per_thread, cs));
+    if (word == 1) fn = reinterpret_cast<const void*>(dispatch_kernel<uint8_t>(per_thread, cs));
     return fn == nullptr ? static_cast<int>(cudaErrorInvalidValue)
                          : fill_info(fn, 0, kDispatchThreads, info);
   }

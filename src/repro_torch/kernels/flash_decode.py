@@ -15,18 +15,21 @@ prologue gathers the pages.
 
 Both are bound by bytes on the H100 (every live K/V row read once). Their
 kernels (``csrc/flash_decode.cu``) split the cache over blocks
-(flash-decoding): the grid is (KV, B, n_split), each block takes one
-contiguous range of positions, a multiple of ``TILE``, and stages its K/V
-rows into shared memory with 16-byte asynchronous copies, and the last
-block of a (row, kv head) to finish merges the ranges' partial softmax
-states in range order, in the same launch. One query head per kv head
-runs on the CUDA cores; grouped-query heads (rep 2-8) on a bf16 cache with
-a head dim a multiple of 16 run on the tensor cores (bf16 ``mma.sync``, an
-f32 query and the softmax weights as three bf16 parts each, so every
-product is exact in f32), and otherwise on CUDA cores whose lanes hold 8
-heads' q in registers; either way each staged K/V row serves every head of
-its kv head. ``split_plan`` picks the ranges
-from the cache's capacity, the rows, the kv heads and the SM count alone,
+(flash-decoding): the grid is (KV x head groups, B, n_split), each block
+takes one contiguous range of positions, a multiple of ``TILE``, and
+stages its K/V rows into shared memory with 16-byte asynchronous copies,
+and the last block of a (row, kv head, head group) to finish merges the
+ranges' partial softmax states in range order, in the same launch. One
+query head per kv head runs on the CUDA cores; grouped-query heads (rep
+> 1) on a bf16 cache with a head dim a multiple of 16 run on the tensor
+cores (bf16 ``mma.sync``, an f32 query and the softmax weights as three
+bf16 parts each, so every product is exact in f32), and otherwise on CUDA
+cores whose lanes hold 8 heads' q in registers; either way each staged K/V
+row serves every head of its block. A block takes a head group of up to
+``HEAD_GROUP`` = 8 query heads of one kv head, so rep 12 (starcoder2-3b)
+runs two blocks per kv head, each reading its cache. ``split_plan`` picks
+the ranges from the cache's capacity, the rows, the kv heads, the head
+groups and the SM count alone,
 never from ``index``, so the wrapper reads nothing from the device and a
 call can be captured in a CUDA graph. B5 and B6 share the plan and the device body, so
 B6 equals B5 bitwise on the contiguous cache its tables address. A cache
@@ -35,6 +38,12 @@ block per (row, kv head), no workspace, no merge.
 
 Their plain versions are ``ref.flash_decode_ref`` and
 ``ref.flash_decode_paged_ref``.
+
+A build with ``REPRO_SMEM_CHECK=1`` in the environment (a library of its
+own, see ``kernels/build.py``) checks every shared-memory address the
+bodies use and every cache and table read against their extents, and
+traps on the first outside; ``check_record`` returns what it found. Off
+by default.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. ``flash_decode.launches`` and ``flash_decode_paged.launches``
@@ -59,7 +68,10 @@ from repro_torch.kernels.ref import flash_decode_paged_ref, flash_decode_ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_REP = 8          # query heads per kv head: the 8 head rows of the kernels at rep > 1
+HEAD_GROUP = 8       # query heads a block takes at rep > 1 (csrc/flash_decode.cu's kMaxRep)
+# the kernels' widest head; the reference's configs use 64 (zcode-m3,
+# hymba-1.5b, whisper-small) and 128 (yi-6b, dbrx-132b, codeqwen1.5-7b,
+# starcoder2-3b, llama-3.2-vision-90b), none wider
 MAX_HEAD_DIM = 128
 # split plan (TILE is csrc/flash_decode.cu's kTile)
 TILE = 64              # positions per staged tile
@@ -71,10 +83,17 @@ plain = flash_decode_ref
 plain_paged = flash_decode_paged_ref
 
 
-def split_plan(capacity: int, rows: int, kv_heads: int, sms: int) -> Tuple[int, int]:
+def head_groups(rep: int) -> int:
+    """Blocks per (row, kv head, split): head groups of ``HEAD_GROUP``."""
+    return -(-rep // HEAD_GROUP)
+
+
+def split_plan(capacity: int, rows: int, kv_heads: int, sms: int,
+               groups: int = 1) -> Tuple[int, int]:
     """(n_split, positions per split) for a cache of ``capacity`` positions
-    (B5: S; B6: n_blocks * page_size) read by ``rows * kv_heads`` blocks
-    per split on a card of ``sms`` SMs. Split i covers positions [i * per,
+    (B5: S; B6: n_blocks * page_size) read by ``rows * kv_heads * groups``
+    blocks per split (``groups``: head groups per kv head) on a card of
+    ``sms`` SMs. Split i covers positions [i * per,
     min((i + 1) * per, capacity)); ``per`` is a multiple of ``TILE``. A
     cache of fewer than 2 * ``MIN_SPLIT_TILES`` tiles (at most 192
     positions) takes one split. Else ranges shrink until the grid holds
@@ -87,7 +106,7 @@ def split_plan(capacity: int, rows: int, kv_heads: int, sms: int) -> Tuple[int, 
     tiles = max(1, math.ceil(capacity / TILE))
     if tiles < 2 * MIN_SPLIT_TILES:
         return 1, tiles * TILE
-    want = math.ceil(BLOCKS_PER_SM * sms / max(1, rows * kv_heads))
+    want = math.ceil(BLOCKS_PER_SM * sms / max(1, rows * kv_heads * groups))
     per = min(MAX_SPLIT_TILES, max(MIN_SPLIT_TILES, math.ceil(tiles / want)))
     return math.ceil(tiles / per), per * TILE
 
@@ -104,18 +123,22 @@ def plan_of(q: torch.Tensor, k: torch.Tensor,
     B6's (q, arena k, tables): from shapes alone. ``sms`` defaults to the
     SM count of q's card."""
     cap = k.shape[1] * (block_tables.shape[1] if block_tables is not None else 1)
-    return split_plan(cap, q.shape[0], k.shape[2], sms or _sm_count(q.device))
+    return split_plan(cap, q.shape[0], k.shape[2], sms or _sm_count(q.device),
+                      head_groups(q.shape[1] // k.shape[2]))
 
 
 def _workspace(q: torch.Tensor, kv: int, n_split: int) -> Optional[torch.Tensor]:
-    """f32 partial states (m, l and the unnormalised output per query head)
-    of every split, merged inside the launch, each a whole number of
-    16-byte words; none for one split."""
+    """f32 partial states (m, l and the unnormalised output per query head
+    of a head group) of every split of every (row, kv head, head group),
+    merged inside the launch, each a whole number of 16-byte words; none
+    for one split."""
     if n_split == 1:
         return None
     b, h, hd = q.shape
-    stride = -(-(h // kv) * (hd + 2) // 4) * 4
-    return torch.empty(b * kv * n_split * stride, dtype=torch.float32, device=q.device)
+    rep = h // kv
+    stride = -(-min(rep, HEAD_GROUP) * (hd + 2) // 4) * 4
+    return torch.empty(b * kv * head_groups(rep) * n_split * stride, dtype=torch.float32,
+                       device=q.device)
 
 
 _split_lock = threading.Lock()
@@ -124,7 +147,8 @@ _split_streams: dict = {}   # device index -> stream of the last eager launch th
 
 def _launch(q: torch.Tensor, n_split: int, call):
     """Returns ``call()``, the kernel's launch. A launch that splits counts
-    its blocks in at the library's arrival counters (one per (row, kv head),
+    its blocks in at the library's arrival counters (one per (row, kv head,
+    head group),
     zero between launches because the merging block resets its own), so two
     such launches must not run at once: an eager one is ordered after the
     last one on its card, whatever that one's stream. A launch captured
@@ -153,10 +177,10 @@ def _check_common(name: str, q, k, v) -> None:
                            "it under torch.no_grad() or on detached inputs")
 
 
-def _check_kernel_shape(name: str, rep: int, hd: int) -> None:
-    if rep > MAX_REP or hd > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: kernel takes <= {MAX_REP} query heads "
-                         f"per kv head and head_dim <= {MAX_HEAD_DIM}")
+def _check_kernel_shape(name: str, hd: int) -> None:
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: kernel takes head_dim <= {MAX_HEAD_DIM} (the "
+                         f"reference's configs use 64 and 128), got {hd}")
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -181,7 +205,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         idx = idx.to(torch.int32)
     idx = idx.reshape(-1).expand(b).contiguous()
     rep = h // kv
-    _check_kernel_shape("flash_decode", rep, hd)
+    _check_kernel_shape("flash_decode", hd)
     build.require_cuda("flash_decode", q, k, v, idx)
     out = torch.empty_like(q)
     if out.numel() == 0 or s == 0:
@@ -236,7 +260,7 @@ def flash_decode_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return plain_paged(q, k, v, block_tables, index)
     rep = h // kv
-    _check_kernel_shape("flash_decode_paged", rep, hd)
+    _check_kernel_shape("flash_decode_paged", hd)
     idx = index.contiguous()
     build.require_cuda("flash_decode_paged", q, k, v, block_tables, idx)
     out = torch.empty_like(q)
@@ -276,3 +300,28 @@ def variant_info(paged: bool, q_dtype: torch.dtype, kv_dtype: torch.dtype, hd: i
                    per, ps, ctypes.cast(info, _P)),
                 "repro_flash_decode_variant_info")
     return dict(zip(("registers", "smem_bytes", "spill_bytes", "blocks_per_sm"), info))
+
+
+# what each record's site names (csrc/flash_decode.cu's CheckSite, from 1)
+CHECK_SITES = ("cp.async destination", "cp.async cache source", "staged-row padding",
+               "tensor-core zeroed V row", "ldmatrix K row", "ldmatrix V row",
+               "staged K read", "staged V read", "q in shared memory", "table slice",
+               "table read", "warp outputs")
+
+
+def check_record() -> Optional[dict]:
+    """The address check's record (a build with ``REPRO_SMEM_CHECK=1``):
+    None while no access has failed the check, else the first that did:
+    its site, block, thread, byte offset from the region's start, width and
+    the region's extent (shared memory: past its 128-byte alignment; K/V:
+    the cache or arena; tables: all of them). Host memory: readable after
+    the trap has cost the context. Raises on a build without the check."""
+    rec = (ctypes.c_int * 11)()
+    fn = build.function("repro_flash_decode_check_record", [_P])
+    build.check(fn(ctypes.cast(rec, _P)), "repro_flash_decode_check_record")
+    if not rec[0]:
+        return None
+    lo_hi = lambda lo, hi: (hi << 32) | (lo & 0xffffffff)  # noqa: E731
+    return {"site": CHECK_SITES[rec[1] - 1], "block": (rec[2], rec[3], rec[4]),
+            "thread": rec[5], "offset": lo_hi(rec[6], rec[7]), "bytes": rec[8],
+            "extent": lo_hi(rec[9], rec[10])}

@@ -10,10 +10,12 @@ Kernels (``csrc/moe_dispatch.cu``) replace the TPU kernels of
 ``repro/kernels/moe_dispatch.py`` (``_dispatch_impl``/``_dispatch_kernel``
 and ``_combine_impl``/``_make_combine_kernel``). Their bytes are few, so
 the launch and the chain of dependent loads set their time on the H100:
-dispatch moves each slot row once as 16-byte words, one warp per row;
-combine sums the K rows of a token in f32, one warp per token or, for
-wide rows at few tokens or k > 4, one thread per 16-byte word of the
-output (``combine_plan``), and launches as a programmatic dependent launch (PDL)
+dispatch moves each slot row once as 16-byte words, a flat grid of one
+thread per word, or per two words of a row past 4 KB, with evict-first
+stores for outputs of 16 MB or more (``dispatch_plan``); combine sums the
+K rows of a token in f32, one warp per token or, for wide rows at few
+tokens or k > 4, one thread per 16-byte word of the output
+(``combine_plan``), and launches as a programmatic dependent launch (PDL)
 of the kernel before it. Each function's plain version is
 ``ref.dispatch_ref`` / ``ref.combine_ref``.
 
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,6 +52,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 ROW_PASS_WORDS = 32 * 4
 ROW_STEP = 4
 ROW_WARPS_PER_SM = 4     # warps per SM the rows grid wants to hide its latency
+# dispatch's plan: two words a thread for rows past WIDE_ROW_BYTES, else
+# one; evict-first stores for outputs of STREAM_BYTES or more
+WIDE_ROW_BYTES = 4096
+STREAM_BYTES = 16 << 20
 
 plain_dispatch = dispatch_ref
 plain_combine = combine_ref
@@ -61,26 +67,66 @@ def _check_tables(name, idx: torch.Tensor, ndim: int) -> None:
                         f"{idx.dim()}-D {idx.dtype}")
 
 
+def dispatch_plan(n_slots: int, row_bytes: int) -> Tuple[int, bool]:
+    """(words a thread, evict-first stores) of B2's grid, from shapes alone.
+    One thread per 16-byte word already holds 32 KB in flight on an SM of
+    2,048 resident threads, about what the card's latency at its bandwidth
+    asks, so the words a thread follow what ran faster on the card: two
+    for rows past ``WIDE_ROW_BYTES`` (dbrx-132b's 12 KB and
+    deepseek-v3-671b's 14 KB rows: 3-5% faster at decode, equal at the
+    prefills), else one (zcode-m3-base's 1-2 KB rows). Outputs of
+    ``STREAM_BYTES`` or more (the prefills of the wide-row models) store
+    evict-first: the next kernel would not find them in the 50 MB L2, and
+    the stores stop evicting the token rows that every slot of a token
+    reads again (6-7% faster at the long prefills). The copy is
+    dtype-blind, so the element size plays no part, nor the card: rows of
+    narrower words (not whole 16-byte words, or unaligned bases) take the
+    same plan."""
+    return (2 if row_bytes > WIDE_ROW_BYTES else 1), n_slots * row_bytes >= STREAM_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def dispatch_word(x: torch.Tensor, out: torch.Tensor) -> int:
+    """The word B2 moves rows in (csrc/moe_dispatch.cu::dispatch_word): the
+    widest of 16, 4, 2 and 1 bytes that divides a row and both bases."""
+    any_ = x.data_ptr() | out.data_ptr() | x.shape[1] * x.element_size()
+    return next(w for w in (16, 4, 2, 1) if any_ % w == 0)
+
+
+def launch_dispatch(x: torch.Tensor, slot_token: torch.Tensor, slot_valid: torch.Tensor,
+                    out: torch.Tensor, plan: Optional[Tuple[int, bool]] = None
+                    ) -> Tuple[int, bool]:
+    """One launch of B2's kernel into ``out`` on the current stream, on
+    ``plan`` (words a thread, evict-first stores), ``dispatch_plan``'s
+    unless given. Checks nothing and counts nothing: ``dispatch`` does
+    both. Returns the plan it launched."""
+    t, d = x.shape
+    s = slot_token.shape[0]
+    row = d * x.element_size()
+    per, stream = plan or dispatch_plan(s, row)
+    fn = build.function("repro_moe_dispatch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    build.check(fn(x.data_ptr(), slot_token.data_ptr(), slot_valid.data_ptr(),
+                   out.data_ptr(), t, s, row, per, int(stream), build.stream_of(x)),
+                "dispatch")
+    return per, stream
+
+
 def _dispatch_fwd(x: torch.Tensor, slot_token: torch.Tensor,
                   slot_valid: torch.Tensor) -> torch.Tensor:
     build.calls["dispatch"] += 1
     if x.device.type == "cpu":
         return plain_dispatch(x, slot_token, slot_valid)
     build.require_cuda("dispatch", x, slot_token, slot_valid)
-    t, d = x.shape
-    s = slot_token.shape[0]
-    out = torch.empty((s, d), dtype=x.dtype, device=x.device)
+    out = torch.empty((slot_token.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fn = build.function("repro_moe_dispatch", [_P, _P, _P, _P, _I, _I, _I, _P])
-    row = d * x.element_size()
-    build.check(fn(x.data_ptr(), slot_token.data_ptr(), slot_valid.data_ptr(),
-                   out.data_ptr(), t, s, row, build.stream_of(x)), "dispatch")
+    per, stream = launch_dispatch(x, slot_token, slot_valid, out)
     dispatch.launches += 1
-    # the word the kernel moves rows in (repro_moe_dispatch's rule)
-    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    word = next(w for w in (16, 4, 2, 1) if row % w == 0 and (aligned or w < 16))
-    build.launched_variants.add(("dispatch", word))
+    build.launched_variants.add(("dispatch", dispatch_word(x, out), per, stream))
     return out
 
 
@@ -133,11 +179,6 @@ def combine_plan(n_tokens: int, k: int, d: int, itemsize: int, sms: int) -> bool
     if d * itemsize <= 16 * ROW_PASS_WORDS:
         return False
     return n_tokens < ROW_WARPS_PER_SM * sms or k > ROW_STEP
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def plan_of(buf: torch.Tensor, token_slot: torch.Tensor) -> bool:
@@ -238,17 +279,19 @@ combine.launches = 0
 
 
 def variant_info(kind: str, dtype: torch.dtype = torch.float32, word: int = 16,
-                 k: int = 1, vec: bool = True, cols: bool = False) -> dict:
+                 k: int = 1, vec: bool = True, cols: bool = False,
+                 per_thread: int = 1, stream: bool = False) -> dict:
     """What the card reports for one compiled kernel: registers per thread,
     shared memory per block (bytes), spill bytes per thread and resident
     blocks per SM. ``kind``: ``"dispatch"`` (rows moved in ``word``-byte
-    words: 16, 4, 2 or 1; any dtype) or ``"combine"`` (``dtype``, on the
+    words: 16, 4, 2 or 1, ``per_thread`` of them a thread, 1 or 2, with
+    evict-first stores where ``stream``; any dtype) or ``"combine"`` (``dtype``, on the
     cols grid where ``cols`` else rows, its top-1 instance at k = 1 else
     the k-row one, on the 16-byte vector path where ``vec``). Builds the
     library; needs a card."""
     info = (ctypes.c_int * 4)()
-    fn = build.function("repro_moe_dispatch_variant_info", [_I, _I, _I, _I, _I, _I, _P])
-    build.check(fn(("dispatch", "combine").index(kind), build.DTYPE_CODES[dtype], word, k,
-                   int(vec), int(cols), ctypes.cast(info, _P)),
+    fn = build.function("repro_moe_dispatch_variant_info", [_I, _I, _I, _I, _I, _I, _I, _I, _P])
+    build.check(fn(("dispatch", "combine").index(kind), build.DTYPE_CODES[dtype], word,
+                   per_thread, int(stream), k, int(vec), int(cols), ctypes.cast(info, _P)),
                 "repro_moe_dispatch_variant_info")
     return dict(zip(("registers", "smem_bytes", "spill_bytes", "blocks_per_sm"), info))

@@ -9,6 +9,8 @@ Tolerances: f32 1e-5 (sums in another order); bf16 outputs within 1e-2
 its last bits can round to the neighbouring bf16 value.
 """
 import ctypes
+import inspect
+import re
 import types
 
 import numpy as np
@@ -245,6 +247,33 @@ def test_combine_plan(t, k, d, itemsize, sms, cols):
 # gradients: the autograd.Functions against jax.grad through the Pallas VJPs
 # ---------------------------------------------------------------------------
 
+# B2's sites (PERF.md's kernel table): (label, slots, row bytes, words a
+# thread, evict-first stores)
+_DISPATCH_SITES = [("zcode-m3-base decode", 128, 1024, 1, False),
+                   ("zcode-m3-base prefill", 512, 1024, 1, False),
+                   ("zcode-m3-base training", 1024, 2048, 1, False),
+                   ("dbrx-132b decode", 64, 12288, 2, False),
+                   ("dbrx-132b prefill", 2048, 12288, 2, True),
+                   ("dbrx-132b long prefill", 18432, 12288, 2, True),
+                   ("deepseek-v3-671b decode", 256, 14336, 2, False),
+                   ("deepseek-v3-671b long prefill", 32768, 14336, 2, True)]
+
+
+@pytest.mark.parametrize("label,slots,row,per,stream", _DISPATCH_SITES)
+def test_dispatch_plan_at_the_sites(label, slots, row, per, stream):
+    """B2's plan from shapes alone (no tensor, no device, no state): two
+    16-byte words a thread for rows past 4 KB, else one; evict-first
+    stores for outputs of 16 MB or more (the wide-row models' prefills,
+    never a decode or the training site); the same plan on every call and
+    for any row the same width in another dtype."""
+    assert moe_dispatch.dispatch_plan(slots, row) == (per, stream)
+    assert moe_dispatch.dispatch_plan(slots, row) == (per, stream)
+    assert list(inspect.signature(moe_dispatch.dispatch_plan).parameters) == [
+        "n_slots", "row_bytes"]
+    assert (per == 2) == (row > moe_dispatch.WIDE_ROW_BYTES)
+    assert stream == (slots * row >= moe_dispatch.STREAM_BYTES)
+
+
 def _jax_grad(jx, fn, args, r, argnums):
     """jax.grad of sum(fn(*args) * r) in f32."""
     jnp = jx.jnp
@@ -376,6 +405,37 @@ def test_flash_decode_bf16_cache_matches_pallas(jx):
     _close(got, want, "float32")
 
 
+def test_flash_decode_rep12_matches_pallas(jx):
+    """starcoder2-3b's grouping: 24 query heads over 2 kv heads of 128 (rep
+    12, past the 8 heads a kernel block takes, so two head groups on the
+    card), B5 and B6 (pages of 4 in a permuted arena) against the
+    reference's kernels in interpret mode. The CPU path takes the plain
+    version before the kernel's shape checks."""
+    from repro.kernels import flash_decode_paged as jpaged
+    rs = np.random.RandomState(12)
+    b, h, kv, hd, s, ps = 2, 24, 2, 128, 12, 4
+    q = rs.randn(b, h, hd).astype(np.float32)
+    k = rs.randn(b, s, kv, hd).astype(np.float32)
+    v = rs.randn(b, s, kv, hd).astype(np.float32)
+    idx = np.array([3, 11], np.int32)
+    want = jx.flash_decode(jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v),
+                           jx.jnp.asarray(idx), bs=4, interpret=True)
+    got = flash_decode.flash_decode(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), torch.from_numpy(idx))
+    _close(got, want, "float32")
+    nb = s // ps
+    perm = rs.permutation(b * nb)
+    ka = np.zeros((b * nb + 1, ps, kv, hd), np.float32)
+    va = np.zeros_like(ka)
+    ka[perm] = k.reshape(b * nb, ps, kv, hd)
+    va[perm] = v.reshape(b * nb, ps, kv, hd)
+    bt = perm.reshape(b, nb).astype(np.int32)
+    want_p = jpaged(*(jx.jnp.asarray(a) for a in (q, ka, va, bt, idx)), interpret=True)
+    got_p = flash_decode.flash_decode_paged(*(torch.from_numpy(a) for a in (q, ka, va, bt, idx)))
+    _close(got_p, want_p, "float32")
+    torch.testing.assert_close(got_p, got, atol=0, rtol=0)
+
+
 def test_flash_decode_ignores_keys_past_index():
     rs = np.random.RandomState(6)
     q = torch.from_numpy(rs.randn(2, 2, 16).astype(np.float32))
@@ -441,6 +501,39 @@ def test_split_plan_ranges_fill_the_grid(cap):
             assert (-(-tiles * flash_decode.TILE // smaller) * rows * kv
                     > flash_decode.BLOCKS_PER_SM * sms
                     or per == flash_decode.MAX_SPLIT_TILES * flash_decode.TILE)
+
+
+@pytest.mark.parametrize("rep,groups", [(1, 1), (5, 1), (8, 1), (9, 2), (12, 2), (16, 2), (17, 3)])
+def test_split_plan_counts_head_groups(rep, groups):
+    """A block takes up to HEAD_GROUP query heads of one kv head, so a
+    launch at rep > 8 has head_groups(rep) blocks per (row, kv head,
+    split), and the plan counts them as more (row, kv head) pairs: rep 12
+    over 2 kv heads plans as 4 kv heads of one group."""
+    assert flash_decode.head_groups(rep) == groups
+    q = torch.empty(2, 2 * rep, 128, device="meta")
+    k = torch.empty(2, 4096, 2, 128, device="meta", dtype=torch.bfloat16)
+    assert (flash_decode.plan_of(q, k, sms=132)
+            == flash_decode.split_plan(4096, 2, 2 * groups, 132)
+            == flash_decode.split_plan(4096, 2, 2, 132, groups))
+
+
+def test_address_check_flag_is_off_by_default_and_keys_the_build(monkeypatch):
+    """REPRO_SMEM_CHECK=1 adds -DREPRO_SMEM_CHECK to the compile flags and
+    so builds a library of its own (the flags are in its key); unset, the
+    flags and the key are the default build's. The record's sites name the
+    kernel's CheckSite values in order."""
+    monkeypatch.delenv(build.CHECK_ENV, raising=False)
+    default = build.lib_path()
+    assert build.nvcc_flags() == build.NVCC_FLAGS
+    monkeypatch.setenv(build.CHECK_ENV, "1")
+    assert build.nvcc_flags() == (*build.NVCC_FLAGS, "-DREPRO_SMEM_CHECK")
+    assert build.lib_path() != default
+    monkeypatch.setenv(build.CHECK_ENV, "0")
+    assert build.lib_path() == default
+    src = (build.CSRC / "flash_decode.cu").read_text()
+    enum = re.search(r"enum CheckSite : int \{(.*?)\};", src, re.S).group(1)
+    assert re.findall(r"^\s*(kSite\w+)", enum, re.M)[0] == "kSiteCopyToShared"
+    assert len(re.findall(r"^\s*kSite\w+", enum, re.M)) == len(flash_decode.CHECK_SITES)
 
 
 @pytest.mark.parametrize("nb,ps", [(6, 16), (64, 16), (1024, 1), (300, 1), (16, 17), (5, 17)])
@@ -621,6 +714,106 @@ def test_cuda_dispatch_matches_plain(dtype):
         sv = torch.rand(s, generator=g, device=dev) < 0.7
         assert torch.equal(moe_dispatch.dispatch(x, st, sv),
                            ref.dispatch_ref(x, st, sv))
+
+
+def _routed_tables(t, k, e, c, g):
+    """(slot_token, slot_valid) of t tokens routed to k distinct experts
+    each (seeded), filled in token order into e experts of c slots: the
+    router's tables (a slot past an expert's capacity dropped, an unfilled
+    one invalid)."""
+    dev = g.device
+    experts = torch.rand(t, e, generator=g, device=dev).argsort(dim=1)[:, :k].reshape(-1)
+    pos = torch.nn.functional.one_hot(experts, e).cumsum(0).gather(1, experts[:, None])[:, 0] - 1
+    kept = pos < c
+    st = torch.zeros(e * c, dtype=torch.int32, device=dev)
+    sv = torch.zeros(e * c, dtype=torch.bool, device=dev)
+    st[(experts * c + pos)[kept]] = (torch.arange(t * k, device=dev) // k)[kept].to(torch.int32)
+    sv[(experts * c + pos)[kept]] = True
+    return st, sv
+
+
+_DISPATCH_PLANS = ((1, False), (2, False), (1, True), (2, True))
+
+
+def _dispatch_each_instance(x, st, sv):
+    """B2 through the wrapper (its plan), bitwise its plain version, and each
+    instance (1 or 2 words a thread, plain or evict-first stores) bitwise
+    that."""
+    want = ref.dispatch_ref(x, st, sv)
+    assert torch.equal(moe_dispatch.dispatch(x, st, sv), want)
+    for plan in _DISPATCH_PLANS:
+        out = torch.full((st.shape[0], x.shape[1]), 7, dtype=x.dtype, device=x.device)
+        assert moe_dispatch.launch_dispatch(x, st, sv, out, plan=plan) == plan
+        assert torch.equal(out, want), plan
+
+
+# B2's sites: (label, tokens, k, experts, slots an expert, d, dtype), as
+# chip_smoke.py's B2_SITES
+_B2_SITES = [("zcode-m3-base decode", 8, 1, 128, 1, 512, torch.bfloat16),
+             ("zcode-m3-base prefill", 256, 1, 128, 4, 512, torch.bfloat16),
+             ("zcode-m3-base training", 1024, 1, 128, 8, 512, torch.float32),
+             ("dbrx-132b decode", 8, 4, 16, 4, 6144, torch.bfloat16),
+             ("dbrx-132b prefill", 256, 4, 16, 128, 6144, torch.bfloat16),
+             ("dbrx-132b long prefill", 2304, 4, 16, 1152, 6144, torch.bfloat16),
+             ("deepseek-v3-671b decode", 8, 8, 256, 1, 7168, torch.bfloat16),
+             ("deepseek-v3-671b long prefill", 2048, 8, 256, 128, 7168, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,t,k,e,c,d,dtype", _B2_SITES)
+def test_cuda_dispatch_at_the_sites_bitwise(label, t, k, e, c, d, dtype):
+    """B2 at every site of the kernel table, on the router's tables, with
+    the words a thread its plan picks and with every other instance:
+    bitwise the plain version."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(t, d, generator=g, device=dev).to(dtype)
+    _dispatch_each_instance(x, *_routed_tables(t, k, e, c, g))
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_edges_bitwise():
+    """B2 bitwise its plain version, every instance: all slots invalid (no
+    row read, zeros stored), capacity 1 (one slot an expert), tokens out of
+    range (clipped), and rows in 4-byte words (a view off a 16-byte
+    boundary; f32 rows of 101), 2-byte (bf16 rows of 101; a bf16 view off a
+    4-byte boundary, rows of 512) and 1-byte (rows of 37 bytes, the
+    kernel's byte copy launched on uint8)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = torch.randn(64, 6144, generator=g, device=dev).bfloat16()
+    st = torch.randint(0, 64, (64,), generator=g, device=dev, dtype=torch.int32)
+    _dispatch_each_instance(x, st, torch.zeros(64, dtype=torch.bool, device=dev))
+    _dispatch_each_instance(x, *_routed_tables(64, 2, 128, 1, g))
+    wild = torch.randint(-5, 80, (200,), generator=g, device=dev, dtype=torch.int32)
+    _dispatch_each_instance(x, wild, torch.rand(200, generator=g, device=dev) < 0.7)
+    base = torch.randn(1 + 50 * 512, generator=g, device=dev)
+    views = (base[1:].view(50, 512), torch.randn(50, 101, generator=g, device=dev),
+             torch.randn(50, 101, generator=g, device=dev).bfloat16(),
+             base.bfloat16()[1:].view(50, 512))
+    for xv, word in zip(views, (4, 4, 2, 2)):
+        st, sv = _routed_tables(50, 2, 16, 4, g)
+        assert moe_dispatch.dispatch_word(xv, torch.empty(1, device=dev)) == word
+        _dispatch_each_instance(xv, st, sv)
+    xb = torch.randint(0, 256, (50, 37), generator=g, device=dev, dtype=torch.uint8)
+    st, sv = _routed_tables(50, 2, 16, 4, g)
+    for plan in _DISPATCH_PLANS:
+        out = torch.empty((st.shape[0], 37), dtype=torch.uint8, device=dev)
+        moe_dispatch.launch_dispatch(xb, st, sv, out, plan=plan)
+        assert torch.equal(out, ref.dispatch_ref(xb, st, sv)), plan
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_variant_resources():
+    """B2's instances (16-, 4-, 2- and 1-byte words, 1 or 2 a thread, plain
+    or evict-first stores) do not spill and fit 16 blocks of 128 threads
+    on an SM (2,048 threads: 32 KB of 16-byte words in flight, what
+    dispatch_plan counts on)."""
+    _card()
+    for word in (16, 4, 2, 1):
+        for n, stream in _DISPATCH_PLANS:
+            info = moe_dispatch.variant_info("dispatch", word=word, per_thread=n, stream=stream)
+            assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 16, (word, n, info)
 
 
 @pytest.mark.cuda
@@ -973,9 +1166,10 @@ def test_cuda_flash_decode_gqa_geometries_match_plain(h, kv, qdt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kvdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("rep", [5, 8])
+@pytest.mark.parametrize("rep", [5, 8, 12, 16])
 def test_cuda_flash_decode_gqa_sweep_matches_plain(rep, hd, kvdt):
-    """B5 and B6 on the grouped-query kernel: rep 5 and 8 over 4 kv heads,
+    """B5 and B6 on the grouped-query kernel: rep 5 and 8 over 4 kv heads
+    (one head group), 12 and 16 (two: a part and a whole second group),
     head dims 64 and 128, f32 queries, f32 and bf16 caches of 34 (one
     split), 1,024 and 3,586 positions (several, rows at a split's last
     position, the next split's first and the last): against the plain
@@ -1007,6 +1201,54 @@ def test_cuda_flash_decode_gqa_sweep_matches_plain(rep, hd, kvdt):
         va[perm] = v.reshape(b * nb, ps, kv, hd)
         ka[-1], va[-1] = 1e4, -1e4                      # the scratch page
         assert torch.equal(flash_decode.flash_decode_paged(q, ka, va, tables, idx), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep", [5, 12])
+def test_cuda_flash_decode_partial_warp_rows_match_plain(rep, kvdt):
+    """The shape at which the tensor-core body's zeroing of a warp's dead V
+    rows, written as a runtime-unrolled loop, faulted on the card: hd 64, a
+    192-position cache (three tiles: every stage of the ring), the live
+    positions ending inside a warp's 16 rows of the last tile, 9-15 of them
+    and every other count, and inside the first tile; the CUDA-core body (an
+    f32 cache, 8 rows a warp) at the same indices, whose position loops
+    unrolled by 2 returned only each warp's first row. One split: against
+    the plain version, bitwise on a second run, and B6 (pages of 16,
+    permuted) bitwise B5."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(200 + rep)
+    kv, hd, s = 5, 64, 192
+    ends = [1, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 25, 26, 32, 41, 48, 57, 63, 64]
+    idx = torch.tensor([8, 12] + [128 + n - 1 for n in ends], device=dev, dtype=torch.int32)
+    b = idx.shape[0]
+    q = torch.randn(b, rep * kv, hd, generator=g, device=dev)
+    k = torch.randn(b, s, kv, hd, generator=g, device=dev).to(kvdt)
+    v = torch.randn(b, s, kv, hd, generator=g, device=dev).to(kvdt)
+    assert flash_decode.plan_of(q, k)[0] == 1
+    out = flash_decode.flash_decode(q, k, v, idx)
+    _gpu_close(out, ref.flash_decode_ref(q, k, v, idx))
+    assert torch.equal(flash_decode.flash_decode(q, k, v, idx), out)
+    ps, nb = 16, s // 16
+    perm = torch.randperm(b * nb, generator=g, device=dev)
+    ka = torch.empty((b * nb + 1, ps, kv, hd), dtype=kvdt, device=dev)
+    va = torch.empty_like(ka)
+    ka[perm] = k.reshape(b * nb, ps, kv, hd)
+    va[perm] = v.reshape(b * nb, ps, kv, hd)
+    ka[-1], va[-1] = 1e4, -1e4                      # the scratch page
+    tables = perm.reshape(b, nb).to(torch.int32)
+    assert torch.equal(flash_decode.flash_decode_paged(q, ka, va, tables, idx), out)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_refuses_wide_heads():
+    """Head dims past 128 (wider than any of the reference's configs) raise
+    on the card; rep has no limit."""
+    dev = _card()
+    q = torch.randn(2, 24, 192, device=dev)
+    k = torch.randn(2, 16, 2, 192, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        flash_decode.flash_decode(q, k, k, 3)
 
 
 @pytest.mark.cuda

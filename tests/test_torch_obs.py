@@ -220,13 +220,13 @@ KERNEL_NAMES = {
     "void (anonymous namespace)::gmm_stream_dw<float, 8>(...)": ("grouped_matmul_dw", 4),
     "void (anonymous namespace)::grouped_matmul_tiled<float, true, false, true>(...)":
         ("grouped_matmul_dw", 1),
-    "void (anonymous namespace)::dispatch_rows_kernel<uint4>(...)": ("dispatch", 7),
+    "void (anonymous namespace)::dispatch_words_kernel<uint4, 1>(...)": ("dispatch", 7),
     "void (anonymous namespace)::combine_rows_kernel<float, 4, 1>(...)": ("combine", 7),
     "void (anonymous namespace)::combine_cols_kernel<__nv_bfloat16, 8, 8>(...)": ("combine", 2),
     "void (anonymous namespace)::fused_moe_stream<float, 8, false>(...)": ("fused_moe", 2),
     "void (anonymous namespace)::fused_moe_tiled<__nv_bfloat16, true, true>(...)":
         ("fused_moe", 1),
-    "void (anonymous namespace)::flash_decode_kernel<float, __nv_bfloat16, 1, false>"
+    "void (anonymous namespace)::flash_decode_kernel<float, __nv_bfloat16, false>"
     "((anonymous namespace)::Args)": ("flash_decode", 6),
     "void (anonymous namespace)::flash_decode_gqa_kernel<float, __nv_bfloat16, true>"
     "((anonymous namespace)::Args)": ("flash_decode_paged", 6),
