@@ -1,0 +1,6 @@
+"""Share of the traced ticks with no operation on the device, in %."""
+from bench.lib import readers
+
+
+def read(rec):
+    return readers.idle(rec)
